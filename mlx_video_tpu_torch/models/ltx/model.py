@@ -135,7 +135,13 @@ class VideoParams(nn.Module):
 
 
 class LTXModel(nn.Module):
-    """Video-only LTX-2 DiT parameters; the forward is :func:`ltx_apply`."""
+    """Video-only LTX-2 DiT parameters; the forward is :func:`ltx_apply`.
+
+    Built on ``device="meta"`` it is a skeleton that holds no memory, for a
+    loader to fill with ``load_state_dict(..., assign=True)``; before that,
+    ``ops/quant.py:use_quant_linears`` turns the linears a checkpoint holds
+    packed into ``QuantLinear``s.
+    """
 
     def __init__(self, config: LTXModelConfig, device=None, dtype=torch.bfloat16):
         super().__init__()

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``mlx_video_tpu_torch/csrc/`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into one shared library with a plain C
 interface, which the kernel wrappers load with ``ctypes``. The library lands
 in ``mlx_video_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
@@ -26,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -73,13 +74,29 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log_path().write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-        os.replace(tmp, so)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        nvcc = find_nvcc()
+        sources = [s for s in _sources() if s.suffix == ".cu"]
+        objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objects)]
+        link = [nvcc, "-shared", "-o", f"{tmp}.so", *(str(o) for o in objects)]
+        log = []
+        try:
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for c in compiles]
+            for cmd, proc in zip(compiles, procs):
+                log.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+            failed = [p.returncode for p in procs if p.returncode != 0]
+            if not failed:
+                proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                log.append(" ".join(link) + "\n" + proc.stdout)
+                failed = [proc.returncode] if proc.returncode != 0 else []
+            build_log_path().write_text("\n".join(log))
+            if failed:
+                raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n" + "\n".join(log))
+            os.replace(f"{tmp}.so", so)
+        finally:
+            for path in (*objects, Path(f"{tmp}.so")):
+                path.unlink(missing_ok=True)
     _library = ctypes.CDLL(str(so))
     return _library

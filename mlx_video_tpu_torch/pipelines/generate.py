@@ -153,7 +153,8 @@ def decode_latents(
 
 
 def _check_params_dtype(models: ModelBundle, dtype) -> None:
-    got = models.transformer.video.patchify_proj.weight.dtype
+    # the output table is never quantized; any linear may be a QuantLinear
+    got = models.transformer.video.scale_shift_table.dtype
     if got != dtype:
         raise ValueError(
             f"transformer params are {got} but the pipeline dtype is {dtype}; "
@@ -187,15 +188,17 @@ def generate_video(
     tiling: str = "auto",
     decode_latents_only: bool = False,
     dtype=torch.bfloat16,
+    video_encoder: str = "ffmpeg",
 ) -> GenerateResult:
     """Distilled two-stage text-to-video generation.
 
     ``generator`` (default: seeded from ``seed`` on the model's device) draws
     the stage-1 noise, the stage-2 renoise and the decode noise. Returns the
     final latents and, unless ``decode_latents_only``, the decoded video; with
-    ``output_path`` the video is also written as an mp4.
+    ``output_path`` the video is also written as an mp4 by ``video_encoder``
+    (``ffmpeg``, falling back to cv2; or ``cv2``).
     """
-    device = models.transformer.video.patchify_proj.weight.device
+    device = models.transformer.video.scale_shift_table.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     times: Dict[str, float] = {}
@@ -258,7 +261,7 @@ def generate_video(
         if crop is not None:
             top, left, out_h, out_w = crop
             frames = frames[:, top : top + out_h, left : left + out_w]
-        writer = media.VideoWriter(video_path, frames.shape[2], frames.shape[1], fps)
+        writer = media.VideoWriter(video_path, frames.shape[2], frames.shape[1], fps, encoder=video_encoder)
         try:
             writer.write(frames)
         finally:

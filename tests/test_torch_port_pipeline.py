@@ -202,6 +202,18 @@ models = ModelBundle(init_ltx_params(cfg, g, device="cpu", dtype=torch.float32),
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
                      width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
 assert res.video.shape == (1, 3, 9, 64, 64)
+# the q4 path: quantize in place, write and read a native file, generate
+import tempfile
+from mlx_video_tpu_torch.io.weights import load_dit_params, save_dit_params
+from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+quantize_dit_params(models.transformer, group_size=64, bits=4)
+with tempfile.TemporaryDirectory() as tmp:
+    save_dit_params(f"{tmp}/q4.safetensors", models.transformer)
+    models.transformer = load_dit_params(f"{tmp}/q4.safetensors", cfg, dtype=torch.float32)
+assert models.transformer.blocks[0].ff.proj_in.bits == 4
+res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
+                     width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
+assert res.video.shape == (1, 3, 9, 64, 64)
 loaded = [m for m in ("jax", "ml_dtypes", "flax") if sys.modules.get(m) is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")
