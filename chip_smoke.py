@@ -9,13 +9,15 @@ Phases, in order; any failure exits non-zero before the last line:
    one process per source.
 3. K1 vs plain: the flash-attention kernel against its plain fp32 version in
    bf16 at B=1, H=32, D=128, S = 320 and 1280 (the distilled path's shapes),
-   1000 (ragged) and 5184 with lse, plus one D=64 case: max |d o| <= 2e-2
-   (one bf16 ulp at |o| ~ 2-4) and max |d lse| <= 1e-3; median times of both
-   from CUDA events after warm-up.
+   3456 (the training shape), 1000 (ragged) and 5184 with lse, plus one D=64
+   case: max |d o| <= 2e-2 (one bf16 ulp at |o| ~ 2-4) and max |d lse| <= 1e-3;
+   median times of both and of F.scaled_dot_product_attention's forward (a
+   yardstick, never on the path) from CUDA events after warm-up.
 4. K2 vs plain: the dequantizing matmul against its plain version (the same
-   bf16 weights, dequantized, then a matmul) at the q4 path's shapes, M in
-   (128, 320, 1280) x (K, N) in ((4096, 4096), (4096, 16384), (16384,
-   4096)), bits 4, group 64, plus bits 8 / group 128, bits 2 / group 32,
+   bf16 weights, dequantized, then a matmul) at the q4 paths' shapes, M in
+   (128, 320, 1280) (inference) and 3456 (a LoRA step's video rows) x (K, N)
+   in ((4096, 4096), (4096, 16384), (16384, 4096)), and (1024, 4096, 4096)
+   (a LoRA step's caption rows), bits 4, group 64, plus bits 8 / group 128, bits 2 / group 32,
    bits 4 / group 16, a ragged M = 300 and bf16 and fp16 scales: max |d y|
    <= 1e-2 max |y| and relative L2 <= 1e-3 (only the summation order and
    the bf16 rounding of y differ). The control, at every case with fp32
@@ -23,27 +25,60 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel's rounding) must fail the L2 bar. Median times of the kernel, the
    plain version and dense cuBLAS on the dequantized bf16 weight, each
    launch after an L2 flush.
-5. small slices vs reference: a 2-layer DiT denoise (2 steps at 320 tokens),
+5. K3 vs plain: the flash backward against its plain fp32 version on the same
+   bf16 inputs (q, k, v, dO random, o and lse from K1) at B=1, H=32, D=128,
+   S = 1280, 3456 (the training shape), 1000 (ragged) and 5184, plus one D=64
+   case: per gradient relative L2 <= 5e-3 and max |d| <= 2e-2 max |ref| (the
+   kernel rounds p and dS to bf16 before their products, as the Pallas
+   kernels do, and its outputs to bf16: ~2^-9 relative each); two runs must
+   give bitwise-equal gradients (no atomics). Median times of K3, the plain
+   version and the backward of F.scaled_dot_product_attention (a yardstick).
+6. small slices vs reference: a 2-layer DiT denoise (2 steps at 320 tokens),
    upsampler and decoder at narrow width, bf16 on the card against fp32 on
    the CPU (plain attention, plain dequantizing matmul) with the same
    weights and inputs, dense and with the DiT quantized to 4 bits: per-frame
-   PSNR >= 35 dB, the repo's pipeline gate.
-6. full-width dense slice: generate_video, distilled, 512x512x33, on
+   PSNR >= 35 dB, the repo's pipeline gate. Then one LoRA training step
+   (rank 8, non-zero B, gradient checkpointing, 320 tokens, first-frame
+   conditioning on, a drawn sigma) on a 2-layer DiT of that width: the
+   trainer's grad_step in bf16 on the card against fp32 on the CPU with the
+   same weights and draws. The bf16 model rounds sigma, then 1000 * sigma, to
+   bf16 (as the JAX package does), so the fp32 reference is given those
+   rounded timesteps. Bars: relative difference of the loss <= 1e-2 and
+   relative L2 of every LoRA gradient <= 5e-2 (bf16 on the CPU reads ~1.5e-2
+   against fp32 there, and tens of percent against fp32 on the exact
+   timesteps: tests/test_torch_port_train.py
+   ::test_bf16_lora_gap_is_the_timestep_rounding).
+7. full-width dense slice: generate_video, distilled, 512x512x33, on
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
    on the card from a seeded generator. Checks a finite (1, 3, 33, 512, 512)
    video and 48 x (8 + 3) = 528 K1 launches.
-7. full-width q4 slice: the same DiT quantized in place on the card
+8. full-width dense LoRA training: the Trainer (the ltx2_lora.yaml recipe:
+   rank 8, alpha 16, lr 1e-4 cosine, shifted-logit-normal timesteps,
+   first-frame conditioning p 0.1, max_grad_norm 1, batch 1) with gradient
+   checkpointing on the same bf16 DiT, over a seeded PrecomputedDataset of 2
+   clips at 768x512x65 (latents (128, 9, 16, 24): 3456 tokens; 1024 caption
+   tokens of which 128 are real): 4 steps, saves every 2. Checks finite
+   losses, LoRA B norms that moved, exactly 2 x 48 = 96 K1 and 48 K3
+   launches a step, the adapter's reference keys; then a fresh Trainer
+   resumes from state_step_2 and must repeat the losses of steps 2 and 3
+   exactly. Prints step seconds, tokens per second and peak device memory.
+   The adapters are then taken off the model.
+9. full-width q4 slice: the same DiT quantized in place on the card
    (quantize_dit_params, 4 bits, group 64, core scope: 10 linears a block),
    then the same run: 528 K1 and 10 x 48 x 11 = 5280 K2 launches.
-8. loaders and CLI: the q4 DiT written as an MLX pre-quantized snapshot
+10. loaders and CLIs: the q4 DiT written as an MLX pre-quantized snapshot
    (ltx-2-19b-distilled-4bit-mlx.safetensors: sanitized keys, uint32
    words under .weight, .scales, .biases), with the decoder, the upsampler
    and an embeddings file, in a temporary directory; load_model_bundle must
    give tensors equal to the in-memory ones, and the CLI's main (--device
    cuda) must run from that directory with 528 K1 and 5280 K2 launches and
-   write its output. The directory is removed at the end.
-Phases 6-8 print phase times and peak device memory. Last: the kernel
+   write its output. Then the training CLI (cli.train.main, --device cuda)
+   trains LoRA for 2 steps over the 4-bit file of the snapshot on the
+   dataset of phase 8, with gradient checkpointing: 96 K1, 48 K3 and
+   10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
+   written. The directories are removed at the end.
+Phases 7-10 print phase times and peak device memory. Last: the kernel
 summary line and {"ok": true, "device": ...}.
 """
 
@@ -52,6 +87,7 @@ from __future__ import annotations
 import copy
 import importlib.util
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -59,7 +95,12 @@ import tempfile
 import time
 from pathlib import Path
 
-SHAPES_K2 = [(m, k, n) for m in (128, 320, 1280) for k, n in ((4096, 4096), (4096, 16384), (16384, 4096))]
+# (M, K, N) of the 4-bit linears: the q4 inference path's video rows, then
+# the LoRA step's (3456 video rows through attn1, attn2 q/out and ff; 1024
+# caption rows through attn2 to_k/to_v)
+SHAPES_K2 = [(m, k, n) for m in (128, 320, 1280, 3456) for k, n in ((4096, 4096), (4096, 16384), (16384, 4096))] + [
+    (1024, 4096, 4096)]
+K2_TRAIN_SHAPE = (3456, 4096, 4096)  # 6 of a block's 10 K2 launches in a LoRA step
 
 
 def fail(msg: str) -> None:
@@ -95,11 +136,12 @@ def psnr(a, b, peak: float) -> float:
 
 def kernel_vs_plain(fa) -> dict:
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows, max_o, max_lse = {}, 0.0, 0.0
     print("kernel vs plain (bf16, B=1, H=32):")
-    for s, d, with_lse in [(320, 128, False), (1280, 128, False), (1000, 128, True),
+    for s, d, with_lse in [(320, 128, False), (1280, 128, False), (3456, 128, True), (1000, 128, True),
                            (5184, 128, True), (1280, 64, True)]:
         q, k, v = (torch.randn(1, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
         scale = d**-0.5
@@ -114,14 +156,58 @@ def kernel_vs_plain(fa) -> dict:
         max_o = max(max_o, err_o)
         ms = median_ms(lambda: fa.flash_attention(q, k, v, scale=scale, return_lse=with_lse))
         plain_ms = median_ms(lambda: fa.flash_attention_reference(q, k, v, scale, return_lse=with_lse))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale))
         lse_txt = f" max|d lse| {err_lse:.3e}" if with_lse else ""
         print(f"  S={s} D={d} lse={with_lse}: max|d o| {err_o:.3e}{lse_txt}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA forward {lib_ms:.4f} ms", flush=True)
         if not err_o <= 2e-2 or (with_lse and not err_lse <= 1e-3):
             fail(f"kernel disagrees with the plain version at S={s} D={d}")
-        rows[(s, d)] = (ms, plain_ms)
+        rows[(s, d)] = (ms, plain_ms, lib_ms)
         del q, k, v, out, ref
     return {"rows": rows, "max_abs_err": max(max_o, max_lse)}
+
+
+def bwd_kernel_vs_plain(fa) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows, max_err, worst_l2 = {}, 0.0, 0.0
+    print("K3 vs plain (bf16, B=1, H=32; bars per gradient: rel L2 <= 5e-3, max|d| <= 2e-2 max|ref|):")
+    for s, d in [(1280, 128), (3456, 128), (1000, 128), (5184, 128), (1280, 64)]:
+        q, k, v, do = (torch.randn(1, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+        scale = d**-0.5
+        o, lse = fa.flash_attention(q, k, v, scale=scale, return_lse=True)
+        args = (q, k, v, o, lse, do, scale)
+        got = fa.flash_attention_bwd(*args)
+        again = fa.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K3 gradients differ between two runs at S={s} D={d}")
+        ref = fa.flash_attention_bwd_reference(*args)
+        line = f"  S={s} D={d}:"
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            diff = a.float() - r.float()
+            err, l2 = diff.abs().max().item(), (diff.norm() / r.float().norm()).item()
+            rel_max = err / r.float().abs().max().item()
+            max_err, worst_l2 = max(max_err, err), max(worst_l2, l2)
+            line += f" {name} rel L2 {l2:.2e} max|d| {err:.2e} ({rel_max:.2e} of max);"
+            if not (l2 <= 5e-3 and rel_max <= 2e-2 and torch.isfinite(a).all()):
+                fail(f"K3 {name} disagrees with the plain version at S={s} D={d}")
+        del ref, again
+        ms = median_ms(lambda: fa.flash_attention_bwd(*args))
+        plain_ms = median_ms(lambda: fa.flash_attention_bwd_reference(*args), reps=5, warmup=1)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        doh = do.transpose(1, 2)
+        lib_ms = median_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+        print(line + f" bitwise repeatable; K3 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"SDPA backward {lib_ms:.4f} ms", flush=True)
+        rows[(s, d)] = (ms, plain_ms, lib_ms)
+        del q, k, v, do, o, lse, args, got, out, qh, kh, vh
+    print(f"  K3 worst rel L2 {worst_l2:.3e}; bar 5e-3", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
 
 
 def quant_kernel_vs_plain(qmm) -> dict:
@@ -242,6 +328,191 @@ def small_slice_check(quantized: bool) -> None:
             fail(f"small slice ({kind}) {name} PSNR {worst:.2f} dB < 35 dB")
 
 
+def lora_slice_check() -> None:
+    """One LoRA grad step on the 2-layer narrow DiT: bf16 on the card against
+    fp32 on the CPU, same weights (fp32 adapters on both) and draws."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
+    from mlx_video_tpu_torch.lora import LoRAConfig, inject_lora
+    from mlx_video_tpu_torch.models.ltx.model import init_ltx_params, ltx_apply
+    from mlx_video_tpu_torch.trainer.datasets import Batch
+    from mlx_video_tpu_torch.trainer.strategies import compute_loss, draw_inputs, make_inputs, prepare_text_to_video
+    from mlx_video_tpu_torch.trainer.train_step import grad_step
+
+    cfg = LTXModelConfig(
+        model_type=LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT, double_precision_rope=True,
+        num_attention_heads=4, attention_head_dim=128, num_layers=2,
+        cross_attention_dim=512, caption_channels=256, gradient_checkpointing=True,
+    )
+    g = torch.Generator().manual_seed(6)
+    dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
+    inject_lora(dit, cfg, LoRAConfig(rank=8, alpha=16.0), g)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.02, generator=g)
+    rng = np.random.default_rng(6)
+    mask = np.zeros(16, dtype=bool)
+    mask[:12] = True
+    batch = Batch(
+        latents={"latents": rng.normal(size=(1, 128, 5, 8, 8)).astype(np.float32),
+                 "num_frames": np.array([[5]]), "height": np.array([[8]]), "width": np.array([[8]])},
+        conditions={"video_prompt_embeds": rng.normal(size=(1, 16, 256)).astype(np.float32),
+                    "prompt_attention_mask": mask[None]},
+    )
+    sb_cpu = prepare_text_to_video(batch)
+    draws = draw_inputs(sb_cpu, torch.Generator().manual_seed(7), first_frame_conditioning_p=1.0,
+                        timestep_sampling_mode="shifted_logit_normal")
+
+    def model_on(device, dtype):
+        d = to_card(dit, device, dtype)
+        for (name, p), (_, p32) in zip(d.named_parameters(), dit.named_parameters()):
+            if ".lora_" in name:
+                p.data = p32.data.to(device)  # the adapters stay fp32
+        return d, {n: p.requires_grad_() for n, p in d.named_parameters() if ".lora_" in n}
+
+    # the reference: fp32 on the CPU, on the timesteps the bf16 model sees
+    d, params = model_on("cpu", torch.float32)
+    inputs = make_inputs(sb_cpu, draws)
+    m = cfg.timestep_scale_multiplier
+    video = inputs.video._replace(timesteps=(inputs.video.timesteps.bfloat16() * m).float() / m)
+    with torch.enable_grad():
+        ref_loss = compute_loss(ltx_apply(d, cfg, video), inputs)
+        ref = dict(zip(params, torch.autograd.grad(ref_loss, list(params.values()))))
+    ref_loss = ref_loss.item()
+    d, params = model_on("cuda", torch.bfloat16)
+    loss, got = grad_step(d, params, prepare_text_to_video(batch, device="cuda"),
+                          type(draws)(*(t.to("cuda") for t in draws)), cfg)
+    loss, got = loss.item(), {k: v.float().cpu() for k, v in got.items()}
+    del d, params
+    rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+    l2 = {k: ((got[k] - r).norm() / r.norm()).item() for k, r in ref.items()}
+    worst = max(l2, key=l2.get)
+    print(f"  LoRA step, 2-layer DiT, 320 tokens, sigma {draws.sigmas.item():.6f}: loss card {loss:.6f} vs CPU "
+          f"{ref_loss:.6f} (rel {rel_loss:.2e}); "
+          f"{len(l2)} LoRA gradients, worst rel L2 {l2[worst]:.3e} at {worst}, median "
+          f"{sorted(l2.values())[len(l2) // 2]:.3e}", flush=True)
+    if not (rel_loss <= 1e-2 and l2[worst] <= 5e-2):
+        fail("the LoRA step on the card disagrees with the CPU reference")
+
+
+def write_training_dataset(root: Path, clips: int = 2) -> None:
+    """A seeded PrecomputedDataset at 768x512x65: latents (128, 9, 16, 24)
+    fp32 and 1024 caption tokens of 3840 channels, 128 of them real."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+
+    rng = np.random.default_rng(8)
+    for sub in ("latents", "conditions"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(clips):
+        save_safetensors(root / "latents" / f"clip_{i:03d}.safetensors", {
+            "latents": torch.from_numpy(rng.normal(size=(128, 9, 16, 24)).astype(np.float32)),
+            "num_frames": torch.tensor([9], dtype=torch.int32),
+            "height": torch.tensor([16], dtype=torch.int32),
+            "width": torch.tensor([24], dtype=torch.int32),
+            "fps": torch.tensor([24.0]),
+        })
+        mask = torch.zeros(1024, dtype=torch.bool)
+        mask[:128] = True
+        save_safetensors(root / "conditions" / f"clip_{i:03d}.safetensors", {
+            "video_prompt_embeds": torch.from_numpy(rng.normal(size=(1024, 3840)).astype(np.float32)),
+            "prompt_attention_mask": mask,
+        })
+
+
+def lora_recipe(**kw):
+    """ltx_trainer/configs/ltx2_lora.yaml as a TrainingConfig, with
+    gradient checkpointing on."""
+    from mlx_video_tpu_torch.trainer.config import TrainingConfig
+
+    base = dict(training_mode="lora", lora_rank=8, lora_alpha=16.0, strategy="text_to_video",
+                first_frame_conditioning_p=0.1, lr=1e-4, batch_size=1, grad_accum_steps=1, max_grad_norm=1.0,
+                scheduler_type="cosine", timestep_sampling_mode="shifted_logit_normal", timestep_sampling_std=1.0,
+                seed=42, enable_gradient_checkpointing=True, handle_preemption=False)
+    return TrainingConfig(**{**base, **kw})
+
+
+def strip_lora(model) -> None:
+    for m in model.modules():
+        for name in ("lora_A", "lora_B", "lora_scale"):
+            if hasattr(m, name):
+                delattr(m, name)
+
+
+def full_width_training(models, fa, data_root: Path, out_root: Path) -> dict:
+    """Phase 8: 4 LoRA steps on the in-memory bf16 DiT at 3456 tokens, then a
+    resume from state_step_2 in a fresh Trainer."""
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+    from mlx_video_tpu_torch.trainer.datasets import PrecomputedDataset
+    from mlx_video_tpu_torch.trainer.trainer import Trainer
+
+    dit = models.transformer
+    out = out_root / "dense"
+    cfg = lora_recipe(steps=4, save_every=2, output_dir=str(out))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, params=dit, dataset=PrecomputedDataset(data_root))
+    print(f"  Trainer set up in {time.perf_counter() - t0:.2f} s: {len(trainer.params)} LoRA tensors, "
+          f"{sum(p.numel() for p in trainer.params.values()) / 1e6:.3f} M parameters", flush=True)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = fa.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    wall = time.perf_counter() - t0
+    k1, k3 = fa.launch_count, fa.bwd_launch_count
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = list(trainer.loss_history), list(trainer.step_seconds)
+    b_norm = sum(p.float().norm().item() for n, p in trainer.params.items() if n.endswith("lora_B"))
+    print(f"  losses {['%.6f' % x for x in losses]}; step seconds {['%.4f' % x for x in secs]}; "
+          f"tokens/s after the first step {3456 * (len(secs) - 1) / sum(secs[1:]):.1f}", flush=True)
+    print(f"  train wall {wall:.4f} s (saves included); device memory {base_mem / 2**30:.3f} GiB before, peak "
+          f"{peak / 2**30:.3f} GiB; launches K1 {k1}, K3 {k3}; sum of LoRA B norms {b_norm:.4e}", flush=True)
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        fail(f"training losses {losses}")
+    if not b_norm > 0:
+        fail("the LoRA B factors did not move")
+    if (k1, k3) != (4 * 2 * 48, 4 * 48):
+        fail(f"{k1} K1 and {k3} K3 launches in 4 steps, want {4 * 2 * 48} and {4 * 48}")
+    with SafetensorsReader(out / "lora_step_4.safetensors") as r:
+        keys = set(r.keys())
+    want = {f"diffusion_model.transformer_blocks.{i}.{m}.lora_{ab}.weight" for i in range(48)
+            for m in ("attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out", "attn2.to_q", "attn2.to_k",
+                      "attn2.to_v", "attn2.to_out", "ff.proj_in", "ff.proj_out") for ab in "AB"}
+    if keys != want:
+        fail(f"adapter keys differ from the reference format: {sorted(keys ^ want)[:5]}")
+    print(f"  lora_step_4.safetensors: {len(keys)} reference keys; files "
+          f"{sorted(p.name for p in out.iterdir())}", flush=True)
+    del trainer
+
+    resume_dir = out_root / "resume"
+    resume_dir.mkdir()
+    shutil.copy(out / "state_step_2.safetensors", resume_dir)
+    resumed = Trainer(lora_recipe(steps=4, save_every=2, output_dir=str(resume_dir), resume=True),
+                      params=dit, dataset=PrecomputedDataset(data_root))
+    if resumed.start_step != 2:
+        fail(f"resumed at step {resumed.start_step}, want 2")
+    resumed.train()
+    again = list(resumed.loss_history)
+    print(f"  resumed from state_step_2: losses of steps 2, 3 {['%.6f' % x for x in again]} vs "
+          f"{['%.6f' % x for x in losses[2:]]}", flush=True)
+    if again != losses[2:]:
+        fail("the resumed run's losses differ from the uninterrupted run's")
+    del resumed
+    strip_lora(dit)
+    for p in dit.parameters():
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k3": k3, "step_seconds": secs, "peak_gib": peak / 2**30}
+
+
 def full_width_models():
     """The 19B video DiT geometry, the default decoder and the 1024-channel
     upsampler, in bf16, drawn on the card from a seeded generator."""
@@ -304,7 +575,7 @@ def drive_slice(models, text, fa, qmm, want_k2: int) -> dict:
     from mlx_video_tpu_torch.pipelines.generate import generate_video
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launch_count = qmm.launch_count = 0
+    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
     t0 = time.perf_counter()
     res = generate_video(models, text, height=512, width=512, num_frames=33, stage1_steps=8,
                          stage2_steps=3, tiling="auto", output_path=None,
@@ -368,9 +639,9 @@ def decoder_key(name: str) -> str:
     return key if key.startswith("per_channel") else "decoder." + key
 
 
-def snapshot_and_cli(models, text, fa, qmm) -> dict:
-    """Write the q4 model as an MLX pre-quantized snapshot, load it back, and
-    run the CLI on it."""
+def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
+    """Write the q4 model as an MLX pre-quantized snapshot, load it back, run
+    the generate CLI on it, then the training CLI over its 4-bit file."""
     import torch
 
     from mlx_video_tpu_torch import loading
@@ -435,7 +706,7 @@ def snapshot_and_cli(models, text, fa, qmm) -> dict:
             print("  neither ffmpeg nor cv2 is here: the CLI runs with --latents-only (the mp4 write is "
                   "tested on the CPU)", flush=True)
         torch.cuda.reset_peak_memory_stats()
-        fa.launch_count = qmm.launch_count = 0
+        fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
         t0 = time.perf_counter()
         cli.main(argv)
         wall = time.perf_counter() - t0
@@ -450,9 +721,67 @@ def snapshot_and_cli(models, text, fa, qmm) -> dict:
                 fail(f"the CLI wrote no video at {output}")
             print(f"  CLI wrote {output.name}: {output.stat().st_size} bytes", flush=True)
         check_launches(k1, k2, 10 * 48 * (8 + 3))
-        return {"k1": k1, "k2": k2}
+        torch.cuda.empty_cache()
+        return train_cli_over_q4(snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm) -> dict:
+    """python -m mlx_video_tpu_torch.train, in-process: LoRA over the frozen
+    4-bit base read from the snapshot file, 2 steps of the recipe."""
+    import torch
+
+    from mlx_video_tpu_torch.cli import train as train_cli
+
+    argv = ["--model-repo", str(q4_file), "--training-mode", "lora", "--data-root", str(data_root),
+            "--steps", "2", "--lr", "1e-4", "--scheduler-type", "cosine", "--lora-rank", "8", "--lora-alpha", "16",
+            "--timestep-sampling-mode", "shifted_logit_normal", "--first-frame-conditioning-p", "0.1",
+            "--max-grad-norm", "1.0", "--seed", "42", "--output-dir", str(out),
+            "--enable-gradient-checkpointing", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
+    print(f"  training CLI wall {wall:.4f} s (the 4-bit file's load included); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K3 {k3}, K2 {k2}; files "
+          f"{sorted(p.name for p in out.iterdir())}", flush=True)
+    if (k1, k3, k2) != (2 * 2 * 48, 2 * 48, 2 * 2 * 10 * 48):
+        fail(f"training CLI launches K1 {k1}, K3 {k3}, K2 {k2}; want {2 * 2 * 48}, {2 * 48}, {2 * 2 * 10 * 48}")
+    if not (out / "lora_step_2.safetensors").is_file():
+        fail("the training CLI wrote no lora_step_2.safetensors")
+    return {"k1": k1, "k3": k3, "k2": k2}
+
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time for the work on the card, and which side binds."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attention_fwd_work(s: int, h: int, d: int):
+    """softmax(q k^T) v with lse: two S x S x D products a head; q, k, v read,
+    o (bf16) and lse (fp32) written."""
+    return 4.0 * s * s * d * h, 4 * s * h * d * 2 + s * h * 4
+
+
+def attention_bwd_work(s: int, h: int, d: int):
+    """dQ, dK, dV: the five S x S x D products a head that the gradients need
+    (q k^T and dO v^T to rebuild p and dp, then dS k, dS^T q, p^T dO); q, k, v,
+    o, dO and lse read, dq, dk, dv written."""
+    return 10.0 * s * s * d * h, 8 * s * h * d * 2 + s * h * 4
+
+
+def quant_matmul_work(m: int, k: int, n: int, bits: int, group: int):
+    """x (M, K) bf16 times the packed (N, K) weight: 2 M K N operations; x,
+    the words and the fp32 scales and biases read, y (bf16) written."""
+    return 2.0 * m * k * n, m * k * 2 + n * k * bits // 8 + 2 * n * (k // group) * 4 + m * n * 2
 
 
 def main() -> int:
@@ -485,38 +814,65 @@ def main() -> int:
 
     k1 = kernel_vs_plain(fa)
     k2 = quant_kernel_vs_plain(qmm)
+    k3 = bwd_kernel_vs_plain(fa)
     print("small slices, card vs CPU reference:", flush=True)
     small_slice_check(quantized=False)
     small_slice_check(quantized=True)
+    lora_slice_check()
     models, text = full_width_models()
     print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
     drive_slice(models, text, fa, qmm, want_k2=0)
-    print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
-    quantize_full_width(models)
-    q4 = drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3))
-    print("MLX pre-quantized snapshot -> load_model_bundle -> CLI main:", flush=True)
-    snapshot_and_cli(models, text, fa, qmm)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        write_training_dataset(work / "data")
+        print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
+        train = full_width_training(models, fa, work / "data", work)
+        print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
+        quantize_full_width(models)
+        drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3))
+        print("MLX pre-quantized snapshot -> load_model_bundle -> generate CLI; training CLI over the 4-bit "
+              "file:", flush=True)
+        cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    k1_ms, k1_plain_ms = k1["rows"][(1280, 128)]
-    k2_ms, k2_plain_ms = k2["rows"][(1280, 4096, 16384)]
+    s_train = 3456
+    k1_ms, k1_plain_ms, k1_lib_ms = k1["rows"][(s_train, 128)]
+    k3_ms, k3_plain_ms, k3_lib_ms = k3["rows"][(s_train, 128)]
+    k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "mlx_video_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:102",
-        "launches": q4["k1"],
+        "launches": train["k1"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
+        **bound(*attention_fwd_work(s_train, 32, 128)),
+        "library_ms": k1_lib_ms,
     }, {
         "name": "quant_matmul",
         "route": "cuda",
         "source": "mlx_video_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "mlx_video_tpu/ops/quant_matmul.py:87",
-        "launches": q4["k2"],
+        "launches": cli_train["k2"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
+        **bound(*quant_matmul_work(*K2_TRAIN_SHAPE, 4, 64)),
+        "library_ms": None,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "mlx_video_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "mlx_video_tpu/ops/flash_attention.py:301",
+        "launches": train["k3"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        **bound(*attention_bwd_work(s_train, 32, 128)),
+        "library_ms": k3_lib_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

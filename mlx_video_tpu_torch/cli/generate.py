@@ -1,7 +1,8 @@
 """``python -m mlx_video_tpu_torch.generate`` — the distilled text-to-video CLI.
 
-Counterpart of mlx_video_tpu/cli/generate.py on the same flag names (the JAX
-package's framework-free ``build_parser``), plus ``--device`` (default
+Counterpart of mlx_video_tpu/cli/generate.py on the same flag names (the
+port's own copy of the JAX package's framework-free ``build_parser`` and
+``slugify``, as :func:`base_parser` and :func:`slugify`), plus ``--device`` (default
 ``cuda``; without CUDA it exits rather than run on the CPU, which takes
 ``--device cpu``). The run starts from precomputed text embeddings
 (``--embeddings``): load the snapshot, optionally quantize the transformer
@@ -16,13 +17,225 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from pathlib import Path
 
 import torch
 
-from mlx_video_tpu.cli.generate import build_parser as _jax_parser
-from mlx_video_tpu.cli.generate import slugify
+def _cond_arg(values):
+    """PATH [FRAME_IDX] [STRENGTH] repeatable argument."""
+    path = values[0]
+    frame_idx = int(values[1]) if len(values) > 1 else 0
+    strength = float(values[2]) if len(values) > 2 else 1.0
+    return (path, frame_idx, strength)
+
+
+def slugify(text: str, max_len: int = 80) -> str:
+    """(reference: generate.py:372-379)."""
+    text = re.sub(r"[^a-z0-9]+", "-", text.strip().lower()).strip("-")
+    return (text or "video")[:max_len].strip("-")
+
+
+def base_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flag surface (mlx_video_tpu/cli/generate.py:build_parser)."""
+    p = argparse.ArgumentParser(description="LTX-2 video generation (TPU)")
+    p.add_argument("--prompt", "-p", required=True)
+    p.add_argument("--negative-prompt", default=None)
+    p.add_argument("--height", "-H", type=int, default=512)
+    p.add_argument("--width", "-W", type=int, default=512)
+    p.add_argument("--num-frames", "-n", type=int, default=33)
+    p.add_argument("--seed", "-s", type=int, default=42)
+    p.add_argument("--num-videos", type=int, default=1,
+                   help="Batch N videos through every denoise scan (new vs "
+                        "the reference; video i uses seed+i, outputs "
+                        "{stem}_{i}.mp4). T2V only - no audio/conditioning.")
+    p.add_argument("--fps", "--frame-rate", type=float, default=24.0)
+    p.add_argument("--output-path", "--output", "-o", default="output.mp4")
+    p.add_argument("--auto-output-name", action="store_true")
+    p.add_argument("--save-frames", action="store_true")
+    p.add_argument("--model-repo", default="Lightricks/LTX-2")
+    p.add_argument("--pipeline", default="distilled",
+                   choices=["distilled", "dev", "keyframe", "ic_lora"])
+    p.add_argument("--steps", "--num-inference-steps", type=int, default=40, dest="steps")
+    p.add_argument("--stage1-steps", type=int, default=8)
+    p.add_argument("--stage2-steps", type=int, default=3)
+    p.add_argument("--sigma-subsample", default="farthest", choices=["uniform", "farthest"])
+    p.add_argument("--cfg-scale", "--cfg-guidance-scale", "--guidance-scale",
+                   type=float, default=4.0, dest="cfg_scale")
+    p.add_argument("--stage2-dev", action="store_true")
+    p.add_argument("--stage2-model-repo", default=None)
+    p.add_argument("--image", action="append", nargs="+", default=[])
+    p.add_argument("--condition-image", default=None,
+                   help="Single conditioning image (combine with --image-frame-idx/"
+                        "--image-strength); equivalent to one --image entry")
+    p.add_argument("--image-frame-idx", type=int, default=0)
+    p.add_argument("--image-strength", type=float, default=1.0)
+    p.add_argument("--video-conditioning", action="append", nargs="+", default=[])
+    p.add_argument("--reference-video", default=None,
+                   help="Alias for --video-conditioning PATH 0 1.0 (IC-LoRA)")
+    p.add_argument("--conditioning-mode", default="replace", choices=["replace", "guide"])
+    p.add_argument("--lora", "--lora-path", action="append", default=[], dest="lora")
+    p.add_argument("--lora-strength", type=float, default=1.0)
+    p.add_argument("--distilled-lora", action="append", default=[])
+    p.add_argument("--audio", action="store_true")
+    p.add_argument("--skip-audio", action="store_true",
+                   help="Force audio off even for AV checkpoints")
+    p.add_argument("--audio-mode", default="auto", choices=["auto", "joint", "separate"])
+    p.add_argument("--audio-steps", type=int, default=8,
+                   help="Denoise steps for separate audio generation")
+    p.add_argument("--audio-filter", default=None,
+                   help="ffmpeg -af filter chain applied when muxing audio")
+    p.add_argument("--audio-bitrate", default=None,
+                   help="AAC bitrate for the audio mux (default 256k or "
+                        "$LTX_AUDIO_BITRATE; reference: generate.py:4446)")
+    p.add_argument("--include-reference-in-output", action="store_true",
+                   help="(PyTorch parity) Not implemented; ignored "
+                        "(matches the reference, generate.py:4368, 4672)")
+    p.add_argument("--audio-model-repo", default=None,
+                   help="Separate repo for the AudioOnly transformer")
+    p.add_argument("--output-audio", default=None)
+    p.add_argument("--enhance-prompt", action="store_true")
+    p.add_argument("--temperature", type=float, default=0.7,
+                   help="Prompt-enhancement sampling temperature")
+    p.add_argument("--max-tokens", type=int, default=512,
+                   help="Prompt-enhancement max new tokens")
+    p.add_argument("--stream", action="store_true")
+    p.add_argument("--tiling", default="auto",
+                   choices=["auto", "none", "default", "aggressive", "conservative",
+                            "spatial", "temporal"])
+    p.add_argument("--video-encoder", default="ffmpeg", choices=["ffmpeg", "cv2"])
+    p.add_argument("--checkpoint-path", "--checkpoint", default=None, dest="checkpoint_path")
+    p.add_argument("--gemma-root", "--text-encoder-path", "--text-encoder-repo",
+                   default=None, dest="text_encoder_path")
+    p.add_argument("--embeddings", default=None,
+                   help="Precomputed text embeddings safetensors "
+                        "(video[_neg]/audio[_neg] keys); skips the text encoder")
+    p.add_argument("--latents-only", action="store_true")
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--profile-json", "--profile-json-path", default=None,
+                   dest="profile_json_path")
+    p.add_argument("--mem-log", action="store_true",
+                   help="Log device memory at pipeline checkpoints")
+    p.add_argument("--debug", action="store_true",
+                   help="Tensor-stat dumps at pipeline seams (sets MLX_VIDEO_DEBUG)")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--trace-dir", "--metal-capture-path", default=None, dest="trace_dir",
+                   help="jax.profiler trace output dir (the TPU equivalent of the "
+                        "reference's Metal GPU capture)")
+    p.add_argument("--metal-capture", action="store_true",
+                   help="(TPU) use --trace-dir; enables a jax.profiler trace to ./trace")
+    p.add_argument("--metal-capture-phase", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--quantization", "--quantize-bits", type=int, default=None,
+                   choices=[4, 8], dest="quantize_bits",
+                   help="Runtime-quantize the transformer")
+    p.add_argument("--w8a8", action="store_true",
+                   help="Run transformer-block matmuls as W8A8 int8 (2x MXU "
+                        "rate + half the weight HBM traffic; per-token dynamic "
+                        "activation scales, ops/int8.py)")
+    p.add_argument("--w4a8", action="store_true",
+                   help="q4 weight storage + int8 MXU compute: quantize the "
+                        "transformer to 4-bit (or use a pre-quantized repo) "
+                        "and requantize each layer to int8 inside the graph "
+                        "(ops/quant.py prepare_w4a8). Fits 19B on one 16 GB "
+                        "chip at the 2x int8 matmul rate.")
+    p.add_argument("--mesh", default=None,
+                   help="data,fsdp,tensor mesh shape for sharded (GSPMD) inference, "
+                        "e.g. 1,1,8 for 8-way tensor parallelism; 'auto' uses all "
+                        "local devices. The denoise scan compiles as one SPMD "
+                        "program with XLA collectives over the mesh.")
+    p.add_argument("--sequence-parallel", action="store_true",
+                   help="With --mesh: also shard the token axis over the fsdp "
+                        "mesh axis and run self-attention as ring attention "
+                        "(long-video sequence parallelism)")
+    p.add_argument("--pipeline-parallel", type=int, default=0,
+                   help="GPipe pipeline parallelism: split the DiT block "
+                        "stack into N stages on a (data, pipe) mesh "
+                        "(parallel/pipeline.py). Mutually exclusive with "
+                        "--mesh/--sequence-parallel; targets cross-slice "
+                        "(DCN) scale-out and batch serving.")
+    p.add_argument("--pipeline-tensor", type=int, default=1,
+                   help="Megatron TP ways inside each pipeline stage "
+                        "(GSPMD auto axis; TPxPP composition).")
+    p.add_argument("--attn-broadcast-interval", type=int, default=1,
+                   help="Pyramid Attention Broadcast: recompute all per-layer "
+                        "attention outputs every k-th denoise step and reuse "
+                        "them in between (cached steps skip all attention "
+                        "compute). Video-only quality/speed dial.")
+    p.add_argument("--cfg-cache-interval", type=int, default=1,
+                   help="Dev CFG: recompute the guidance delta every k-th "
+                        "step and reuse it in between (cached steps run one "
+                        "batch-1 forward instead of the batched 2B one) - "
+                        "~25%% fewer denoise FLOPs at k=2 for a small "
+                        "guidance drift. Video-only CFG.")
+    p.add_argument("--teacache-threshold", type=float, default=0.0,
+                   help="TeaCache adaptive caching: accumulate the relative "
+                        "change of the transformer's timestep-modulated input "
+                        "across steps and only run the full forward when it "
+                        "crosses this threshold (cached steps reuse the "
+                        "previous velocity and skip the forward entirely). "
+                        "0 disables; try 0.05-0.3 (higher = faster, lossier). "
+                        "Video-only; exclusive with the fixed-interval dials.")
+    p.add_argument("--low-memory", action="store_true",
+                   help="Single-chip HBM staging: keep the VAE decoder/"
+                        "upsampler/audio weights on the host during denoise "
+                        "and free the transformer before decode (the "
+                        "reference's serial load/free choreography as "
+                        "host<->HBM swaps). Needed to fit 19B W4A8 + the "
+                        "full 1024-channel decoder on one 16 GB chip.")
+    p.add_argument("--aux-stage-int8", action="store_true",
+                   help="With --low-memory: park the aux-stage params "
+                        "(upsampler/VAE/audio) host-side as per-group "
+                        "int8 so each staging transfer moves half the "
+                        "bytes; dequantized to bf16 on device.")
+    p.add_argument("--aux-park-device", action="store_true",
+                   help="With --aux-stage-int8: park the int8 aux trees in "
+                        "HBM instead of host RAM — no staging transfers at "
+                        "all when the ~2x-smaller parked form fits beside "
+                        "the transformer and its scan arena.")
+    p.add_argument("--no-overlap-staging", action="store_true",
+                   help="With --low-memory: disable the async aux-param "
+                        "prefetch that overlaps the host->HBM staging "
+                        "transfers with the denoise scans (use when the "
+                        "geometry's scan arena leaves no HBM headroom for "
+                        "the in-flight buffers).")
+    p.add_argument("--optimize-layouts", action="store_true",
+                   help="Pre-place the transformer weights in XLA's "
+                        "preferred input layouts for this geometry before "
+                        "the denoise scan compiles (one extra cached "
+                        "discovery compile). Removes multi-GB in-program "
+                        "relayout copies of the stacked weight tensors — "
+                        "required to fit the 19B batched-CFG dev pipeline "
+                        "on one 16 GB chip. Single-device runs only.")
+    p.add_argument("--no-cfg-batch", action="store_true",
+                   help="Dev CFG: run the conditional and unconditional "
+                        "forwards sequentially (two batch-B passes per step) "
+                        "instead of one batched 2B pass. Halves denoise-time "
+                        "activation memory at the same FLOPs; use when the "
+                        "batched 2B forward does not fit. (Reference "
+                        "--no-cfg-batch: mlx_video/generate.py cfg_batch.)")
+    # Reference-CLI flags that are no-ops under the TPU execution model:
+    # the whole sigma loop is one compiled lax.scan (always "compiled",
+    # always fp32 Euler, no lazy-eval cache to tune). CFG is batched by
+    # default (--cfg-batch) and --no-cfg-batch above switches to the real
+    # sequential path.
+    for flag, action in [
+        ("--cfg-batch", "store_true"),
+        ("--compile", "store_true"), ("--no-compile", "store_true"),
+        ("--compile-shapeless", "store_true"), ("--fp32-euler", "store_true"),
+        ("--clear-cache", "store_true"),
+    ]:
+        p.add_argument(flag, action=action, help=argparse.SUPPRESS)
+    p.add_argument("--eval-interval", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--cache-limit-gb", type=float, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--memory-limit-gb", type=float, default=None, help=argparse.SUPPRESS)
+    # PT-parity no-ops (reference: generate.py:4521-4524)
+    p.add_argument("--stg-scale", type=float, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--stg-blocks", type=int, nargs="*", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--stg-mode", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--enable-fp8", action="store_true", help=argparse.SUPPRESS)
+    return p
+
 
 # The options main() reads. Any other option of the JAX parser asks for a
 # feature the port does not have yet, and exits when it is given a value other
@@ -36,7 +249,7 @@ _PORTED = frozenset({
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _jax_parser()
+    p = base_parser()
     p.description = "LTX-2 distilled text-to-video generation (PyTorch, CUDA)"
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; exits when CUDA is absent)")
@@ -80,9 +293,9 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
 
-    from mlx_video_tpu.utils.hub import get_model_path
     from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.pipelines.generate import generate_video
+    from mlx_video_tpu_torch.utils.hub import get_model_path
 
     model_path = get_model_path(args.checkpoint_path or args.model_repo)
     t0 = time.perf_counter()

@@ -14,7 +14,10 @@ names, so the mapping is mechanical:
   (O, I, kd, kh, kw); every other leaf is copied as it is. Quantized leaves
   (``quant_weight``, ``scales``, ``biases``) are ``(out, ...)`` in both;
 - uint32 words (``quant_weight``) become the int32 tensor with the same bits,
-  and go back as uint32.
+  and go back as uint32;
+- LoRA leaves (``lora_A`` (r, in), ``lora_B`` (out, r), ``lora_scale``) are
+  copied as they are: stacked (L, r, in), (L, out, r) and (L,) in the JAX
+  tree, per block here.
 
 bfloat16 arrays (ml_dtypes) are read through their bits, so this module
 imports no JAX and no ml_dtypes; on the way back to numpy bfloat16 tensors
@@ -68,7 +71,7 @@ def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
         return t.view(torch.int32).numpy().view(np.uint32)
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return np.ascontiguousarray(t.numpy())
+    return t.numpy()  # contiguous already; keeps a 0-d leaf 0-d
 
 
 def _layer(tree, i: int):
@@ -163,11 +166,14 @@ def quant_specs(module: nn.Module, state: Dict[str, torch.Tensor]) -> dict:
 def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
     """Copy a JAX param pytree into ``module`` (names and shapes must match
     exactly); values are cast to the module's dtypes and device. Linears the
-    tree holds quantized become ``QuantLinear``s first."""
+    tree holds quantized become ``QuantLinear``s first, and linears it gives
+    LoRA leaves get adapters (lora.py) of those shapes."""
+    from mlx_video_tpu_torch.lora import attach_lora_leaves
     from mlx_video_tpu_torch.ops.quant import use_quant_linears
 
     state = jax_tree_to_state_dict(tree)
     use_quant_linears(module, quant_specs(module, state))
+    attach_lora_leaves(module, state)
     module.load_state_dict(state, strict=True)
     return module
 

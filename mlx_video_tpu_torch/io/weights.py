@@ -107,9 +107,10 @@ def load_dit_params(
     paths: Union[str, Path, Sequence[Union[str, Path]]],
     config: LTXModelConfig,
     dtype=torch.bfloat16,
-    device="cpu",
+    device="cuda",
 ) -> LTXModel:
-    """Build the video DiT on ``device`` from safetensors shard(s).
+    """Build the video DiT on ``device`` (default the card, as
+    ``load_model_bundle``) from safetensors shard(s).
 
     Every parameter of the model must be in the files (the strict check of
     the JAX loader); a missing one raises with a sample of the names.
@@ -196,7 +197,7 @@ def save_dit_params(path: Union[str, Path], model: LTXModel, metadata: Optional[
 
 
 def load_native_params(
-    path: Union[str, Path], config: LTXModelConfig, dtype=torch.bfloat16, device="cpu", prefix: str = ""
+    path: Union[str, Path], config: LTXModelConfig, dtype=torch.bfloat16, device="cuda", prefix: str = ""
 ) -> LTXModel:
     """Load a native-layout file (:func:`save_dit_params`, or the JAX
     package's) into the video DiT on ``device``. With ``prefix``, read only

@@ -10,6 +10,13 @@ where the JAX package stacks them and scans.
 fp32 islands as in the JAX package: timestep sinusoids, RoPE tables and
 rotation, normalisations and the output LayerNorm.
 
+Training: with ``config.gradient_checkpointing`` each block runs under
+non-reentrant ``torch.utils.checkpoint`` while gradients are on (the JAX
+``jax.checkpoint`` around the scanned block body): the backward recomputes
+the block's forward, so one block's activations are held at a time.
+Parameters are created with ``requires_grad=False``; a trainer turns on the
+ones it trains (lora.py's adapters, or everything in full finetuning).
+
 Not ported yet: the audio and audio-video branches, PAB attention caching,
 sequence parallelism and the fused-RoPE attention path.
 """
@@ -22,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mlx_video_tpu_torch.config import LTXModelConfig, LTXRopeType
 from mlx_video_tpu_torch.models.ltx import rope as rope_lib
@@ -338,8 +346,10 @@ def ltx_apply(model: LTXModel, config: LTXModelConfig, video: Modality) -> torch
     args = prepare_ltx_args(model, config, video)
     heads = config.num_attention_heads
     x = args.x
+    remat = config.gradient_checkpointing and torch.is_grad_enabled()
     for block in model.blocks:
-        x = block_apply(block, args._replace(x=x), heads, config.rope_type, config.norm_eps)
+        block_args = (block, args._replace(x=x), heads, config.rope_type, config.norm_eps)
+        x = checkpoint(block_apply, *block_args, use_reentrant=False) if remat else block_apply(*block_args)
     return _process_output(model.video, x, args.embedded_timestep, config.norm_eps)
 
 

@@ -1,15 +1,20 @@
-"""Flash-attention forward for the DiT self-attention: a CUDA kernel for Hopper.
+"""Flash attention for the DiT self-attention: CUDA kernels for Hopper, forward
+and backward.
 
-Replaces ``mlx_video_tpu/ops/flash_attention.py:_flash_attention_impl`` (the
-Pallas kernels ``_single_pass_kernel`` and ``_flash_kernel``). The kernel is
-``mlx_video_tpu_torch/csrc/flash_attention_fwd.cu``, built by ``nvcc`` at
-first use (ops/_build.py) and called through ``ctypes``.
+Forward (K1) replaces ``mlx_video_tpu/ops/flash_attention.py:_flash_attention_impl``
+(the Pallas kernels ``_single_pass_kernel`` and ``_flash_kernel``); its kernel
+is ``mlx_video_tpu_torch/csrc/flash_attention_fwd.cu``. Backward (K3) replaces
+``_flash_attention_bwd_impl`` (``_flash_bwd_dq_kernel`` and
+``_flash_bwd_dkv_kernel``); its kernels are
+``mlx_video_tpu_torch/csrc/flash_attention_bwd.cu``. Both are built by
+``nvcc`` at first use (ops/_build.py) and called through ``ctypes``.
 
-What bounds it on the H100: at the DiT's shapes (B=1, H=32, D=128, S=320 to
-5184) attention does 4*S*S*D*H operations on 4*S*H*D*2 bytes of q, k, v and
-o, some S/2 operations per byte, far above the card's ~295 bf16 operations
-per byte, so it is bound by tensor-core issue rate and the softmax's
-exponentials, not by device memory.
+What bounds them on the H100: at the DiT's shapes (B=1, H=32, D=128, S=320 to
+5184) the forward does 4*S*S*D*H operations on 4*S*H*D*2 bytes of q, k, v and
+o, and the backward 14*S*S*D*H on twice the bytes: some S/2 operations per
+byte, far above the card's ~295 bf16 operations per byte, so both are bound
+by tensor-core issue rate and the softmax's exponentials, not by device
+memory.
 
 What the design does about it: q, k and v are read in place through their
 strides, so no transpose or pad copy runs first; K/V tiles of 64 rows sit in
@@ -17,11 +22,18 @@ shared memory while 4 warps of one block each keep 16 query rows, the
 running max, sum and fp32 accumulator in registers; both products run on the
 tensor cores as bf16 ``mma.sync`` with fp32 accumulation, and P never leaves
 the registers. The softmax is exact at every length: unlike the Pallas
-single-pass body, no logit clamp. ``wgmma``, TMA and warp specialisation are
-left for later.
+single-pass body, no logit clamp. The backward is two kernels without atomics
+(csrc/flash_attention_bwd.cu says how they split the work), so its gradients
+are bitwise repeatable. ``wgmma``, TMA and warp specialisation are left for
+later.
 
-On a CPU tensor the wrapper computes :func:`flash_attention_reference`, the
-plain fp32 version; on a CUDA tensor it launches the kernel or raises.
+:func:`flash_attention` is differentiable: when q, k or v needs a gradient
+the forward also keeps the logsumexp and the backward runs K3, as the JAX
+``flash_attention`` custom VJP does. On CUDA K3 takes every length (the JAX
+package's length threshold and VMEM limit are TPU matters). On a CPU tensor
+every entry point computes its plain fp32 version
+(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,32 +45,39 @@ import torch
 
 from mlx_video_tpu_torch.ops import _build
 
-# Kernel launches so far; a run resets it to 0 and reads it to show that its
-# attention went through the kernel. Only a launch adds to it.
+# Kernel launches so far: K1 (forward) and K3 (backward; one count per
+# backward, which launches its dq and its dkv kernel). A run resets them to 0
+# and reads them to show that its attention went through the kernels. Only a
+# launch adds to them.
 launch_count = 0
+bwd_launch_count = 0
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
 
-_fn = None
+_ARGTYPES = {
+    "mvt_flash_attention_fwd_bf16": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    "mvt_flash_attention_bwd_bf16": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    ),
+}
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str = "mvt_flash_attention_fwd_bf16"):
+    """The C entry point ``name`` of the kernel library, built and bound at
+    first use."""
+    if name not in _fns:
         lib = _build.load_library()
-        fn = lib.mvt_flash_attention_fwd_bf16
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         lib.mvt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mvt_cuda_error_string.restype = ctypes.c_char_p
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def flash_attention_reference(
@@ -80,18 +99,41 @@ def flash_attention_reference(
     return out
 
 
-def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain fp32 flash backward over (B, S, H, D) tensors and the forward's
+    (B, H, S) logsumexp: p = exp(scale q k^T - lse), dp = dO v^T,
+    D = rowsum(dO * o), dS = p (dp - D) scale; returns dQ = dS k,
+    dK = dS^T q and dV = p^T dO in the dtypes of q, k and v."""
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    rowdot = (dof * of).sum(-1).transpose(1, 2)  # (B, H, S)
+    ds = p * (dp - rowdot[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **others: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), *others.items()):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"the flash kernel takes bfloat16, {name} is {t.dtype}")
         if t.dim() != 4 or t.shape != q.shape:
             raise ValueError(f"{name} must be (B, S, H, D) like q {tuple(q.shape)}, got {tuple(t.shape)}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned with strides divisible by 8")
+        if not _readable_in_place(t):
+            raise ValueError(f"{name} must have a contiguous last dimension, be 16-byte aligned "
+                             "and have strides divisible by 8")
     b, s, h, d = q.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported (kernel takes {SUPPORTED_HEAD_DIMS})")
@@ -99,21 +141,20 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: Optional[float] = None,
-    return_lse: bool = False,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Bidirectional attention over (B, S, H, D): output (B, S, H, D) in the
-    input dtype, and with ``return_lse`` the logsumexp (B, H, S) fp32.
+def _readable_in_place(t: torch.Tensor) -> bool:
+    """The kernels read 16-byte rows through the strides of the first three
+    dimensions."""
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
+
+def _raise_launch_error(what: str, err: int) -> None:
+    msg = _build.load_library().mvt_cuda_error_string(err).decode()
+    raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _flash_forward(q, k, v, scale: float, return_lse: bool):
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
     global launch_count
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale, return_lse)
     if q.device.type != "cuda":
@@ -132,7 +173,89 @@ def flash_attention(
             float(scale), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        msg = _build.load_library().mvt_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash attention kernel launch failed: {msg} ({err})")
+        _raise_launch_error("flash attention", err)
     launch_count += 1
     return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dQ, dK, dV of attention from the forward's output ``o`` and logsumexp
+    ``lse`` (B, H, S) fp32 and the output gradient ``do``, all (B, S, H, D).
+
+    CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors
+    launch K3 (bf16; a ``do`` the kernel cannot read in place is copied
+    contiguous first) or raise.
+    """
+    global bwd_launch_count
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
+    if do.dim() == 4 and not _readable_in_place(do):
+        do = do.contiguous()
+    _check_operands(q, k, v, o=o, do=do)
+    b, s, h, d = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous ({b}, {h}, {s}) fp32 tensor on {q.device}, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    rowdot = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(st for t in (q, k, v, o, do) for st in t.stride()[:3]))
+    fn = _kernel("mvt_flash_attention_bwd_bf16")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), rowdot.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, d, strides, float(scale), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        _raise_launch_error("flash attention backward", err)
+    bwd_launch_count += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``flash_attention`` custom VJP: the forward keeps q, k, v, the
+    output and its logsumexp; the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = _flash_forward(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Bidirectional attention over (B, S, H, D): output (B, S, H, D) in the
+    input dtype, and with ``return_lse`` the logsumexp (B, H, S) fp32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel. When
+    gradients are on and q, k or v needs one, the output is differentiable
+    through K3 (``return_lse`` output is not differentiable).
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not return_lse and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _flash_forward(q, k, v, scale, return_lse)

@@ -1,6 +1,6 @@
-"""Linear layers: dense and group-affine quantized.
+"""Linear layers: dense and group-affine quantized, with optional LoRA adapters.
 
-Counterpart of the dense and quantized branches of
+Counterpart of the dense, quantized and LoRA branches of
 mlx_video_tpu/ops/linear.py:linear. Dense weights use PyTorch's
 ``(out_features, in_features)`` layout; the JAX package stores ``(in, out)``,
 and io/jax_bridge.py transposes between the two. Quantized weights keep the
@@ -14,7 +14,18 @@ alone:
 - 3, 5 or 6 bits: plain :func:`dequantize_affine` then ``torch.matmul``, as
   the JAX package computes them outside any Pallas kernel.
 
-LoRA and the int8 (W8A8, W4A8) branches are not ported yet.
+A quantized product is differentiable in x only (the frozen base has no
+weight gradient): its backward is dy @ dequant(W), plain
+:func:`dequantize_affine` then ``torch.matmul``, as XLA differentiates the JAX
+quantized branch.
+
+LoRA (lora.py adds the leaves): a layer with ``lora_A`` (r, in), ``lora_B``
+(out, r) and ``lora_scale`` adds ``lora_scale * (x A^T) B^T``, computed in fp32
+and cast to y's dtype, as ``_apply_lora``. Its products are plain autograd
+ops in full fp32, PyTorch's default (the JAX package's ``Precision.HIGHEST``);
+the trainer refuses to start with TF32 switched on.
+
+The int8 (W8A8, W4A8) branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features, **kw), requires_grad=False)
         self.bias = (
             nn.Parameter(torch.empty(out_features, **kw), requires_grad=False) if bias else None
@@ -73,19 +85,40 @@ class QuantLinear(nn.Module):
                 f"bits={self.bits}, group_size={self.group_size}")
 
 
+class _QuantMatmul(torch.autograd.Function):
+    """K2 forward; the backward gives dx = dy dequant(W) only."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, biases, bits: int, group_size: int):
+        ctx.save_for_backward(packed, scales, biases)
+        ctx.bits = bits
+        return quant_matmul(x, packed, scales, biases, bits, group_size)
+
+    @staticmethod
+    def backward(ctx, dy):
+        packed, scales, biases = ctx.saved_tensors
+        w = dequantize_affine(packed, scales, biases, bits=ctx.bits, dtype=dy.dtype)
+        return torch.matmul(dy, w), None, None, None, None, None
+
+
 def linear(layer: Union[Linear, QuantLinear], x: torch.Tensor) -> torch.Tensor:
-    """y = x W^T (+ b) in x's dtype. fp32 operands stay full fp32 (PyTorch's
-    default matmul precision); bf16 operands accumulate in fp32 on the card.
-    A quantized layer adds its bias after the product, in x's dtype."""
+    """y = x W^T (+ b) in x's dtype, plus the layer's LoRA delta if it has
+    one. fp32 operands stay full fp32 (PyTorch's default matmul precision);
+    bf16 operands accumulate in fp32 on the card. A quantized layer adds its
+    bias after the product, in x's dtype."""
     if not isinstance(layer, QuantLinear):
-        return F.linear(x, layer.weight, layer.bias)
-    if layer.bits in KERNEL_BITS:
-        y = quant_matmul(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
+        y = F.linear(x, layer.weight, layer.bias)
     else:
-        w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
-        y = torch.matmul(x, w.T)
-    if layer.bias is not None:
-        y = y + layer.bias.to(x.dtype)
+        if layer.bits in KERNEL_BITS:
+            y = _QuantMatmul.apply(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
+        else:
+            w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
+            y = torch.matmul(x, w.T)
+        if layer.bias is not None:
+            y = y + layer.bias.to(x.dtype)
+    if getattr(layer, "lora_A", None) is not None:
+        delta = (x.float() @ layer.lora_A.float().T) @ layer.lora_B.float().T
+        y = y + (delta * layer.lora_scale).to(y.dtype)
     return y
 
 

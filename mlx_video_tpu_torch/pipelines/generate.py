@@ -25,16 +25,8 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mlx_video_tpu.io import media
-from mlx_video_tpu.models.ltx.video_vae.tiling import TilingConfig, decode_with_tiling
-from mlx_video_tpu.pipelines.positions import create_position_grid
-from mlx_video_tpu.pipelines.schedulers import (
-    STAGE_1_SIGMAS,
-    STAGE_2_SIGMAS,
-    subsample_refinement_sigmas,
-    subsample_sigmas,
-)
 from mlx_video_tpu_torch.config import LTXModelConfig
+from mlx_video_tpu_torch.io import media
 from mlx_video_tpu_torch.models.ltx.model import LTXModel
 from mlx_video_tpu_torch.models.ltx.upsampler import LatentUpsampler, upsample_latents
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import (
@@ -42,7 +34,15 @@ from mlx_video_tpu_torch.models.ltx.video_vae.decoder import (
     VideoDecoder,
     video_decoder_apply,
 )
+from mlx_video_tpu_torch.models.ltx.video_vae.tiling import TilingConfig, decode_with_tiling
 from mlx_video_tpu_torch.pipelines import denoise as dn
+from mlx_video_tpu_torch.pipelines.positions import create_position_grid
+from mlx_video_tpu_torch.pipelines.schedulers import (
+    STAGE_1_SIGMAS,
+    STAGE_2_SIGMAS,
+    subsample_refinement_sigmas,
+    subsample_sigmas,
+)
 
 SPATIAL_SCALE = 32
 TEMPORAL_SCALE = 8

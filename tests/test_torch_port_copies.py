@@ -1,0 +1,188 @@
+"""The port's own copies of the JAX package's framework-free modules against
+the originals, one parametrised test per copied module, on the same inputs.
+
+The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
+configuration, the sigma schedules, the position grids, the numpy part of the
+VAE tiling, the mp4 writer's frame conversion, the generate and train CLIs'
+parsers and ``slugify``, and the hub's ``get_model_path``. Every comparison
+here is exact: the copies are the same code.
+"""
+
+import argparse
+import dataclasses
+
+import numpy as np
+import pytest
+
+from mlx_video_tpu import config as jconfig
+from mlx_video_tpu.cli import generate as jgen_cli
+from mlx_video_tpu.cli import train as jtrain_cli
+from mlx_video_tpu.io import media as jmedia
+from mlx_video_tpu.models.ltx.video_vae import tiling as jtiling
+from mlx_video_tpu.pipelines import positions as jpos
+from mlx_video_tpu.pipelines import schedulers as jsched
+from mlx_video_tpu.trainer import config as jtrain_config
+from mlx_video_tpu.utils import hub as jhub
+from mlx_video_tpu_torch import config as tconfig
+from mlx_video_tpu_torch.cli import generate as tgen_cli
+from mlx_video_tpu_torch.cli import train as ttrain_cli
+from mlx_video_tpu_torch.io import media as tmedia
+from mlx_video_tpu_torch.models.ltx.video_vae import tiling as ttiling
+from mlx_video_tpu_torch.pipelines import positions as tpos
+from mlx_video_tpu_torch.pipelines import schedulers as tsched
+from mlx_video_tpu_torch.trainer import config as ttrain_config
+from mlx_video_tpu_torch.utils import hub as thub
+
+
+def _plain(x):
+    """Dataclasses, enums and arrays as comparable plain values."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _plain(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if hasattr(x, "value") and hasattr(x, "name") and not isinstance(x, np.ndarray):
+        return ("enum", x.name, x.value)
+    if isinstance(x, np.ndarray):
+        return ("array", x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, (list, tuple)):
+        return type(x)(_plain(v) for v in x)
+    if isinstance(x, slice):
+        return ("slice", x.start, x.stop, x.step)
+    return x
+
+
+@pytest.mark.parametrize("case", [
+    ("farthest", 1), ("farthest", 3), ("farthest", 5), ("farthest", 8), ("uniform", 4), ("uniform", 7),
+    ("refine", 1), ("refine", 2), ("ltx2", 30), ("ltx2", 8),
+])
+def test_schedulers_copy(case):
+    method, steps = case
+    for mod in (jsched, tsched):
+        assert mod.STAGE_1_SIGMAS == jsched.STAGE_1_SIGMAS and mod.STAGE_2_SIGMAS == jsched.STAGE_2_SIGMAS
+    if method == "refine":
+        assert tsched.subsample_refinement_sigmas(tsched.STAGE_2_SIGMAS, steps) == \
+            jsched.subsample_refinement_sigmas(jsched.STAGE_2_SIGMAS, steps)
+    elif method == "ltx2":
+        for tokens in (None, 1280, 3456, 9000):
+            np.testing.assert_array_equal(tsched.ltx2_scheduler(steps, tokens), jsched.ltx2_scheduler(steps, tokens))
+    else:
+        assert tsched.subsample_sigmas(tsched.STAGE_1_SIGMAS, steps, method) == \
+            jsched.subsample_sigmas(jsched.STAGE_1_SIGMAS, steps, method)
+    assert (tsched.BASE_SHIFT_ANCHOR, tsched.MAX_SHIFT_ANCHOR) == (jsched.BASE_SHIFT_ANCHOR, jsched.MAX_SHIFT_ANCHOR)
+
+
+@pytest.mark.parametrize("b, f, h, w, fps, causal", [
+    (1, 5, 8, 8, 24.0, True), (2, 9, 16, 24, 25.0, True), (1, 1, 3, 7, 30.0, False),
+])
+def test_positions_copy(b, f, h, w, fps, causal):
+    np.testing.assert_array_equal(
+        tpos.create_position_grid(b, f, h, w, fps=fps, causal_fix=causal),
+        jpos.create_position_grid(b, f, h, w, fps=fps, causal_fix=causal),
+    )
+    np.testing.assert_array_equal(tpos.create_audio_position_grid(b, 3 * f), jpos.create_audio_position_grid(b, 3 * f))
+    assert tpos.compute_audio_frames(8 * f + 1, fps) == jpos.compute_audio_frames(8 * f + 1, fps)
+
+
+@pytest.mark.parametrize("case", [
+    "masks", "intervals", "presets", "tile_shapes", "decode",
+])
+def test_tiling_copy(case):
+    if case == "masks":
+        for args in [(10, 3, 2, False), (10, 3, 2, True), (4, 0, 0, False), (5, 9, 9, True), (17, 8, 8, False)]:
+            np.testing.assert_array_equal(ttiling.compute_trapezoidal_mask_1d(*args),
+                                          jtiling.compute_trapezoidal_mask_1d(*args))
+        for args in [(0, 5, 2, 1, 8), (3, 9, 0, 2, 8), (0, 16, 4, 4, 32)]:
+            assert _plain(ttiling.map_temporal_slice(*args)) == _plain(jtiling.map_temporal_slice(*args))
+            assert _plain(ttiling.map_spatial_slice(*args)) == _plain(jtiling.map_spatial_slice(*args))
+    elif case == "intervals":
+        for args in [(16, 4, 40), (8, 2, 8), (16, 4, 100), (5, 1, 33)]:
+            assert _plain(ttiling.split_in_spatial(*args)) == _plain(jtiling.split_in_spatial(*args))
+            assert _plain(ttiling.split_in_temporal(*args)) == _plain(jtiling.split_in_temporal(*args))
+    elif case == "presets":
+        for name in ("default", "aggressive", "conservative", "spatial_only", "temporal_only"):
+            assert _plain(getattr(ttiling.TilingConfig, name)()) == _plain(getattr(jtiling.TilingConfig, name)())
+        for h, w, f in [(512, 512, 33), (768, 1024, 121), (1536, 1536, 257)]:
+            assert _plain(ttiling.TilingConfig.auto(h, w, f)) == _plain(jtiling.TilingConfig.auto(h, w, f))
+    elif case == "tile_shapes":
+        for shape in [(1, 16, 5, 8, 8), (1, 16, 17, 24, 40)]:
+            assert ttiling.tile_latent_shapes(shape, ttiling.TilingConfig.default()) == \
+                jtiling.tile_latent_shapes(shape, jtiling.TilingConfig.default())
+    else:
+        rng = np.random.default_rng(0)
+        lat = rng.normal(size=(1, 4, 5, 6, 6)).astype(np.float32)
+
+        def decode(tile):  # a stand-in decoder: causal nearest upsample, 3 channels
+            up = tile[:, :3].repeat(32, axis=3).repeat(32, axis=4)
+            return np.concatenate([up[:, :, :1], up[:, :, 1:].repeat(8, axis=2)], axis=2)
+
+        got = ttiling.decode_with_tiling(decode, lat, ttiling.TilingConfig(
+            ttiling.SpatialTilingConfig(64, 32), ttiling.TemporalTilingConfig(16, 8)))
+        ref = jtiling.decode_with_tiling(decode, lat, jtiling.TilingConfig(
+            jtiling.SpatialTilingConfig(64, 32), jtiling.TemporalTilingConfig(16, 8)))
+        assert got.shape == (1, 3, 33, 192, 192)
+        np.testing.assert_array_equal(got, ref)
+
+
+def _flags(parser: argparse.ArgumentParser) -> dict:
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.nargs, type(a).__name__)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("cli", ["generate", "train"])
+def test_parsers_copy(cli):
+    if cli == "generate":
+        tmod, jmod = tgen_cli, jgen_cli
+        for text in ("A cat, on a MAT!", "", "  --x--  ", "é" * 100):
+            assert tmod.slugify(text) == jmod.slugify(text)
+    else:
+        tmod, jmod = ttrain_cli, jtrain_cli
+    assert _flags(tmod.base_parser()) == _flags(jmod.build_parser())
+    ported = _flags(tmod.build_parser())
+    assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")
+    if cli == "train":  # the YAML-only switch as a flag (no PyYAML needed)
+        assert ported.pop("enable_gradient_checkpointing")[0] == ("--enable-gradient-checkpointing",)
+    assert ported == _flags(jmod.build_parser())
+
+
+@pytest.mark.parametrize("case", ["default", "tiny_split", "tiny_audio", "round_trip", "training"])
+def test_config_copy(case):
+    if case == "default":
+        assert _plain(tconfig.LTXModelConfig()) == _plain(jconfig.LTXModelConfig())
+        assert tconfig.LTXModelConfig().to_dict() == jconfig.LTXModelConfig().to_dict()
+    elif case == "tiny_split":
+        t = tconfig.tiny_test_config(tconfig.LTXModelType.VideoOnly, rope_type=tconfig.LTXRopeType.SPLIT)
+        j = jconfig.tiny_test_config(jconfig.LTXModelType.VideoOnly, rope_type=jconfig.LTXRopeType.SPLIT)
+        assert t.to_dict() == j.to_dict() and _plain(t.get_video_config()) == _plain(j.get_video_config())
+    elif case == "tiny_audio":
+        t, j = tconfig.tiny_test_config(num_layers=3), jconfig.tiny_test_config(num_layers=3)
+        assert t.to_dict() == j.to_dict() and _plain(t.get_audio_config()) == _plain(j.get_audio_config())
+        assert t.inner_dim == j.inner_dim and t.audio_inner_dim == j.audio_inner_dim
+    elif case == "round_trip":
+        d = jconfig.LTXModelConfig(rope_type=jconfig.LTXRopeType.SPLIT, num_layers=7).to_dict()
+        assert tconfig.LTXModelConfig.from_dict(d).to_dict() == jconfig.LTXModelConfig.from_dict(d).to_dict()
+    else:
+        assert _plain(ttrain_config.TrainingConfig()) == _plain(jtrain_config.TrainingConfig())
+        assert _plain(ttrain_config.TrainingConfig(lr="2e-4", steps="7")) == \
+            _plain(jtrain_config.TrainingConfig(lr="2e-4", steps="7"))
+        assert ttrain_config._normalize_target_modules(["to_out.0", "ff.net.2"]) == \
+            jtrain_config._normalize_target_modules(["to_out.0", "ff.net.2"])
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 4, 6, 5), (3, 2, 7, 9)])
+def test_media_copy(shape):
+    video = np.random.default_rng(0).uniform(-1.3, 1.3, size=shape).astype(np.float32)
+    np.testing.assert_array_equal(tmedia.frames_to_uint8(video), jmedia.frames_to_uint8(video))
+
+
+@pytest.mark.parametrize("layout", ["unified", "single_file", "subsystems", "incomplete"])
+def test_hub_copy(tmp_path, layout):
+    files = {
+        "unified": ["model.safetensors"],
+        "single_file": ["ltx-2-19b-distilled.safetensors"],
+        "subsystems": jhub.REQUIRED_MODEL_FILES,
+        "incomplete": jhub.REQUIRED_MODEL_FILES[:2],
+    }[layout]
+    for rel in files:
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(b"")
+    assert thub.has_required_files(tmp_path) == jhub.has_required_files(tmp_path)
+    assert thub.get_model_path(str(tmp_path)) == jhub.get_model_path(str(tmp_path)) == tmp_path
+    assert thub.MODEL_REPO_ALIASES == jhub.MODEL_REPO_ALIASES

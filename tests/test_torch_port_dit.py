@@ -25,6 +25,7 @@ from mlx_video_tpu.models.ltx.video_vae.decoder import init_video_decoder
 from mlx_video_tpu.ops import linear as jlinear
 from mlx_video_tpu.ops import norms as jnorms
 from mlx_video_tpu.pipelines.positions import create_position_grid
+from mlx_video_tpu_torch import config as tconfig
 from mlx_video_tpu_torch.io import jax_bridge
 from mlx_video_tpu_torch.models.ltx import model as tm
 from mlx_video_tpu_torch.models.ltx import rope as trope
@@ -34,6 +35,15 @@ from mlx_video_tpu_torch.ops import linear as tlinear
 from mlx_video_tpu_torch.ops import norms as tnorms
 
 ATOL = 1e-5
+
+
+def _port(cfg):
+    """The same configuration as the port's own config class."""
+    return tconfig.LTXModelConfig.from_dict(cfg.to_dict())
+
+
+def _port_rope(rope_type):
+    return tconfig.LTXRopeType(rope_type.value)
 
 
 def _np(tree):
@@ -74,7 +84,7 @@ def test_rope_tables_match(rope_type, dim, heads):
     kw = dict(max_pos=[20, 2048, 2048], use_middle_indices_grid=True,
               num_attention_heads=heads, rope_type=rope_type)
     ref = jrope.precompute_freqs_cis(jnp.asarray(pos), dim, **kw)
-    got = trope.precompute_freqs_cis(torch.from_numpy(pos), dim, **kw)
+    got = trope.precompute_freqs_cis(torch.from_numpy(pos), dim, **{**kw, "rope_type": _port_rope(rope_type)})
     for r, g in zip(ref, got):
         assert g.dtype == torch.float32 and g.shape == r.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=ATOL, rtol=0)
@@ -88,7 +98,7 @@ def test_apply_rotary_emb_matches(rng, rope_type):
     x = rng.normal(size=(1, 18, 128)).astype(np.float32)
     ref = jrope.apply_rotary_emb(jnp.asarray(x), pe, rope_type)
     got = trope.apply_rotary_emb(
-        torch.from_numpy(x), tuple(torch.from_numpy(np.array(t)) for t in pe), rope_type
+        torch.from_numpy(x), tuple(torch.from_numpy(np.array(t)) for t in pe), _port_rope(rope_type)
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
@@ -124,7 +134,7 @@ def _randomize_(module, seed=0):
 def dit(request):
     """Shared weights: the port's init, handed to JAX through the bridge."""
     cfg = tiny_test_config(LTXModelType.VideoOnly, rope_type=request.param)
-    model = tm.init_ltx_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    model = tm.init_ltx_params(_port(cfg), torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
     _randomize_(model)
     params = jax.tree.map(jnp.asarray, jax_bridge.module_to_jax_tree(model))
     return cfg, params, model
@@ -144,7 +154,7 @@ def test_ltx_apply_matches(dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(timesteps),
         context=jnp.asarray(context), positions=jnp.asarray(pos),
     ))
-    got = tm.ltx_apply(model, cfg, tm.Modality(
+    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(timesteps),
         context=torch.from_numpy(context), positions=torch.from_numpy(pos),
     ))
@@ -165,7 +175,7 @@ def test_ltx_apply_with_context_mask_matches(dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos), context_mask=jnp.asarray(mask),
     ))
-    got = tm.ltx_apply(model, cfg, tm.Modality(
+    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts),
         context=torch.from_numpy(context), positions=torch.from_numpy(pos),
         context_mask=torch.from_numpy(mask),
@@ -205,7 +215,7 @@ def _jax_tree(name):
 
 def _module(name, dtype):
     if name == "dit":
-        return tm.LTXModel(_TINY, device="cpu", dtype=dtype)
+        return tm.LTXModel(_port(_TINY), device="cpu", dtype=dtype)
     if name == "upsampler":
         return LatentUpsampler(16, 32, 2, dtype=dtype)
     return VideoDecoder(DecoderConfig(**_DEC_KW), dtype=dtype)
@@ -228,7 +238,7 @@ def test_bridge_round_trip_is_bit_exact(name, dtype):
 
 def test_init_ltx_params_matches_jax_layout_and_init():
     cfg = tiny_test_config(LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT)
-    model = tm.init_ltx_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    model = tm.init_ltx_params(_port(cfg), torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
     ours = jax_bridge.module_to_jax_tree(model)
     ref = _np(jm.init_ltx_params(jax.random.key(0), cfg, dtype=jnp.float32))
     assert jax.tree.structure(ours) == jax.tree.structure(ref)

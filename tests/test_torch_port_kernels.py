@@ -8,6 +8,12 @@ conftest (which imports jax):
 
 Bars, flash attention: max |d o| <= 2e-2 (the bf16 output rounds to one ulp,
 1.6e-2 at |o| ~ 2-4) and max |d lse| <= 1e-3 (fp32 sums in another order).
+Flash backward (K3): per gradient, relative L2 <= 5e-3 and max |d| <= 2e-2 *
+max |ref| against the plain fp32 backward on the same bf16 inputs: the kernel
+rounds p and dS to bf16 before their products (as the Pallas kernels do) and
+rounds dQ, dK and dV to bf16, each ~2^-9 relative (both bars have a floor of
+1e-4 an element, for dQ at S = 1, which is zero in exact arithmetic); its
+gradients are bitwise repeatable (no atomics).
 Dequantizing matmul: max |d y| <= 1e-2 * max |y| and relative L2 <= 1e-3;
 both sides multiply the same bf16 weights, only the summation order and the
 bf16 rounding of y differ. The L2 bar separates a kernel that rounds fp32
@@ -84,6 +90,69 @@ def test_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
     assert fa.launch_count == before
+
+
+def _check_grads(got, ref):
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16, name
+        d = g.float() - r.float()
+        # plus 1e-4 an element for a gradient that is zero in exact arithmetic (dQ at S = 1)
+        assert d.norm().item() <= 5e-3 * r.float().norm().item() + 1e-4 * d.numel() ** 0.5, name
+        assert d.abs().max().item() <= 2e-2 * r.float().abs().max().item() + 1e-4, name
+
+
+def _bwd_inputs(gen, b, s, h, d):
+    q, k, v, do = (_bf16(gen, b, s, h, d) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h, d", [
+    (1, 320, 32, 128), (1, 1280, 4, 128), (2, 1000, 4, 128), (1, 1, 2, 128),
+    (1, 63, 3, 64), (1, 65, 3, 64), (2, 700, 4, 64), (1, 3456, 2, 128),
+])
+def test_bwd_kernel_matches_plain(gen, b, s, h, d):
+    q, k, v, o, lse, do = _bwd_inputs(gen, b, s, h, d)
+    before = fa.bwd_launch_count
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.bwd_launch_count == before + 1
+    _check_grads(got, fa.flash_attention_bwd_reference(q, k, v, o, lse, do, d**-0.5))
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_is_bitwise_repeatable(gen):
+    args = _bwd_inputs(gen, 1, 1000, 4, 128)
+    first = fa.flash_attention_bwd(*args, 128**-0.5)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, fa.flash_attention_bwd(*args, 128**-0.5)))
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_reads_strided_operands(gen):
+    """q, k, v as views of one fused projection; dO as a transposed view
+    (copied contiguous by the wrapper)."""
+    qkv = _bf16(gen, 2, 300, 3, 4, 128)
+    q, k, v = qkv.unbind(2)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    do = _bf16(gen, 2, 4, 300, 128).transpose(1, 2)
+    assert not do.is_contiguous()
+    _check_grads(fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5),
+                 fa.flash_attention_bwd_reference(q, k, v, o, lse, do, 128**-0.5))
+
+
+@pytest.mark.cuda
+def test_flash_attention_is_differentiable_on_the_card(gen):
+    """Autograd through flash_attention runs K1 with lse, then K3."""
+    q, k, v = (_bf16(gen, 1, 500, 4, 128).requires_grad_() for _ in range(3))
+    do = _bf16(gen, 1, 500, 4, 128)
+    k1, k3 = fa.launch_count, fa.bwd_launch_count
+    out = fa.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launch_count, fa.bwd_launch_count) == (k1 + 1, k3 + 1)
+    o, lse = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), 128**-0.5, return_lse=True)
+    _check_grads(got, fa.flash_attention_bwd_reference(q, k, v, o, lse, do, 128**-0.5))
 
 
 def _quantized(gen, m, k, n, bits, group, scale_dtype=torch.float32):

@@ -30,6 +30,7 @@ from mlx_video_tpu.models.ltx.video_vae.decoder import DecoderConfig as JaxDecod
 from mlx_video_tpu.models.ltx.video_vae.decoder import init_video_decoder as jax_init_decoder
 from mlx_video_tpu.ops import quant as jquant
 from mlx_video_tpu.pipelines.positions import create_position_grid
+from mlx_video_tpu_torch import config as tconfig
 from mlx_video_tpu_torch import loading as tloading
 from mlx_video_tpu_torch.io import jax_bridge
 from mlx_video_tpu_torch.io import safetensors as tst
@@ -43,6 +44,7 @@ from mlx_video_tpu_torch.ops.quant import quantize_linear
 from mlx_video_tpu_torch.pipelines.generate import ModelBundle, TextConditioning, generate_video
 
 CFG = tiny_test_config(LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT)
+TCFG = tconfig.LTXModelConfig.from_dict(CFG.to_dict())  # the port's own config class
 DEC_KW = dict(in_channels=16, base_channels=32, num_layers_per_block=2, num_upsamples=3, patch_size=4)
 
 
@@ -76,7 +78,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _dense_model() -> tm.LTXModel:
-    model = tm.init_ltx_params(CFG, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
+    model = tm.init_ltx_params(TCFG, torch.Generator().manual_seed(0), device="cpu", dtype=torch.float32)
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -93,7 +95,7 @@ def _q4_model() -> tm.LTXModel:
     """JAX quantize_dit_params on the dense tree, bridged: bf16 scales, as an
     MLX snapshot stores them."""
     qtree = jax.tree.map(np.asarray, jquant.quantize_dit_params(jax.tree.map(jnp.asarray, _jax_tree(_dense_model()))))
-    model = tm.LTXModel(CFG, device="cpu", dtype=torch.float32)
+    model = tm.LTXModel(TCFG, device="cpu", dtype=torch.float32)
     jax_bridge.load_jax_params(model, qtree)
     for m in model.modules():
         if isinstance(m, QuantLinear):
@@ -220,7 +222,7 @@ def test_load_dit_params_matches_jax_loader(tmp_path, layout):
     model = {"mlx_q4": _q4_model, "mlx_q4_all": _q4_all_model}.get(layout, _dense_model)()
     path = _write(tmp_path / "dit.safetensors", model, _pt_key if layout == "pytorch" else _mlx_key)
     ref = jweights.load_dit_params(path, CFG, dtype=jnp.float32)
-    ours = tweights.load_dit_params(path, CFG, dtype=torch.float32)
+    ours = tweights.load_dit_params(path, TCFG, dtype=torch.float32, device="cpu")
     assert all(t.device.type == "cpu" for t in ours.state_dict().values())  # nothing left on meta
     n_quant = sum(isinstance(m, QuantLinear) for m in ours.modules())
     assert n_quant == sum(isinstance(m, QuantLinear) for m in model.modules())
@@ -236,7 +238,7 @@ def test_fully_quantized_snapshot_runs_like_jax(tmp_path):
     runs it (it finds the model's device and dtype without a dense weight)."""
     path = _write(tmp_path / "dit.safetensors", _q4_all_model(), _mlx_key)
     ref_tree = jweights.load_dit_params(path, CFG, dtype=jnp.float32)
-    ours = tweights.load_dit_params(path, CFG, dtype=torch.float32)
+    ours = tweights.load_dit_params(path, TCFG, dtype=torch.float32, device="cpu")
     assert isinstance(ours.video.patchify_proj, QuantLinear) and ours.video.patchify_proj.group_size == 16
     rng = np.random.default_rng(6)
     tokens = rng.normal(size=(1, 32, CFG.in_channels)).astype(np.float32)
@@ -246,7 +248,7 @@ def test_fully_quantized_snapshot_runs_like_jax(tmp_path):
     ref, _ = jm.ltx_apply(ref_tree, CFG, video=jm.Modality(
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos)))
-    got = tm.ltx_apply(ours, CFG, tm.Modality(
+    got = tm.ltx_apply(ours, TCFG, tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts), context=torch.from_numpy(context),
         positions=torch.from_numpy(pos)))
     ref = np.asarray(ref)
@@ -254,7 +256,7 @@ def test_fully_quantized_snapshot_runs_like_jax(tmp_path):
 
     g = torch.Generator().manual_seed(0)
     dec_cfg = DecoderConfig(in_channels=16, base_channels=32, num_layers_per_block=1)
-    models = ModelBundle(ours, CFG, init_video_decoder(g, dec_cfg, device="cpu"), dec_cfg,
+    models = ModelBundle(ours, TCFG, init_video_decoder(g, dec_cfg, device="cpu"), dec_cfg,
                          init_latent_upsampler(g, 16, 32, 1, device="cpu"))
     res = generate_video(models, TextConditioning(torch.from_numpy(context)), height=64, width=64, num_frames=9,
                          stage1_steps=1, stage2_steps=1, decode_latents_only=True, dtype=torch.float32)
@@ -263,7 +265,7 @@ def test_fully_quantized_snapshot_runs_like_jax(tmp_path):
 
 def test_load_dit_params_in_bf16_casts_floats_only(tmp_path):
     path = _write(tmp_path / "dit.safetensors", _q4_model(), _mlx_key)
-    ours = tweights.load_dit_params(path, CFG, dtype=torch.bfloat16)
+    ours = tweights.load_dit_params(path, TCFG, dtype=torch.bfloat16, device="cpu")
     assert ours.video.patchify_proj.weight.dtype == torch.bfloat16
     assert ours.blocks[1].ff.proj_in.quant_weight.dtype == torch.int32
     ref = jweights.load_dit_params(path, CFG, dtype=jnp.float32)  # fp32 file values, rounded once
@@ -285,7 +287,7 @@ def test_native_files_match_jax_both_ways(tmp_path):
     jweights.save_dit_params(tmp_path / "jax.safetensors", tree, metadata={"note": "x"})
     tweights.save_dit_params(tmp_path / "port.safetensors", model, metadata={"note": "x"})
     assert (tmp_path / "jax.safetensors").read_bytes() == (tmp_path / "port.safetensors").read_bytes()
-    ours = tweights.load_dit_params(tmp_path / "jax.safetensors", CFG, dtype=torch.float32)
+    ours = tweights.load_dit_params(tmp_path / "jax.safetensors", TCFG, dtype=torch.float32, device="cpu")
     _assert_same_tree(jweights.load_native_params(tmp_path / "jax.safetensors"), _jax_tree(ours))
 
 
@@ -296,8 +298,8 @@ def test_unified_bundle_loads_transformer_and_decoder(tmp_path):
     decoder = _decoder_checkpoint(snap / "vae" / "diffusion_pytorch_model.safetensors", "vae.decoder.")
     build_unified_bundle(tmp_path / "model.safetensors", _jax_tree(model), model_path=snap, include_audio=False)
     assert tloading.unified_bundle_file(tmp_path) == tmp_path / "model.safetensors"
-    ours = tweights.load_native_params(tmp_path / "model.safetensors", CFG, dtype=torch.float32,
-                                       prefix="transformer.")
+    ours = tweights.load_native_params(tmp_path / "model.safetensors", TCFG, dtype=torch.float32,
+                                       device="cpu", prefix="transformer.")
     _assert_same_tree(jweights.load_native_params(tmp_path / "model.safetensors", prefix="transformer."),
                       _jax_tree(ours))
     got = VideoDecoder(DecoderConfig(**DEC_KW))
@@ -312,7 +314,7 @@ def test_load_dit_params_is_strict(tmp_path):
     del missing["patchify_proj.bias"]
     jst.save_safetensors(tmp_path / "missing.safetensors", missing)
     with pytest.raises(ValueError, match="Missing 2 parameters"):
-        tweights.load_dit_params(tmp_path / "missing.safetensors", CFG, dtype=torch.float32)
+        tweights.load_dit_params(tmp_path / "missing.safetensors", TCFG, dtype=torch.float32, device="cpu")
     bad = dict(state)
     for i in range(CFG.num_layers):
         key = f"transformer_blocks.{i}.ff.proj_in.scales"
@@ -321,12 +323,12 @@ def test_load_dit_params_is_strict(tmp_path):
     with pytest.raises(ValueError, match="Inconsistent quantized shapes"):
         jweights.load_dit_params(tmp_path / "bad.safetensors", CFG, dtype=jnp.float32)
     with pytest.raises(ValueError, match="Inconsistent quantized shapes"):
-        tweights.load_dit_params(tmp_path / "bad.safetensors", CFG, dtype=torch.float32)
+        tweights.load_dit_params(tmp_path / "bad.safetensors", TCFG, dtype=torch.float32, device="cpu")
     wrong = dict(state)
     wrong["patchify_proj.weight"] = wrong["patchify_proj.weight"][:, :8]
     jst.save_safetensors(tmp_path / "wrong.safetensors", wrong)
     with pytest.raises(ValueError, match="Shape mismatch"):
-        tweights.load_dit_params(tmp_path / "wrong.safetensors", CFG, dtype=torch.float32)
+        tweights.load_dit_params(tmp_path / "wrong.safetensors", TCFG, dtype=torch.float32, device="cpu")
 
 
 # --- VAE decoder and upsampler ---
@@ -441,7 +443,7 @@ def test_load_model_bundle_refuses_unported_parts(tmp_path, kwargs):
 
 
 def test_quantize_models_quantizes_in_place_and_refuses_int8_modes():
-    models = ModelBundle(_dense_model(), CFG, None, None)
+    models = ModelBundle(_dense_model(), TCFG, None, None)
     for flags in ({"w8a8": True}, {"w4a8": True}):
         with pytest.raises(NotImplementedError, match="W8A8"):
             tloading.quantize_models(models, **flags)

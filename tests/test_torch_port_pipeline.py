@@ -8,6 +8,7 @@ of tests/test_torch_cross_pipeline.py. The remaining tests run the port's
 JAX and ml_dtypes cannot be imported.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -32,6 +33,7 @@ from mlx_video_tpu.pipelines.schedulers import (
     subsample_refinement_sigmas,
     subsample_sigmas,
 )
+from mlx_video_tpu_torch import config as tconfig
 from mlx_video_tpu_torch.io import jax_bridge
 from mlx_video_tpu_torch.models.ltx import model as tm
 from mlx_video_tpu_torch.models.ltx import upsampler as tups
@@ -68,13 +70,15 @@ def test_frame_and_dimension_rounding_matches(frames):
 @pytest.mark.parametrize("mode", ["auto", "none", "default", "spatial", "temporal", "aggressive"])
 def test_select_tiling_matches(mode):
     for h, w, f in [(512, 512, 33), (768, 1024, 121)]:
-        assert tgen.select_tiling(mode, h, w, f) == jgen.select_tiling(mode, h, w, f, stream=False)
+        got, ref = tgen.select_tiling(mode, h, w, f), jgen.select_tiling(mode, h, w, f, stream=False)
+        assert (got is None and ref is None) or dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 def test_composed_pipeline_psnr_gate():
     # shared weights: the port's init, handed to JAX through the bridge
     models = _tiny_models(seed=7)
     cfg = models.transformer_config
+    jcfg = tiny_test_config(LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT)
     rng = np.random.default_rng(7)
     decoder = models.vae_decoder
     decoder.latents_mean.copy_(torch.from_numpy(rng.normal(size=(16,)).astype(np.float32) * 0.2))
@@ -96,12 +100,12 @@ def test_composed_pipeline_psnr_gate():
     tiling = TilingConfig.spatial_only(tile_size=64, overlap=32)
 
     # JAX
-    v1, _ = jdn.denoise(params, cfg, jnp.asarray(latents0), jnp.asarray(pos1), jnp.asarray(context), s1)
+    v1, _ = jdn.denoise(params, jcfg, jnp.asarray(latents0), jnp.asarray(pos1), jnp.asarray(context), s1)
     up = upsample_latents(ups_params, v1, dec_params["latents_mean"], dec_params["latents_std"])
     lat2 = jnp.asarray(renoise) * s2[0] + up * (1.0 - s2[0])
-    v2, _ = jdn.denoise(params, cfg, lat2, jnp.asarray(pos2), jnp.asarray(context), s2)
+    v2, _ = jdn.denoise(params, jcfg, lat2, jnp.asarray(pos2), jnp.asarray(context), s2)
     jax_latent = np.asarray(v2, np.float32)
-    jax_models = jgen.ModelBundle(None, cfg, dec_params, dec_cfg)
+    jax_models = jgen.ModelBundle(None, jcfg, dec_params, dec_cfg)
     jax_rgb = jgen.decode_latents(jax_models, v2, tiling, decode_timestep=0.05)
 
     # port, on the same weights and noise
@@ -120,7 +124,7 @@ def test_composed_pipeline_psnr_gate():
 
 
 def _tiny_models(seed: int = 0) -> tgen.ModelBundle:
-    cfg = tiny_test_config(LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT)
+    cfg = tconfig.tiny_test_config(tconfig.LTXModelType.VideoOnly, rope_type=tconfig.LTXRopeType.SPLIT)
     g = torch.Generator().manual_seed(seed)
     dec_cfg = tdec.DecoderConfig(**DEC_KW)
     return tgen.ModelBundle(
@@ -183,11 +187,13 @@ def test_generate_video_latents_only(tiny):
 
 _NO_JAX = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = sys.modules["ml_dtypes"] = sys.modules["flax"] = None
+sys.modules["jax"] = sys.modules["ml_dtypes"] = sys.modules["flax"] = sys.modules["mlx_video_tpu"] = None
+import numpy as np
 import torch
 import mlx_video_tpu_torch
 for info in pkgutil.walk_packages(mlx_video_tpu_torch.__path__, "mlx_video_tpu_torch."):
     importlib.import_module(info.name)
+assert "mlx_video_tpu_torch.trainer.trainer" in sys.modules and "mlx_video_tpu_torch.cli.train" in sys.modules
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
@@ -209,13 +215,24 @@ from mlx_video_tpu_torch.ops.quant import quantize_dit_params
 quantize_dit_params(models.transformer, group_size=64, bits=4)
 with tempfile.TemporaryDirectory() as tmp:
     save_dit_params(f"{tmp}/q4.safetensors", models.transformer)
-    models.transformer = load_dit_params(f"{tmp}/q4.safetensors", cfg, dtype=torch.float32)
+    models.transformer = load_dit_params(f"{tmp}/q4.safetensors", cfg, dtype=torch.float32, device="cpu")
 assert models.transformer.blocks[0].ff.proj_in.bits == 4
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
                      width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
 assert res.video.shape == (1, 3, 9, 64, 64)
-loaded = [m for m in ("jax", "ml_dtypes", "flax") if sys.modules.get(m) is not None]
-assert not loaded, loaded
+# one LoRA training step over the q4 base, with gradient checkpointing
+from mlx_video_tpu_torch.trainer.config import TrainingConfig
+from mlx_video_tpu_torch.trainer.datasets import DummyDataset
+from mlx_video_tpu_torch.trainer.trainer import Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    data = DummyDataset(width=64, height=64, num_frames=9, dataset_length=1, latent_dim=cfg.in_channels,
+                        prompt_embed_dim=cfg.caption_channels, prompt_sequence_length=4)
+    trainer = Trainer(TrainingConfig(training_mode="lora", steps=1, output_dir=tmp, handle_preemption=False,
+                                     enable_gradient_checkpointing=True, mixed_precision_mode="fp32"),
+                      model_config=cfg, params=models.transformer, dataset=data)
+    assert np.isfinite(trainer.train())
+loaded = [m for m in sys.modules if m in ("jax", "ml_dtypes", "flax") or m.split(".")[0] == "mlx_video_tpu"]
+assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print("NO_JAX_OK")
 """
 

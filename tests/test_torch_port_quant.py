@@ -28,6 +28,7 @@ from mlx_video_tpu.ops import linear as jlinear
 from mlx_video_tpu.ops import quant as jquant
 from mlx_video_tpu.ops.quant_matmul import quant_matmul as jax_quant_matmul
 from mlx_video_tpu.pipelines.positions import create_position_grid
+from mlx_video_tpu_torch import config as tconfig
 from mlx_video_tpu_torch.io import jax_bridge
 from mlx_video_tpu_torch.models.ltx import model as tm
 from mlx_video_tpu_torch.ops import linear as tlinear
@@ -196,6 +197,11 @@ def test_quant_matmul_rejects_bad_operands():
         tqmm.quant_matmul(x.to("meta"), p, s, b, 4, 64)
 
 
+def _port(cfg):
+    """The same configuration as the port's own config class."""
+    return tconfig.LTXModelConfig.from_dict(cfg.to_dict())
+
+
 @pytest.fixture(scope="module")
 def quantized_dit():
     """JAX init (seeded values) -> JAX quantize_dit_params -> bridge."""
@@ -204,7 +210,7 @@ def quantized_dit():
     shapes = jax.eval_shape(lambda: jm.init_ltx_params(jax.random.key(0), cfg, dtype=jnp.float32))
     dense = jax.tree.map(lambda s: (rng.normal(size=s.shape) * 0.1).astype(np.float32), shapes)
     qparams = jquant.quantize_dit_params(jax.tree.map(jnp.asarray, dense), group_size=64, bits=4)
-    model = tm.LTXModel(cfg, device="cpu", dtype=torch.float32)
+    model = tm.LTXModel(_port(cfg), device="cpu", dtype=torch.float32)
     jax_bridge.load_jax_params(model, jax.tree.map(np.asarray, qparams))
     return cfg, dense, qparams, model
 
@@ -223,7 +229,7 @@ def test_quantized_dit_matches_jax(quantized_dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos),
     ))
-    got = tm.ltx_apply(model, cfg, tm.Modality(
+    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts), context=torch.from_numpy(context),
         positions=torch.from_numpy(pos),
     ))
