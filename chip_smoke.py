@@ -33,6 +33,21 @@ Phases, in order; any failure exits non-zero before the last line:
    kernels do, and its outputs to bf16: ~2^-9 relative each); two runs must
    give bitwise-equal gradients (no atomics). Median times of K3, the plain
    version and the backward of F.scaled_dot_product_attention (a yardstick).
+5a. K4 vs plain: the text cross-attention kernel against its plain version
+   (fp32 logits and softmax, probabilities in bf16 for the second product) in
+   bf16 at H=32, D=128: (B, Sq, Skv) = (2, 5184, 128) (the dev path's, batched
+   CFG, no mask), (1, 3456, 1024) with 128 real keys (the trainer's), a ragged
+   Skv = 77, a batch row whose keys are all masked (it must be the mean of v)
+   and two rows with different masks: max |d o| <= 2e-2 (K1's bar). Median
+   times of K4, the plain version and F.scaled_dot_product_attention with the
+   additive mask (a yardstick, never on the path).
+5b. K5 vs plain: flash attention with fused split RoPE against its plain
+   version (q and k rotated in fp32 and cast back, exact attention) at
+   (B, S) = (2, 5184) (the dev path's), (1, 3456) and (1, 1280), with the
+   DiT's tables: K1's bars, and bitwise equality with K1 on the plainly
+   rotated q and k. Median times of K5, the plain version and "K1 + torch
+   rotation" (the unfused route). Then the K5 Function's gradients (K3 on the
+   rotated inputs, rotated back) against plain autograd at S = 1280: K3's bars.
 6. small slices vs reference: a 2-layer DiT denoise (2 steps at 320 tokens),
    upsampler and decoder at narrow width, bf16 on the card against fp32 on
    the CPU (plain attention, plain dequantizing matmul) with the same
@@ -47,12 +62,28 @@ Phases, in order; any failure exits non-zero before the last line:
    relative L2 of every LoRA gradient <= 5e-2 (bf16 on the CPU reads ~1.5e-2
    against fp32 there, and tens of percent against fp32 on the exact
    timesteps: tests/test_torch_port_train.py
-   ::test_bf16_lora_gap_is_the_timestep_rounding).
+   ::test_bf16_lora_gap_is_the_timestep_rounding). Then the dev pipeline at
+   narrow width with the K4 and K5 routes on: that 2-layer DiT, a narrow VAE
+   encoder and decoder, one seeded PNG at frame 0 (strength 1), batched CFG
+   4.5, 2 steps at 256x256x17; per-frame PSNR >= 35 dB of latents and RGB.
 7. full-width dense slice: generate_video, distilled, 512x512x33, on
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
    on the card from a seeded generator. Checks a finite (1, 3, 33, 512, 512)
    video and 48 x (8 + 3) = 528 K1 launches.
+7a. full-width dev slice (BASELINE.md config 3): generate_video, dev, on the
+   same DiT with the default VAE encoder (seeded, bf16), 768x768x65 (5184
+   tokens), 40 steps of ltx2_scheduler, CFG 4.5 batched, one seeded 768x768
+   PNG (written with cv2) at frame 0 with strength 1, 128-token positive and
+   negative embeddings, MLX_VIDEO_TPU_CROSS_KERNEL and MLX_VIDEO_TPU_FUSED_ROPE
+   on. Checks exactly 40 x 48 = 1920 K4 and 1920 K5 launches and no K1, a
+   finite (1, 3, 65, 768, 768) video and latent frame 0 equal to the encoded
+   image (to 2^-8 of its largest value). Then, on the same seed and latents
+   only: 2 steps with the routes on (under torch.profiler: idle share, device
+   time by kernel class) against off (96 K1 launches, plain cross-attention),
+   per-frame latent PSNR >= 35 dB; and one step of sequential against batched
+   CFG (96 K4 and 96 K5 launches), the same bar. The routes are off again
+   for the phases below.
 8. full-width dense LoRA training: the Trainer (the ltx2_lora.yaml recipe:
    rank 8, alpha 16, lr 1e-4 cosine, shifted-logit-normal timesteps,
    first-frame conditioning p 0.1, max_grad_norm 1, batch 1) with gradient
@@ -79,11 +110,14 @@ Phases, in order; any failure exits non-zero before the last line:
    10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
    written. The directories are removed at the end.
 Phases 7-10 print phase times and peak device memory. Last: the kernel
-summary line and {"ok": true, "device": ...}.
+summary line (K1-K5: launches on a path of this run, error against the plain
+version, times at the path's shapes, the bound, the library yardstick) and
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -207,6 +241,141 @@ def bwd_kernel_vs_plain(fa) -> dict:
         rows[(s, d)] = (ms, plain_ms, lib_ms)
         del q, k, v, do, o, lse, args, got, out, qh, kh, vh
     print(f"  K3 worst rel L2 {worst_l2:.3e}; bar 5e-3", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def masked_bias(b: int, skv: int, real) -> "torch.Tensor":
+    """(B, Skv) fp32 caption-mask bias rows as the DiT makes them,
+    (mask - 1) * 1e9 in bf16; row i has ``real[i]`` unmasked keys."""
+    import torch
+
+    mask = torch.zeros(b, skv, device="cuda")
+    for i, n in enumerate(real):
+        mask[i, :n] = 1.0
+    return ((mask.to(torch.bfloat16) - 1.0) * 1e9).float()
+
+
+def cross_kernel_vs_plain(ca) -> dict:
+    """K4 against its plain version: the dev path's shape (no bias), the
+    trainer's 1024 caption keys with 128 real, a ragged Skv, a row whose keys
+    are all masked and two rows with different masks. Bar: max |d o| <= 2e-2
+    (K1's)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows, max_err = {}, 0.0
+    print("K4 vs plain (bf16, H=32, D=128; bar max|d o| <= 2e-2):")
+    for b, sq, skv, real in [(2, 5184, 128, None), (1, 3456, 1024, (128,)), (2, 5184, 77, None),
+                             (2, 5184, 128, (128, 0)), (2, 5184, 128, (40, 100))]:
+        q = torch.randn(b, sq, 32, 128, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, skv, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        bias = None if real is None else masked_bias(b, skv, real)
+        out = ca.flash_cross_attention(q, k, v, bias=bias)
+        torch.cuda.synchronize()
+        ref = ca.flash_cross_attention_reference(q, k, v, bias=bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        max_err = max(max_err, err)
+        line = f"  B={b} Sq={sq} Skv={skv} real keys {real}: max|d o| {err:.3e}"
+        if real is not None and 0 in real:
+            row = real.index(0)
+            uni = (out[row].float() - v[row].float().mean(0)[None]).abs().max().item()
+            line += f", all-masked row vs the mean of v {uni:.3e}"
+            if not uni <= 2e-2:
+                fail("K4's all-masked row is not the uniform average of v")
+        if not (err <= 2e-2 and torch.isfinite(out).all()):
+            fail(f"K4 disagrees with the plain version at B={b} Sq={sq} Skv={skv} real={real}")
+        if real in (None, (128,)):
+            mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+            ms = median_ms(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
+            plain_ms = median_ms(lambda: ca.flash_cross_attention_reference(q, k, v, bias=bias))
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=128**-0.5))
+            rows[(b, sq, skv)] = (ms, plain_ms, lib_ms, bias is not None)
+            line += f"  K4 {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the mask {lib_ms:.4f} ms"
+        print(line, flush=True)
+        del q, k, v, out, ref
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def rope_tables(b: int, f: int, h: int, w: int):
+    """The DiT's split-RoPE tables for a (f, h, w) latent grid at the 19B
+    geometry: (B, 32, f*h*w, 64) fp32, as precompute_freqs_cis makes them
+    (a transposed view for B = 1; concatenated, as batched CFG doubles them,
+    for B = 2)."""
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXRopeType
+    from mlx_video_tpu_torch.pipelines.denoise import precompute_video_pe
+    from mlx_video_tpu_torch.pipelines.positions import create_position_grid
+
+    config = LTXModelConfig(rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
+    cos, sin = precompute_video_pe(config, torch.from_numpy(create_position_grid(1, f, h, w)).cuda())
+    if b == 2:
+        cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
+    return cos, sin
+
+
+def rope_kernel_vs_plain(fa) -> dict:
+    """K5 against its plain version (q and k rotated in fp32, cast back, exact
+    attention) at the dev path's shape and two more, with K1's bars, and
+    against K1 on the plainly rotated q and k: the same bits. Then the K5
+    Function's gradients (K3 on the rotated inputs) against plain autograd."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rows, max_err = {}, 0.0
+    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; K1 on rotated q, k: "
+          "bitwise):")
+    for b, (f, h, w) in [(2, (9, 24, 24)), (1, (9, 16, 24)), (1, (5, 16, 16))]:
+        s = f * h * w
+        q, k, v = (torch.randn(b, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+        cos, sin = rope_tables(b, f, h, w)
+        out, lse = fa.flash_attention_split_rope(q, k, v, cos, sin, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5, return_lse=True)
+        err_o = (out.float() - ref.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        max_err = max(max_err, err_o, err_lse)
+
+        def unfused():
+            return fa.flash_attention(fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin), v)
+
+        o1, lse1 = fa.flash_attention(fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin), v,
+                                      return_lse=True)
+        same = torch.equal(out, o1) and torch.equal(lse, lse1)
+        ms = median_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
+        plain_ms = median_ms(lambda: fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5),
+                             reps=5, warmup=1)
+        unfused_ms = median_ms(unfused)
+        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; K1 on rotated q, k bitwise "
+              f"equal: {same}  K5 {ms:.4f} ms  plain {plain_ms:.4f} ms  K1 + torch rotation {unfused_ms:.4f} ms",
+              flush=True)
+        if not (err_o <= 2e-2 and err_lse <= 1e-3 and torch.isfinite(out).all()):
+            fail(f"K5 disagrees with the plain version at B={b} S={s}")
+        if not same:
+            fail(f"K5 differs from K1 on the plainly rotated q and k at B={b} S={s}")
+        rows[(b, s)] = (ms, plain_ms, unfused_ms)
+        del q, k, v, out, lse, ref, ref_lse, o1, lse1
+
+    s, (f, h, w) = 1280, (5, 16, 16)
+    q, k, v, do = (torch.randn(1, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    cos, sin = rope_tables(1, f, h, w)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k3 = fa.bwd_launch_count
+    got = torch.autograd.grad(fa.flash_attention_split_rope(*leaves, cos, sin), leaves, do)
+    if fa.bwd_launch_count != k3 + 1:
+        fail("the K5 Function's backward did not run K3")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.flash_attention_split_rope_reference(*leaves, cos, sin, 128**-0.5), leaves, do)
+    line = f"  K5 Function gradients at B=1 S={s} (K3 on rotated q, k) vs plain autograd:"
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        d = a.float() - r.float()
+        l2, rel_max = (d.norm() / r.float().norm()).item(), d.abs().max().item() / r.float().abs().max().item()
+        line += f" {name} rel L2 {l2:.2e} max|d| {rel_max:.2e} of max;"
+        if not (l2 <= 5e-3 and rel_max <= 2e-2):
+            fail(f"the K5 Function's {name} disagrees with plain autograd")
+    print(line, flush=True)
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -591,6 +760,240 @@ def drive_slice(models, text, fa, qmm, want_k2: int) -> dict:
     return {"k1": k1, "k2": k2}
 
 
+# A narrow VAE encoder: the default's five stages at 128 channels, one res
+# block at each end (space /32, time /8, as the default).
+NARROW_ENCODER_BLOCKS = (
+    ("res_x", {"num_layers": 1}), ("compress_space_res", {"multiplier": 1}), ("compress_time_res", {"multiplier": 1}),
+    ("compress_all_res", {"multiplier": 1}), ("compress_all_res", {"multiplier": 1}), ("res_x", {"num_layers": 1}),
+)
+
+
+def write_image(path: Path, size: int, seed: int) -> None:
+    """A seeded, smooth RGB PNG of size x size, written with cv2 at the size
+    the pipeline asks for."""
+    import cv2
+    import numpy as np
+
+    noise = np.random.default_rng(seed).uniform(0, 255, (size, size, 3)).astype(np.uint8)
+    if not cv2.imwrite(str(path), cv2.GaussianBlur(noise, (0, 0), size / 64)):
+        fail(f"cv2 could not write {path}")
+
+
+def vae_on(module, device, dtype):
+    """A copy of a VAE module on ``device`` in ``dtype``, its latent
+    statistics kept fp32 as the loaders keep them."""
+    out = copy.deepcopy(module).to(device=device, dtype=dtype)
+    for (_, buf), (_, ref) in zip(out.named_buffers(), module.named_buffers()):
+        buf.data = ref.to(device)
+    return out
+
+
+def set_routes(on: bool) -> None:
+    """The K4 and K5 routes (MLX_VIDEO_TPU_CROSS_KERNEL, MLX_VIDEO_TPU_FUSED_ROPE),
+    on or off in this process."""
+    from mlx_video_tpu_torch.ops import attention
+
+    attention.use_cross_kernel(on)
+    attention.use_fused_rope(on)
+
+
+def narrow_dev_check(work: Path) -> None:
+    """The dev pipeline at narrow width with the K4 and K5 routes on: a
+    2-layer DiT, a narrow encoder and decoder, one image at frame 0, batched
+    CFG 4.5, 2 steps at 256x256x17 (192 tokens); bf16 on the card against
+    fp32 on the CPU (the plain versions) with the same weights, image and
+    noise. Bar: per-frame PSNR >= 35 dB of latents and RGB."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType, VideoVAEConfig
+    from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
+    from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
+    from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
+    from mlx_video_tpu_torch.pipelines.generate import ModelBundle, TextConditioning, generate_video
+
+    cfg = LTXModelConfig(
+        model_type=LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT, double_precision_rope=True,
+        num_attention_heads=4, attention_head_dim=128, num_layers=2, cross_attention_dim=512, caption_channels=256,
+    )
+    g = torch.Generator().manual_seed(11)
+    dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
+    dec_cfg, enc_cfg = DecoderConfig(base_channels=64, num_layers_per_block=1), VideoVAEConfig(
+        encoder_blocks=NARROW_ENCODER_BLOCKS)
+    dec, enc = init_video_decoder(g, dec_cfg, device="cpu"), init_video_encoder(g, enc_cfg, device="cpu")
+    dec.latents_mean.normal_(generator=g).mul_(0.1)
+    dec.latents_std.uniform_(0.7, 1.3, generator=g)
+    enc.per_channel_statistics.mean.copy_(dec.latents_mean)
+    enc.per_channel_statistics.std.copy_(dec.latents_std)
+    pos, neg = (torch.randn(1, 16, 256, generator=g) for _ in range(2))
+    image = work / "narrow.png"
+    write_image(image, 256, 11)
+
+    def run(device, dtype):
+        models = ModelBundle(to_card(dit, device, dtype), cfg, vae_on(dec, device, dtype), dec_cfg,
+                             vae_encoder=vae_on(enc, device, dtype), vae_encoder_config=enc_cfg)
+        res = generate_video(models, TextConditioning(pos, neg), height=256, width=256, num_frames=17, pipeline="dev",
+                             num_inference_steps=2, cfg_scale=4.5, images=[(str(image), 0, 1.0)], tiling="none",
+                             dtype=dtype, generator=torch.Generator().manual_seed(12))
+        return res.latents, res.video
+
+    set_routes(True)
+    ref, got = run("cpu", torch.float32), run("cuda", torch.bfloat16)
+    set_routes(False)
+    for name, r, o in zip(("latents", "decoded rgb"), ref, got):
+        peak = 2.0 if name == "decoded rgb" else float(np.abs(r).max())
+        worst = min(psnr(o[:, :, i], r[:, :, i], peak) for i in range(r.shape[2]))
+        print(f"  narrow dev slice (routes on), {name}: min per-frame PSNR {worst:.2f} dB (card bf16 vs CPU fp32)",
+              flush=True)
+        if not np.isfinite(o).all() or worst < 35.0:
+            fail(f"narrow dev slice {name} PSNR {worst:.2f} dB < 35 dB")
+
+
+@contextlib.contextmanager
+def profiled(what: str):
+    """torch.profiler over the block: device busy time against the wall (the
+    idle share) and the device time by kernel class and of the top kernels.
+    The profiler slows the host side, so the idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    counts = {e.key: e.count for e in kernels}
+    busy = sum(ms.values()) / 1e3
+    classes = {"K5 (flash_rope_kernel)": "flash_rope", "K4 (flash_cross_kernel)": "flash_cross",
+               "convolution": ("conv", "fprop", "implicit"), "GEMM": ("gemm", "xmma", "nvjet", "cutlass")}
+    by_class = dict.fromkeys([*classes, "other (elementwise, norms, softmax, copies)"], 0.0)
+    for key, t in ms.items():
+        name = next((c for c, pat in classes.items() if any(p in key.lower() for p in (
+            (pat,) if isinstance(pat, str) else pat))), "other (elementwise, norms, softmax, copies)")
+        by_class[name] += t
+    print(f"  profile of {what}: wall {wall:.4f} s, device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; "
+          f"{sum(counts.values())} kernel launches", flush=True)
+    for name, t in by_class.items():
+        print(f"    {name}: {t:.1f} ms ({100 * t / 1e3 / busy:.1f} % of busy)", flush=True)
+    for key in sorted(ms, key=ms.get, reverse=True)[:8]:
+        print(f"    top: {ms[key]:.1f} ms over {counts[key]} launches  {key[:110]}", flush=True)
+
+
+def drive_dev(models, text, images, fa, ca, steps: int, seed: int, **kw):
+    """generate_video, dev pipeline, 768x768x65, CFG 4.5, counts set to 0
+    just before; returns the result, the K1, K4 and K5 launches and the wall
+    seconds."""
+    import torch
+
+    from mlx_video_tpu_torch.pipelines.generate import generate_video
+
+    device = models.transformer.video.scale_shift_table.device
+    fa.launch_count = fa.bwd_launch_count = fa.rope_launch_count = ca.launch_count = 0
+    t0 = time.perf_counter()
+    res = generate_video(models, text, height=768, width=768, num_frames=65, pipeline="dev",
+                         num_inference_steps=steps, cfg_scale=4.5, images=images, tiling="auto",
+                         generator=torch.Generator(device=device).manual_seed(seed), **kw)
+    return res, (fa.launch_count, ca.launch_count, fa.rope_launch_count), time.perf_counter() - t0
+
+
+def check_dev_launches(counts, want, what: str) -> None:
+    if tuple(counts) != tuple(want):
+        fail(f"{what}: launches K1, K4, K5 {tuple(counts)}, want {tuple(want)}")
+
+
+def min_frame_psnr(a, b) -> float:
+    import numpy as np
+
+    peak = float(np.abs(b).max())
+    return min(psnr(a[:, :, i], b[:, :, i], peak) for i in range(b.shape[2]))
+
+
+def full_width_dev(models, fa, ca, work: Path) -> dict:
+    """The dev pipeline on the 19B video DiT geometry with both routes on:
+    the 40-step run with one image, then a 2-step A/B of the routes on
+    against off, then one step of sequential against batched CFG."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.config import VideoVAEConfig
+    from mlx_video_tpu_torch.io import media
+    from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder, video_encoder_apply
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+
+    device, bf16 = models.transformer.video.scale_shift_table.device, torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(13)
+    enc_cfg = VideoVAEConfig()
+    t0 = time.perf_counter()
+    encoder = init_video_encoder(g, enc_cfg, device=device, dtype=bf16)
+    encoder.per_channel_statistics.mean.copy_(models.latents_mean)
+    encoder.per_channel_statistics.std.copy_(models.latents_std)
+    models.vae_encoder, models.vae_encoder_config = encoder, enc_cfg
+    caption = models.transformer_config.caption_channels
+    text = TextConditioning(*(torch.randn(1, 128, caption, generator=g, device=device).to(bf16) for _ in range(2)))
+    image = work / "cond.png"
+    write_image(image, 768, 13)
+    images = [(str(image), 0, 1.0)]
+    print(f"  default encoder ({sum(p.numel() for p in encoder.parameters()) / 1e6:.1f} M params) drawn and a "
+          f"768x768 image written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    set_routes(True)
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = drive_dev(models, text, images, fa, ca, steps=40, seed=14)
+    peak = torch.cuda.max_memory_allocated()
+    for name, sec in res.phase_seconds.items():
+        print(f"  phase {name}: {sec:.4f} s", flush=True)
+    steps_s = res.phase_seconds["dev_denoise"] / 40
+    print(f"  generate_video wall {wall:.4f} s; dev_denoise {steps_s:.4f} s a step; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches K1 {counts[0]}, K4 {counts[1]}, K5 {counts[2]}", flush=True)
+    check_dev_launches(counts, (0, 40 * 48, 40 * 48), "the 40-step dev run")
+    video = res.video
+    if video is None or video.shape != (1, 3, 65, 768, 768) or not np.isfinite(video).all():
+        fail(f"dev video {None if video is None else video.shape}, want a finite (1, 3, 65, 768, 768)")
+    print(f"  video {video.shape} finite; range [{video.min():.4f}, {video.max():.4f}], std {video.std():.4f}",
+          flush=True)
+    with torch.no_grad():
+        pixels = media.prepare_image_for_encoding(media.load_image(image, 768, 768), 768, 768)
+        encoded = video_encoder_apply(encoder, enc_cfg, torch.from_numpy(pixels).to(device, bf16)).float().cpu()
+    frame0 = torch.from_numpy(res.latents[:, :, :1])
+    d0 = ((frame0 - encoded).abs().max() / encoded.abs().max()).item()
+    print(f"  latent frame 0 vs the encoded image: max|d| {d0:.3e} of max (strength 1.0 keeps it clean)", flush=True)
+    if not d0 <= 2.0**-8:
+        fail("latent frame 0 is not the encoded conditioning image")
+    del res, video
+
+    with profiled("2 warm dev steps (routes on; the image encode included)"):
+        on, counts_on, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
+    check_dev_launches(counts_on, (0, 96, 96), "the 2-step run with the routes on")
+    set_routes(False)
+    off, counts_off, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
+    check_dev_launches(counts_off, (96, 0, 0), "the 2-step run with the routes off")
+    ab = min_frame_psnr(on.latents, off.latents)
+    print(f"  A/B at 2 steps, routes on vs off: min per-frame latent PSNR {ab:.2f} dB; launches on {counts_on}, "
+          f"off {counts_off}", flush=True)
+    if not ab >= 35.0:
+        fail(f"routes on vs off: {ab:.2f} dB < 35 dB")
+
+    set_routes(True)
+    batched, _, b_wall = drive_dev(models, text, images, fa, ca, steps=1, seed=16, decode_latents_only=True)
+    seq, counts_seq, s_wall = drive_dev(models, text, images, fa, ca, steps=1, seed=16, decode_latents_only=True,
+                                        cfg_sequential=True)
+    check_dev_launches(counts_seq, (0, 48 * 2, 48 * 2), "one step of sequential CFG")
+    sq = min_frame_psnr(seq.latents, batched.latents)
+    print(f"  one step, sequential vs batched CFG: min per-frame latent PSNR {sq:.2f} dB; launches {counts_seq}; "
+          f"wall {s_wall:.4f} s vs {b_wall:.4f} s (encode included)", flush=True)
+    if not sq >= 35.0:
+        fail(f"sequential vs batched CFG: {sq:.2f} dB < 35 dB")
+    set_routes(False)
+    models.vae_encoder = models.vae_encoder_config = None
+    del encoder
+    torch.cuda.empty_cache()
+    return {"k4": counts[1], "k5": counts[2], "step_s": steps_s, "peak_gib": peak / 2**30}
+
+
 def quantize_full_width(models) -> None:
     import torch
 
@@ -784,6 +1187,18 @@ def quant_matmul_work(m: int, k: int, n: int, bits: int, group: int):
     return 2.0 * m * k * n, m * k * 2 + n * k * bits // 8 + 2 * n * (k // group) * 4 + m * n * 2
 
 
+def cross_attention_work(b: int, sq: int, skv: int, h: int, d: int, bias: bool):
+    """softmax(q k^T + bias) v: two Sq x Skv x D products a head; q, k, v and
+    the fp32 bias rows read, o (bf16) written."""
+    return 4.0 * b * sq * skv * d * h, (2 * b * sq + 2 * b * skv) * h * d * 2 + (b * skv * 4 if bias else 0)
+
+
+def rope_attention_work(b: int, s: int, h: int, d: int):
+    """K1's products on rotated q and k; q, k, v and the fp32 (B, H, S, D/2)
+    cos and sin tables read, o (bf16) written (no lse on the inference path)."""
+    return 4.0 * b * s * s * d * h, 4 * b * s * h * d * 2 + 2 * b * h * s * (d // 2) * 4
+
+
 def main() -> int:
     import torch
 
@@ -791,6 +1206,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from mlx_video_tpu_torch.ops import _build
+    from mlx_video_tpu_torch.ops import cross_attention as ca
     from mlx_video_tpu_torch.ops import flash_attention as fa
     from mlx_video_tpu_torch.ops import quant_matmul as qmm
 
@@ -815,15 +1231,21 @@ def main() -> int:
     k1 = kernel_vs_plain(fa)
     k2 = quant_kernel_vs_plain(qmm)
     k3 = bwd_kernel_vs_plain(fa)
-    print("small slices, card vs CPU reference:", flush=True)
-    small_slice_check(quantized=False)
-    small_slice_check(quantized=True)
-    lora_slice_check()
-    models, text = full_width_models()
-    print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
-    drive_slice(models, text, fa, qmm, want_k2=0)
+    k4 = cross_kernel_vs_plain(ca)
+    k5 = rope_kernel_vs_plain(fa)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
+        print("small slices, card vs CPU reference:", flush=True)
+        small_slice_check(quantized=False)
+        small_slice_check(quantized=True)
+        lora_slice_check()
+        narrow_dev_check(work)
+        models, text = full_width_models()
+        print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
+        drive_slice(models, text, fa, qmm, want_k2=0)
+        print("full-width dev slice (768x768x65: 5184 tokens, 40 steps, CFG 4.5, one image; K4 and K5 routes on):",
+              flush=True)
+        dev = full_width_dev(models, fa, ca, work)
         write_training_dataset(work / "data")
         print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
         train = full_width_training(models, fa, work / "data", work)
@@ -840,6 +1262,8 @@ def main() -> int:
     k1_ms, k1_plain_ms, k1_lib_ms = k1["rows"][(s_train, 128)]
     k3_ms, k3_plain_ms, k3_lib_ms = k3["rows"][(s_train, 128)]
     k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
+    k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
+    k5_ms, k5_plain_ms, _ = k5["rows"][(2, 5184)]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -873,6 +1297,28 @@ def main() -> int:
         "plain_ms": k3_plain_ms,
         **bound(*attention_bwd_work(s_train, 32, 128)),
         "library_ms": k3_lib_ms,
+    }, {
+        "name": "flash_cross_attention",
+        "route": "cuda",
+        "source": "mlx_video_tpu_torch/csrc/flash_cross_attention.cu",
+        "replaces": "mlx_video_tpu/ops/flash_attention.py:691",
+        "launches": dev["k4"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
+        **bound(*cross_attention_work(2, 5184, 128, 32, 128, bias=False)),
+        "library_ms": k4_lib_ms,
+    }, {
+        "name": "flash_attention_split_rope",
+        "route": "cuda",
+        "source": "mlx_video_tpu_torch/csrc/flash_attention_rope.cu",
+        "replaces": "mlx_video_tpu/ops/flash_attention.py:547",
+        "launches": dev["k5"],
+        "max_abs_err": k5["max_abs_err"],
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        **bound(*rope_attention_work(2, 5184, 32, 128)),
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

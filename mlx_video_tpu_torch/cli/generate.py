@@ -1,13 +1,18 @@
-"""``python -m mlx_video_tpu_torch.generate`` — the distilled text-to-video CLI.
+"""``python -m mlx_video_tpu_torch.generate`` — the distilled and dev video CLI.
 
 Counterpart of mlx_video_tpu/cli/generate.py on the same flag names (the
 port's own copy of the JAX package's framework-free ``build_parser`` and
 ``slugify``, as :func:`base_parser` and :func:`slugify`), plus ``--device`` (default
 ``cuda``; without CUDA it exits rather than run on the CPU, which takes
 ``--device cpu``). The run starts from precomputed text embeddings
-(``--embeddings``): load the snapshot, optionally quantize the transformer
-(``--quantization``), generate, write the mp4 and, with
-``--profile-json-path``, the phase seconds.
+(``--embeddings``; a ``video_neg`` entry is the negative prompt for CFG):
+load the snapshot, optionally quantize the transformer (``--quantization``),
+generate, write the mp4 and, with ``--profile-json-path``, the phase seconds.
+``--pipeline dev`` runs the dev pipeline (``--steps``, ``--cfg-scale``,
+``--no-cfg-batch``) with optional image conditioning (``--image PATH
+[FRAME_IDX] [STRENGTH]``, ``--condition-image``, ``--image-frame-idx``,
+``--image-strength``). Without ``video_neg`` the dev run has no CFG, as in
+the JAX package.
 
 Flags of features the port does not have yet exit with a message that names
 them; none is ignored.
@@ -244,13 +249,15 @@ _PORTED = frozenset({
     "prompt", "height", "width", "num_frames", "seed", "fps", "output_path", "auto_output_name",
     "model_repo", "checkpoint_path", "embeddings", "stage1_steps", "stage2_steps", "tiling",
     "video_encoder", "latents_only", "profile_json_path", "verbose", "quantize_bits", "pipeline",
-    "device",
+    "device", "steps", "cfg_scale", "no_cfg_batch", "image", "condition_image", "image_frame_idx",
+    "image_strength",
 })
+_IMAGE_FLAGS = ("image", "condition_image", "image_frame_idx", "image_strength")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = base_parser()
-    p.description = "LTX-2 distilled text-to-video generation (PyTorch, CUDA)"
+    p.description = "LTX-2 video generation, distilled and dev pipelines (PyTorch, CUDA)"
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; exits when CUDA is absent)")
     return p
@@ -262,25 +269,37 @@ def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) ->
     msgs = [action.option_strings[0] for action in parser._actions
             if action.dest not in _PORTED and action.option_strings
             and getattr(args, action.dest, action.default) != action.default]
-    if args.pipeline != "distilled":
-        msgs.append(f"--pipeline {args.pipeline} (only the distilled pipeline is ported)")
+    if args.pipeline not in ("distilled", "dev"):
+        msgs.append(f"--pipeline {args.pipeline} (the distilled and dev pipelines are ported)")
+    elif args.pipeline == "distilled":
+        given = [action.option_strings[0] for action in parser._actions if action.dest in _IMAGE_FLAGS
+                 and getattr(args, action.dest) != action.default]
+        if given:
+            msgs.append(f"{', '.join(given)} with --pipeline distilled (image conditioning is ported for "
+                        "--pipeline dev)")
     if not args.embeddings:
         msgs.append("a prompt without --embeddings (the Gemma text encoder)")
     return msgs
 
 
 def load_embeddings(path, device=None):
-    """Precomputed text embeddings (``video`` or ``video_prompt_embeds``;
-    a 2-D array gains a batch axis) -> TextConditioning on ``device``."""
+    """Precomputed text embeddings (``video`` or ``video_prompt_embeds``, and
+    the negative prompt's ``video_neg`` if present; a 2-D array gains a batch
+    axis) -> TextConditioning on ``device``."""
     from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
     from mlx_video_tpu_torch.pipelines.generate import TextConditioning
 
     with SafetensorsReader(path) as r:
-        name = "video" if "video" in r else "video_prompt_embeds"
-        if name not in r:
+        def get(name):
+            if name not in r:
+                return None
+            emb = r.get(name, device)
+            return emb[None] if emb.dim() == 2 else emb
+
+        video = get("video") if "video" in r else get("video_prompt_embeds")
+        if video is None:
             raise ValueError(f"{path} holds no 'video' or 'video_prompt_embeds' embeddings")
-        emb = r.get(name, device)
-    return TextConditioning(video_embeddings=emb[None] if emb.dim() == 2 else emb)
+        return TextConditioning(video_embeddings=video, video_neg_embeddings=get("video_neg"))
 
 
 def main(argv=None) -> None:
@@ -292,6 +311,8 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
+    if args.condition_image:
+        args.image.append([args.condition_image, str(args.image_frame_idx), str(args.image_strength)])
 
     from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.pipelines.generate import generate_video
@@ -300,7 +321,8 @@ def main(argv=None) -> None:
     model_path = get_model_path(args.checkpoint_path or args.model_repo)
     t0 = time.perf_counter()
     models = loading.load_model_bundle(
-        model_path, bits_hint=loading.bits_hint_for(args.checkpoint_path or args.model_repo), device=device,
+        model_path, pipeline=args.pipeline, bits_hint=loading.bits_hint_for(args.checkpoint_path or args.model_repo),
+        load_encoder=bool(args.image), device=device,
     )
     try:
         loading.quantize_models(models, quantize_bits=args.quantize_bits)
@@ -325,6 +347,11 @@ def main(argv=None) -> None:
         seed=args.seed,
         stage1_steps=args.stage1_steps,
         stage2_steps=args.stage2_steps,
+        pipeline=args.pipeline,
+        cfg_scale=args.cfg_scale,
+        num_inference_steps=args.steps,
+        cfg_sequential=args.no_cfg_batch,
+        images=[_cond_arg(v) for v in args.image],
         output_path=None if args.latents_only else output_path,
         tiling=args.tiling,
         decode_latents_only=args.latents_only,

@@ -8,7 +8,10 @@ names, so the mapping is mechanical:
 
 - subtrees named ``blocks``, ``res_blocks`` and ``post_upsample_res_blocks``
   are stacked along a leading layer axis in JAX and are ``nn.ModuleList``s
-  here: layer ``i`` becomes the path component ``.i``;
+  here: layer ``i`` becomes the path component ``.i``. The VAE encoder's
+  ``res_blocks`` are the exception: its JAX tree keys them by index
+  (``{"0": ..., "1": ...}``) and does not stack them, so they map one to
+  one (:func:`encoder_to_jax_tree` for the way back);
 - a ``weight`` leaf changes layout: linear (in, out) -> (out, in), 2D conv
   (kh, kw, I, O) -> (O, I, kh, kw), 3D conv (kd, kh, kw, I, O) ->
   (O, I, kd, kh, kw); every other leaf is copied as it is. Quantized leaves
@@ -96,7 +99,7 @@ def jax_tree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
             path = f"{prefix}{key}"
             if not isinstance(val, dict):
                 out[path] = _leaf_to_torch(key, val)
-            elif key in STACKED_KEYS:
+            elif key in STACKED_KEYS and not all(k.isdigit() for k in val):
                 for i in range(_num_layers(val)):
                     walk(_layer(val, i), f"{path}.{i}.")
             else:
@@ -106,7 +109,8 @@ def jax_tree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _restack(state: Dict[str, torch.Tensor], leaf_fn: Callable, stack_fn: Callable) -> dict:
+def _restack(state: Dict[str, torch.Tensor], leaf_fn: Callable, stack_fn: Callable,
+             stacked=STACKED_KEYS) -> dict:
     tree: dict = {}
     for path, t in state.items():
         parts = path.split(".")
@@ -124,7 +128,7 @@ def _restack(state: Dict[str, torch.Tensor], leaf_fn: Callable, stack_fn: Callab
         for key, val in node.items():
             if not isinstance(val, dict):
                 continue
-            if key in STACKED_KEYS:
+            if key in stacked:
                 node[key] = stack([restack(val[str(i)]) for i in range(len(val))])
             else:
                 restack(val)
@@ -180,3 +184,9 @@ def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
 
 def module_to_jax_tree(module: nn.Module) -> dict:
     return state_dict_to_jax_tree(module.state_dict())
+
+
+def encoder_to_jax_tree(encoder: nn.Module) -> dict:
+    """A ``VideoEncoder`` as the JAX ``init_video_encoder`` tree: nothing is
+    stacked."""
+    return _restack(encoder.state_dict(), _leaf_to_numpy, None, stacked=())

@@ -1,10 +1,12 @@
-"""MP4 writing: the mp4 writer functions of mlx_video_tpu/io/media.py that the
-port calls (frames_to_uint8, VideoWriter and write_video, with the cv2 codec
-probe they need), copied whole and unchanged in behaviour, so that the port
-imports nothing of the JAX package.
+"""Image loading and MP4 writing: the functions of mlx_video_tpu/io/media.py
+that the port calls (load_image and prepare_image_for_encoding, which resize
+with PIL's LANCZOS; frames_to_uint8, VideoWriter and write_video, with the cv2
+codec probe they need), copied whole and unchanged in behaviour, so that the
+port imports nothing of the JAX package.
 
-Behavioral spec: reference mlx_video/generate.py:1814-2033, 3569-3857 (cv2
-writer, ffmpeg pipe writer). Host-side NumPy.
+Behavioral spec: reference mlx_video/utils.py:529-683 (load/prepare) and
+mlx_video/generate.py:1814-2033, 3569-3857 (cv2 writer, ffmpeg pipe writer).
+Host-side NumPy.
 """
 
 from __future__ import annotations
@@ -16,6 +18,51 @@ from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+
+def load_image(
+    image_path: Union[str, Path],
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+) -> np.ndarray:
+    """Load an RGB image as (H, W, 3) float32 in [0, 1], resized to
+    (height, width) or rounded down to /32 (reference: utils.py:529-573)."""
+    from PIL import Image
+
+    image = Image.open(image_path).convert("RGB")
+    if height is not None and width is not None:
+        image = image.resize((width, height), Image.Resampling.LANCZOS)
+    elif height is not None or width is not None:
+        ow, oh = image.size
+        if height is not None:
+            nw = (int(ow * height / oh) // 32) * 32
+            image = image.resize((nw, height), Image.Resampling.LANCZOS)
+        else:
+            nh = (int(oh * width / ow) // 32) * 32
+            image = image.resize((width, nh), Image.Resampling.LANCZOS)
+    else:
+        ow, oh = image.size
+        nw, nh = (ow // 32) * 32, (oh // 32) * 32
+        if (nw, nh) != (ow, oh):
+            image = image.resize((nw, nh), Image.Resampling.LANCZOS)
+    return np.asarray(image, dtype=np.float32) / 255.0
+
+
+def prepare_image_for_encoding(image: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(H, W, 3) [0,1] -> (1, 3, 1, H, W) in [-1, 1] (reference: utils.py:648-683)."""
+    if image.shape[0] != height or image.shape[1] != width:
+        from PIL import Image
+
+        arr = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+        image = (
+            np.asarray(
+                Image.fromarray(arr).resize((width, height), Image.Resampling.LANCZOS),
+                dtype=np.float32,
+            )
+            / 255.0
+        )
+    out = image * 2.0 - 1.0
+    return np.transpose(out, (2, 0, 1))[None, :, None]
 
 
 def frames_to_uint8(video: np.ndarray) -> np.ndarray:

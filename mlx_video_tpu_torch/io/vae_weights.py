@@ -1,7 +1,8 @@
-"""Checkpoint loaders for the video VAE decoder and the latent upsampler.
+"""Checkpoint loaders for the video VAE decoder and encoder and the latent
+upsampler.
 
-Counterpart of the decoder and upsampler loaders of
-mlx_video_tpu/io/vae_weights.py, with the same key remapping
+Counterpart of the decoder, encoder and upsampler loaders of
+mlx_video_tpu/io/vae_weights.py, with the same prefixes, the same key remapping
 (``mid_block.resnets.i`` -> ``up_blocks.0.res_blocks.i``,
 ``up_blocks.b.resnets.i`` -> ``up_blocks.(2b+2).res_blocks.i``,
 ``up_blocks.b.upsamplers.0`` -> ``up_blocks.(2b+1)``) and the same
@@ -12,8 +13,7 @@ the port's, so nothing is transposed; the port's res blocks are a
 
 The loaders fill a built module in place (values cast to its dtypes and
 device) and return the number of tensors loaded; a tensor whose shape does
-not match raises. The VAE encoder, audio VAE and vocoder loaders are not
-ported yet.
+not match raises. The audio VAE and vocoder loaders are not ported yet.
 """
 
 from __future__ import annotations
@@ -153,3 +153,29 @@ def load_upsampler_weights(path: Union[str, Path], upsampler: nn.Module) -> int:
     weights = _read_all(path, ("upsampler.",) if bundled else ("",), _device_of(upsampler))
     state = upsampler.state_dict()
     return sum(_assign(state, tuple(key.split(".")), value) for key, value in weights.items())
+
+
+def load_video_encoder_weights(path: Union[str, Path], encoder: nn.Module) -> int:
+    """Fill a ``VideoEncoder`` from a checkpoint, in place: the ``vae.encoder.``,
+    ``encoder.`` or ``vae_encoder.`` tensors and the latent statistics
+    (``mean-of-means`` or ``mean``, ``std-of-means`` or ``std``)."""
+    prefixes = _detect_prefixes(path, [("vae.encoder.",), ("encoder.",), ("vae_encoder.",)])
+    weights = _read_all(path, prefixes, _device_of(encoder))
+    stats = _read_stats(
+        path,
+        ("vae.per_channel_statistics.", "vae_encoder.per_channel_statistics.", "per_channel_statistics.", ""),
+        ("mean-of-means", "mean", "std-of-means", "std"),
+    )
+    state = encoder.state_dict()
+    loaded = 0
+    for target, names in (("per_channel_statistics.mean", ("mean-of-means", "mean")),
+                          ("per_channel_statistics.std", ("std-of-means", "std"))):
+        for name in names:
+            if name in stats:
+                _assign(state, tuple(target.split(".")), stats[name].float())
+                loaded += 1
+                break
+    for key, value in weights.items():
+        if _assign_any(state, key.split("."), value):
+            loaded += 1
+    return loaded

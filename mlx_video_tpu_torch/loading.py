@@ -1,30 +1,32 @@
 """Model-bundle loading: resolve the weight files of a snapshot and build the
-components of the distilled video pipeline on one device.
+components of the distilled or the dev video pipeline on one device.
 
-Counterpart of mlx_video_tpu/loading.py for the distilled, video-only path:
-the DiT (PyTorch, MLX, MLX pre-quantized or native layout; io/weights.py),
-the VAE decoder and the 2x upsampler (io/vae_weights.py). Not ported yet, and
-refused with ``NotImplementedError``: the dev pipeline, audio, the VAE
-encoder (image/video conditioning), a separate stage-2 transformer, and the
-W8A8 / W4A8 execution modes.
+Counterpart of mlx_video_tpu/loading.py for the video-only paths: the DiT of
+the pipeline's kind (PyTorch, MLX, MLX pre-quantized or native layout;
+io/weights.py), the VAE decoder, the VAE encoder when image conditioning
+needs it, and the 2x upsampler when the snapshot has it (io/vae_weights.py).
+Not ported yet, and refused with ``NotImplementedError``: the keyframe and
+IC-LoRA pipelines, audio, a separate stage-2 transformer, and the W8A8 /
+W4A8 execution modes.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 
-from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
+from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType, VideoVAEConfig
 from mlx_video_tpu_torch.io import vae_weights
 from mlx_video_tpu_torch.io.safetensors import read_metadata
 from mlx_video_tpu_torch.io.weights import load_dit_params, load_native_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
+from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
 from mlx_video_tpu_torch.ops.quant import quantize_dit_params
-from mlx_video_tpu_torch.pipelines.generate import ModelBundle
+from mlx_video_tpu_torch.pipelines.generate import ModelBundle, PipelineType
 
 UNIFIED_FORMAT = "mlx_video_tpu_unified"
 UPSAMPLER_FILE = "ltx-2-spatial-upscaler-x2-1.0.safetensors"
@@ -109,7 +111,7 @@ def read_quantization_metadata(model_path: Path) -> Optional[Dict]:
 
 def load_model_bundle(
     model_path: Path,
-    pipeline: str = "distilled",
+    pipeline: Union[PipelineType, str] = PipelineType.DISTILLED,
     audio: bool = False,
     dtype=torch.bfloat16,
     bits_hint: Optional[str] = None,
@@ -117,33 +119,41 @@ def load_model_bundle(
     load_encoder: bool = False,
     device="cuda",
 ) -> ModelBundle:
-    """Load the distilled video pipeline's components from a snapshot onto
-    ``device``: transformer, VAE decoder (its weights over a seeded init, as
-    the JAX loader fills its init) and, when the snapshot has it, the
-    upsampler."""
-    if pipeline != "distilled":
-        raise _not_ported(f"The {pipeline!r} pipeline", "Dev pipeline")
+    """Load a video pipeline's components from a snapshot onto ``device``:
+    the transformer of the pipeline's kind (``ltx-2-19b-dev*`` for the dev
+    pipeline, ``-distilled*`` otherwise), the VAE decoder, with
+    ``load_encoder`` the VAE encoder (from the same VAE file), and, when the
+    snapshot has it, the upsampler. The VAE parts are loaded over a seeded
+    init, as the JAX loader fills its init."""
+    pipeline = PipelineType(pipeline)
+    if pipeline not in (PipelineType.DISTILLED, PipelineType.DEV):
+        raise _not_ported(f"The {pipeline.value!r} pipeline", "Conditioning pipelines")
     if audio:
         raise _not_ported("Audio generation", "Audio")
-    if load_encoder:
-        raise _not_ported("The VAE encoder (image and video conditioning)", "Dev pipeline")
     if stage2_path is not None:
-        raise _not_ported("A separate stage-2 transformer", "Dev pipeline")
+        raise _not_ported("A separate stage-2 transformer", "Conditioning pipelines")
     model_path = Path(model_path)
     device = torch.device(device)
-    config = model_config_for(pipeline, audio)
+    config = model_config_for(pipeline.value, audio)
 
     unified = unified_bundle_file(model_path)
     if unified is not None:
         transformer = load_native_params(unified, config, dtype=dtype, device=device, prefix="transformer.")
     else:
-        tf_file = resolve_transformer_file(model_path, pipeline, bits_hint)
+        tf_file = resolve_transformer_file(model_path, pipeline.value, bits_hint)
         transformer = load_dit_params([tf_file], config, dtype=dtype, device=device)
 
     generator = torch.Generator(device=device).manual_seed(0)
+    vae_file = resolve_vae_file(model_path, bits_hint)
     dec_cfg = DecoderConfig()
     decoder = init_video_decoder(generator, dec_cfg, device=device, dtype=dtype)
-    vae_weights.load_video_decoder_weights(resolve_vae_file(model_path, bits_hint), decoder)
+    vae_weights.load_video_decoder_weights(vae_file, decoder)
+
+    encoder = enc_cfg = None
+    if load_encoder:
+        enc_cfg = VideoVAEConfig()
+        encoder = init_video_encoder(generator, enc_cfg, device=device, dtype=dtype)
+        vae_weights.load_video_encoder_weights(vae_file, encoder)
 
     upsampler = None
     ups_file = model_path / UPSAMPLER_FILE
@@ -157,6 +167,8 @@ def load_model_bundle(
         vae_decoder=decoder,
         vae_decoder_config=dec_cfg,
         upsampler=upsampler,
+        vae_encoder=encoder,
+        vae_encoder_config=enc_cfg,
     )
 
 

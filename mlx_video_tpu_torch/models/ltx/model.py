@@ -17,8 +17,12 @@ the block's forward, so one block's activations are held at a time.
 Parameters are created with ``requires_grad=False``; a trainer turns on the
 ones it trains (lora.py's adapters, or everything in full finetuning).
 
-Not ported yet: the audio and audio-video branches, PAB attention caching,
-sequence parallelism and the fused-RoPE attention path.
+SPLIT-RoPE self-attention goes to K5 (the rotation inside the flash kernel)
+when the fused-RoPE route is on (``MLX_VIDEO_TPU_FUSED_ROPE=1``,
+ops/attention.py), as in the JAX ``attention_apply``.
+
+Not ported yet: the audio and audio-video branches, PAB attention caching and
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mlx_video_tpu_torch.config import LTXModelConfig, LTXRopeType
 from mlx_video_tpu_torch.models.ltx import rope as rope_lib
-from mlx_video_tpu_torch.ops.attention import sdpa_flat
+from mlx_video_tpu_torch.ops.attention import fused_split_rope_eligible, sdpa_flat, sdpa_flat_fused_rope
 from mlx_video_tpu_torch.ops.linear import Linear, init_linear_, linear
 from mlx_video_tpu_torch.ops.norms import layer_norm, rms_norm
 
@@ -229,11 +233,16 @@ def attention_apply(
     bias: Optional[torch.Tensor] = None,
     pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """QKV -> q/k RMSNorm -> RoPE -> SDPA -> out projection."""
+    """QKV -> q/k RMSNorm -> RoPE -> SDPA -> out projection. A SPLIT-RoPE
+    self-attention with the fused route on skips the rotation here: K5
+    rotates q and k inside the attention kernel."""
     ctx = x if context is None else context
     q = rms_norm(linear(attn.to_q, x), attn.q_norm.weight, eps=norm_eps)
     k = rms_norm(linear(attn.to_k, ctx), attn.k_norm.weight, eps=norm_eps)
     v = linear(attn.to_v, ctx)
+    is_self = context is None and bias is None
+    if is_self and rope_type == LTXRopeType.SPLIT and fused_split_rope_eligible(q, heads, pe):
+        return linear(attn.to_out, sdpa_flat_fused_rope(q, k, v, heads, pe))
     if pe is not None:
         q = rope_lib.apply_rotary_emb(q, pe, rope_type)
         k = rope_lib.apply_rotary_emb(k, pe, rope_type)

@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mlx_video_tpu_torch.config import LTXRopeType
+from mlx_video_tpu_torch.ops.flash_attention import rotate_split
 
 FreqsCis = Tuple[torch.Tensor, torch.Tensor]
 
@@ -129,19 +130,14 @@ def apply_interleaved_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.
 
 
 def apply_split_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Half-dim rotation with per-head frequencies. x is (B, H, S, D) or the
-    flattened (B, S, H*D), which is reshaped around the rotation."""
-    flat = x.dim() != 4 and cos.dim() == 4
-    xf = x.float()
-    if flat:
-        b, h, s, _ = cos.shape
-        xf = xf.reshape(b, s, h, -1).transpose(1, 2)
-    first, second = xf.chunk(2, dim=-1)
-    cos, sin = cos.float(), sin.float()
-    out = torch.cat([first * cos - sin * second, second * cos + sin * first], dim=-1)
-    if flat:
-        out = out.transpose(1, 2).reshape(x.shape)
-    return out.to(x.dtype)
+    """Half-dim rotation with per-head (B, H, S, D/2) frequencies, in fp32
+    (ops/flash_attention.py:rotate_split, whose arithmetic K5 repeats). x is
+    (B, H, S, D) or the flattened (B, S, H*D), which is reshaped around the
+    rotation."""
+    if x.dim() == 4:
+        return rotate_split(x.transpose(1, 2), cos, sin).transpose(1, 2)
+    b, h, s, _ = cos.shape
+    return rotate_split(x.reshape(b, s, h, -1), cos, sin).reshape(x.shape)
 
 
 def apply_rotary_emb(

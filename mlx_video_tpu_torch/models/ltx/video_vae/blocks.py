@@ -1,4 +1,5 @@
-"""Norms, resnet block and depth-to-space upsample for the video VAE (NCDHW).
+"""Norms, resnet block, space-to-depth downsample and depth-to-space upsample
+for the video VAE (NCDHW).
 
 Counterpart of mlx_video_tpu/models/ltx/video_vae/blocks.py.
 """
@@ -68,6 +69,45 @@ def resnet_block(
     if hasattr(block, "shortcut"):
         residual = causal_conv3d(block.shortcut, x, 1, 1, causal, padding_mode)
     return h + residual
+
+
+def _space_to_depth(x: torch.Tensor, stride: Tuple[int, int, int]) -> torch.Tensor:
+    """b c (d st) (h sh) (w sw) -> b (c st sh sw) d h w."""
+    st, sh, sw = stride
+    return rearrange(x, "b c (d st) (h sh) (w sw) -> b (c st sh sw) d h w", st=st, sh=sh, sw=sw)
+
+
+class SpaceToDepthDownsample(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: Tuple[int, int, int], device=None, dtype=None):
+        super().__init__()
+        mult = stride[0] * stride[1] * stride[2]
+        self.conv = Conv3d(in_channels, out_channels // mult, 3, device=device, dtype=dtype)
+
+
+def space_to_depth_downsample(
+    ds: SpaceToDepthDownsample,
+    x: torch.Tensor,
+    out_channels: int,
+    stride: Tuple[int, int, int],
+    causal: bool = True,
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """3x3 conv then space-to-depth, plus a skip: the space-to-depth input
+    averaged over contiguous groups of channels. A temporal downsample first
+    repeats the first frame (causal alignment); ragged dimensions are
+    zero-padded up to the stride."""
+    st, sh, sw = stride
+    c, d, h, w = x.shape[1:]
+    group_size = c * st * sh * sw // out_channels
+    if st == 2:
+        x = torch.cat([x[:, :, :1], x], dim=2)
+        d += 1
+    pads = ((sw - w % sw) % sw, (sh - h % sh) % sh, (st - d % st) % st)
+    if any(pads):
+        x = F.pad(x, (0, pads[0], 0, pads[1], 0, pads[2]))
+    skip = _space_to_depth(x, stride)
+    skip = skip.reshape(skip.shape[0], out_channels, group_size, *skip.shape[2:]).mean(dim=2)
+    return _space_to_depth(causal_conv3d(ds.conv, x, 3, 1, causal, padding_mode), stride) + skip
 
 
 def _depth_to_space(x: torch.Tensor, stride: Tuple[int, int, int]) -> torch.Tensor:

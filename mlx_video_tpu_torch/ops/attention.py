@@ -1,36 +1,63 @@
-"""Scaled dot-product attention over (B, S, H, D) tensors.
+"""Scaled dot-product attention over (B, S, H, D) tensors, and its routes to
+the kernels.
 
-Counterpart of mlx_video_tpu/ops/attention.py. Self-attention with no bias
-goes to the flash kernel (ops/flash_attention.py): on a CUDA tensor that is
-the CUDA kernel, on a CPU tensor its plain fp32 version. Everything else,
-such as the text cross-attention with its caption bias, is plain torch:
-matmul, fp32 softmax, matmul, as the XLA path of the JAX package.
+Counterpart of mlx_video_tpu/ops/attention.py. :func:`sdpa` keeps the JAX
+order: self-attention with no bias goes to the flash kernel (K1,
+ops/flash_attention.py); then, when the cross-attention route is on, a
+cross-attention call (Sq != Skv, no bias or a per-key-only (B, 1, 1, Skv)
+bias) goes to K4 (ops/cross_attention.py); everything else is
+:func:`plain_attention` (matmul, fp32 softmax, matmul, as the XLA path of the
+JAX package). :func:`sdpa_flat_fused_rope` takes a SPLIT-RoPE self-attention
+to K5, which rotates q and k inside the kernel.
+
+The two routes are the JAX package's own opt-in switches, read at import from
+the same environment variables and off by default:
+``MLX_VIDEO_TPU_CROSS_KERNEL=1`` (K4) and ``MLX_VIDEO_TPU_FUSED_ROPE=1`` (K5);
+:func:`use_cross_kernel` and :func:`use_fused_rope` set them in process.
+The eligibility tests keep only the conditions that define the functions
+(Sq != Skv and a per-key bias for K4; tables of shape (B, H, S, D/2) matching
+q for K5) and drop the TPU layout conditions (KV in VMEM, S >= 256,
+D % 128 == 0), as K1's route dropped the flash VMEM bound. Routing therefore
+does not depend on the device: on a CPU tensor every kernel wrapper computes
+its plain version at any head dimension, and on a CUDA tensor it launches
+its kernel or raises on a head dimension the kernel does not take (it takes
+64 and 128), so the CPU tests with tiny heads go down the card's routes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
 
-from mlx_video_tpu_torch.ops.flash_attention import flash_attention
+from mlx_video_tpu_torch.ops.cross_attention import flash_cross_attention, plain_attention
+from mlx_video_tpu_torch.ops.flash_attention import flash_attention, flash_attention_split_rope
+
+_USE_CROSS_KERNEL: bool = os.environ.get("MLX_VIDEO_TPU_CROSS_KERNEL", "") == "1"
+_USE_FUSED_ROPE: bool = os.environ.get("MLX_VIDEO_TPU_FUSED_ROPE", "") == "1"
 
 
-def plain_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: Optional[torch.Tensor],
-    scale: float,
-) -> torch.Tensor:
-    """fp32 logits (+ additive bias), fp32 softmax, probabilities cast to
-    v's dtype for the second product (jax.nn.dot_product_attention's XLA
-    path). bias broadcasts against (B, H, Sq, Skv)."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+def use_cross_kernel(enable: bool = True) -> None:
+    """Route eligible text cross-attention to K4 (or not)."""
+    global _USE_CROSS_KERNEL
+    _USE_CROSS_KERNEL = enable
+
+
+def use_fused_rope(enable: bool = True) -> None:
+    """Route SPLIT-RoPE self-attention to K5 (or not)."""
+    global _USE_FUSED_ROPE
+    _USE_FUSED_ROPE = enable
+
+
+def _cross_eligible(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Cross-attention with no bias or a per-key-only (B, 1, 1, Skv) bias
+    (the caption mask), with the route on."""
+    return (
+        _USE_CROSS_KERNEL
+        and q.shape[1] != k.shape[1]
+        and (bias is None or (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1))
+    )
 
 
 def sdpa(
@@ -48,6 +75,9 @@ def sdpa(
         scale = q.shape[-1] ** -0.5
     if bias is None and q.shape[1] == k.shape[1]:
         return flash_attention(q, k, v, scale=scale)
+    if _cross_eligible(q, k, bias):
+        rows = None if bias is None else bias.reshape(bias.shape[0], bias.shape[-1])
+        return flash_cross_attention(q, k, v, bias=rows, scale=scale)
     return plain_attention(q, k, v, bias, scale)
 
 
@@ -69,3 +99,34 @@ def sdpa_flat(
         bias=bias,
     )
     return out.reshape(b, sq, dim)
+
+
+def fused_split_rope_eligible(
+    q: torch.Tensor, heads: int, pe: Optional[Tuple[torch.Tensor, torch.Tensor]]
+) -> bool:
+    """Whether K5 can take this self-attention: the route on and SPLIT
+    (B, H, S, D/2) tables that match the flattened (B, S, H*D) q."""
+    if not _USE_FUSED_ROPE or pe is None:
+        return False
+    b, s, dim = q.shape
+    return pe[0].dim() == 4 and tuple(pe[0].shape) == (b, heads, s, dim // heads // 2)
+
+
+def sdpa_flat_fused_rope(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    pe: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Self-attention over flattened (B, S, H*D) unrotated q and k, with the
+    split RoPE applied inside K5 (no rotated q and k in device memory)."""
+    b, s, dim = q.shape
+    d_head = dim // heads
+    out = flash_attention_split_rope(
+        q.reshape(b, s, heads, d_head),
+        k.reshape(b, s, heads, d_head),
+        v.reshape(b, s, heads, d_head),
+        pe[0], pe[1], scale=d_head**-0.5,
+    )
+    return out.reshape(b, s, dim)

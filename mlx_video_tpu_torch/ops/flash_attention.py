@@ -1,13 +1,18 @@
 """Flash attention for the DiT self-attention: CUDA kernels for Hopper, forward
-and backward.
+(plain and with split RoPE fused in) and backward.
 
 Forward (K1) replaces ``mlx_video_tpu/ops/flash_attention.py:_flash_attention_impl``
 (the Pallas kernels ``_single_pass_kernel`` and ``_flash_kernel``); its kernel
 is ``mlx_video_tpu_torch/csrc/flash_attention_fwd.cu``. Backward (K3) replaces
 ``_flash_attention_bwd_impl`` (``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel``); its kernels are
-``mlx_video_tpu_torch/csrc/flash_attention_bwd.cu``. Both are built by
-``nvcc`` at first use (ops/_build.py) and called through ``ctypes``.
+``mlx_video_tpu_torch/csrc/flash_attention_bwd.cu``. The forward with fused
+split RoPE (K5) replaces ``_flash_attention_split_rope_impl`` (the Pallas
+kernel ``_flash_rope_kernel``); its kernel is
+``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: K1 on q and k rotated
+in fp32 as they are staged, tile by tile (the csrc file says what that costs).
+All are built by ``nvcc`` at first use (ops/_build.py) and called through
+``ctypes``.
 
 What bounds them on the H100: at the DiT's shapes (B=1, H=32, D=128, S=320 to
 5184) the forward does 4*S*S*D*H operations on 4*S*H*D*2 bytes of q, k, v and
@@ -30,10 +35,13 @@ later.
 :func:`flash_attention` is differentiable: when q, k or v needs a gradient
 the forward also keeps the logsumexp and the backward runs K3, as the JAX
 ``flash_attention`` custom VJP does. On CUDA K3 takes every length (the JAX
-package's length threshold and VMEM limit are TPU matters). On a CPU tensor
-every entry point computes its plain fp32 version
-(:func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`);
-on a CUDA tensor it launches the kernel or raises.
+package's length threshold and VMEM limit are TPU matters).
+:func:`flash_attention_split_rope` is differentiable the same way: its
+backward is K3 on the rotated q and k, rotated back. On a CPU tensor every
+entry point computes its plain fp32 version (:func:`flash_attention_reference`,
+:func:`flash_attention_bwd_reference`,
+:func:`flash_attention_split_rope_reference`) at any head dimension; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,12 +53,13 @@ import torch
 
 from mlx_video_tpu_torch.ops import _build
 
-# Kernel launches so far: K1 (forward) and K3 (backward; one count per
-# backward, which launches its dq and its dkv kernel). A run resets them to 0
-# and reads them to show that its attention went through the kernels. Only a
-# launch adds to them.
+# Kernel launches so far: K1 (forward), K3 (backward; one count per backward,
+# which launches its dq and its dkv kernel) and K5 (forward with split RoPE).
+# A run resets them to 0 and reads them to show that its attention went
+# through the kernels. Only a launch adds to them.
 launch_count = 0
 bwd_launch_count = 0
+rope_launch_count = 0
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
@@ -61,6 +70,12 @@ _ARGTYPES = {
     ),
     "mvt_flash_attention_bwd_bf16": (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    ),
+    "mvt_flash_attention_rope_bf16": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    ),
+    "mvt_flash_cross_attention_bf16": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
 }
 _fns = {}
@@ -259,3 +274,127 @@ def flash_attention(
     if not return_lse and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, scale)
     return _flash_forward(q, k, v, scale, return_lse)
+
+
+# ---------------------------------------------------------------------------
+# K5: flash attention with split RoPE fused in
+# ---------------------------------------------------------------------------
+
+
+def rotate_split(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Split RoPE of (B, S, H, D) ``x`` by (B, H, S, D/2) tables in fp32,
+    returned in x's dtype: [x1 cos - sin x2, x2 cos + sin x1], the DiT's
+    rotation (models/ltx/rope.py:apply_split_rotary_emb calls this) and K5's.
+    ``inverse`` applies the transpose (sin negated), which takes a gradient
+    of the rotated tensor back to the unrotated one."""
+    first, second = x.float().chunk(2, dim=-1)
+    c, s = cos.float().transpose(1, 2), sin.float().transpose(1, 2)
+    if inverse:
+        out = torch.cat([first * c + s * second, second * c - s * first], dim=-1)
+    else:
+        out = torch.cat([first * c - s * second, second * c + s * first], dim=-1)
+    return out.to(x.dtype)
+
+
+def flash_attention_split_rope_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    scale: float,
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """q and k rotated in fp32 and cast back (:func:`rotate_split`), then
+    :func:`flash_attention_reference` (JAX ``_xla_split_rope_attention``)."""
+    return flash_attention_reference(
+        rotate_split(q, cos, sin), rotate_split(k, cos, sin), v, scale, return_lse
+    )
+
+
+def _check_tables(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> None:
+    b, s, h, d = q.shape
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (b, h, s, d // 2):
+            raise ValueError(f"{name} must be a ({b}, {h}, {s}, {d // 2}) fp32 table on {q.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} must have a contiguous last dimension, be 16-byte aligned "
+                             "and have strides divisible by 4")
+
+
+def _rope_forward(q, k, v, cos, sin, scale: float, return_lse: bool):
+    """K5 on CUDA tensors, the plain version on CPU tensors."""
+    global rope_launch_count
+    if q.device.type == "cpu":
+        return flash_attention_split_rope_reference(q, k, v, cos, sin, scale, return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_split_rope runs on CUDA or CPU tensors, got {q.device}")
+    _check_operands(q, k, v)
+    _check_tables(q, cos, sin)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    strides = (ctypes.c_longlong * 15)(*(st for t in (q, k, v) for st in t.stride()[:3]),
+                                       *(st for t in (cos, sin) for st in t.stride()[:3]))
+    fn = _kernel("mvt_flash_attention_rope_bf16")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            b, s, h, d, strides, float(scale), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        _raise_launch_error("flash attention with split RoPE", err)
+    rope_launch_count += 1
+    return (out, lse) if return_lse else out
+
+
+class _FlashAttentionSplitRope(torch.autograd.Function):
+    """The JAX ``flash_attention_split_rope`` custom VJP without its S x S
+    recompute: the forward is K5 with lse; the backward rotates q and k with
+    the plain rotation, runs K3 on the rotated tensors, the output and the
+    lse, and rotates dq and dk back by the transpose of the rotation. The
+    tables get no gradient (the JAX VJP returns one; the DiT never needs it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, scale: float):
+        out, lse = _rope_forward(q, k, v, cos, sin, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            rotate_split(q, cos, sin), rotate_split(k, cos, sin), v, out, lse, do, ctx.scale
+        )
+        return rotate_split(dq, cos, sin, inverse=True), rotate_split(dk, cos, sin, inverse=True), dv, None, None, None
+
+
+def flash_attention_split_rope(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Bidirectional attention over (B, S, H, D) with q and k rotated by the
+    (B, H, S, D/2) split-RoPE tables; output (B, S, H, D) in the input dtype
+    and, with ``return_lse``, the logsumexp (B, H, S) fp32.
+
+    CPU tensors take the plain version at any head dimension; CUDA tensors
+    launch K5 (bf16, D in {64, 128}, fp32 tables read through their strides)
+    or raise. Differentiable in q, k and v (K3 in the backward); tables that
+    require a gradient are refused.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (cos.requires_grad or sin.requires_grad):
+        raise ValueError("flash_attention_split_rope computes no gradient for the RoPE tables")
+    if not return_lse and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionSplitRope.apply(q, k, v, cos, sin, scale)
+    return _rope_forward(q, k, v, cos, sin, scale, return_lse)

@@ -1,15 +1,22 @@
-"""Distilled text-to-video generation: stage-1 denoise, 2x latent upsample,
-renoise, stage-2 refine, VAE decode.
+"""Video generation: the distilled text-to-video pipeline (stage-1 denoise, 2x
+latent upsample, renoise, stage-2 refine, VAE decode) and the dev pipeline
+(single stage, classifier-free guidance over the ``ltx2_scheduler`` schedule,
+optional image conditioning through the VAE encoder, VAE decode).
 
-Counterpart of the distilled text-to-video branch of
-mlx_video_tpu/pipelines/generate.py:generate_video (no conditioning, audio,
-CFG refinement, dials or multi-video batches yet), with ``decode_latents``
-and the helpers it needs. The text conditioning arrives as precomputed
-embeddings, as the JAX CLI's ``--embeddings`` path gives it.
+Counterpart of the distilled text-to-video and the dev branches of
+mlx_video_tpu/pipelines/generate.py:generate_video, with ``decode_latents``
+and the helpers they need. The text conditioning arrives as precomputed
+embeddings (and, for CFG, negative embeddings), as the JAX CLI's
+``--embeddings`` path gives it. Not ported yet, and refused by name: the
+keyframe and IC-LoRA pipelines, video conditionings, image conditioning of
+the distilled pipeline, audio, CFG refinement, the dials and multi-video
+batches.
 
 Differences from the JAX function, on purpose:
-- All randomness (stage-1 noise, stage-2 renoise, decode noise) comes from
-  one ``torch.Generator``, in that order.
+- All randomness comes from one ``torch.Generator``, in this order:
+  distilled, the stage-1 noise, the stage-2 renoise and the decode noise;
+  dev, the initial noise (masked by the conditioning state) and the decode
+  noise.
 - The video is decoded whether or not ``output_path`` is given; the mp4 is
   written only when it is. The untiled decode reads back fp32.
 """
@@ -19,13 +26,14 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from enum import Enum
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from mlx_video_tpu_torch.config import LTXModelConfig
+from mlx_video_tpu_torch.config import LTXModelConfig, VideoVAEConfig
 from mlx_video_tpu_torch.io import media
 from mlx_video_tpu_torch.models.ltx.model import LTXModel
 from mlx_video_tpu_torch.models.ltx.upsampler import LatentUpsampler, upsample_latents
@@ -34,12 +42,20 @@ from mlx_video_tpu_torch.models.ltx.video_vae.decoder import (
     VideoDecoder,
     video_decoder_apply,
 )
+from mlx_video_tpu_torch.models.ltx.video_vae.encoder import VideoEncoder, video_encoder_apply
 from mlx_video_tpu_torch.models.ltx.video_vae.tiling import TilingConfig, decode_with_tiling
 from mlx_video_tpu_torch.pipelines import denoise as dn
+from mlx_video_tpu_torch.pipelines.conditioning import (
+    LatentState,
+    VideoConditionByLatentIndex,
+    add_noise_with_state,
+    apply_conditioning,
+)
 from mlx_video_tpu_torch.pipelines.positions import create_position_grid
 from mlx_video_tpu_torch.pipelines.schedulers import (
     STAGE_1_SIGMAS,
     STAGE_2_SIGMAS,
+    ltx2_scheduler,
     subsample_refinement_sigmas,
     subsample_sigmas,
 )
@@ -48,15 +64,27 @@ SPATIAL_SCALE = 32
 TEMPORAL_SCALE = 8
 
 
+class PipelineType(Enum):
+    """Pipeline selector (reference: generate.py:299-305)."""
+
+    DISTILLED = "distilled"
+    DEV = "dev"
+    KEYFRAME = "keyframe"
+    IC_LORA = "ic_lora"
+
+
 @dataclass
 class ModelBundle:
-    """The model components the distilled pipeline runs."""
+    """The model components the pipelines run: the distilled pipeline needs
+    the upsampler, image conditioning the VAE encoder."""
 
     transformer: LTXModel
     transformer_config: LTXModelConfig
     vae_decoder: VideoDecoder
     vae_decoder_config: DecoderConfig
     upsampler: Optional[LatentUpsampler] = None
+    vae_encoder: Optional[VideoEncoder] = None
+    vae_encoder_config: Optional[VideoVAEConfig] = None
 
     @property
     def latents_mean(self) -> torch.Tensor:
@@ -72,6 +100,7 @@ class TextConditioning:
     """Precomputed text context."""
 
     video_embeddings: torch.Tensor  # (B, S_ctx, caption_channels)
+    video_neg_embeddings: Optional[torch.Tensor] = None  # the negative prompt, for CFG
 
 
 @dataclass
@@ -96,6 +125,60 @@ def round_frames(num_frames: int) -> int:
     if num_frames % 8 == 1:
         return num_frames
     return ((num_frames - 1 + 7) // 8) * 8 + 1
+
+
+def _resolve_frame_idx(frame_idx: int, num_frames: int, latent_frames: int) -> int:
+    """Map a video-frame index to a latent-frame index: identity when it
+    already fits the latent grid, else a proportional rescale (the CLI's
+    --image-frame-idx is in media frames)."""
+    if frame_idx < latent_frames:
+        return frame_idx
+    if num_frames <= 1 or latent_frames <= 1:
+        return 0
+    scaled = int((frame_idx / (num_frames - 1) * (latent_frames - 1)) + 0.5)
+    return int(max(0, min(latent_frames - 1, scaled)))
+
+
+def _encode_conditionings(
+    models: ModelBundle,
+    images: Sequence[Tuple[str, int, float]],
+    height: int,
+    width: int,
+    num_frames: int,
+    dtype,
+) -> List[VideoConditionByLatentIndex]:
+    """VAE-encode image conditionings (path, frame index, strength) at one
+    resolution, for replace mode."""
+    if models.vae_encoder is None:
+        raise ValueError("Image/video conditioning requires a loaded VAE encoder")
+    device = next(models.vae_encoder.parameters()).device
+    latent_frames = 1 + (num_frames - 1) // TEMPORAL_SCALE
+    conds = []
+    for img_path, frame_idx, strength in images:
+        image = media.load_image(img_path, height=height, width=width)
+        tensor = torch.from_numpy(media.prepare_image_for_encoding(image, height, width)).to(device, dtype)
+        latent = video_encoder_apply(models.vae_encoder, models.vae_encoder_config, tensor)
+        conds.append(VideoConditionByLatentIndex(
+            latent=latent, frame_idx=_resolve_frame_idx(frame_idx, num_frames, latent_frames), strength=strength,
+        ))
+    return conds
+
+
+def _init_state_with_conditioning(
+    shape, conds, generator: torch.Generator, sigma0: float, dtype, device
+) -> Tuple[torch.Tensor, Optional[LatentState]]:
+    """The initial latent: with conditionings, the conditioned zero state
+    renoised by its mask at sigma0; without, plain noise."""
+    if conds:
+        state = LatentState(
+            latent=torch.zeros(shape, dtype=dtype, device=device),
+            clean_latent=torch.zeros(shape, dtype=dtype, device=device),
+            denoise_mask=torch.ones((shape[0], 1, shape[2], 1, 1), dtype=dtype, device=device),
+        )
+        state = add_noise_with_state(apply_conditioning(state, conds), sigma0, generator=generator)
+        return state.latent, state
+    draw = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return draw.to(device=device, dtype=dtype), None
 
 
 _TILING_PRESETS = {
@@ -172,6 +255,12 @@ def _phase(times: Dict[str, float], name: str, device: torch.device):
     times[name] = time.perf_counter() - t0
 
 
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to mlx_video_tpu_torch yet (ROADMAP.md queue: Conditioning pipelines)"
+    )
+
+
 @torch.no_grad()
 def generate_video(
     models: ModelBundle,
@@ -184,43 +273,54 @@ def generate_video(
     generator: Optional[torch.Generator] = None,
     stage1_steps: int = 8,
     stage2_steps: int = 3,
+    pipeline: Union[PipelineType, str] = PipelineType.DISTILLED,
+    cfg_scale: float = 4.0,
+    num_inference_steps: int = 40,
+    cfg_sequential: bool = False,
+    images: Sequence[Tuple[str, int, float]] = (),
+    video_conditionings: Sequence[Tuple[str, int, float]] = (),
     output_path: Optional[Union[str, Path]] = None,
     tiling: str = "auto",
     decode_latents_only: bool = False,
     dtype=torch.bfloat16,
     video_encoder: str = "ffmpeg",
 ) -> GenerateResult:
-    """Distilled two-stage text-to-video generation.
+    """Generate a video with the distilled two-stage pipeline or the dev
+    pipeline.
 
-    ``generator`` (default: seeded from ``seed`` on the model's device) draws
-    the stage-1 noise, the stage-2 renoise and the decode noise. Returns the
-    final latents and, unless ``decode_latents_only``, the decoded video; with
-    ``output_path`` the video is also written as an mp4 by ``video_encoder``
-    (``ffmpeg``, falling back to cv2; or ``cv2``).
+    Distilled: ``stage1_steps`` and ``stage2_steps`` of the distilled
+    schedules around the 2x upsample. Dev: ``num_inference_steps`` of
+    ``ltx2_scheduler`` at the latent token count, with CFG at ``cfg_scale``
+    when ``text.video_neg_embeddings`` is given (batched over a doubled batch,
+    or two passes with ``cfg_sequential``), and ``images`` — (path, frame
+    index, strength) triples — VAE-encoded and placed in the initial latent
+    (replace mode). ``generator`` (default: seeded from ``seed`` on the
+    model's device) draws all noise. Returns the final latents and, unless
+    ``decode_latents_only``, the decoded video; with ``output_path`` the video
+    is also written as an mp4 by ``video_encoder`` (``ffmpeg``, falling back
+    to cv2; or ``cv2``).
     """
+    pipeline = PipelineType(pipeline)
+    if pipeline in (PipelineType.KEYFRAME, PipelineType.IC_LORA):
+        raise _not_ported(f"The {pipeline.value!r} pipeline")
+    if video_conditionings:
+        raise _not_ported("Video conditioning")
+    if images and pipeline == PipelineType.DISTILLED:
+        raise _not_ported("Image conditioning of the distilled pipeline")
     device = models.transformer.video.scale_shift_table.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     times: Dict[str, float] = {}
+    dev = pipeline == PipelineType.DEV
 
-    height, width, crop = pad_dimensions(height, width, 64)
+    height, width, crop = pad_dimensions(height, width, 32 if dev else 64)
     num_frames = round_frames(num_frames)
     config = models.transformer_config
     latent_channels = config.in_channels
     latent_frames = 1 + (num_frames - 1) // TEMPORAL_SCALE
     latent_h, latent_w = height // SPATIAL_SCALE, width // SPATIAL_SCALE
     tiling_config = select_tiling(tiling, height, width, num_frames)
-
-    if not 1 <= stage1_steps <= len(STAGE_1_SIGMAS) - 1:
-        raise ValueError(f"stage1_steps must be between 1 and {len(STAGE_1_SIGMAS) - 1}.")
-    if stage2_steps not in (1, 2, 3):
-        raise ValueError("stage2_steps must be 1, 2, or 3.")
-    if models.upsampler is None:
-        raise ValueError("Distilled pipeline requires upsampler weights")
     _check_params_dtype(models, dtype)
-
-    s1_sigmas = subsample_sigmas(STAGE_1_SIGMAS, stage1_steps, "farthest")
-    s2_sigmas = subsample_refinement_sigmas(STAGE_2_SIGMAS, stage2_steps, "farthest")
     context = text.video_embeddings.to(device=device, dtype=dtype)
 
     def noise(shape) -> torch.Tensor:
@@ -230,22 +330,47 @@ def generate_video(
     def positions(h: int, w: int) -> torch.Tensor:
         return torch.from_numpy(create_position_grid(1, latent_frames, h, w)).to(device)
 
-    with _phase(times, "stage1_denoise", device):
-        shape1 = (1, latent_channels, latent_frames, latent_h // 2, latent_w // 2)
-        latents = dn.denoise(
-            models.transformer, config, noise(shape1),
-            positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
-        )
+    if dev:
+        conds = []
+        if images:
+            with _phase(times, "cond_encode", device):
+                conds = _encode_conditionings(models, images, height, width, num_frames, dtype)
+        sigmas = ltx2_scheduler(steps=num_inference_steps, num_tokens=latent_frames * latent_h * latent_w)
+        shape = (1, latent_channels, latent_frames, latent_h, latent_w)
+        latents, state = _init_state_with_conditioning(shape, conds, generator, float(sigmas[0]), dtype, device)
+        neg = text.video_neg_embeddings
+        with _phase(times, "dev_denoise", device):
+            latents = dn.denoise(
+                models.transformer, config, latents, positions(latent_h, latent_w), context, sigmas,
+                neg_context=None if neg is None else neg.to(device=device, dtype=dtype),
+                cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential,
+            )
+    else:
+        if not 1 <= stage1_steps <= len(STAGE_1_SIGMAS) - 1:
+            raise ValueError(f"stage1_steps must be between 1 and {len(STAGE_1_SIGMAS) - 1}.")
+        if stage2_steps not in (1, 2, 3):
+            raise ValueError("stage2_steps must be 1, 2, or 3.")
+        if models.upsampler is None:
+            raise ValueError("Distilled pipeline requires upsampler weights")
+        s1_sigmas = subsample_sigmas(STAGE_1_SIGMAS, stage1_steps, "farthest")
+        s2_sigmas = subsample_refinement_sigmas(STAGE_2_SIGMAS, stage2_steps, "farthest")
 
-    with _phase(times, "upsample", device):
-        latents = upsample_latents(models.upsampler, latents, models.latents_mean, models.latents_std)
+        with _phase(times, "stage1_denoise", device):
+            shape1 = (1, latent_channels, latent_frames, latent_h // 2, latent_w // 2)
+            latents = dn.denoise(
+                models.transformer, config, noise(shape1),
+                positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
+            )
 
-    with _phase(times, "stage2_denoise", device):
-        sigma0 = s2_sigmas[0]
-        latents = noise(latents.shape) * sigma0 + latents * (1.0 - sigma0)
-        latents = dn.denoise(
-            models.transformer, config, latents, positions(latent_h, latent_w), context, s2_sigmas
-        )
+        with _phase(times, "upsample", device):
+            latents = upsample_latents(models.upsampler, latents, models.latents_mean, models.latents_std)
+
+        with _phase(times, "stage2_denoise", device):
+            sigma0 = s2_sigmas[0]
+            latents = noise(latents.shape) * sigma0 + latents * (1.0 - sigma0)
+            latents = dn.denoise(
+                models.transformer, config, latents, positions(latent_h, latent_w), context, s2_sigmas
+            )
 
     latents_np = latents.float().cpu().numpy()
     if decode_latents_only:

@@ -4,7 +4,8 @@ As tests/test_cli_generate.py does for the JAX CLI, ``load_model_bundle`` is
 patched to return a tiny in-memory bundle (the real loader builds the 19B
 geometry; its parts are tested in tests/test_torch_port_loading.py), and
 ``main`` runs the rest of the user's path with ``--device cpu``: flags ->
-quantization -> embeddings file -> generate_video -> mp4 and phase JSON.
+quantization -> embeddings file -> generate_video -> mp4 and phase JSON, for
+the distilled pipeline and for the dev pipeline with an image.
 """
 
 import json
@@ -12,14 +13,16 @@ import json
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from mlx_video_tpu.io.safetensors import save_safetensors
 from mlx_video_tpu_torch import loading
 from mlx_video_tpu_torch.cli import generate as cli
-from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
+from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, VideoVAEConfig, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
+from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
 from mlx_video_tpu_torch.ops.linear import QuantLinear
 from mlx_video_tpu_torch.pipelines.generate import ModelBundle
 
@@ -31,6 +34,16 @@ def _tiny_bundle() -> ModelBundle:
     return ModelBundle(init_ltx_params(cfg, g, device="cpu", dtype=torch.float32), cfg,
                        init_video_decoder(g, dec_cfg, device="cpu"), dec_cfg,
                        init_latent_upsampler(g, 16, 32, 1, device="cpu"))
+
+
+def _tiny_dev_bundle() -> ModelBundle:
+    """The tiny bundle with a 16-channel VAE encoder (space /32, time /8)."""
+    bundle = _tiny_bundle()
+    blocks = tuple([("res_x", {"num_layers": 1})] + [(name, {"multiplier": 1}) for name in (
+        "compress_space_res", "compress_time_res", "compress_all_res", "compress_all_res")])
+    bundle.vae_encoder_config = VideoVAEConfig(out_channels=16, latent_channels=16, encoder_blocks=blocks)
+    bundle.vae_encoder = init_video_encoder(torch.Generator().manual_seed(1), bundle.vae_encoder_config, device="cpu")
+    return bundle
 
 
 @pytest.fixture
@@ -68,6 +81,53 @@ def test_main_writes_mp4_and_phase_json(monkeypatch, tmp_path, emb_file, extra):
     assert report["total"] == pytest.approx(sum(report["phases"].values()))
 
 
+def _dev_files(tmp_path, with_neg: bool):
+    rng = np.random.default_rng(2)
+    emb = {"video": rng.standard_normal((8, 48)).astype(np.float32)}
+    if with_neg:
+        emb["video_neg"] = rng.standard_normal((8, 48)).astype(np.float32)
+    save_safetensors(tmp_path / "dev_emb.safetensors", emb)
+    Image.fromarray(rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8)).save(tmp_path / "img.png")
+    return tmp_path / "dev_emb.safetensors", tmp_path / "img.png"
+
+
+def test_main_dev_pipeline_with_an_image(monkeypatch, tmp_path):
+    """--pipeline dev --cfg-scale 4.5 --image img.png 0 1.0 with video and
+    video_neg embeddings writes an mp4 and a phase JSON."""
+    emb, image = _dev_files(tmp_path, with_neg=True)
+    calls = []
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: calls.append(kw) or _tiny_dev_bundle())
+    out = tmp_path / "dev.mp4"
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb), "--pipeline", "dev",
+              "--cfg-scale", "4.5", "--image", str(image), "0", "1.0", "--steps", "2", "--height", "64", "--width",
+              "64", "--num-frames", "9", "--tiling", "none", "--output-path", str(out), "--profile-json-path",
+              str(tmp_path / "phases.json"), "--device", "cpu"])
+    assert out.stat().st_size > 0
+    assert calls[0]["pipeline"] == "dev" and calls[0]["load_encoder"] is True
+    phases = json.loads((tmp_path / "phases.json").read_text())["phases"]
+    assert set(phases) == {"load", "cond_encode", "dev_denoise", "vae_decode"}
+
+
+@pytest.mark.parametrize("with_neg, extra, batches", [
+    (False, (), [1, 1]), (True, (), [2, 2]), (True, ("--no-cfg-batch",), [1, 1, 1, 1]),
+])
+def test_main_dev_cfg_follows_the_embeddings(monkeypatch, tmp_path, with_neg, extra, batches):
+    """Without video_neg the dev run has no CFG (as the JAX CLI: denoise's
+    use_cfg is false); with it, one doubled forward a step, or two with
+    --no-cfg-batch."""
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+
+    emb, image = _dev_files(tmp_path, with_neg)
+    seen = []
+    forward = dn.ltx_apply
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_dev_bundle())
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb), "--pipeline", "dev",
+              "--condition-image", str(image), "--steps", "2", "--height", "64", "--width", "64", "--num-frames", "9",
+              "--latents-only", "--device", "cpu", *extra])
+    assert seen == batches
+
+
 def test_main_quantizes_to_4_bits_and_runs(monkeypatch, tmp_path, emb_file):
     bundle = _tiny_bundle()
     out = _run_main(monkeypatch, tmp_path, emb_file, bundle, ("--quantization", "4"))
@@ -89,7 +149,7 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
     (["--mesh", "auto"], "--mesh"),
     (["--image", "a.png"], "--image"),
     (["--audio"], "--audio"),
-    (["--pipeline", "dev"], "--pipeline dev"),
+    (["--pipeline", "keyframe"], "--pipeline keyframe"),
     (["--teacache-threshold", "0.1"], "--teacache-threshold"),
     (["--enhance-prompt"], "--enhance-prompt"),
     (["--skip-audio"], "--skip-audio"),

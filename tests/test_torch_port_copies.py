@@ -3,8 +3,8 @@ the originals, one parametrised test per copied module, on the same inputs.
 
 The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
 configuration, the sigma schedules, the position grids, the numpy part of the
-VAE tiling, the mp4 writer's frame conversion, the generate and train CLIs'
-parsers and ``slugify``, and the hub's ``get_model_path``. Every comparison
+VAE tiling, the mp4 writer's frame conversion, the image loading, the generate
+and train CLIs' parsers and ``slugify``, and the hub's ``get_model_path``. Every comparison
 here is exact: the copies are the same code.
 """
 
@@ -170,6 +170,24 @@ def test_config_copy(case):
 def test_media_copy(shape):
     video = np.random.default_rng(0).uniform(-1.3, 1.3, size=shape).astype(np.float32)
     np.testing.assert_array_equal(tmedia.frames_to_uint8(video), jmedia.frames_to_uint8(video))
+
+
+@pytest.mark.parametrize("size, target", [
+    ((64, 96), (64, 96)), ((64, 96), (32, 64)), ((70, 100), (None, None)), ((70, 100), (64, None)),
+    ((70, 100), (None, 64)),
+])
+def test_image_copy(tmp_path, size, target):
+    """load_image (exact size, LANCZOS resize, rounding down to /32) and
+    prepare_image_for_encoding (with and without its resize)."""
+    from PIL import Image
+
+    path = tmp_path / "img.png"
+    Image.fromarray(np.random.default_rng(1).integers(0, 256, size=(*size, 3), dtype=np.uint8)).save(path)
+    got, ref = tmedia.load_image(path, *target), jmedia.load_image(path, *target)
+    np.testing.assert_array_equal(got, ref)
+    for h, w in ((got.shape[0], got.shape[1]), (32, 64)):
+        np.testing.assert_array_equal(tmedia.prepare_image_for_encoding(got, h, w),
+                                      jmedia.prepare_image_for_encoding(ref, h, w))
 
 
 @pytest.mark.parametrize("layout", ["unified", "single_file", "subsystems", "incomplete"])

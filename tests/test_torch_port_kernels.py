@@ -14,6 +14,11 @@ rounds p and dS to bf16 before their products (as the Pallas kernels do) and
 rounds dQ, dK and dV to bf16, each ~2^-9 relative (both bars have a floor of
 1e-4 an element, for dQ at S = 1, which is zero in exact arithmetic); its
 gradients are bitwise repeatable (no atomics).
+Cross-attention (K4) and flash attention with fused split RoPE (K5): K1's
+bars against their plain versions (K5's lse too); K5 must also give the bits
+of K1 on q and k rotated by the plain rotation, which it repeats operation
+for operation, and its autograd gradients (K3 on the rotated inputs) K3's
+bars against plain autograd through the plain version.
 Dequantizing matmul: max |d y| <= 1e-2 * max |y| and relative L2 <= 1e-3;
 both sides multiply the same bf16 weights, only the summation order and the
 bf16 rounding of y differ. The L2 bar separates a kernel that rounds fp32
@@ -24,6 +29,8 @@ moves y by more (test_quant_kernel_bar_rejects_bf16_rounded_scales).
 import pytest
 import torch
 
+from mlx_video_tpu_torch.models.ltx import rope
+from mlx_video_tpu_torch.ops import cross_attention as ca
 from mlx_video_tpu_torch.ops import flash_attention as fa
 from mlx_video_tpu_torch.ops import quant_matmul as qmm
 from mlx_video_tpu_torch.ops.quant import quantize_affine
@@ -153,6 +160,135 @@ def test_flash_attention_is_differentiable_on_the_card(gen):
     assert (fa.launch_count, fa.bwd_launch_count) == (k1 + 1, k3 + 1)
     o, lse = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), 128**-0.5, return_lse=True)
     _check_grads(got, fa.flash_attention_bwd_reference(q, k, v, o, lse, do, 128**-0.5))
+
+
+def _masked_bias(gen, b, skv, real):
+    """(B, Skv) caption-mask bias rows, (mask - 1) * 1e9 as the DiT makes them
+    in bf16; ``real[i]`` keys of row i are unmasked."""
+    mask = torch.zeros(b, skv, device="cuda")
+    for i, n in enumerate(real):
+        mask[i, :n] = 1.0
+    return ((mask.to(torch.bfloat16) - 1.0) * 1e9).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, sq, skv, h, d, real", [
+    (2, 5184, 128, 4, 128, None), (1, 3456, 1024, 2, 128, (128,)), (2, 1000, 77, 4, 128, None),
+    (2, 700, 128, 4, 128, (128, 0)), (2, 640, 128, 3, 128, (40, 100)), (1, 65, 1, 2, 64, None),
+    (2, 300, 200, 4, 64, (150, 7)),
+])
+def test_cross_kernel_matches_plain(gen, b, sq, skv, h, d, real):
+    """No bias, the trainer's 128-real mask over 1024 keys, a ragged Skv, a
+    row whose keys are all masked, and two rows with different masks."""
+    q = _bf16(gen, b, sq, h, d)
+    k, v = (_bf16(gen, b, skv, h, d) for _ in range(2))
+    bias = None if real is None else _masked_bias(gen, b, skv, real)
+    before = ca.launch_count
+    out = ca.flash_cross_attention(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert ca.launch_count == before + 1
+    ref = ca.flash_cross_attention_reference(q, k, v, bias=bias)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    if real is not None and 0 in real:  # uniform over every key: the mean of v
+        row = real.index(0)
+        mean = v[row].float().mean(0)
+        assert (out[row].float() - mean[None]).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cross_kernel_reads_strided_operands_and_broadcast_bias(gen):
+    """q a view of a fused projection, k and v views of one (B, Skv, 2, H, D)
+    tensor, one bias row for both batch rows."""
+    q = _bf16(gen, 2, 300, 3, 4, 128).unbind(2)[1]
+    k, v = _bf16(gen, 2, 50, 2, 4, 128).unbind(2)
+    bias = _masked_bias(gen, 1, 50, (30,))
+    out = ca.flash_cross_attention(q, k, v, bias=bias, scale=0.07)
+    ref = ca.flash_cross_attention_reference(q, k, v, bias=bias, scale=0.07)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cross_kernel_rejects_what_it_does_not_take(gen):
+    q, k = torch.zeros(1, 64, 2, 128, device="cuda"), torch.zeros(1, 8, 2, 128, device="cuda")
+    before = ca.launch_count
+    with pytest.raises(ValueError, match="bfloat16"):
+        ca.flash_cross_attention(q, k, k)
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ca.flash_cross_attention(q[..., :96], k[..., :96], k[..., :96])
+    with pytest.raises(ValueError, match="bias"):
+        ca.flash_cross_attention(q, k, k, bias=torch.zeros(1, 9, device="cuda"))
+    assert ca.launch_count == before
+
+
+@pytest.mark.cuda
+def test_cross_kernel_is_differentiable(gen):
+    q = _bf16(gen, 2, 200, 2, 128).requires_grad_()
+    k, v = (_bf16(gen, 2, 40, 2, 128).requires_grad_() for _ in range(2))
+    bias, do = _masked_bias(gen, 2, 40, (40, 20)), _bf16(gen, 2, 200, 2, 128)
+    before = ca.launch_count
+    got = torch.autograd.grad(ca.flash_cross_attention(q, k, v, bias=bias), (q, k, v), do)
+    assert ca.launch_count == before + 1
+    ref = torch.autograd.grad(ca.flash_cross_attention_reference(q, k, v, bias=bias), (q, k, v), do)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)  # the backward is the plain version's
+
+
+def _tables(b, s, h, d):
+    """Split-RoPE (cos, sin) as models/ltx/rope.py makes them: fp32, the
+    (B, H, S, D/2) transposed view of a (B, S, H * D/2) array."""
+    grid = torch.stack(torch.meshgrid(torch.arange(4.0), torch.arange(16.0), torch.arange(s / 64 + 1),
+                                      indexing="ij"), 0).reshape(1, 3, -1)[:, :, :s]
+    pos = torch.stack([grid, grid + 1], -1).expand(b, -1, -1, -1).cuda()
+    return rope.precompute_freqs_cis(pos, dim=h * d, num_attention_heads=h, rope_type=rope.LTXRopeType.SPLIT,
+                                     max_pos=[20, 2048, 2048], use_middle_indices_grid=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h, d", [(2, 1280, 4, 128), (1, 1000, 4, 128), (1, 1, 2, 128), (2, 700, 4, 64)])
+def test_rope_kernel_matches_plain_and_k1_on_rotated_inputs(gen, b, s, h, d):
+    q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
+    cos, sin = _tables(b, s, h, d)
+    assert s == 1 or not cos.is_contiguous()
+    before = fa.rope_launch_count
+    out = fa.flash_attention_split_rope(q, k, v, cos, sin, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.rope_launch_count == before + 1
+    _check(out, fa.flash_attention_split_rope_reference(q, k, v, cos, sin, d**-0.5, return_lse=True))
+    qr, kr = fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin)
+    flat = q.reshape(b, s, h * d)
+    assert torch.equal(qr.reshape(b, s, h * d), rope.apply_split_rotary_emb(flat, cos, sin))
+    o1, lse1 = fa.flash_attention(qr, kr, v, return_lse=True)
+    assert torch.equal(out[0], o1) and torch.equal(out[1], lse1)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_is_differentiable_through_k3(gen):
+    q, k, v = (_bf16(gen, 1, 600, 4, 128).requires_grad_() for _ in range(3))
+    cos, sin = _tables(1, 600, 4, 128)
+    do = _bf16(gen, 1, 600, 4, 128)
+    k3, k5 = fa.bwd_launch_count, fa.rope_launch_count
+    got = torch.autograd.grad(fa.flash_attention_split_rope(q, k, v, cos, sin), (q, k, v), do)
+    assert (fa.bwd_launch_count, fa.rope_launch_count) == (k3 + 1, k5 + 1)
+    # plain autograd on the same bf16 leaves: fp32 arithmetic, bf16 roundings where the kernels round
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.flash_attention_split_rope_reference(*leaves, cos, sin, 128**-0.5), leaves, do)
+    _check_grads(got, ref)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_rejects_what_it_does_not_take(gen):
+    q = _bf16(gen, 1, 64, 2, 128)
+    cos, sin = _tables(1, 64, 2, 128)
+    before = fa.rope_launch_count
+    with pytest.raises(ValueError, match="fp32"):
+        fa.flash_attention_split_rope(q, q, q, cos.bfloat16(), sin.bfloat16())
+    with pytest.raises(ValueError, match="fp32 table"):
+        fa.flash_attention_split_rope(q, q, q, cos[:, :1], sin[:, :1])
+    with pytest.raises(ValueError, match="gradient"):
+        fa.flash_attention_split_rope(q, q, q, cos.clone().requires_grad_(), sin)
+    assert fa.rope_launch_count == before
 
 
 def _quantized(gen, m, k, n, bits, group, scale_dtype=torch.float32):

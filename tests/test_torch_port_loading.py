@@ -435,7 +435,7 @@ def test_read_quantization_metadata(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"pipeline": "dev"}, {"audio": True}, {"load_encoder": True}, {"stage2_path": "x"},
+    {"pipeline": "keyframe"}, {"audio": True}, {"pipeline": "ic_lora"}, {"stage2_path": "x"},
 ])
 def test_load_model_bundle_refuses_unported_parts(tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

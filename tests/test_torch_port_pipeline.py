@@ -5,7 +5,8 @@ stage 2 (1 step) in both frameworks on shared weights and shared noise, then
 a tiled decode, and gates per-frame latent and RGB PSNR at >= 35 dB, the gate
 of tests/test_torch_cross_pipeline.py. The remaining tests run the port's
 ``generate_video`` end to end at a tiny size, and once in a process where
-JAX and ml_dtypes cannot be imported.
+JAX and ml_dtypes cannot be imported (distilled, dev with an image and both
+kernel routes on, q4, and a training step).
 """
 
 import dataclasses
@@ -208,6 +209,28 @@ models = ModelBundle(init_ltx_params(cfg, g, device="cpu", dtype=torch.float32),
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
                      width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
 assert res.video.shape == (1, 3, 9, 64, 64)
+# the dev pipeline: one image through the VAE encoder, batched CFG, K4 and K5 routes on
+import tempfile
+from PIL import Image
+from mlx_video_tpu_torch.config import VideoVAEConfig
+from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
+from mlx_video_tpu_torch.ops.attention import use_cross_kernel, use_fused_rope
+blocks = (("res_x", {"num_layers": 1}), ("compress_space_res", {"multiplier": 1}),
+          ("compress_time_res", {"multiplier": 1}), ("compress_all_res", {"multiplier": 1}),
+          ("compress_all_res", {"multiplier": 1}))
+models.vae_encoder_config = VideoVAEConfig(out_channels=16, latent_channels=16, encoder_blocks=blocks)
+models.vae_encoder = init_video_encoder(g, models.vae_encoder_config, device="cpu")
+use_cross_kernel(True)
+use_fused_rope(True)
+with tempfile.TemporaryDirectory() as tmp:
+    Image.fromarray(np.full((64, 64, 3), 128, np.uint8)).save(f"{tmp}/img.png")
+    res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels),
+                                                  torch.ones(1, 4, cfg.caption_channels)),
+                         height=64, width=64, num_frames=9, pipeline="dev", num_inference_steps=1, cfg_scale=4.5,
+                         images=[(f"{tmp}/img.png", 0, 1.0)], dtype=torch.float32)
+assert res.video.shape == (1, 3, 9, 64, 64) and set(res.phase_seconds) == {"cond_encode", "dev_denoise", "vae_decode"}
+use_cross_kernel(False)
+use_fused_rope(False)
 # the q4 path: quantize in place, write and read a native file, generate
 import tempfile
 from mlx_video_tpu_torch.io.weights import load_dit_params, save_dit_params
