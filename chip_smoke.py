@@ -48,6 +48,15 @@ Phases, in order; any failure exits non-zero before the last line:
    rotated q and k. Median times of K5, the plain version and "K1 + torch
    rotation" (the unfused route). Then the K5 Function's gradients (K3 on the
    rotated inputs, rotated back) against plain autograd at S = 1280: K3's bars.
+5c. K6 vs plain: the int8 attention against its plain version (the same
+   quantization prologue, exact integer products) in bf16 at H=32, D=128,
+   (B, S) = (1, 320) and (1, 1280) (the distilled stages), (2, 5184) (config
+   3, batched CFG), (1, 1000) (ragged), plus (1, 1280) at D=64: max |d o| <=
+   2e-2 and relative L2 <= 1e-3, with the p_q codes that differ counted (at
+   most 1e-4 of them); against K1 on the same bf16 inputs relative L2 < 5e-2
+   (the quantization error by design, the JAX test's bar). Median times of
+   K6 alone, of the prologue, of the plain version, of K1 and of SDPA's bf16
+   forward (the last two compute another function: yardsticks).
 6. small slices vs reference: a 2-layer DiT denoise (2 steps at 320 tokens),
    upsampler and decoder at narrow width, bf16 on the card against fp32 on
    the CPU (plain attention, plain dequantizing matmul) with the same
@@ -66,6 +75,15 @@ Phases, in order; any failure exits non-zero before the last line:
    narrow width with the K4 and K5 routes on: that 2-layer DiT, a narrow VAE
    encoder and decoder, one seeded PNG at frame 0 (strength 1), batched CFG
    4.5, 2 steps at 256x256x17; per-frame PSNR >= 35 dB of latents and RGB.
+6a. int8 slices at narrow width: the 2-layer DiT in W8A8 and in W4A8 through
+   the distilled slice of phase 6 (the same int8 codes on both sides), >= 35
+   dB per frame; a tiny Gemma-3 (4 layers of 256, a sliding window and global
+   layers) with the connectors, bf16 on the card against fp32 on the CPU on
+   64 left-padded token ids: relative L2 <= 2e-2; in W8A8 <= 2e-2 against the
+   CPU's W8A8 in bf16, and <= 4e-2 against its W8A8 in fp32 (bf16-rounded
+   activations move about a quarter of their int8 codes by one step: the CPU
+   reads 2.2e-2 to 2.8e-2 bf16 against fp32 there); one LoRA step over a
+   W4A8 base with phase 6's LoRA-step bars.
 7. full-width dense slice: generate_video, distilled, 512x512x33, on
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
@@ -95,22 +113,41 @@ Phases, in order; any failure exits non-zero before the last line:
    resumes from state_step_2 and must repeat the losses of steps 2 and 3
    exactly. Prints step seconds, tokens per second and peak device memory.
    The adapters are then taken off the model.
+9a. full-width W8A8 slice: a W8A8 copy of the same bf16 DiT (the block
+   linears as Int8Linears, the rest shared), the distilled run of phase 7:
+   528 K1, 0 K2 and 10 x 48 x 11 = 5280 int8 products, a finite video; then
+   one warm run under torch.profiler (idle share, time by kernel class). The
+   q, k and v of the 48 attn1 calls of the first stage-2 step (1280 tokens)
+   are recorded, and K6 and K1 run on each: K6's launches on the path and
+   their relative L2; K6 against its plain version on the first.
+9b. full-width text encoder: the Gemma-3-12B geometry (48 layers of 3840,
+   16 x 256 heads with 8 KV heads, FFN 15360, vocab 262208) and the
+   connectors, seeded bf16 on the card; 1024 left-padded token ids, 128 of
+   them real, through encode_tokens: finite (1, 1024, 3840) video and audio
+   embeddings, the DiT's caption shape; they drive one distilled run to an
+   mp4 (528 K1). Then the encoder in W8A8 in place on the same ids (337 int8
+   products an encode): relative L2 against bf16; encode seconds and peak
+   memory of both, and a warm encode of each under torch.profiler.
 9. full-width q4 slice: the same DiT quantized in place on the card
    (quantize_dit_params, 4 bits, group 64, core scope: 10 linears a block),
-   then the same run: 528 K1 and 10 x 48 x 11 = 5280 K2 launches.
+   then the same run: 528 K1 and 10 x 48 x 11 = 5280 K2 launches. Then W4A8
+   (quantize_models --w4a8 on it: prepare_w4a8, no K2): 528 K1, 0 K2 and
+   5280 int8 products, then a warm run under torch.profiler; the int8 scales
+   are then taken off.
 10. loaders and CLIs: the q4 DiT written as an MLX pre-quantized snapshot
    (ltx-2-19b-distilled-4bit-mlx.safetensors: sanitized keys, uint32
    words under .weight, .scales, .biases), with the decoder, the upsampler
    and an embeddings file, in a temporary directory; load_model_bundle must
    give tensors equal to the in-memory ones, and the CLI's main (--device
    cuda) must run from that directory with 528 K1 and 5280 K2 launches and
-   write its output. Then the training CLI (cli.train.main, --device cuda)
+   write its output, and again with --w4a8: 528 K1, 0 K2 and 5280 int8
+   products. Then the training CLI (cli.train.main, --device cuda)
    trains LoRA for 2 steps over the 4-bit file of the snapshot on the
    dataset of phase 8, with gradient checkpointing: 96 K1, 48 K3 and
    10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
    written. The directories are removed at the end.
 Phases 7-10 print phase times and peak device memory. Last: the kernel
-summary line (K1-K5: launches on a path of this run, error against the plain
+summary line (K1-K6: launches on a path of this run, error against the plain
 version, times at the path's shapes, the bound, the library yardstick) and
 {"ok": true, "device": ...}.
 """
@@ -128,6 +165,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 # (M, K, N) of the 4-bit linears: the q4 inference path's video rows, then
 # the LoRA step's (3456 video rows through attn1, attn2 q/out and ff; 1024
@@ -379,6 +417,47 @@ def rope_kernel_vs_plain(fa) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def int8_kernel_vs_plain(fa) -> dict:
+    """K6 against its plain version and against K1, bf16, H = 32."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows, max_err, worst_l2, worst_k1 = {}, 0.0, 0.0, 0.0
+    print("K6 vs plain (bf16, H=32; bars max|d o| <= 2e-2, rel L2 <= 1e-3, p_q codes that differ <= 1e-4 of them; "
+          "vs K1 rel L2 < 5e-2):")
+    for b, s, d in [(1, 320, 128), (1, 1280, 128), (2, 5184, 128), (1, 1000, 128), (1, 1280, 64)]:
+        q, k, v = (torch.randn(b, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+        out, codes = fa.flash_attention_int8(q, k, v, return_codes=True)
+        torch.cuda.synchronize()
+        ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
+        diff = out.float() - ref.float()
+        err, l2 = diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
+        flips, n_codes = (codes != ref_codes).sum().item(), codes.numel()
+        del codes, ref_codes
+        k1 = fa.flash_attention(q, k, v)
+        l2_k1 = ((out.float() - k1.float()).norm() / k1.float().norm()).item()
+        max_err, worst_l2, worst_k1 = max(max_err, err), max(worst_l2, l2), max(worst_k1, l2_k1)
+        ops = fa.int8_attention_operands(q, k, v, d**-0.5)
+        ms = median_ms(lambda: fa.int8_attention_kernel(ops, b, 32))
+        prologue_ms = median_ms(lambda: fa.int8_attention_operands(q, k, v, d**-0.5))
+        plain_ms = median_ms(lambda: fa.flash_attention_int8_reference(q, k, v), reps=5, warmup=1)
+        k1_ms = median_ms(lambda: fa.flash_attention(q, k, v))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=d**-0.5))
+        print(f"  B={b} S={s} D={d}: max|d o| {err:.3e} rel L2 {l2:.3e}; p_q codes that differ {flips} of {n_codes}; "
+              f"vs K1 rel L2 {l2_k1:.3e}  K6 {ms:.4f} ms (+ prologue {prologue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"K1 {k1_ms:.4f} ms  SDPA forward {lib_ms:.4f} ms", flush=True)
+        if not (err <= 2e-2 and l2 <= 1e-3 and flips <= 1e-4 * n_codes and torch.isfinite(out).all()):
+            fail(f"K6 disagrees with the plain version at B={b} S={s} D={d}")
+        if not l2_k1 < 5e-2:
+            fail(f"K6 is {l2_k1:.3e} from K1 at B={b} S={s} D={d}, over the quantization bar 5e-2")
+        rows[(b, s, d)] = (ms, plain_ms, k1_ms, lib_ms)
+        del q, k, v, out, ref, k1, ops
+    print(f"  K6 worst rel L2 {worst_l2:.3e} (bar 1e-3); worst vs K1 {worst_k1:.3e} (bar 5e-2)", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
 def quant_kernel_vs_plain(qmm) -> dict:
     import torch
 
@@ -443,7 +522,9 @@ def to_card(dit, device, dtype):
     return d
 
 
-def small_slice_check(quantized: bool) -> None:
+def small_slice_check(mode: str) -> None:
+    """The narrow distilled slice, the DiT dense, q4, W8A8 or W4A8 (the same
+    codes on both sides), bf16 on the card against fp32 on the CPU."""
     import numpy as np
     import torch
 
@@ -453,7 +534,8 @@ def small_slice_check(quantized: bool) -> None:
     from mlx_video_tpu_torch.models.ltx.video_vae.decoder import (
         DecoderConfig, init_video_decoder, video_decoder_apply,
     )
-    from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+    from mlx_video_tpu_torch.ops import int8 as i8
+    from mlx_video_tpu_torch.ops.quant import prepare_w4a8, quantize_dit_params
     from mlx_video_tpu_torch.pipelines import denoise as dn
     from mlx_video_tpu_torch.pipelines.generate import create_position_grid, STAGE_1_SIGMAS, subsample_sigmas
 
@@ -464,8 +546,12 @@ def small_slice_check(quantized: bool) -> None:
     )
     g = torch.Generator().manual_seed(5)
     dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
-    if quantized:
+    if mode in ("q4", "w4a8"):
         quantize_dit_params(dit, group_size=64, bits=4)  # the same words on both sides
+    if mode == "w4a8":
+        prepare_w4a8(dit, bits=4)
+    if mode == "w8a8":
+        i8.quantize_params_w8a8(dit)
     dec_cfg = DecoderConfig(base_channels=64, num_layers_per_block=1)
     dec = init_video_decoder(g, dec_cfg, device="cpu")
     dec.latents_mean.normal_(generator=g).mul_(0.1)
@@ -487,8 +573,12 @@ def small_slice_check(quantized: bool) -> None:
         return [t.float().cpu().numpy() for t in (x, up, rgb)]
 
     ref = run("cpu", torch.float32)
+    i8.int8_matmul_count = 0
     got = run("cuda", torch.bfloat16)
-    kind = "q4 DiT" if quantized else "dense DiT"
+    kind = f"{mode} DiT"
+    want = 10 * 2 * 2 if mode in ("w8a8", "w4a8") else 0
+    if i8.int8_matmul_count != want:
+        fail(f"{i8.int8_matmul_count} int8 products in the {kind} card run, want {want}")
     for name, r, o in zip(("stage-1 latents", "upsampled latents", "decoded rgb"), ref, got):
         peak = 2.0 if name == "decoded rgb" else float(np.abs(r).max())
         worst = min(psnr(o[:, :, i], r[:, :, i], peak) for i in range(r.shape[2]))
@@ -497,15 +587,17 @@ def small_slice_check(quantized: bool) -> None:
             fail(f"small slice ({kind}) {name} PSNR {worst:.2f} dB < 35 dB")
 
 
-def lora_slice_check() -> None:
-    """One LoRA grad step on the 2-layer narrow DiT: bf16 on the card against
-    fp32 on the CPU, same weights (fp32 adapters on both) and draws."""
+def lora_slice_check(w4a8: bool = False) -> None:
+    """One LoRA grad step on the 2-layer narrow DiT (dense, or over a W4A8
+    base): bf16 on the card against fp32 on the CPU, same weights (fp32
+    adapters on both) and draws."""
     import numpy as np
     import torch
 
     from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
     from mlx_video_tpu_torch.lora import LoRAConfig, inject_lora
     from mlx_video_tpu_torch.models.ltx.model import init_ltx_params, ltx_apply
+    from mlx_video_tpu_torch.ops.quant import prepare_w4a8, quantize_dit_params
     from mlx_video_tpu_torch.trainer.datasets import Batch
     from mlx_video_tpu_torch.trainer.strategies import compute_loss, draw_inputs, make_inputs, prepare_text_to_video
     from mlx_video_tpu_torch.trainer.train_step import grad_step
@@ -517,6 +609,8 @@ def lora_slice_check() -> None:
     )
     g = torch.Generator().manual_seed(6)
     dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
+    if w4a8:
+        prepare_w4a8(quantize_dit_params(dit, group_size=64, bits=4), bits=4)
     inject_lora(dit, cfg, LoRAConfig(rank=8, alpha=16.0), g)
     with torch.no_grad():
         for name, p in dit.named_parameters():
@@ -559,12 +653,61 @@ def lora_slice_check() -> None:
     rel_loss = abs(loss - ref_loss) / abs(ref_loss)
     l2 = {k: ((got[k] - r).norm() / r.norm()).item() for k, r in ref.items()}
     worst = max(l2, key=l2.get)
-    print(f"  LoRA step, 2-layer DiT, 320 tokens, sigma {draws.sigmas.item():.6f}: loss card {loss:.6f} vs CPU "
+    print(f"  LoRA step, 2-layer {'W4A8' if w4a8 else 'dense'} DiT, 320 tokens, sigma {draws.sigmas.item():.6f}: loss card {loss:.6f} vs CPU "
           f"{ref_loss:.6f} (rel {rel_loss:.2e}); "
           f"{len(l2)} LoRA gradients, worst rel L2 {l2[worst]:.3e} at {worst}, median "
           f"{sorted(l2.values())[len(l2) // 2]:.3e}", flush=True)
     if not (rel_loss <= 1e-2 and l2[worst] <= 5e-2):
         fail("the LoRA step on the card disagrees with the CPU reference")
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def small_text_encoder_check() -> None:
+    """A tiny Gemma-3 (4 layers of 256; sliding-window and global layers)
+    with the connectors on 64 left-padded token ids: bf16 on the card against
+    the CPU, dense and W8A8 (the same int8 codes on both sides)."""
+    import torch
+
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens, init_text_encoder_params
+    from mlx_video_tpu_torch.ops import int8 as i8
+
+    cfg = Gemma3TextConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+                           num_attention_heads=4, num_key_value_heads=2, head_dim=64, sliding_window=16,
+                           sliding_window_pattern=2)
+    g = torch.Generator().manual_seed(17)
+    te = init_text_encoder_params(cfg, g, 256, device="cpu", dtype=torch.float32,
+                                  language_model=init_gemma3_params(cfg, g, device="cpu", dtype=torch.float32))
+    for conn in (te.video_embeddings_connector, te.audio_embeddings_connector):
+        conn.learnable_registers.data.normal_(generator=g)
+    ids = torch.randint(1, 1024, (2, 64), generator=g)
+    mask = torch.ones(2, 64, dtype=torch.long)
+    mask[0, :20], ids[0, :20] = 0, 0
+
+    def encode(model, device, dtype):
+        with torch.no_grad():
+            return encode_tokens(to_card(model, device, dtype), cfg, ids.to(device), mask.to(device))
+
+    for w8a8 in (False, True):
+        if w8a8:
+            i8.quantize_text_encoder_w8a8(te)
+        ref = encode(te, "cpu", torch.float32)
+        got = encode(te, "cuda", torch.bfloat16)
+        l2 = max(rel_l2(o.cpu(), r) for o, r in zip(got, ref))
+        line = f"  tiny Gemma-3 + connectors, {'W8A8' if w8a8 else 'bf16'} on the card: rel L2 {l2:.3e} vs fp32 CPU"
+        finite = all(torch.isfinite(o).all() for o in got)
+        if w8a8:
+            same = max(rel_l2(o.cpu(), r) for o, r in zip(got, encode(te, "cpu", torch.bfloat16)))
+            line += f" (bar 4e-2), {same:.3e} vs bf16 CPU (bar 2e-2)"
+            ok = finite and l2 <= 4e-2 and same <= 2e-2
+        else:
+            ok = finite and l2 <= 2e-2
+        print(line, flush=True)
+        if not ok:
+            fail(f"the tiny text encoder on the card disagrees with the CPU ({'W8A8' if w8a8 else 'bf16'})")
 
 
 def write_training_dataset(root: Path, clips: int = 2) -> None:
@@ -718,7 +861,7 @@ def full_width_models():
     return models, text
 
 
-def check_video(video, latents, k1: int, k2: int, want_k2: int) -> None:
+def check_video(video, latents, k1: int, k2: int, want_k2: int, int8: int = 0, want_int8: int = 0) -> None:
     import numpy as np
 
     if video is None or video.shape != (1, 3, 33, 512, 512):
@@ -727,37 +870,48 @@ def check_video(video, latents, k1: int, k2: int, want_k2: int) -> None:
         fail("non-finite video or latents")
     print(f"  video {video.shape} finite; range [{video.min():.4f}, {video.max():.4f}], "
           f"std {video.std():.4f}", flush=True)
-    check_launches(k1, k2, want_k2)
+    check_launches(k1, k2, want_k2, int8, want_int8)
 
 
-def check_launches(k1: int, k2: int, want_k2: int) -> None:
+def check_launches(k1: int, k2: int, want_k2: int, int8: int = 0, want_int8: int = 0) -> None:
     if k1 != 48 * (8 + 3):
         fail(f"{k1} K1 (flash attention) launches in the run, want {48 * (8 + 3)}")
     if k2 != want_k2:
         fail(f"{k2} K2 (dequantizing matmul) launches in the run, want {want_k2}")
+    if int8 != want_int8:
+        fail(f"{int8} int8 products in the run, want {want_int8}")
 
 
-def drive_slice(models, text, fa, qmm, want_k2: int) -> dict:
-    """generate_video at 512x512x33, 8 + 3 steps, counts set to 0 just before."""
+def drive_slice(models, text, fa, qmm, want_k2: int, want_int8: int = 0, output_path=None,
+                profile: Optional[str] = None) -> dict:
+    """generate_video at 512x512x33, 8 + 3 steps, counts set to 0 just before;
+    with ``profile``, one more run (warm) under torch.profiler."""
     import torch
 
+    from mlx_video_tpu_torch.ops import int8 as i8
     from mlx_video_tpu_torch.pipelines.generate import generate_video
 
+    def run(path):
+        return generate_video(models, text, height=512, width=512, num_frames=33, stage1_steps=8,
+                              stage2_steps=3, tiling="auto", output_path=path,
+                              generator=torch.Generator(device="cuda").manual_seed(1))
+
     torch.cuda.reset_peak_memory_stats()
-    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = i8.int8_matmul_count = 0
     t0 = time.perf_counter()
-    res = generate_video(models, text, height=512, width=512, num_frames=33, stage1_steps=8,
-                         stage2_steps=3, tiling="auto", output_path=None,
-                         generator=torch.Generator(device="cuda").manual_seed(1))
+    res = run(output_path)
     wall = time.perf_counter() - t0
-    k1, k2 = fa.launch_count, qmm.launch_count
+    k1, k2, int8 = fa.launch_count, qmm.launch_count, i8.int8_matmul_count
     peak = torch.cuda.max_memory_allocated()
     for name, sec in res.phase_seconds.items():
         print(f"  phase {name}: {sec:.4f} s", flush=True)
     print(f"  generate_video wall {wall:.4f} s; peak device memory {peak / 2**30:.3f} GiB; "
-          f"launches K1 {k1}, K2 {k2}", flush=True)
-    check_video(res.video, res.latents, k1, k2, want_k2)
-    return {"k1": k1, "k2": k2}
+          f"launches K1 {k1}, K2 {k2}; int8 products {int8}", flush=True)
+    check_video(res.video, res.latents, k1, k2, want_k2, int8, want_int8)
+    if profile:
+        with profiled(profile):
+            run(None)
+    return {"k1": k1, "k2": k2, "int8": int8, "video_path": res.video_path}
 
 
 # A narrow VAE encoder: the default's five stages at 128 channels, one res
@@ -869,7 +1023,9 @@ def profiled(what: str):
     counts = {e.key: e.count for e in kernels}
     busy = sum(ms.values()) / 1e3
     classes = {"K5 (flash_rope_kernel)": "flash_rope", "K4 (flash_cross_kernel)": "flash_cross",
-               "convolution": ("conv", "fprop", "implicit"), "GEMM": ("gemm", "xmma", "nvjet", "cutlass")}
+               "K1 (flash_fwd_kernel)": "flash_fwd", "K2 (quant_matmul_kernel)": "quant_matmul",
+               "K6 (flash_int8_kernel)": "flash_int8", "convolution": ("conv", "fprop", "implicit"), "int8 GEMM": ("gemm_s8", "imma", "s8s8", "i8i8"),
+               "GEMM": ("gemm", "xmma", "nvjet", "cutlass")}
     by_class = dict.fromkeys([*classes, "other (elementwise, norms, softmax, copies)"], 0.0)
     for key, t in ms.items():
         name = next((c for c, pat in classes.items() if any(p in key.lower() for p in (
@@ -994,6 +1150,139 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
     return {"k4": counts[1], "k5": counts[2], "step_s": steps_s, "peak_gib": peak / 2**30}
 
 
+def full_width_w8a8(models, text, fa, qmm) -> dict:
+    """Phase 9a's W8A8 run: a W8A8 copy of the bf16 DiT (Int8Linears; every
+    other tensor shared with the bf16 model), the distilled run with the q,
+    k, v of the first stage-2 step's attn1 calls recorded, then K6 and K1 on
+    them."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from mlx_video_tpu_torch.ops import attention
+    from mlx_video_tpu_torch.ops import int8 as i8
+    from mlx_video_tpu_torch.ops.linear import Int8Linear
+
+    dit = models.transformer
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    w8 = copy.deepcopy(dit, {id(t): t for t in itertools.chain(dit.parameters(), dit.buffers())})
+    i8.quantize_params_w8a8(w8)
+    torch.cuda.synchronize()
+    n = sum(isinstance(m, Int8Linear) for m in w8.modules())
+    print(f"  W8A8 copy in {time.perf_counter() - t0:.2f} s: {n} Int8Linears; device memory "
+          f"{before / 2**30:.3f} -> {torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if n != 10 * 48:
+        fail(f"{n} Int8Linears, want {10 * 48}")
+
+    captured, flash = [], attention.flash_attention
+
+    def recording(q, k, v, *args, **kw):
+        if q.shape[1] == 1280 and len(captured) < 48:
+            captured.append((q.clone(), k.clone(), v.clone()))
+        return flash(q, k, v, *args, **kw)
+
+    attention.flash_attention = recording
+    try:
+        drive_slice(dataclasses.replace(models, transformer=w8), text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11,
+                    profile="a warm W8A8 distilled run")
+    finally:
+        attention.flash_attention = flash
+    del w8
+    torch.cuda.empty_cache()
+
+    q, k, v = captured[0]
+    ref = fa.flash_attention_int8_reference(q, k, v)
+    out = fa.flash_attention_int8(q, k, v)
+    err, l2 = (out.float() - ref.float()).abs().max().item(), rel_l2(out, ref)
+    print(f"  K6 vs plain on the recorded q, k, v of stage 2, block 0: max|d o| {err:.3e} rel L2 {l2:.3e}", flush=True)
+    if not (err <= 2e-2 and l2 <= 1e-3):
+        fail("K6 disagrees with its plain version on the W8A8 run's q, k, v")
+    fa.int8_launch_count = 0
+    worst = max(rel_l2(fa.flash_attention_int8(q, k, v), fa.flash_attention(q, k, v)) for q, k, v in captured)
+    launches = fa.int8_launch_count
+    print(f"  K6 on the {len(captured)} attn1 calls of the first stage-2 step ({tuple(q.shape)}): {launches} "
+          f"launches; worst rel L2 against K1 {worst:.3e} (bar 5e-2)", flush=True)
+    if launches != 48 or not worst < 5e-2:
+        fail(f"K6 on the W8A8 run's q, k, v: {launches} launches, rel L2 {worst:.3e} against K1")
+    return {"k6": launches, "k6_vs_k1": worst}
+
+
+def full_width_text_encoder(models, fa, qmm, work: Path) -> dict:
+    """Phase 9b: the Gemma-3-12B geometry and the connectors, seeded bf16, on
+    1024 left-padded token ids (128 real); the embeddings drive a distilled
+    run to an mp4; then the same encoder in W8A8."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens, init_text_encoder_params
+    from mlx_video_tpu_torch.ops import int8 as i8
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+
+    cfg, dev, bf16 = Gemma3TextConfig(), torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    te = init_text_encoder_params(cfg, g, cfg.hidden_size, device=dev, dtype=bf16,
+                                  language_model=init_gemma3_params(cfg, g, device=dev, dtype=bf16))
+    for conn in (te.video_embeddings_connector, te.audio_embeddings_connector):
+        conn.learnable_registers.normal_(generator=g)
+    torch.cuda.synchronize()
+    n_lm = sum(p.numel() for p in te.language_model.parameters())
+    print(f"  Gemma-3-12B geometry drawn on the card in {time.perf_counter() - t0:.2f} s: language model "
+          f"{n_lm / 1e9:.3f} B params, connectors and extractor {(sum(p.numel() for p in te.parameters()) - n_lm) / 1e9:.3f} "
+          f"B; device memory {torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    mask = torch.zeros(1, 1024, dtype=torch.long, device=dev)
+    mask[:, -128:] = 1
+    ids = torch.randint(1, cfg.vocab_size, (1, 1024), generator=g, device=dev) * mask  # pad id 0, left
+
+    def encode(label):
+        out = None
+        for _ in range(2):  # the second is warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            i8.int8_matmul_count = 0
+            t = time.perf_counter()
+            with torch.no_grad():
+                out = encode_tokens(te, cfg, ids, mask)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        peak, want = torch.cuda.max_memory_allocated(), (48 * 7 + 1 if label == "W8A8" else 0)
+        print(f"  encode_tokens {label}: {secs:.4f} s warm; peak device memory {peak / 2**30:.3f} GiB; "
+              f"int8 products {i8.int8_matmul_count}; video {tuple(out[0].shape)}, audio {tuple(out[1].shape)}",
+              flush=True)
+        if any(o.shape != (1, 1024, models.transformer_config.caption_channels) or not torch.isfinite(o).all()
+               for o in out):
+            fail(f"{label} embeddings are not finite (1, 1024, caption channels)")
+        if i8.int8_matmul_count != want:
+            fail(f"{i8.int8_matmul_count} int8 products in a {label} encode, want {want}")
+        with profiled(f"a warm {label} encode"), torch.no_grad():
+            encode_tokens(te, cfg, ids, mask)
+        return out, secs, peak
+
+    (video, _), secs, peak = encode("bf16")
+    mp4 = work / "from_token_ids.mp4"
+    run = drive_slice(models, TextConditioning(video), fa, qmm, want_k2=0, output_path=mp4)
+    if run["video_path"] is None or not Path(run["video_path"]).is_file() or Path(run["video_path"]).stat().st_size == 0:
+        fail("the run from token ids wrote no mp4")
+    print(f"  token ids -> embeddings -> distilled run -> {Path(run['video_path']).name}: "
+          f"{Path(run['video_path']).stat().st_size} bytes", flush=True)
+    t0 = time.perf_counter()
+    i8.quantize_text_encoder_w8a8(te)
+    torch.cuda.synchronize()
+    print(f"  text encoder to W8A8 in place in {time.perf_counter() - t0:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
+    (video8, audio8), secs8, peak8 = encode("W8A8")
+    l2 = rel_l2(video8, video)
+    print(f"  W8A8 video embeddings against bf16: rel L2 {l2:.3e}", flush=True)
+    if not np.isfinite(l2):
+        fail("W8A8 embeddings are not finite")
+    del te, video, video8, audio8
+    torch.cuda.empty_cache()
+    return {"bf16_s": secs, "w8a8_s": secs8, "bf16_peak": peak, "w8a8_peak": peak8, "l2": l2}
+
+
 def quantize_full_width(models) -> None:
     import torch
 
@@ -1009,6 +1298,26 @@ def quantize_full_width(models) -> None:
           f"{before / 2**30:.3f} -> {torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
     if n != 10 * 48:
         fail(f"{n} quantized linears, want {10 * 48}")
+
+
+def full_width_w4a8(models, text, fa, qmm) -> None:
+    """W4A8 on the q4 DiT of phase 9 (quantize_models --w4a8: int8 scales
+    from the group endpoints, no K2), the distilled run, then the scales are
+    taken off so the q4 model goes on as it was."""
+    import torch
+
+    from mlx_video_tpu_torch import loading
+    from mlx_video_tpu_torch.ops.linear import QuantLinear
+
+    t0 = time.perf_counter()
+    loading.quantize_models(models, None, w4a8=True)
+    torch.cuda.synchronize()
+    layers = [m for m in models.transformer.modules() if isinstance(m, QuantLinear)]
+    print(f"  prepare_w4a8 in {time.perf_counter() - t0:.3f} s: {len(layers)} quantized linears with int8 scales",
+          flush=True)
+    drive_slice(models, text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11, profile="a warm W4A8 distilled run")
+    for m in layers:
+        del m._buffers["int8_scale"]
 
 
 def mlx_key(name: str) -> str:
@@ -1050,6 +1359,7 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
     from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.cli import generate as cli
     from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.ops import int8 as i8
 
     files = {
         "ltx-2-19b-distilled-4bit-mlx.safetensors": {
@@ -1125,6 +1435,20 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
             print(f"  CLI wrote {output.name}: {output.stat().st_size} bytes", flush=True)
         check_launches(k1, k2, 10 * 48 * (8 + 3))
         torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.launch_count = qmm.launch_count = i8.int8_matmul_count = 0
+        t0 = time.perf_counter()
+        cli.main([*argv, "--w4a8"])
+        wall = time.perf_counter() - t0
+        k1, k2, int8 = fa.launch_count, qmm.launch_count, i8.int8_matmul_count
+        for name, sec in json.loads(report.read_text())["phases"].items():
+            print(f"  CLI --w4a8 phase {name}: {sec:.4f} s", flush=True)
+        print(f"  CLI --w4a8 main wall {wall:.4f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}; int8 products {int8}",
+              flush=True)
+        check_launches(k1, k2, 0, int8, 10 * 48 * (8 + 3))
+        torch.cuda.empty_cache()
         return train_cli_over_q4(snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1159,12 +1483,13 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm) -> dic
 
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS) -> dict:
     """The least time for the work on the card, and which side binds."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -1197,6 +1522,13 @@ def rope_attention_work(b: int, s: int, h: int, d: int):
     """K1's products on rotated q and k; q, k, v and the fp32 (B, H, S, D/2)
     cos and sin tables read, o (bf16) written (no lse on the inference path)."""
     return 4.0 * b * s * s * d * h, 4 * b * s * h * d * 2 + 2 * b * h * s * (d // 2) * 4
+
+
+def int8_attention_work(b: int, s: int, h: int, d: int):
+    """K6: two S x S x D int8 products a head (pass 1's repeated q k^T is the
+    kernel's overhead, not the function's work); int8 q, k, v read, o (bf16)
+    written."""
+    return 4.0 * b * s * s * d * h, 3 * b * s * h * d + 2 * b * s * h * d
 
 
 def main() -> int:
@@ -1233,13 +1565,19 @@ def main() -> int:
     k3 = bwd_kernel_vs_plain(fa)
     k4 = cross_kernel_vs_plain(ca)
     k5 = rope_kernel_vs_plain(fa)
+    k6 = int8_kernel_vs_plain(fa)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         print("small slices, card vs CPU reference:", flush=True)
-        small_slice_check(quantized=False)
-        small_slice_check(quantized=True)
+        small_slice_check("dense")
+        small_slice_check("q4")
         lora_slice_check()
         narrow_dev_check(work)
+        print("int8 slices at narrow width, card vs CPU reference:", flush=True)
+        small_slice_check("w8a8")
+        small_slice_check("w4a8")
+        small_text_encoder_check()
+        lora_slice_check(w4a8=True)
         models, text = full_width_models()
         print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
         drive_slice(models, text, fa, qmm, want_k2=0)
@@ -1249,9 +1587,15 @@ def main() -> int:
         write_training_dataset(work / "data")
         print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
         train = full_width_training(models, fa, work / "data", work)
+        print("full-width W8A8 slice (a W8A8 copy of the same DiT); K6 on its q, k, v:", flush=True)
+        w8 = full_width_w8a8(models, text, fa, qmm)
+        print("full-width text encoder (Gemma-3-12B geometry and the connectors, seeded bf16, then W8A8):", flush=True)
+        full_width_text_encoder(models, fa, qmm, work)
         print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
         quantize_full_width(models)
         drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3))
+        print("full-width W4A8 slice (the q4 DiT, int8 products):", flush=True)
+        full_width_w4a8(models, text, fa, qmm)
         print("MLX pre-quantized snapshot -> load_model_bundle -> generate CLI; training CLI over the 4-bit "
               "file:", flush=True)
         cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data")
@@ -1264,6 +1608,7 @@ def main() -> int:
     k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
     k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
     k5_ms, k5_plain_ms, _ = k5["rows"][(2, 5184)]
+    k6_ms, k6_plain_ms, _, _ = k6["rows"][(1, 1280, 128)]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1318,6 +1663,17 @@ def main() -> int:
         "ms": k5_ms,
         "plain_ms": k5_plain_ms,
         **bound(*rope_attention_work(2, 5184, 32, 128)),
+        "library_ms": None,
+    }, {
+        "name": "flash_attention_int8",
+        "route": "cuda",
+        "source": "mlx_video_tpu_torch/csrc/flash_attention_int8.cu",
+        "replaces": "mlx_video_tpu/ops/flash_attention.py:836",
+        "launches": w8["k6"],
+        "max_abs_err": k6["max_abs_err"],
+        "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        **bound(*int8_attention_work(1, 1280, 32, 128), peak_ops=PEAK_INT8_OPS),
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,13 @@ Counterpart of mlx_video_tpu/cli/generate.py on the same flag names (the
 port's own copy of the JAX package's framework-free ``build_parser`` and
 ``slugify``, as :func:`base_parser` and :func:`slugify`), plus ``--device`` (default
 ``cuda``; without CUDA it exits rather than run on the CPU, which takes
-``--device cpu``). The run starts from precomputed text embeddings
-(``--embeddings``; a ``video_neg`` entry is the negative prompt for CFG):
-load the snapshot, optionally quantize the transformer (``--quantization``),
-generate, write the mp4 and, with ``--profile-json-path``, the phase seconds.
+``--device cpu``). The run loads the snapshot, optionally runs the
+transformer quantized (``--quantization``, ``--w8a8``, ``--w4a8``), encodes
+the prompt with the Gemma-3 text encoder (``--text-encoder-path``, bf16, or
+W8A8 with ``--w8a8``; the dev pipeline also encodes ``--negative-prompt`` or
+the default one) or reads precomputed text embeddings (``--embeddings``; a
+``video_neg`` entry is the negative prompt for CFG), generates, writes the
+mp4 and, with ``--profile-json-path``, the phase seconds.
 ``--pipeline dev`` runs the dev pipeline (``--steps``, ``--cfg-scale``,
 ``--no-cfg-batch``) with optional image conditioning (``--image PATH
 [FRAME_IDX] [STRENGTH]``, ``--condition-image``, ``--image-frame-idx``,
@@ -250,7 +253,7 @@ _PORTED = frozenset({
     "model_repo", "checkpoint_path", "embeddings", "stage1_steps", "stage2_steps", "tiling",
     "video_encoder", "latents_only", "profile_json_path", "verbose", "quantize_bits", "pipeline",
     "device", "steps", "cfg_scale", "no_cfg_batch", "image", "condition_image", "image_frame_idx",
-    "image_strength",
+    "image_strength", "w8a8", "w4a8", "text_encoder_path", "negative_prompt",
 })
 _IMAGE_FLAGS = ("image", "condition_image", "image_frame_idx", "image_strength")
 
@@ -277,8 +280,6 @@ def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) ->
         if given:
             msgs.append(f"{', '.join(given)} with --pipeline distilled (image conditioning is ported for "
                         "--pipeline dev)")
-    if not args.embeddings:
-        msgs.append("a prompt without --embeddings (the Gemma text encoder)")
     return msgs
 
 
@@ -300,6 +301,37 @@ def load_embeddings(path, device=None):
         if video is None:
             raise ValueError(f"{path} holds no 'video' or 'video_prompt_embeds' embeddings")
         return TextConditioning(video_embeddings=video, video_neg_embeddings=get("video_neg"))
+
+
+def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: dict):
+    """The prompt (and, for the dev pipeline, the negative prompt: the
+    given one or the default) through the Gemma-3 text encoder of
+    ``--text-encoder-path`` (else the snapshot), bf16 or with ``--w8a8``
+    W8A8, in ``dtype`` on ``device``; the encoder is freed after. Adds the
+    ``text_encoder_load`` and ``text_encode`` phase seconds."""
+    from mlx_video_tpu_torch.models.ltx.text_encoder import LTX2TextEncoder
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+    from mlx_video_tpu_torch.pipelines.prompts import DEFAULT_NEGATIVE_PROMPT
+
+    def synced():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    t0 = synced()
+    encoder = LTX2TextEncoder.load(model_path, args.text_encoder_path or model_path, dtype=dtype, w8a8=args.w8a8,
+                                   device=device)
+    t1 = synced()
+    video, _ = encoder.encode(args.prompt)
+    neg = args.negative_prompt
+    if neg is None and args.pipeline == "dev":
+        neg = DEFAULT_NEGATIVE_PROMPT
+    video_neg = encoder.encode(neg)[0] if neg else None
+    phases["text_encoder_load"], phases["text_encode"] = t1 - t0, synced() - t1
+    del encoder
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return TextConditioning(video_embeddings=video, video_neg_embeddings=video_neg)
 
 
 def main(argv=None) -> None:
@@ -325,14 +357,19 @@ def main(argv=None) -> None:
         load_encoder=bool(args.image), device=device,
     )
     try:
-        loading.quantize_models(models, quantize_bits=args.quantize_bits)
+        loading.quantize_models(models, model_path, w8a8=args.w8a8, w4a8=args.w4a8,
+                                quantize_bits=args.quantize_bits,
+                                repo_hint=str(args.checkpoint_path or args.model_repo))
     except ValueError as e:
         raise SystemExit(str(e))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    load_seconds = time.perf_counter() - t0
-    print(f"Loaded {model_path} in {load_seconds:.2f} s", flush=True)
-    text = load_embeddings(args.embeddings, device)
+    phases = {"load": time.perf_counter() - t0}
+    print(f"Loaded {model_path} in {phases['load']:.2f} s", flush=True)
+    if args.embeddings:
+        text = load_embeddings(args.embeddings, device)
+    else:
+        text = encode_prompts(args, model_path, device, models.transformer.video.scale_shift_table.dtype, phases)
 
     output_path = Path(args.output_path)
     if args.auto_output_name:
@@ -359,7 +396,7 @@ def main(argv=None) -> None:
         dtype=models.transformer.video.scale_shift_table.dtype,  # the dtype it was loaded in
     )
 
-    phases = {"load": load_seconds, **result.phase_seconds}
+    phases.update(result.phase_seconds)
     if args.verbose:
         for name, secs in phases.items():
             print(f"  {name:<24} {secs:8.2f}s")

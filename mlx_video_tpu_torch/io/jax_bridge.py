@@ -7,15 +7,18 @@ native checkpoint reads (io/weights.py). The port's modules keep the same
 names, so the mapping is mechanical:
 
 - subtrees named ``blocks``, ``res_blocks`` and ``post_upsample_res_blocks``
-  are stacked along a leading layer axis in JAX and are ``nn.ModuleList``s
+  (and ``layers`` of the Gemma-3 tree, by the ``stacked`` argument) are
+  stacked along a leading layer axis in JAX and are ``nn.ModuleList``s
   here: layer ``i`` becomes the path component ``.i``. The VAE encoder's
   ``res_blocks`` are the exception: its JAX tree keys them by index
   (``{"0": ..., "1": ...}``) and does not stack them, so they map one to
   one (:func:`encoder_to_jax_tree` for the way back);
 - a ``weight`` leaf changes layout: linear (in, out) -> (out, in), 2D conv
   (kh, kw, I, O) -> (O, I, kh, kw), 3D conv (kd, kh, kw, I, O) ->
-  (O, I, kd, kh, kw); every other leaf is copied as it is. Quantized leaves
-  (``quant_weight``, ``scales``, ``biases``) are ``(out, ...)`` in both;
+  (O, I, kd, kh, kw), except a lookup table's (``embed_tokens``, (vocab,
+  dim) in both); the W8A8 ``int8_weight`` goes (in, out) -> (out, in) too;
+  every other leaf is copied as it is. Quantized leaves (``quant_weight``,
+  ``scales``, ``biases``) are ``(out, ...)`` in both, and so is ``int8_scale``;
 - uint32 words (``quant_weight``) become the int32 tensor with the same bits,
   and go back as uint32;
 - LoRA leaves (``lora_A`` (r, in), ``lora_B`` (out, r), ``lora_scale``) are
@@ -36,12 +39,14 @@ import torch
 from torch import nn
 
 STACKED_KEYS = ("blocks", "res_blocks", "post_upsample_res_blocks")
+GEMMA_STACKED_KEYS = ("layers",)  # the Gemma-3 layer stack (models/gemma3.py)
+TABLES = ("embed_tokens",)  # 2-D ``weight`` leaves that are lookup tables, not linears
 
 _TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _TO_JAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
-def _leaf_to_torch(name: str, leaf) -> torch.Tensor:
+def _leaf_to_torch(name: str, leaf, parent: str = "") -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         t = leaf
     else:
@@ -52,24 +57,29 @@ def _leaf_to_torch(name: str, leaf) -> torch.Tensor:
             t = torch.from_numpy(arr.view(np.int32))
         else:
             t = torch.from_numpy(arr)
-    if name == "weight" and t.dim() in _TO_TORCH:
+    if name == "weight" and t.dim() in _TO_TORCH and parent not in TABLES:
         t = t.permute(*_TO_TORCH[t.dim()])
+    if name == "int8_weight" and t.dim() == 2:
+        t = t.t()
     return t.contiguous()
 
 
-def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+def to_jax_layout(name: str, t: torch.Tensor, parent: str = "") -> torch.Tensor:
     """A port leaf in the JAX package's layout, still a torch tensor:
-    ``weight`` leaves transposed, ``quant_weight`` words viewed as uint32."""
+    ``weight`` and ``int8_weight`` leaves transposed (not a table's),
+    ``quant_weight`` words viewed as uint32."""
     t = t.detach()
-    if name == "weight" and t.dim() in _TO_JAX:
+    if name == "weight" and t.dim() in _TO_JAX and parent not in TABLES:
         t = t.permute(*_TO_JAX[t.dim()])
+    if name == "int8_weight" and t.dim() == 2:
+        t = t.t()
     if name == "quant_weight":
         t = t.contiguous().view(torch.uint32)
     return t.contiguous()
 
 
-def _leaf_to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
-    t = to_jax_layout(name, t.cpu())
+def _leaf_to_numpy(name: str, t: torch.Tensor, parent: str = "") -> np.ndarray:
+    t = to_jax_layout(name, t.cpu(), parent)
     if t.dtype == torch.uint32:
         return t.view(torch.int32).numpy().view(np.uint32)
     if t.dtype == torch.bfloat16:
@@ -89,23 +99,23 @@ def _num_layers(tree) -> int:
     return tree.shape[0]
 
 
-def jax_tree_to_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+def jax_tree_to_state_dict(tree: dict, stacked=STACKED_KEYS) -> Dict[str, torch.Tensor]:
     """JAX param pytree (numpy arrays or torch tensors) -> state dict of the
     port's module (CPU tensors unless the tree held others)."""
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node: dict, prefix: str) -> None:
+    def walk(node: dict, prefix: str, parent: str) -> None:
         for key, val in node.items():
             path = f"{prefix}{key}"
             if not isinstance(val, dict):
-                out[path] = _leaf_to_torch(key, val)
-            elif key in STACKED_KEYS and not all(k.isdigit() for k in val):
+                out[path] = _leaf_to_torch(key, val, parent)
+            elif key in stacked and not all(k.isdigit() for k in val):
                 for i in range(_num_layers(val)):
-                    walk(_layer(val, i), f"{path}.{i}.")
+                    walk(_layer(val, i), f"{path}.{i}.", str(i))
             else:
-                walk(val, f"{path}.")
+                walk(val, f"{path}.", key)
 
-    walk(tree, "")
+    walk(tree, "", "")
     return out
 
 
@@ -117,7 +127,7 @@ def _restack(state: Dict[str, torch.Tensor], leaf_fn: Callable, stack_fn: Callab
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = leaf_fn(parts[-1], t)
+        node[parts[-1]] = leaf_fn(parts[-1], t, parts[-2] if len(parts) > 1 else "")
 
     def stack(layers: list):
         if isinstance(layers[0], dict):
@@ -137,9 +147,9 @@ def _restack(state: Dict[str, torch.Tensor], leaf_fn: Callable, stack_fn: Callab
     return restack(tree)
 
 
-def state_dict_to_jax_tree(state: Dict[str, torch.Tensor]) -> dict:
+def state_dict_to_jax_tree(state: Dict[str, torch.Tensor], stacked=STACKED_KEYS) -> dict:
     """State dict of a port module -> JAX param pytree of numpy arrays."""
-    return _restack(state, _leaf_to_numpy, lambda xs: np.stack(xs, axis=0))
+    return _restack(state, _leaf_to_numpy, lambda xs: np.stack(xs, axis=0), stacked)
 
 
 def state_dict_to_jax_layout(state: Dict[str, torch.Tensor]) -> dict:
@@ -167,26 +177,30 @@ def quant_specs(module: nn.Module, state: Dict[str, torch.Tensor]) -> dict:
     return specs
 
 
-def load_jax_params(module: nn.Module, tree: dict) -> nn.Module:
+def load_jax_params(module: nn.Module, tree: dict, stacked=STACKED_KEYS) -> nn.Module:
     """Copy a JAX param pytree into ``module`` (names and shapes must match
     exactly); values are cast to the module's dtypes and device. Linears the
-    tree holds quantized become ``QuantLinear``s first, and linears it gives
-    LoRA leaves get adapters (lora.py) of those shapes."""
+    tree holds quantized become ``QuantLinear``s first (with the W4A8
+    ``int8_scale`` if the tree has one), linears it holds in W8A8
+    ``Int8Linear``s, and linears it gives LoRA leaves get adapters (lora.py)
+    of those shapes."""
     from mlx_video_tpu_torch.lora import attach_lora_leaves
+    from mlx_video_tpu_torch.ops.int8 import use_int8_linears
     from mlx_video_tpu_torch.ops.quant import use_quant_linears
 
-    state = jax_tree_to_state_dict(tree)
+    state = jax_tree_to_state_dict(tree, stacked)
     use_quant_linears(module, quant_specs(module, state))
+    use_int8_linears(module, state)
     attach_lora_leaves(module, state)
     module.load_state_dict(state, strict=True)
     return module
 
 
-def module_to_jax_tree(module: nn.Module) -> dict:
-    return state_dict_to_jax_tree(module.state_dict())
+def module_to_jax_tree(module: nn.Module, stacked=STACKED_KEYS) -> dict:
+    return state_dict_to_jax_tree(module.state_dict(), stacked)
 
 
 def encoder_to_jax_tree(encoder: nn.Module) -> dict:
     """A ``VideoEncoder`` as the JAX ``init_video_encoder`` tree: nothing is
     stacked."""
-    return _restack(encoder.state_dict(), _leaf_to_numpy, None, stacked=())
+    return _restack(encoder.state_dict(), _leaf_to_numpy, None, ())

@@ -16,10 +16,11 @@ Layouts read by :func:`load_dit_params`:
   ``<name>.scales`` and ``<name>.biases``, loaded as a ``QuantLinear``;
 - the native ``format: mlx_video_tpu`` files of :func:`save_dit_params` (the
   JAX package's layout: stacked blocks, ``(in, out)`` linears), through the
-  JAX bridge.
+  JAX bridge, with their W8A8 ``int8_weight``/``int8_scale`` leaves (the
+  files ``convert --w8a8`` writes) as ``Int8Linear``s.
 
 Floating tensors take the model dtype, except the quantized ``scales`` and
-``biases``, which keep theirs. (The JAX loader keeps bf16 and fp16 leaves as
+``biases`` and the int8 ``int8_scale``, which keep theirs. (The JAX loader keeps bf16 and fp16 leaves as
 stored; the port's modules hold one dtype.)
 """
 
@@ -34,6 +35,7 @@ from mlx_video_tpu_torch.config import LTXModelConfig
 from mlx_video_tpu_torch.io.jax_bridge import jax_tree_to_state_dict, quant_specs, state_dict_to_jax_layout
 from mlx_video_tpu_torch.io.safetensors import SafetensorsReader, read_metadata, save_safetensors
 from mlx_video_tpu_torch.models.ltx.model import LTXModel
+from mlx_video_tpu_torch.ops.int8 import use_int8_linears
 from mlx_video_tpu_torch.ops.quant import infer_quant_spec, use_quant_linears
 
 PT_PREFIX = "model.diffusion_model."
@@ -43,6 +45,7 @@ NATIVE_FORMAT = "mlx_video_tpu"
 # to transformer_blocks.{i}).
 _VIDEO_TOP = {"patchify_proj", "adaln_single", "caption_projection", "scale_shift_table", "proj_out"}
 _QUANT_AUX = ("scales", "biases")
+_KEEP_DTYPE = (*_QUANT_AUX, "int8_scale")  # fp32 scales of the quantized and int8 linears
 
 
 def sanitize_pt_key(key: str) -> Optional[str]:
@@ -97,7 +100,7 @@ def _assign_state(model: LTXModel, state: Dict[str, torch.Tensor], dtype) -> LTX
             raise ValueError(
                 f"Shape mismatch for {name}: checkpoint {tuple(t.shape)} vs expected {tuple(expected[name].shape)}"
             )
-        if t.is_floating_point() and name.rsplit(".", 1)[-1] not in _QUANT_AUX:
+        if t.is_floating_point() and name.rsplit(".", 1)[-1] not in _KEEP_DTYPE:
             state[name] = t.to(dtype)
     model.load_state_dict({k: state[k] for k in expected}, strict=True, assign=True)
     return model
@@ -207,4 +210,5 @@ def load_native_params(
     state = jax_tree_to_state_dict(_unflatten(flat))
     model = LTXModel(config, device="meta", dtype=dtype)
     use_quant_linears(model, quant_specs(model, state))
+    use_int8_linears(model, state)
     return _assign_state(model, state, dtype)

@@ -5,9 +5,10 @@ Counterpart of mlx_video_tpu/loading.py for the video-only paths: the DiT of
 the pipeline's kind (PyTorch, MLX, MLX pre-quantized or native layout;
 io/weights.py), the VAE decoder, the VAE encoder when image conditioning
 needs it, and the 2x upsampler when the snapshot has it (io/vae_weights.py).
-Not ported yet, and refused with ``NotImplementedError``: the keyframe and
-IC-LoRA pipelines, audio, a separate stage-2 transformer, and the W8A8 /
-W4A8 execution modes.
+:func:`quantize_models` applies the quantized execution modes (4/8-bit
+storage on K2, W8A8, W4A8). Not ported yet, and refused with
+``NotImplementedError``: the keyframe and IC-LoRA pipelines, audio and a
+separate stage-2 transformer.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ from mlx_video_tpu_torch.io.weights import load_dit_params, load_native_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
 from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
-from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+from mlx_video_tpu_torch.ops.int8 import quantize_params_w8a8
+from mlx_video_tpu_torch.ops.linear import QuantLinear
+from mlx_video_tpu_torch.ops.quant import prepare_w4a8, quantize_dit_params
 from mlx_video_tpu_torch.pipelines.generate import ModelBundle, PipelineType
 
 UNIFIED_FORMAT = "mlx_video_tpu_unified"
@@ -174,18 +177,42 @@ def load_model_bundle(
 
 def quantize_models(
     models: ModelBundle,
+    model_path: Optional[Path] = None,
     *,
     w8a8: bool = False,
     w4a8: bool = False,
     quantize_bits: Optional[int] = None,
+    repo_hint: str = "",
 ) -> None:
-    """Quantize the loaded transformer's dense block linears in place to
-    ``quantize_bits`` (group 64, ``core`` scope); linears a snapshot holds
-    pre-quantized stay as they are. (The JAX function's ``model_path`` and
-    ``repo_hint`` resolve W4A8's bit width, which waits with W4A8.)"""
+    """Apply the quantized execution mode to the loaded transformer, in
+    place (the JAX function of the same name):
+
+    - ``quantize_bits``: quantize its dense block linears (group 64, ``core``
+      scope); linears a snapshot holds pre-quantized stay as they are;
+    - ``w8a8``: its dense block linears become ``Int8Linear``s;
+    - ``w4a8``: quantize it first if it holds no quantized linear, then give
+      every quantized linear its int8 scale (``prepare_w4a8``). The STORED
+      grid width comes from, in order: ``quantize_bits`` > ``quantization.json``
+      next to the weights (``model_path``) > a hint in ``repo_hint``'s name >
+      4; assuming 4 bits on an 8-bit snapshot would mis-scale every product.
+
+    ``w8a8`` and ``w4a8`` together, or ``quantize_bits`` against the stored
+    width of ``quantization.json``, raise ``ValueError``."""
     if w8a8 and w4a8:
         raise ValueError("--w8a8 and --w4a8 are mutually exclusive")
-    if w8a8 or w4a8:
-        raise _not_ported("W8A8 / W4A8 execution (ops/int8.py, prepare_w4a8)", "W4A8 and W8A8 execution")
+    model = models.transformer
     if quantize_bits:
-        quantize_dit_params(models.transformer, bits=quantize_bits)
+        quantize_dit_params(model, bits=quantize_bits)
+    if w8a8:
+        quantize_params_w8a8(model)
+    if w4a8:
+        qmeta = (read_quantization_metadata(model_path) if model_path is not None else None) or {}
+        bits = quantize_bits or qmeta.get("bits") or {"8bit": 8, "4bit": 4}.get(bits_hint_for(repo_hint)) or 4
+        if qmeta.get("bits") and quantize_bits and qmeta["bits"] != quantize_bits:
+            raise ValueError(
+                f"--quantize-bits {quantize_bits} conflicts with the checkpoint's quantization.json "
+                f"bits={qmeta['bits']}"
+            )
+        if not any(isinstance(m, QuantLinear) for m in model.modules()):
+            quantize_dit_params(model, bits=bits)
+        prepare_w4a8(model, bits=bits)

@@ -5,9 +5,9 @@ Counterpart of the training half of mlx_video_tpu/lora.py (``inject_lora``,
 ``lora_mask``, ``export_lora_state`` / ``save_lora`` and
 ``load_lora_into_params``). The JAX package keeps the factors as extra leaves
 of a linear's param dict, stacked (L, ...) over the blocks; here they are
-attributes of each ``Linear`` / ``QuantLinear`` module: ``lora_A`` (r, in) and
-``lora_B`` (out, r) fp32 parameters and a ``lora_scale`` fp32 buffer
-(alpha / rank), which ops/linear.py:linear applies. io/jax_bridge.py stacks
+attributes of each ``Linear`` / ``QuantLinear`` / ``Int8Linear`` module:
+``lora_A`` (r, in) and ``lora_B`` (out, r) fp32 parameters and a
+``lora_scale`` fp32 buffer (alpha / rank), which ops/linear.py:linear applies. io/jax_bridge.py stacks
 and unstacks them like every other block leaf.
 
 The serving side (offline merge, runtime adapters and slots) is not ported yet.
@@ -25,7 +25,7 @@ from torch import nn
 from mlx_video_tpu_torch.config import LTXModelConfig
 from mlx_video_tpu_torch.io.safetensors import SafetensorsReader, save_safetensors
 from mlx_video_tpu_torch.io.weights import dit_tree_path, sanitize_pt_key
-from mlx_video_tpu_torch.ops.linear import Linear, QuantLinear
+from mlx_video_tpu_torch.ops.linear import Int8Linear, Linear, QuantLinear
 
 DEFAULT_TARGET_MODULES = (
     "to_q",
@@ -89,7 +89,9 @@ def _module_matches(path_parts: Tuple[str, ...], targets: Sequence[str]) -> bool
 
 
 def _device(layer: nn.Module) -> torch.device:
-    return layer.quant_weight.device if isinstance(layer, QuantLinear) else layer.weight.device
+    if isinstance(layer, QuantLinear):
+        return layer.quant_weight.device
+    return layer.int8_weight.device if isinstance(layer, Int8Linear) else layer.weight.device
 
 
 def add_lora_(layer: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: float) -> None:
@@ -117,7 +119,7 @@ def inject_lora(
     rank = lora_config.rank
     scale = lora_config.alpha / rank if rank > 0 else 1.0
     for name, layer in model.named_modules():
-        if not isinstance(layer, (Linear, QuantLinear)):
+        if not isinstance(layer, (Linear, QuantLinear, Int8Linear)):
             continue
         if not _module_matches(tuple(p for p in name.split(".") if not p.isdigit()), targets):
             continue

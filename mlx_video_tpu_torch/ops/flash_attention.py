@@ -11,7 +11,11 @@ split RoPE (K5) replaces ``_flash_attention_split_rope_impl`` (the Pallas
 kernel ``_flash_rope_kernel``); its kernel is
 ``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: K1 on q and k rotated
 in fp32 as they are staged, tile by tile (the csrc file says what that costs).
-All are built by ``nvcc`` at first use (ops/_build.py) and called through
+The int8 attention (K6) replaces ``flash_attention_int8`` (the Pallas kernel
+``_single_pass_int8_kernel``); its kernel is
+``mlx_video_tpu_torch/csrc/flash_attention_int8.cu``: int8 products on the
+tensor cores and an exact two-pass softmax over the keys, behind the same
+quantization prologue as JAX's, in plain PyTorch here. All are built by ``nvcc`` at first use (ops/_build.py) and called through
 ``ctypes``.
 
 What bounds them on the H100: at the DiT's shapes (B=1, H=32, D=128, S=320 to
@@ -47,19 +51,21 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from mlx_video_tpu_torch.ops import _build
+from mlx_video_tpu_torch.ops.int8 import int8_mm, scale_from_absmax
 
 # Kernel launches so far: K1 (forward), K3 (backward; one count per backward,
-# which launches its dq and its dkv kernel) and K5 (forward with split RoPE).
-# A run resets them to 0 and reads them to show that its attention went
-# through the kernels. Only a launch adds to them.
+# which launches its dq and its dkv kernel), K5 (forward with split RoPE) and
+# K6 (int8 attention). A run resets them to 0 and reads them to show that its
+# attention went through the kernels. Only a launch adds to them.
 launch_count = 0
 bwd_launch_count = 0
 rope_launch_count = 0
+int8_launch_count = 0
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
@@ -77,6 +83,7 @@ _ARGTYPES = {
     "mvt_flash_cross_attention_bf16": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
+    "mvt_flash_attention_int8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 _fns = {}
 
@@ -398,3 +405,152 @@ def flash_attention_split_rope(
     if not return_lse and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttentionSplitRope.apply(q, k, v, cos, sin, scale)
     return _rope_forward(q, k, v, cos, sin, scale, return_lse)
+
+
+# ---------------------------------------------------------------------------
+# K6: int8 single-pass attention
+# ---------------------------------------------------------------------------
+
+INT8_BLOCK = 64  # K6's query and key tile; the prologue pads S to a multiple
+
+
+class Int8Operands(NamedTuple):
+    """The quantization prologue's output, K6's operands: codes padded with
+    zeros to ``s_pad`` rows (a multiple of 64), head-major."""
+
+    q: torch.Tensor  # (B*H, S_pad, D) int8, one per-tensor scale
+    k: torch.Tensor  # (B*H, S_pad, D) int8, one per-tensor scale
+    v_t: torch.Tensor  # (B*H, D, S_pad) int8, v's codes transposed
+    qk_scale: torch.Tensor  # () fp32: s_q * s_k * softmax scale
+    v_scale: torch.Tensor  # (B*H, D) fp32, per (head, channel)
+    s: int  # the sequence length before padding
+
+
+def _quant_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 codes of fp32 ``x`` and their scale."""
+    sc = scale_from_absmax(x.abs().amax())
+    return torch.clamp(torch.round(x / sc), -127, 127).to(torch.int8), sc
+
+
+def int8_attention_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Int8Operands:
+    """The JAX ``flash_attention_int8`` prologue (XLA there, plain PyTorch
+    here) on (B, S, H, D) tensors: q and k quantized per tensor (one absmax
+    over all heads), v per (batch * head, channel) with the absmax over
+    tokens; codes clip(round(x / sc), -127, 127) with sc = max(absmax / 127,
+    1e-12), rounding half to even. Padding rows are zero codes, which change
+    no absmax."""
+    b, s, h, d = q.shape
+    s_pad = -(-s // INT8_BLOCK) * INT8_BLOCK
+
+    def heads(x):
+        return x.float().permute(0, 2, 1, 3).reshape(b * h, s, d)
+
+    def padded(codes):
+        out = torch.zeros((b * h, s_pad, d), dtype=torch.int8, device=q.device)
+        out[:, :s] = codes
+        return out
+
+    q_q, s_q = _quant_tensor(heads(q))
+    k_q, s_k = _quant_tensor(heads(k))
+    v32 = heads(v)
+    v_sc = scale_from_absmax(v32.abs().amax(dim=1, keepdim=True))  # (B*H, 1, D)
+    v_q = torch.clamp(torch.round(v32 / v_sc), -127, 127).to(torch.int8)
+    v_t = torch.zeros((b * h, d, s_pad), dtype=torch.int8, device=q.device)
+    v_t[:, :, :s] = v_q.transpose(1, 2)
+    return Int8Operands(padded(q_q), padded(k_q), v_t, (s_q * s_k * scale).float(), v_sc[:, 0].contiguous(), s)
+
+
+def flash_attention_int8_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    return_codes: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """K6's plain version, one (batch, head) at a time: the prologue, then
+    logits = fp32(int32(q_q k_q^T)) * qk_scale with keys past S at -inf,
+    p_q = round(127 exp(logits - max)) as int8, l = max(sum p_q, 1) and
+    out = fp32(int32(p_q v_q)) * v_scale / l in q's dtype. Both products are
+    exact integer products (ops/int8.py:int8_mm), never fp32 sums. With
+    ``return_codes`` also p_q as a (B*H, S, S) int8 tensor."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, s, h, d = q.shape
+    ops = int8_attention_operands(q, k, v, scale)
+    s_pad = ops.q.shape[1]
+    keep = torch.arange(s_pad, device=q.device) < s
+    out = torch.empty((b * h, s, d), dtype=torch.float32, device=q.device)
+    codes = torch.empty((b * h, s, s), dtype=torch.int8, device=q.device) if return_codes else None
+    for i in range(b * h):
+        logits = int8_mm(ops.q[i], ops.k[i]).float() * ops.qk_scale
+        logits = torch.where(keep, logits, -torch.inf)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p_q = torch.round(p * 127.0).to(torch.int8)
+        l = torch.clamp(p_q.float().sum(dim=-1, keepdim=True), min=1.0)
+        acc = int8_mm(p_q, ops.v_t[i])
+        out[i] = (acc.float() * ops.v_scale[i] / l)[:s]
+        if codes is not None:
+            codes[i] = p_q[:s, :s]
+    out = out.reshape(b, h, s, d).permute(0, 2, 1, 3).to(q.dtype)
+    return (out, codes) if return_codes else out
+
+
+def flash_attention_int8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    return_codes: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Bidirectional attention over (B, S, H, D) with int8 products: the JAX
+    ``flash_attention_int8``. Output (B, S, H, D) in q's dtype.
+
+    CPU tensors take :func:`flash_attention_int8_reference`; CUDA tensors run
+    the prologue and launch K6 (D in {64, 128}, bf16 or fp32 q, k, v) or
+    raise. Inference only, as in JAX (no VJP): an input that requires a
+    gradient is refused. With ``return_codes`` K6 also writes its p_q codes
+    as a (B*H, S, S) int8 tensor, so a check can count those that differ from
+    the plain version's."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention_int8 is inference only (no gradient, as in the JAX package)")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_int8_reference(q, k, v, scale, return_codes)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_int8 runs on CUDA or CPU tensors, got {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must be (B, S, H, D) like q {tuple(q.shape)} on {q.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if q.dim() != 4 or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the int8 attention kernel takes (B, S, H, D) bf16 or fp32, got {tuple(q.shape)} {q.dtype}")
+    b, s, h, d = q.shape
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported (kernel takes {SUPPORTED_HEAD_DIMS})")
+    if s < 1 or b * h > _MAX_GRID_Y:
+        raise ValueError(f"unsupported shape {tuple(q.shape)}")
+    return int8_attention_kernel(int8_attention_operands(q, k, v, scale), b, h, q.dtype, return_codes)
+
+
+def int8_attention_kernel(
+    ops: Int8Operands, b: int, h: int, out_dtype=torch.bfloat16, return_codes: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """K6 alone on the prologue's operands (CUDA tensors): the (B, S, H, D)
+    output in ``out_dtype`` (bf16 or fp32), and with ``return_codes`` p_q as
+    (B*H, S, S) int8. :func:`flash_attention_int8` checks the shapes."""
+    global int8_launch_count
+    s, d = ops.s, ops.q.shape[2]
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=ops.q.device)
+    codes = torch.empty((b * h, s, s), dtype=torch.int8, device=ops.q.device) if return_codes else None
+    fn = _kernel("mvt_flash_attention_int8")
+    with torch.cuda.device(ops.q.device):
+        err = fn(
+            ops.q.data_ptr(), ops.k.data_ptr(), ops.v_t.data_ptr(), ops.qk_scale.data_ptr(),
+            ops.v_scale.data_ptr(), out.data_ptr(), codes.data_ptr() if codes is not None else None,
+            b, s, ops.q.shape[1], h, d, int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        _raise_launch_error("int8 attention", err)
+    int8_launch_count += 1
+    return (out, codes) if return_codes else out

@@ -1,7 +1,7 @@
-"""Linear layers: dense and group-affine quantized, with optional LoRA adapters.
+"""Linear layers: dense, group-affine quantized and int8, with optional LoRA
+adapters.
 
-Counterpart of the dense, quantized and LoRA branches of
-mlx_video_tpu/ops/linear.py:linear. Dense weights use PyTorch's
+Counterpart of mlx_video_tpu/ops/linear.py:linear. Dense weights use PyTorch's
 ``(out_features, in_features)`` layout; the JAX package stores ``(in, out)``,
 and io/jax_bridge.py transposes between the two. Quantized weights keep the
 MLX ``(out, ...)`` layout in both packages (ops/quant.py).
@@ -25,7 +25,17 @@ and cast to y's dtype, as ``_apply_lora``. Its products are plain autograd
 ops in full fp32, PyTorch's default (the JAX package's ``Precision.HIGHEST``);
 the trainer refuses to start with TF32 switched on.
 
-The int8 (W8A8, W4A8) branches are not ported yet.
+The int8 branches (ops/int8.py), as JAX computes them outside any Pallas
+kernel:
+- W8A8, an :class:`Int8Linear` (``int8_weight`` (out, in) int8,
+  ``int8_scale`` (out,) fp32): per-token activation codes, an int32 product,
+  an fp32 rescale and bias, cast to x's dtype;
+- W4A8, a :class:`QuantLinear` that carries ``int8_scale`` (ops/quant.py:
+  prepare_w4a8): its words are dequantized to fp32, requantized per output
+  channel to int8 and multiplied the same way. K2 is not used; the int8
+  weight is a transient of this one layer, as in JAX.
+Both are differentiable in x by the straight-through estimator; LoRA adds
+its delta on top, as on every other branch.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlx_video_tpu_torch.ops.int8 import int8_act_matmul, int8_linear
 from mlx_video_tpu_torch.ops.quant import SUPPORTED_BITS, dequantize_affine
 from mlx_video_tpu_torch.ops.quant_matmul import KERNEL_BITS, quant_matmul
 
@@ -85,6 +96,40 @@ class QuantLinear(nn.Module):
                 f"bits={self.bits}, group_size={self.group_size}")
 
 
+class Int8Linear(nn.Module):
+    """W8A8 linear under the JAX leaf names: ``int8_weight`` (out, in) int8
+    codes, ``int8_scale`` (out,) fp32 per-channel scales (ops/int8.py:
+    quantize_weight_int8), optional ``bias``. Created uninitialised, like
+    :class:`Linear`."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("int8_weight", torch.empty(out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("int8_scale", torch.empty(out_features, dtype=torch.float32, device=device))
+        self.bias = (
+            nn.Parameter(torch.empty(out_features, device=device, dtype=dtype), requires_grad=False)
+            if bias else None
+        )
+
+    def extra_repr(self) -> str:
+        return f"in_features={self.in_features}, out_features={self.out_features}, int8"
+
+
+def w4a8_linear(layer: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+    """The W4A8 branch: dequantize the layer's words to fp32, requantize per
+    output channel by its ``int8_scale``, int8 product with per-token
+    activation codes, fp32 bias, cast to x's dtype."""
+    w_scale = layer.int8_scale.float()
+    wf = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=torch.float32)
+    w_q8 = torch.clamp(torch.round(wf / w_scale[:, None]), -127, 127).to(torch.int8)
+    del wf
+    y = int8_act_matmul(x.float(), w_q8, w_scale, 1)
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    return y.to(x.dtype)
+
+
 class _QuantMatmul(torch.autograd.Function):
     """K2 forward; the backward gives dx = dy dequant(W) only."""
 
@@ -101,12 +146,17 @@ class _QuantMatmul(torch.autograd.Function):
         return torch.matmul(dy, w), None, None, None, None, None
 
 
-def linear(layer: Union[Linear, QuantLinear], x: torch.Tensor) -> torch.Tensor:
+def linear(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor) -> torch.Tensor:
     """y = x W^T (+ b) in x's dtype, plus the layer's LoRA delta if it has
     one. fp32 operands stay full fp32 (PyTorch's default matmul precision);
     bf16 operands accumulate in fp32 on the card. A quantized layer adds its
-    bias after the product, in x's dtype."""
-    if not isinstance(layer, QuantLinear):
+    bias after the product, in x's dtype; an int8 one (W8A8, or W4A8 when a
+    quantized layer carries ``int8_scale``) in fp32 before the cast."""
+    if isinstance(layer, Int8Linear):
+        y = int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias)
+    elif isinstance(layer, QuantLinear) and getattr(layer, "int8_scale", None) is not None:
+        y = w4a8_linear(layer, x)
+    elif not isinstance(layer, QuantLinear):
         y = F.linear(x, layer.weight, layer.bias)
     else:
         if layer.bits in KERNEL_BITS:

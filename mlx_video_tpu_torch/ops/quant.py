@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from mlx_video_tpu_torch.ops.int8 import scale_from_absmax
+
 SUPPORTED_BITS = (2, 3, 4, 5, 6, 8)
 
 # Quantization scopes of the JAX package (mlx_video_tpu/ops/quant.py), matched
@@ -242,4 +244,29 @@ def quantize_dit_params(
         parent_name, _, child = name.rpartition(".")
         parent = model.get_submodule(parent_name)
         setattr(parent, child, quantize_linear(getattr(parent, child), group_size, bits))
+    return model
+
+
+def w4a8_scale(scales: torch.Tensor, biases: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-output-channel int8 requantization scale of a quantized linear
+    from its group endpoints alone: a group spans [b, b + levels * s], so the
+    channel's absmax is the max over groups of max(|b|, |b + levels * s|);
+    the scale is max(absmax / 127, 1e-12), fp32 (out,)."""
+    s, b = scales.float(), biases.float()
+    hi = b + ((1 << bits) - 1) * s
+    return scale_from_absmax(torch.maximum(b.abs(), hi.abs()).amax(dim=-1))
+
+
+@torch.no_grad()
+def prepare_w4a8(model: nn.Module, bits: int = 4) -> nn.Module:
+    """Give every ``QuantLinear`` of ``model`` an ``int8_scale`` buffer, IN
+    PLACE, and return ``model``: ops/linear.py then runs it W4A8 (its words
+    requantized to int8 per call, an int8 product). The packed words are
+    never unpacked here. ``bits`` is the stored grid width, as in JAX (the
+    levels of the endpoints)."""
+    from mlx_video_tpu_torch.ops.linear import QuantLinear
+
+    for m in model.modules():
+        if isinstance(m, QuantLinear):
+            m.register_buffer("int8_scale", w4a8_scale(m.scales, m.biases, bits))
     return model

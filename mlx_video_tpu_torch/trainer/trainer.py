@@ -6,8 +6,9 @@ dataset -> model (SPLIT RoPE, video-only) -> LoRA injection (lora.py) ->
 AdamW with its schedule (train_step.py) -> a loop with gradient accumulation,
 clip and update -> saves after the step increment, pruning, and a final save.
 
-- A bf16 or a quantized base: a model with quantized linears (``QuantLinear``)
-  trains LoRA only, as the JAX package guards it.
+- A bf16 or a quantized base: a model with quantized or int8 linears
+  (``QuantLinear``, ``Int8Linear``: frozen formats, the int8 product has no
+  weight gradient) trains LoRA only, as the JAX package guards it.
 - Stream-exact resume: one batch is one step, the epoch position and the
   step's draws derive from the step counter alone (the step's
   ``torch.Generator`` is seeded from (seed, step), as ``jax.random.fold_in``
@@ -37,7 +38,7 @@ from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
 from mlx_video_tpu_torch.io.weights import load_dit_params, load_native_params, save_dit_params
 from mlx_video_tpu_torch.lora import LoRAConfig, inject_lora, load_lora_into_params, lora_mask, save_lora
 from mlx_video_tpu_torch.models.ltx.model import LTXModel
-from mlx_video_tpu_torch.ops.linear import QuantLinear
+from mlx_video_tpu_torch.ops.linear import Int8Linear, QuantLinear
 from mlx_video_tpu_torch.trainer import checkpoints as ckpt
 from mlx_video_tpu_torch.trainer.config import TrainingConfig
 from mlx_video_tpu_torch.trainer.datasets import (
@@ -137,7 +138,7 @@ class Trainer:
         self.dataset = dataset if dataset is not None else self._load_dataset()
         self.model = params if params is not None else self._load_params()
 
-        if cfg.training_mode != "lora" and any(isinstance(m, QuantLinear) for m in self.model.modules()):
+        if cfg.training_mode != "lora" and any(isinstance(m, (QuantLinear, Int8Linear)) for m in self.model.modules()):
             raise ValueError("Quantized base weights support LoRA training only.")
 
         if cfg.training_mode == "lora":

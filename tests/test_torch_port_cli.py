@@ -4,8 +4,10 @@ As tests/test_cli_generate.py does for the JAX CLI, ``load_model_bundle`` is
 patched to return a tiny in-memory bundle (the real loader builds the 19B
 geometry; its parts are tested in tests/test_torch_port_loading.py), and
 ``main`` runs the rest of the user's path with ``--device cpu``: flags ->
-quantization -> embeddings file -> generate_video -> mp4 and phase JSON, for
-the distilled pipeline and for the dev pipeline with an image.
+quantization (4-bit, W8A8, W4A8) -> embeddings file, or the prompt through a
+tiny Gemma-3 text encoder snapshot with its own tokenizer -> generate_video
+-> mp4 and phase JSON, for the distilled pipeline and for the dev pipeline
+with an image.
 """
 
 import json
@@ -23,7 +25,8 @@ from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
 from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
-from mlx_video_tpu_torch.ops.linear import QuantLinear
+from mlx_video_tpu_torch.ops import int8 as tint8
+from mlx_video_tpu_torch.ops.linear import Int8Linear, QuantLinear
 from mlx_video_tpu_torch.pipelines.generate import ModelBundle
 
 
@@ -144,8 +147,8 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
 
 @pytest.mark.parametrize("flags, named", [
     (["--lora", "x.safetensors"], "--lora"),
-    (["--w4a8"], "--w4a8"),
-    (["--w8a8"], "--w8a8"),
+    (["--distilled-lora", "x.safetensors"], "--distilled-lora"),
+    (["--stage2-model-repo", "x"], "--stage2-model-repo"),
     (["--mesh", "auto"], "--mesh"),
     (["--image", "a.png"], "--image"),
     (["--audio"], "--audio"),
@@ -161,9 +164,92 @@ def test_unported_flags_exit_with_their_names(emb_file, flags, named):
         cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", *flags])
 
 
-def test_prompt_without_embeddings_exits():
-    with pytest.raises(SystemExit, match="--embeddings"):
-        cli.main(["--prompt", "p", "--device", "cpu"])
+def test_enhance_prompt_exits_on_the_prompt_path():
+    """A prompt without --embeddings now runs the text encoder, but prompt
+    enhancement (Gemma generation) is not ported: it still exits by name
+    before anything loads."""
+    with pytest.raises(SystemExit, match="--enhance-prompt"):
+        cli.main(["--prompt", "p", "--enhance-prompt", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag, kind", [("--w8a8", Int8Linear), ("--w4a8", QuantLinear)])
+def test_main_runs_w8a8_and_w4a8(monkeypatch, tmp_path, emb_file, flag, kind):
+    """--w8a8: the block linears become Int8Linears; --w4a8: 4-bit storage
+    (no quantization.json, no hint: 4) with int8 scales. Every block linear
+    then runs one int8 product a forward: 10 x 2 layers x (1 + 1) steps."""
+    bundle = _tiny_bundle()
+    before = tint8.int8_matmul_count
+    out = _run_main(monkeypatch, tmp_path, emb_file, bundle, (flag,))
+    assert out.stat().st_size > 0
+    layers = [m for m in bundle.transformer.modules() if isinstance(m, kind)]
+    assert len(layers) == 10 * bundle.transformer_config.num_layers
+    if kind is QuantLinear:
+        assert {m.bits for m in layers} == {4} and all(m.int8_scale is not None for m in layers)
+    assert tint8.int8_matmul_count - before == 10 * bundle.transformer_config.num_layers * 2
+
+
+def test_w8a8_and_w4a8_exclude_each_other(monkeypatch, emb_file):
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_bundle())
+    with pytest.raises(SystemExit, match="exclusive"):
+        cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", "--w8a8", "--w4a8",
+                  "--checkpoint-path", str(emb_file.parent)])
+
+
+@pytest.fixture
+def text_encoder_dir(tmp_path):
+    """A tiny text-encoder snapshot (Gemma-3 of 48 channels, the DiT's caption
+    width; connectors; a BPE tokenizer) written from seeded port weights."""
+    from test_torch_port_text_encoder import GEMMA, write_text_encoder_snapshot
+
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+    from mlx_video_tpu_torch.models.ltx.text_encoder import init_text_encoder_params
+
+    cfg = Gemma3TextConfig(**GEMMA)
+    g = torch.Generator().manual_seed(3)
+    model = init_text_encoder_params(cfg, g, cfg.hidden_size, device="cpu", dtype=torch.float32,
+                                     language_model=init_gemma3_params(cfg, g, device="cpu", dtype=torch.float32))
+    write_text_encoder_snapshot(tmp_path / "te", model)
+    return tmp_path / "te"
+
+
+@pytest.mark.parametrize("extra", [(), ("--w8a8",)])
+def test_main_encodes_the_prompt_with_the_text_encoder(monkeypatch, tmp_path, text_encoder_dir, extra):
+    """A prompt without --embeddings goes through the Gemma-3 text encoder
+    of --text-encoder-path (in W8A8 with --w8a8) to an mp4."""
+    from mlx_video_tpu_torch.models.ltx import text_encoder as tte
+
+    loads, load = [], tte.LTX2TextEncoder.load
+
+    def spy(*args, **kwargs):
+        enc = load(*args, **kwargs)
+        loads.append((kwargs, sum(isinstance(m, Int8Linear) for m in enc.model.modules())))
+        return enc
+
+    monkeypatch.setattr(tte.LTX2TextEncoder, "load", spy)
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_bundle())
+    out = tmp_path / "p.mp4"
+    cli.main(["--prompt", "a cat in the rain", "--checkpoint-path", str(text_encoder_dir), "--text-encoder-path",
+              str(text_encoder_dir), "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "1",
+              "--stage2-steps", "1", "--tiling", "none", "--output-path", str(out), "--profile-json-path",
+              str(tmp_path / "phases.json"), "--device", "cpu", *extra])
+    assert out.stat().st_size > 0
+    phases = json.loads((tmp_path / "phases.json").read_text())["phases"]
+    assert {"load", "text_encoder_load", "text_encode", "stage1_denoise", "vae_decode"} <= set(phases)
+    (kwargs, n_int8), = loads
+    assert kwargs["w8a8"] == bool(extra) and n_int8 == (7 * 4 + 1 if extra else 0)
+
+
+def test_main_dev_prompt_encodes_the_default_negative_prompt(monkeypatch, tmp_path, text_encoder_dir):
+    """The dev pipeline without --negative-prompt encodes the default one, so
+    CFG runs (one doubled forward a step), as the JAX CLI."""
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+
+    seen, forward = [], dn.ltx_apply
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_dev_bundle())
+    cli.main(["--prompt", "p", "--checkpoint-path", str(text_encoder_dir), "--pipeline", "dev", "--steps", "2",
+              "--height", "64", "--width", "64", "--num-frames", "9", "--latents-only", "--device", "cpu"])
+    assert seen == [2, 2]
 
 
 def test_cuda_device_without_cuda_exits(emb_file, monkeypatch):

@@ -4,7 +4,9 @@ the originals, one parametrised test per copied module, on the same inputs.
 The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
 configuration, the sigma schedules, the position grids, the numpy part of the
 VAE tiling, the mp4 writer's frame conversion, the image loading, the generate
-and train CLIs' parsers and ``slugify``, and the hub's ``get_model_path``. Every comparison
+and train CLIs' parsers and ``slugify``, the hub's ``get_model_path``, the
+dev pipeline's default negative prompt, and the loader's ``bits_hint_for`` and
+``read_quantization_metadata``. Every comparison
 here is exact: the copies are the same code.
 """
 
@@ -204,3 +206,27 @@ def test_hub_copy(tmp_path, layout):
     assert thub.has_required_files(tmp_path) == jhub.has_required_files(tmp_path)
     assert thub.get_model_path(str(tmp_path)) == jhub.get_model_path(str(tmp_path)) == tmp_path
     assert thub.MODEL_REPO_ALIASES == jhub.MODEL_REPO_ALIASES
+
+
+def test_prompts_copy():
+    from mlx_video_tpu.pipelines import prompts as jprompts
+    from mlx_video_tpu_torch.pipelines import prompts as tprompts
+
+    assert tprompts.DEFAULT_NEGATIVE_PROMPT == jprompts.DEFAULT_NEGATIVE_PROMPT
+
+
+@pytest.mark.parametrize("repo", ["AITRADER/ltx2-distilled-4bit-mlx", "x-q8", "org/int8-model", "Lightricks/LTX-2"])
+def test_quantize_models_bits_helpers_copy(tmp_path, repo):
+    """bits_hint_for and read_quantization_metadata (loading.py and
+    trainer/aux.py in the JAX package), which pick W4A8's stored width."""
+    import json
+
+    from mlx_video_tpu import loading as jloading
+    from mlx_video_tpu.trainer import aux as jaux
+    from mlx_video_tpu_torch import loading as tloading
+
+    assert tloading.bits_hint_for(repo) == jloading.bits_hint_for(repo)
+    assert tloading.read_quantization_metadata(tmp_path) == jaux.read_quantization_metadata(tmp_path) is None
+    (tmp_path / "quantization.json").write_text(json.dumps({"bits": 8, "repo": repo}))
+    sub = tmp_path / "weights"
+    assert tloading.read_quantization_metadata(sub) == jaux.read_quantization_metadata(sub) == {"bits": 8, "repo": repo}

@@ -24,6 +24,13 @@ both sides multiply the same bf16 weights, only the summation order and the
 bf16 rounding of y differ. The L2 bar separates a kernel that rounds fp32
 scales and biases to bf16 before the affine (the Pallas kernel's way): that
 moves y by more (test_quant_kernel_bar_rejects_bf16_rounded_scales).
+Int8 attention (K6): max |d o| <= 2e-2 and relative L2 <= 1e-3 against its
+plain version on the same inputs (the same integer products; only p_q codes
+where an exp ulp crosses a half differ, and at most 1e-4 of them); against
+K1 on the same bf16 inputs relative L2 < 5e-2, the quantization error by
+design (the JAX test's bar).
+The int8 products of W8A8 (torch._int_mm) are exact, so the card's int32
+equals the CPU's.
 """
 
 import pytest
@@ -32,6 +39,7 @@ import torch
 from mlx_video_tpu_torch.models.ltx import rope
 from mlx_video_tpu_torch.ops import cross_attention as ca
 from mlx_video_tpu_torch.ops import flash_attention as fa
+from mlx_video_tpu_torch.ops import int8 as i8
 from mlx_video_tpu_torch.ops import quant_matmul as qmm
 from mlx_video_tpu_torch.ops.quant import quantize_affine
 
@@ -356,3 +364,64 @@ def test_quant_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="whole"):
         qmm.quant_matmul(x, packed, scales, biases, 4, 4)
     assert qmm.launch_count == before
+
+
+def _check_int8(out, codes, ref, ref_codes, k1):
+    d = out.float() - ref.float()
+    assert out.shape == ref.shape and out.dtype == ref.dtype and torch.isfinite(out).all()
+    assert d.abs().max().item() <= 2e-2
+    assert d.norm().item() <= 1e-3 * ref.float().norm().item()
+    assert (codes != ref_codes).sum().item() <= 1e-4 * codes.numel()
+    assert (out.float() - k1.float()).norm().item() < 5e-2 * k1.float().norm().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h, d", [
+    (1, 320, 8, 128), (1, 1280, 4, 128), (2, 1000, 4, 128), (1, 1, 2, 128), (1, 63, 3, 64), (2, 700, 4, 64),
+])
+def test_int8_kernel_matches_plain(gen, b, s, h, d):
+    q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
+    before = fa.int8_launch_count
+    out, codes = fa.flash_attention_int8(q, k, v, return_codes=True)
+    torch.cuda.synchronize()
+    assert fa.int8_launch_count == before + 1
+    ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
+    _check_int8(out, codes, ref, ref_codes, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_takes_fp32_and_non_uniform_rows(gen):
+    """fp32 in and out; rows with one dominant key next to flat rows, so p_q
+    holds every code from 0 to 127 and the P V fragments are not uniform."""
+    q, k, v = (torch.randn(1, 200, 2, 128, generator=gen, device="cuda") for _ in range(3))
+    q[:, ::3] *= 8.0
+    out, codes = fa.flash_attention_int8(q, k, v, return_codes=True)
+    ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
+    assert out.dtype == torch.float32 and len(torch.unique(ref_codes)) > 100
+    _check_int8(out, codes, ref, ref_codes, fa.flash_attention_reference(q, k, v, 128**-0.5))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_what_it_does_not_take(gen):
+    q = _bf16(gen, 1, 64, 2, 96)
+    before = fa.int8_launch_count
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_int8(q, q, q)
+    q = _bf16(gen, 1, 64, 2, 128)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fa.flash_attention_int8(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="inference only"):
+        fa.flash_attention_int8(q.clone().requires_grad_(), q, q)
+    assert fa.int8_launch_count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(1, 64, 32), (16, 128, 64), (300, 512, 256)])
+def test_int8_products_are_exact_on_the_card(gen, m, k, n):
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    assert torch.equal(i8.int8_mm(a, b).cpu(), i8.int8_mm(a.cpu(), b.cpu()))
+    x = torch.randn(2, m, k, generator=gen, device="cuda")
+    w_q, w_scale = i8.quantize_weight_int8(torch.randn(n, k, generator=gen, device="cuda"))
+    got = i8.int8_linear(x, w_q, w_scale)
+    assert torch.equal(got.cpu(), i8.int8_linear(x.cpu(), w_q.cpu(), w_scale.cpu()))

@@ -443,12 +443,18 @@ def test_load_model_bundle_refuses_unported_parts(tmp_path, kwargs):
 
 
 def test_quantize_models_quantizes_in_place_and_refuses_int8_modes():
+    """In place: --quantize-bits, W8A8 (Int8Linears), W4A8 (int8 scales on
+    the quantized linears); the two int8 modes together are refused."""
+    from mlx_video_tpu_torch.ops.linear import Int8Linear
+
     models = ModelBundle(_dense_model(), TCFG, None, None)
-    for flags in ({"w8a8": True}, {"w4a8": True}):
-        with pytest.raises(NotImplementedError, match="W8A8"):
-            tloading.quantize_models(models, **flags)
     with pytest.raises(ValueError, match="exclusive"):
         tloading.quantize_models(models, w8a8=True, w4a8=True)
     tloading.quantize_models(models, quantize_bits=8)
     assert models.transformer.blocks[0].attn1.to_q.bits == 8
+    tloading.quantize_models(models, w4a8=True)
+    assert models.transformer.blocks[0].attn1.to_q.int8_scale.shape == (models.transformer.blocks[0].attn1.to_q.out_features,)
+    models = ModelBundle(_dense_model(), TCFG, None, None)
+    tloading.quantize_models(models, w8a8=True)
+    assert isinstance(models.transformer.blocks[0].ff.proj_out, Int8Linear)
     assert tloading.model_config_for().num_layers == 48

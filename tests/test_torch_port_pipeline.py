@@ -6,7 +6,8 @@ a tiled decode, and gates per-frame latent and RGB PSNR at >= 35 dB, the gate
 of tests/test_torch_cross_pipeline.py. The remaining tests run the port's
 ``generate_video`` end to end at a tiny size, and once in a process where
 JAX and ml_dtypes cannot be imported (distilled, dev with an image and both
-kernel routes on, q4, and a training step).
+kernel routes on, q4, a training step, W8A8, a W8A8 text encoder on token ids
+and the int8 attention's plain version).
 """
 
 import dataclasses
@@ -195,6 +196,8 @@ import mlx_video_tpu_torch
 for info in pkgutil.walk_packages(mlx_video_tpu_torch.__path__, "mlx_video_tpu_torch."):
     importlib.import_module(info.name)
 assert "mlx_video_tpu_torch.trainer.trainer" in sys.modules and "mlx_video_tpu_torch.cli.train" in sys.modules
+assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "mlx_video_tpu_torch.models.ltx.text_encoder",
+        "mlx_video_tpu_torch.io.text_encoder_weights", "mlx_video_tpu_torch.pipelines.prompts"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
@@ -254,6 +257,29 @@ with tempfile.TemporaryDirectory() as tmp:
                                      enable_gradient_checkpointing=True, mixed_precision_mode="fp32"),
                       model_config=cfg, params=models.transformer, dataset=data)
     assert np.isfinite(trainer.train())
+# W8A8 execution, a tiny text encoder in W8A8 on token ids, and K6's plain version
+from mlx_video_tpu_torch.loading import quantize_models
+from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens, init_text_encoder_params
+from mlx_video_tpu_torch.ops.flash_attention import flash_attention_int8
+from mlx_video_tpu_torch.ops.int8 import quantize_text_encoder_w8a8
+models.transformer = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
+quantize_models(models, None, w8a8=True)
+with torch.no_grad():
+    res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
+                         width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
+assert res.video.shape == (1, 3, 9, 64, 64)
+tcfg = Gemma3TextConfig(vocab_size=64, hidden_size=cfg.caption_channels, intermediate_size=96, num_hidden_layers=2,
+                        num_attention_heads=2, num_key_value_heads=1, head_dim=16, sliding_window=4,
+                        sliding_window_pattern=2)
+te = init_text_encoder_params(tcfg, g, tcfg.hidden_size, device="cpu", dtype=torch.float32,
+                              language_model=init_gemma3_params(tcfg, g, device="cpu", dtype=torch.float32))
+quantize_text_encoder_w8a8(te)
+with torch.no_grad():
+    video, audio = encode_tokens(te, tcfg, torch.randint(0, 64, (1, 8), generator=g), torch.ones(1, 8, dtype=torch.long))
+assert video.shape == audio.shape == (1, 8, cfg.caption_channels) and bool(torch.isfinite(video).all())
+q = torch.randn(1, 70, 2, 64, generator=g)
+assert flash_attention_int8(q, q, q).shape == q.shape
 loaded = [m for m in sys.modules if m in ("jax", "ml_dtypes", "flax") or m.split(".")[0] == "mlx_video_tpu"]
 assert not [m for m in loaded if sys.modules[m] is not None], loaded
 print("NO_JAX_OK")
