@@ -8,11 +8,16 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: compiles the CUDA kernels from mlx_video_tpu_torch/csrc with nvcc,
    one process per source.
 3. K1 vs plain: the flash-attention kernel against its plain fp32 version in
-   bf16 at B=1, H=32, D=128, S = 320 and 1280 (the distilled path's shapes),
-   3456 (the training shape), 1000 (ragged) and 5184 with lse, plus one D=64
-   case: max |d o| <= 2e-2 (one bf16 ulp at |o| ~ 2-4) and max |d lse| <= 1e-3;
-   median times of both and of F.scaled_dot_product_attention's forward (a
-   yardstick, never on the path) from CUDA events after warm-up.
+   bf16 at H=32, D=128, (B, S) = (1, 320) and (1, 1280) (the distilled
+   path's shapes), (1, 3456) (the training shape), (1, 1000) (ragged),
+   (1, 5184) and (2, 5184) (the dev path's with the routes off), plus (1,
+   1280) at D=64. Every shape is checked with its lse: max |d o| <= 2e-2,
+   relative L2 of o <= 4e-3 (bf16 rounding of P and of o reads about 2.4e-3;
+   one key tile's P V left out reads 0.16 at S=5184) and max |d lse| <= 1e-3;
+   every shape is printed before a failure ends the phase. Median times of
+   both and of F.scaled_dot_product_attention's forward (a yardstick, never
+   on the path) from CUDA events after warm-up, K1's share of its bound and
+   its time as a multiple of SDPA's.
 4. K2 vs plain: the dequantizing matmul against its plain version (the same
    bf16 weights, dequantized, then a matmul) at the q4 paths' shapes, M in
    (128, 320, 1280) (inference) and 3456 (a LoRA step's video rows) x (K, N)
@@ -44,10 +49,13 @@ Phases, in order; any failure exits non-zero before the last line:
 5b. K5 vs plain: flash attention with fused split RoPE against its plain
    version (q and k rotated in fp32 and cast back, exact attention) at
    (B, S) = (2, 5184) (the dev path's), (1, 3456) and (1, 1280), with the
-   DiT's tables: K1's bars, and bitwise equality with K1 on the plainly
-   rotated q and k. Median times of K5, the plain version and "K1 + torch
-   rotation" (the unfused route). Then the K5 Function's gradients (K3 on the
-   rotated inputs, rotated back) against plain autograd at S = 1280: K3's bars.
+   DiT's tables: K1's bars; bitwise equality with K5 itself on the plainly
+   rotated q and k under identity tables (cos = 1, sin = 0), which holds the
+   in-kernel rotation to the plain one; and K1's bars against K1 on the
+   plainly rotated q and k (the error is printed). Median times of K5, the
+   plain version and "K1 + torch rotation" (the unfused route). Then the K5
+   Function's gradients (K3 on the rotated inputs, rotated back) against
+   plain autograd at S = 1280: K3's bars.
 5c. K6 vs plain: the int8 attention against its plain version (the same
    quantization prologue, exact integer products) in bf16 at H=32, D=128,
    (B, S) = (1, 320) and (1, 1280) (the distilled stages), (2, 5184) (config
@@ -88,7 +96,8 @@ Phases, in order; any failure exits non-zero before the last line:
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
    on the card from a seeded generator. Checks a finite (1, 3, 33, 512, 512)
-   video and 48 x (8 + 3) = 528 K1 launches.
+   video and 48 x (8 + 3) = 528 K1 launches; then one warm run under
+   torch.profiler (idle share, time by kernel class).
 7a. full-width dev slice (BASELINE.md config 3): generate_video, dev, on the
    same DiT with the default VAE encoder (seeded, bf16), 768x768x65 (5184
    tokens), 40 steps of ltx2_scheduler, CFG 4.5 batched, one seeded 768x768
@@ -97,8 +106,9 @@ Phases, in order; any failure exits non-zero before the last line:
    on. Checks exactly 40 x 48 = 1920 K4 and 1920 K5 launches and no K1, a
    finite (1, 3, 65, 768, 768) video and latent frame 0 equal to the encoded
    image (to 2^-8 of its largest value). Then, on the same seed and latents
-   only: 2 steps with the routes on (under torch.profiler: idle share, device
-   time by kernel class) against off (96 K1 launches, plain cross-attention),
+   only: 2 steps with the routes on against off (96 K1 launches, plain
+   cross-attention), each under torch.profiler (idle share, device time by
+   kernel class; for the routes off K1's share of it and the step seconds),
    per-frame latent PSNR >= 35 dB; and one step of sequential against batched
    CFG (96 K4 and 96 K5 launches), the same bar. The routes are off again
    for the phases below.
@@ -159,6 +169,7 @@ import copy
 import importlib.util
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -173,6 +184,17 @@ from typing import Optional
 SHAPES_K2 = [(m, k, n) for m in (128, 320, 1280, 3456) for k, n in ((4096, 4096), (4096, 16384), (16384, 4096))] + [
     (1024, 4096, 4096)]
 K2_TRAIN_SHAPE = (3456, 4096, 4096)  # 6 of a block's 10 K2 launches in a LoRA step
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_kernel<128>`` from a mangled symbol: the length-prefixed
+    identifier that ends in ``kernel``, and its integer template argument."""
+    for m in re.finditer(r"(?=(\d+)([a-z]\w*))", mangled):
+        ident = m.group(2)[:int(m.group(1))]
+        if ident.endswith("kernel"):
+            arg = re.match(r"ILi(\d+)E", m.group(2)[len(ident):])
+            return ident + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
 
 
 def fail(msg: str) -> None:
@@ -206,37 +228,46 @@ def psnr(a, b, peak: float) -> float:
     return float("inf") if mse == 0 else 10.0 * float(np.log10(peak * peak / mse))
 
 
+# K1's cases in phase 3: (B, S, D, timed with lse)
+K1_SHAPES = [(1, 320, 128, False), (1, 1280, 128, False), (1, 3456, 128, True), (1, 1000, 128, True),
+             (1, 5184, 128, True), (2, 5184, 128, False), (1, 1280, 64, True)]
+K1_REL_L2 = 4e-3
+
+
 def kernel_vs_plain(fa) -> dict:
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows, max_o, max_lse = {}, 0.0, 0.0
-    print("kernel vs plain (bf16, B=1, H=32):")
-    for s, d, with_lse in [(320, 128, False), (1280, 128, False), (3456, 128, True), (1000, 128, True),
-                           (5184, 128, True), (1280, 64, True)]:
-        q, k, v = (torch.randn(1, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    rows, max_o, max_lse, failed = {}, 0.0, 0.0, []
+    print(f"K1 vs plain (bf16, H=32; bars max|d o| <= 2e-2, relative L2 of o <= {K1_REL_L2:g}, "
+          "max|d lse| <= 1e-3):")
+    for b, s, d, with_lse in K1_SHAPES:
+        q, k, v = (torch.randn(b, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
         scale = d**-0.5
-        out = fa.flash_attention(q, k, v, scale=scale, return_lse=with_lse)
+        out, lse = fa.flash_attention(q, k, v, scale=scale, return_lse=True)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_reference(q, k, v, scale, return_lse=with_lse)
-        if with_lse:
-            (out, lse), (ref, ref_lse) = out, ref
-            err_lse = (lse - ref_lse).abs().max().item()
-            max_lse = max(max_lse, err_lse)
-        err_o = (out.float() - ref.float()).abs().max().item()
-        max_o = max(max_o, err_o)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, scale, return_lse=True)
+        diff = out.float() - ref.float()
+        err_o, err_lse = diff.abs().max().item(), (lse - ref_lse).abs().max().item()
+        l2 = (diff.norm() / ref.float().norm()).item()
+        max_o, max_lse = max(max_o, err_o), max(max_lse, err_lse)
+        del diff, lse, ref_lse
         ms = median_ms(lambda: fa.flash_attention(q, k, v, scale=scale, return_lse=with_lse))
         plain_ms = median_ms(lambda: fa.flash_attention_reference(q, k, v, scale, return_lse=with_lse))
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale))
-        lse_txt = f" max|d lse| {err_lse:.3e}" if with_lse else ""
-        print(f"  S={s} D={d} lse={with_lse}: max|d o| {err_o:.3e}{lse_txt}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA forward {lib_ms:.4f} ms", flush=True)
-        if not err_o <= 2e-2 or (with_lse and not err_lse <= 1e-3):
-            fail(f"kernel disagrees with the plain version at S={s} D={d}")
-        rows[(s, d)] = (ms, plain_ms, lib_ms)
+        lim = bound(*attention_fwd_work(b, s, 32, d))
+        print(f"  B={b} S={s} D={d}: max|d o| {err_o:.3e} (max|ref| {ref.float().abs().max().item():.3e}) "
+              f"rel L2 {l2:.3e} max|d lse| {err_lse:.3e}; timed lse={with_lse}: kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  SDPA forward {lib_ms:.4f} ms; {100 * lim['bound_ms'] / ms:.1f} % of the "
+              f"{lim['bound_ms']:.4f} ms bound ({lim['bound_by']}), {ms / lib_ms:.2f}x SDPA's time", flush=True)
+        if not (err_o <= 2e-2 and l2 <= K1_REL_L2 and err_lse <= 1e-3 and torch.isfinite(out).all()):
+            failed.append(f"B={b} S={s} D={d}")
+        rows[(b, s, d)] = (ms, plain_ms, lib_ms)
         del q, k, v, out, ref
+    if failed:
+        fail(f"K1 disagrees with the plain version at {', '.join(failed)}")
     return {"rows": rows, "max_abs_err": max(max_o, max_lse)}
 
 
@@ -363,8 +394,8 @@ def rope_kernel_vs_plain(fa) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(10)
     rows, max_err = {}, 0.0
-    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; K1 on rotated q, k: "
-          "bitwise):")
+    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; K5 on rotated q, k under "
+          "identity tables: bitwise; K1 on rotated q, k: K1's bars):")
     for b, (f, h, w) in [(2, (9, 24, 24)), (1, (9, 16, 24)), (1, (5, 16, 16))]:
         s = f * h * w
         q, k, v = (torch.randn(b, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
@@ -379,22 +410,27 @@ def rope_kernel_vs_plain(fa) -> dict:
         def unfused():
             return fa.flash_attention(fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin), v)
 
-        o1, lse1 = fa.flash_attention(fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin), v,
-                                      return_lse=True)
-        same = torch.equal(out, o1) and torch.equal(lse, lse1)
+        qr, kr = fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin)
+        o_id, lse_id = fa.flash_attention_split_rope(qr, kr, v, torch.ones_like(cos), torch.zeros_like(sin),
+                                                     return_lse=True)
+        same = torch.equal(out, o_id) and torch.equal(lse, lse_id)
+        o1, lse1 = fa.flash_attention(qr, kr, v, return_lse=True)
+        k1_o, k1_lse = (out.float() - o1.float()).abs().max().item(), (lse - lse1).abs().max().item()
         ms = median_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
         plain_ms = median_ms(lambda: fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5),
                              reps=5, warmup=1)
         unfused_ms = median_ms(unfused)
-        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; K1 on rotated q, k bitwise "
-              f"equal: {same}  K5 {ms:.4f} ms  plain {plain_ms:.4f} ms  K1 + torch rotation {unfused_ms:.4f} ms",
-              flush=True)
+        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; K5 on rotated q, k under identity "
+              f"tables bitwise equal: {same}; vs K1 on rotated q, k max|d o| {k1_o:.3e} max|d lse| {k1_lse:.3e}  "
+              f"K5 {ms:.4f} ms  plain {plain_ms:.4f} ms  K1 + torch rotation {unfused_ms:.4f} ms", flush=True)
         if not (err_o <= 2e-2 and err_lse <= 1e-3 and torch.isfinite(out).all()):
             fail(f"K5 disagrees with the plain version at B={b} S={s}")
         if not same:
-            fail(f"K5 differs from K1 on the plainly rotated q and k at B={b} S={s}")
+            fail(f"K5's rotation differs from the plain one at B={b} S={s}")
+        if not (k1_o <= 2e-2 and k1_lse <= 1e-3):
+            fail(f"K5 disagrees with K1 on the plainly rotated q and k at B={b} S={s}")
         rows[(b, s)] = (ms, plain_ms, unfused_ms)
-        del q, k, v, out, lse, ref, ref_lse, o1, lse1
+        del q, k, v, out, lse, ref, ref_lse, qr, kr, o_id, lse_id, o1, lse1
 
     s, (f, h, w) = 1280, (5, 16, 16)
     q, k, v, do = (torch.randn(1, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
@@ -1007,15 +1043,18 @@ def narrow_dev_check(work: Path) -> None:
 def profiled(what: str):
     """torch.profiler over the block: device busy time against the wall (the
     idle share) and the device time by kernel class and of the top kernels.
-    The profiler slows the host side, so the idle share is an upper bound."""
+    The profiler slows the host side, so the idle share is an upper bound.
+    Yields a dict that holds, after the block, ``wall`` and ``busy`` seconds
+    and ``by_class`` ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    stats = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        yield
+        yield stats
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1037,6 +1076,7 @@ def profiled(what: str):
         print(f"    {name}: {t:.1f} ms ({100 * t / 1e3 / busy:.1f} % of busy)", flush=True)
     for key in sorted(ms, key=ms.get, reverse=True)[:8]:
         print(f"    top: {ms[key]:.1f} ms over {counts[key]} launches  {key[:110]}", flush=True)
+    stats.update(wall=wall, busy=busy, by_class=by_class)
 
 
 def drive_dev(models, text, images, fa, ca, steps: int, seed: int, **kw):
@@ -1125,8 +1165,13 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
         on, counts_on, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
     check_dev_launches(counts_on, (0, 96, 96), "the 2-step run with the routes on")
     set_routes(False)
-    off, counts_off, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
+    with profiled("2 warm dev steps (routes off: K1 and plain cross-attention; the image encode included)") as prof:
+        off, counts_off, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
     check_dev_launches(counts_off, (96, 0, 0), "the 2-step run with the routes off")
+    k1_ms = prof["by_class"]["K1 (flash_fwd_kernel)"]
+    print(f"  routes off: K1 {k1_ms:.1f} ms over {counts_off[0]} launches, {100 * k1_ms / 1e3 / prof['busy']:.1f} % "
+          f"of device busy time; dev_denoise {off.phase_seconds['dev_denoise'] / 2:.4f} s a step; idle share "
+          f"{1 - prof['busy'] / prof['wall']:.3f}", flush=True)
     ab = min_frame_psnr(on.latents, off.latents)
     print(f"  A/B at 2 steps, routes on vs off: min per-frame latent PSNR {ab:.2f} dB; launches on {counts_on}, "
           f"off {counts_off}", flush=True)
@@ -1493,10 +1538,10 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS) -> dic
     return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def attention_fwd_work(s: int, h: int, d: int):
+def attention_fwd_work(b: int, s: int, h: int, d: int):
     """softmax(q k^T) v with lse: two S x S x D products a head; q, k, v read,
     o (bf16) and lse (fp32) written."""
-    return 4.0 * s * s * d * h, 4 * s * h * d * 2 + s * h * 4
+    return 4.0 * b * s * s * d * h, b * (4 * s * h * d * 2 + s * h * 4)
 
 
 def attention_bwd_work(s: int, h: int, d: int):
@@ -1556,9 +1601,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({_build.library_path().name})", flush=True)
+    kernel = "?"
     for line in _build.build_log_path().read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = kernel_label(entry.group(1))
         if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+            print(f"  ptxas: {kernel}: {line.strip()}", flush=True)
 
     k1 = kernel_vs_plain(fa)
     k2 = quant_kernel_vs_plain(qmm)
@@ -1580,7 +1629,7 @@ def main() -> int:
         lora_slice_check(w4a8=True)
         models, text = full_width_models()
         print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
-        drive_slice(models, text, fa, qmm, want_k2=0)
+        drive_slice(models, text, fa, qmm, want_k2=0, profile="a warm dense distilled run")
         print("full-width dev slice (768x768x65: 5184 tokens, 40 steps, CFG 4.5, one image; K4 and K5 routes on):",
               flush=True)
         dev = full_width_dev(models, fa, ca, work)
@@ -1603,7 +1652,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     s_train = 3456
-    k1_ms, k1_plain_ms, k1_lib_ms = k1["rows"][(s_train, 128)]
+    k1_ms, k1_plain_ms, k1_lib_ms = k1["rows"][(1, s_train, 128)]
     k3_ms, k3_plain_ms, k3_lib_ms = k3["rows"][(s_train, 128)]
     k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
     k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
@@ -1618,7 +1667,7 @@ def main() -> int:
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
-        **bound(*attention_fwd_work(s_train, 32, 128)),
+        **bound(*attention_fwd_work(1, s_train, 32, 128)),
         "library_ms": k1_lib_ms,
     }, {
         "name": "quant_matmul",

@@ -14,8 +14,12 @@
 // the DiT's unfused path calls), operation for operation in fp32 (__fmul_rn,
 // __fsub_rn and __fadd_rn keep nvcc from contracting it into fused
 // multiply-adds) and rounded to nearest even, so the rotated tiles are bit
-// for bit the tensors the unfused path writes to device memory; the loop
-// below is K1's, so the output is K1's on those tensors, bit for bit.
+// for bit the tensors the unfused path writes to device memory. So K5 on
+// plainly rotated q and k under identity tables (cos = 1, sin = 0) gives its
+// own output bit for bit. The loop below is the first version of K1
+// (mma.sync over 64-row blocks and 64-key tiles, synchronous loads), kept as
+// it was; K1 itself now runs on wgmma fed by TMA (csrc/flash_attention_fwd.cu),
+// so the two agree to K1's bars, not bit for bit.
 //
 // What bounds it on the H100: at the dev path's shape (B = 2, S = 5184,
 // H = 32, D = 128) the two products are 4 * S * S * D * H operations, 8.8e14
@@ -28,7 +32,7 @@
 // JAX package measured as a loss on its chip; this kernel keeps the simple
 // form and its time is measured against K1 plus the torch rotation.
 //
-// Layout and work split (K1's):
+// Layout and work split (the first K1's):
 // - A block owns BLOCK_M = 64 query rows of one (batch, head); 4 warps own 16
 //   rows each. grid = (ceil(S / 64), B * H).
 // - q, k, v and the tables are read in place through their strides (each last

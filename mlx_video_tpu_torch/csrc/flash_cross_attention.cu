@@ -16,7 +16,7 @@
 // Only with a long caption (the trainer's 1024 keys) does the operation count
 // take over.
 //
-// Layout and work split (K1's, csrc/flash_attention_fwd.cu):
+// Layout and work split (the first version of K1's, csrc/flash_attention_fwd.cu):
 // - A block owns BLOCK_M = 64 query rows of one (batch, head); 4 warps own 16
 //   rows each. grid = (ceil(Sq / 64), B * H).
 // - q, k and v are read in place through their strides (the last dimension

@@ -9,7 +9,7 @@ is ``mlx_video_tpu_torch/csrc/flash_attention_fwd.cu``. Backward (K3) replaces
 ``mlx_video_tpu_torch/csrc/flash_attention_bwd.cu``. The forward with fused
 split RoPE (K5) replaces ``_flash_attention_split_rope_impl`` (the Pallas
 kernel ``_flash_rope_kernel``); its kernel is
-``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: K1 on q and k rotated
+``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: K1's function on q and k rotated
 in fp32 as they are staged, tile by tile (the csrc file says what that costs).
 The int8 attention (K6) replaces ``flash_attention_int8`` (the Pallas kernel
 ``_single_pass_int8_kernel``); its kernel is
@@ -26,15 +26,16 @@ by tensor-core issue rate and the softmax's exponentials, not by device
 memory.
 
 What the design does about it: q, k and v are read in place through their
-strides, so no transpose or pad copy runs first; K/V tiles of 64 rows sit in
-shared memory while 4 warps of one block each keep 16 query rows, the
-running max, sum and fp32 accumulator in registers; both products run on the
-tensor cores as bf16 ``mma.sync`` with fp32 accumulation, and P never leaves
-the registers. The softmax is exact at every length: unlike the Pallas
-single-pass body, no logit clamp. The backward is two kernels without atomics
+strides, so no transpose or pad copy runs first. K1 runs both products as
+Hopper's ``wgmma`` (bf16 in, fp32 accumulation) for 128 query rows a block in
+two warpgroups, with Q and 128-key K/V tiles brought into 128-byte swizzled
+shared memory by TMA through a two-stage ring, so the next tile's copy
+overlaps this tile's products; P never leaves the registers. The softmax is
+exact at every length: unlike the Pallas single-pass body, no logit clamp.
+K3, K4 and K5 keep K1's first design (``mma.sync`` over 64-row blocks with
+synchronous tile loads). The backward is two kernels without atomics
 (csrc/flash_attention_bwd.cu says how they split the work), so its gradients
-are bitwise repeatable. ``wgmma``, TMA and warp specialisation are left for
-later.
+are bitwise repeatable.
 
 :func:`flash_attention` is differentiable: when q, k or v needs a gradient
 the forward also keeps the logsumexp and the backward runs K3, as the JAX

@@ -88,7 +88,9 @@ def quantize_affine(
     wf = w.float().reshape(out_dim, n_groups, group_size)
     w_min = wf.amin(dim=-1)
     w_max = wf.amax(dim=-1)
-    scales = torch.clamp((w_max - w_min) / levels, min=1e-8)
+    # a 0-d tensor divisor: PyTorch turns a CUDA division by a Python number
+    # into a product with its reciprocal, one ulp off JAX's quotient in places
+    scales = torch.clamp((w_max - w_min) / torch.full((), float(levels), device=w.device), min=1e-8)
     biases = w_min
     q = torch.clamp(torch.round((wf - biases[..., None]) / scales[..., None]), 0, levels)
     q = q.to(torch.int64).reshape(out_dim, in_dim)

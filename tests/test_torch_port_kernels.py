@@ -15,10 +15,13 @@ rounds dQ, dK and dV to bf16, each ~2^-9 relative (both bars have a floor of
 1e-4 an element, for dQ at S = 1, which is zero in exact arithmetic); its
 gradients are bitwise repeatable (no atomics).
 Cross-attention (K4) and flash attention with fused split RoPE (K5): K1's
-bars against their plain versions (K5's lse too); K5 must also give the bits
-of K1 on q and k rotated by the plain rotation, which it repeats operation
-for operation, and its autograd gradients (K3 on the rotated inputs) K3's
-bars against plain autograd through the plain version.
+bars against their plain versions (K5's lse too). K5 rotates q and k in the
+kernel operation for operation as the plain rotation does, so it must give
+its own bits on q and k rotated by the plain rotation under identity tables
+(cos = 1, sin = 0); it is held against K1 on those rotated inputs at K1's
+bars (the two kernels no longer share one loop), and its autograd gradients
+(K3 on the rotated inputs) to K3's bars against plain autograd through the
+plain version.
 Dequantizing matmul: max |d y| <= 1e-2 * max |y| and relative L2 <= 1e-3;
 both sides multiply the same bf16 weights, only the summation order and the
 bf16 rounding of y differ. The L2 bar separates a kernel that rounds fp32
@@ -30,7 +33,8 @@ where an exp ulp crosses a half differ, and at most 1e-4 of them); against
 K1 on the same bf16 inputs relative L2 < 5e-2, the quantization error by
 design (the JAX test's bar).
 The int8 products of W8A8 (torch._int_mm) are exact, so the card's int32
-equals the CPU's.
+equals the CPU's. quantize_affine divides as JAX's quantize_affine does, so
+its scales, biases and words on the card equal the CPU's.
 """
 
 import pytest
@@ -66,6 +70,11 @@ def _check(out, ref):
 @pytest.mark.parametrize("b, s, h, d", [
     (1, 320, 32, 128), (1, 1280, 8, 128), (2, 1000, 4, 128), (1, 1, 2, 128),
     (1, 63, 3, 64), (1, 65, 3, 64), (2, 700, 4, 64),
+    # S on each side of the 128-key tile and of two 128-row query blocks
+    (1, 127, 4, 128), (1, 128, 4, 128), (1, 129, 4, 128), (2, 255, 3, 128), (2, 257, 3, 128),
+    (1, 127, 3, 64), (2, 129, 3, 64), (2, 257, 3, 64),
+    # B * H = 320 and 512: several waves of blocks over the 132 SMs
+    (4, 257, 80, 128), (8, 129, 64, 64),
 ])
 def test_kernel_matches_plain(gen, b, s, h, d):
     q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
@@ -77,9 +86,10 @@ def test_kernel_matches_plain(gen, b, s, h, d):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_strided_operands_in_place(gen):
+@pytest.mark.parametrize("s, h, d", [(300, 4, 128), (333, 5, 64)])
+def test_kernel_reads_strided_operands_in_place(gen, s, h, d):
     """q, k, v as views of one fused (B, S, 3, H, D) projection."""
-    qkv = _bf16(gen, 2, 300, 3, 4, 128)
+    qkv = _bf16(gen, 2, s, 3, h, d)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
     out = fa.flash_attention(q, k, v, scale=0.05, return_lse=True)
@@ -267,8 +277,12 @@ def test_rope_kernel_matches_plain_and_k1_on_rotated_inputs(gen, b, s, h, d):
     qr, kr = fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin)
     flat = q.reshape(b, s, h * d)
     assert torch.equal(qr.reshape(b, s, h * d), rope.apply_split_rotary_emb(flat, cos, sin))
-    o1, lse1 = fa.flash_attention(qr, kr, v, return_lse=True)
-    assert torch.equal(out[0], o1) and torch.equal(out[1], lse1)
+    # the in-kernel rotation is the plain one, bit for bit: K5 on the plainly
+    # rotated q, k under identity tables (x * 1 - 0 * y = x) gives the same bits
+    o_id, lse_id = fa.flash_attention_split_rope(qr, kr, v, torch.ones_like(cos), torch.zeros_like(sin),
+                                                 return_lse=True)
+    assert torch.equal(out[0], o_id) and torch.equal(out[1], lse_id)
+    _check(out, fa.flash_attention(qr, kr, v, return_lse=True))
 
 
 @pytest.mark.cuda
@@ -425,3 +439,19 @@ def test_int8_products_are_exact_on_the_card(gen, m, k, n):
     w_q, w_scale = i8.quantize_weight_int8(torch.randn(n, k, generator=gen, device="cuda"))
     got = i8.int8_linear(x, w_q, w_scale)
     assert torch.equal(got.cpu(), i8.int8_linear(x.cpu(), w_q.cpu(), w_scale.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits, group", [(2, 32), (4, 64), (8, 128)])
+def test_quantize_affine_on_the_card_equals_the_cpu(gen, bits, group, dtype):
+    """The scale (w_max - w_min) / levels is the true quotient, as JAX's
+    ops/quant.py:quantize_affine takes it (not quantize_dit_params's lax.map
+    product with 1 / levels, a pinned difference of its own). PyTorch turns a
+    CUDA division by a Python number into a product with the reciprocal, one
+    ulp off in places; the card must give the CPU's scales, biases and words."""
+    w = (torch.randn(384, 4096, generator=gen, device="cuda") * 0.02).to(dtype)
+    got = quantize_affine(w, group, bits)
+    want = quantize_affine(w.cpu(), group, bits)
+    for name, a, r in zip(("packed", "scales", "biases"), got, want):
+        assert a.dtype == r.dtype and torch.equal(a.cpu(), r), name
