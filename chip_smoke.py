@@ -35,9 +35,13 @@ Phases, in order; any failure exits non-zero before the last line:
    S = 1280, 3456 (the training shape), 1000 (ragged) and 5184, plus one D=64
    case: per gradient relative L2 <= 5e-3 and max |d| <= 2e-2 max |ref| (the
    kernel rounds p and dS to bf16 before their products, as the Pallas
-   kernels do, and its outputs to bf16: ~2^-9 relative each); two runs must
-   give bitwise-equal gradients (no atomics). Median times of K3, the plain
-   version and the backward of F.scaled_dot_product_attention (a yardstick).
+   kernels do, and its outputs to bf16: ~2^-9 relative each), every shape
+   printed before a failure ends the phase; two runs must give bitwise-equal
+   gradients (no atomics). Median times of K3, the plain
+   version and the backward of F.scaled_dot_product_attention (a yardstick),
+   K3's share of its bound and its time as a multiple of SDPA's backward, and
+   the device time a call of its dq and dkv kernels (torch.profiler): the
+   event time less their sum is the host work a call exposes.
 5a. K4 vs plain: the text cross-attention kernel against its plain version
    (fp32 logits and softmax, probabilities in bf16 for the second product) in
    bf16 at H=32, D=128: (B, Sq, Skv) = (2, 5184, 128) (the dev path's, batched
@@ -122,7 +126,10 @@ Phases, in order; any failure exits non-zero before the last line:
    launches a step, the adapter's reference keys; then a fresh Trainer
    resumes from state_step_2 and must repeat the losses of steps 2 and 3
    exactly. Prints step seconds, tokens per second and peak device memory.
-   The adapters are then taken off the model.
+   Then one more warm step of the resumed Trainer (forward, recompute,
+   backward, AdamW) under torch.profiler, outside the counted run: 96 K1 and
+   48 K3 launches; idle share and the K3, K1, GEMM and elementwise shares of
+   device time. The adapters are then taken off the model.
 9a. full-width W8A8 slice: a W8A8 copy of the same bf16 DiT (the block
    linears as Int8Linears, the rest shared), the distilled run of phase 7:
    528 K1, 0 K2 and 10 x 48 x 11 = 5280 int8 products, a finite video; then
@@ -221,6 +228,27 @@ def median_ms(fn, reps: int = 20, warmup: int = 3, before=None) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Device time a call of ``fn`` by kernel (``name<D>``), from
+    torch.profiler over ``reps`` warm calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+<\d+>)\(", e.key)
+            out[m.group(1) if m else e.key[:60]] = e.self_device_time_total / 1e3 / reps
+    return out
+
+
 def psnr(a, b, peak: float) -> float:
     import numpy as np
 
@@ -276,7 +304,7 @@ def bwd_kernel_vs_plain(fa) -> dict:
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    rows, max_err, worst_l2 = {}, 0.0, 0.0
+    rows, max_err, worst_l2, failed = {}, 0.0, 0.0, []
     print("K3 vs plain (bf16, B=1, H=32; bars per gradient: rel L2 <= 5e-3, max|d| <= 2e-2 max|ref|):")
     for s, d in [(1280, 128), (3456, 128), (1000, 128), (5184, 128), (1280, 64)]:
         q, k, v, do = (torch.randn(1, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
@@ -297,7 +325,7 @@ def bwd_kernel_vs_plain(fa) -> dict:
             max_err, worst_l2 = max(max_err, err), max(worst_l2, l2)
             line += f" {name} rel L2 {l2:.2e} max|d| {err:.2e} ({rel_max:.2e} of max);"
             if not (l2 <= 5e-3 and rel_max <= 2e-2 and torch.isfinite(a).all()):
-                fail(f"K3 {name} disagrees with the plain version at S={s} D={d}")
+                failed.append(f"{name} at S={s} D={d}")
         del ref, again
         ms = median_ms(lambda: fa.flash_attention_bwd(*args))
         plain_ms = median_ms(lambda: fa.flash_attention_bwd_reference(*args), reps=5, warmup=1)
@@ -305,11 +333,18 @@ def bwd_kernel_vs_plain(fa) -> dict:
         out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
         doh = do.transpose(1, 2)
         lib_ms = median_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+        lim = bound(*attention_bwd_work(s, 32, d))
+        dev = device_ms_by_kernel(lambda: fa.flash_attention_bwd(*args))
         print(line + f" bitwise repeatable; K3 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"SDPA backward {lib_ms:.4f} ms", flush=True)
+              f"SDPA backward {lib_ms:.4f} ms; {100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms "
+              f"bound ({lim['bound_by']}), {ms / lib_ms:.2f}x SDPA's backward; device time a call "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in dev.items())
+              + f" (sum {sum(dev.values()):.4f} ms)", flush=True)
         rows[(s, d)] = (ms, plain_ms, lib_ms)
         del q, k, v, do, o, lse, args, got, out, qh, kh, vh
     print(f"  K3 worst rel L2 {worst_l2:.3e}; bar 5e-3", flush=True)
+    if failed:
+        fail(f"K3 disagrees with the plain version: {', '.join(failed)}")
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -853,12 +888,50 @@ def full_width_training(models, fa, data_root: Path, out_root: Path) -> dict:
           f"{['%.6f' % x for x in losses[2:]]}", flush=True)
     if again != losses[2:]:
         fail("the resumed run's losses differ from the uninterrupted run's")
+    profile_lora_step(resumed, fa)
     del resumed
     strip_lora(dit)
     for p in dit.parameters():
         p.requires_grad_(False)
     torch.cuda.empty_cache()
     return {"k1": k1, "k3": k3, "step_seconds": secs, "peak_gib": peak / 2**30}
+
+
+def profile_lora_step(trainer, fa) -> None:
+    """One more warm step of ``trainer`` (its first batch, the draws of step
+    4) under torch.profiler: forward, recompute, backward and the AdamW
+    update, ended by reading the loss. Outside the counted run and the
+    resume check; it must launch 96 K1 and 48 K3."""
+    from mlx_video_tpu_torch.trainer.datasets import iter_batches
+    from mlx_video_tpu_torch.trainer.strategies import draw_inputs
+    from mlx_video_tpu_torch.trainer.train_step import apply_updates, grad_step
+    from mlx_video_tpu_torch.trainer.trainer import step_generator
+
+    cfg = trainer.cfg
+    sb = trainer._prepare(next(iter_batches(trainer.dataset, cfg.batch_size, seed=cfg.seed)))
+    draws = draw_inputs(sb, step_generator(cfg.seed, cfg.steps, trainer.device),
+                        first_frame_conditioning_p=cfg.first_frame_conditioning_p,
+                        timestep_sampling_mode=cfg.timestep_sampling_mode,
+                        timestep_sampling_std=cfg.timestep_sampling_std)
+    fa.launch_count = fa.bwd_launch_count = 0
+    with profiled("one warm LoRA step (3456 tokens; forward, recompute, backward, AdamW)") as prof:
+        t0 = time.perf_counter()
+        loss, grads = grad_step(trainer.model, trainer.params, sb, draws, trainer.model_config)
+        apply_updates(trainer.params, trainer.opt_state, grads, trainer.optimizer, 1)
+        loss = float(loss)
+        step_s = time.perf_counter() - t0
+    k1, k3 = fa.launch_count, fa.bwd_launch_count
+    busy = prof["busy"]
+    shares = {name: 100 * prof["by_class"][key] / 1e3 / busy for name, key in (
+        ("K3", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)"), ("K1", "K1 (flash_fwd_kernel)"),
+        ("GEMM", "GEMM"), ("elementwise", "other (elementwise, norms, softmax, copies)"))}
+    print(f"  profiled LoRA step: {step_s:.4f} s (under the profiler), loss {loss:.6f}, idle share "
+          f"{1 - busy / prof['wall']:.3f}; of {busy:.4f} s device busy: "
+          + ", ".join(f"{n} {v:.1f} %" for n, v in shares.items())
+          + f"; K3 {prof['by_class']['K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)'] / max(k3, 1):.4f} ms a call; "
+          f"launches K1 {k1}, K3 {k3}", flush=True)
+    if (k1, k3) != (2 * 48, 48) or not math.isfinite(loss):
+        fail(f"the profiled LoRA step: {k1} K1 and {k3} K3 launches (want 96 and 48), loss {loss}")
 
 
 def full_width_models():
@@ -1062,7 +1135,8 @@ def profiled(what: str):
     counts = {e.key: e.count for e in kernels}
     busy = sum(ms.values()) / 1e3
     classes = {"K5 (flash_rope_kernel)": "flash_rope", "K4 (flash_cross_kernel)": "flash_cross",
-               "K1 (flash_fwd_kernel)": "flash_fwd", "K2 (quant_matmul_kernel)": "quant_matmul",
+               "K1 (flash_fwd_kernel)": "flash_fwd", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)": "flash_bwd",
+               "K2 (quant_matmul_kernel)": "quant_matmul",
                "K6 (flash_int8_kernel)": "flash_int8", "convolution": ("conv", "fprop", "implicit"), "int8 GEMM": ("gemm_s8", "imma", "s8s8", "i8i8"),
                "GEMM": ("gemm", "xmma", "nvjet", "cutlass")}
     by_class = dict.fromkeys([*classes, "other (elementwise, norms, softmax, copies)"], 0.0)

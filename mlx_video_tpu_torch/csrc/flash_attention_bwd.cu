@@ -12,53 +12,74 @@
 // as the Pallas kernels round them. Keys at or past S are masked (p = 0); rows
 // at or past S are never written.
 //
-// What bounds it on the H100: 7 products of S x S x D per (batch, head) (two
-// to rebuild p and dp in each kernel, one more in the dq kernel and two more
-// in the dkv kernel) on 8 * S * D * 2 bytes of operands and outputs: some S / 2
-// operations per byte, so the tensor cores and the exponentials, not device
-// memory, bound it at the DiT's lengths.
+// What bounds it on the H100: the gradients need 5 products of S x S x D a
+// (batch, head) on 8 * S * D * 2 bytes of operands and outputs, some S / 2
+// operations a byte against the card's ~295: the tensor cores bound it
+// (0.4947 ms at (B, S, H, D) = (1, 3456, 32, 128) at 989 TFLOP/s), and beside
+// them the 2^x of every logit. The two kernels below run 7 products: each
+// rebuilds p and dp (two products) before its own.
 //
-// Design (correct and deterministic first; wgmma, TMA and one fused kernel are
-// later work):
+// What the design does about it (K1's, flash_attention_fwd.cu):
 // - Two kernels, launched in order on one stream, neither with atomics, so
 //   repeated runs give bitwise-equal gradients.
-//   * dq: a block owns BLOCK_M = 64 query rows of one (batch, head), 4 warps
-//     of 16 rows each, and streams 64-key tiles of k and v. It computes Dr for
-//     its rows once and writes it to a (B, H, S) fp32 scratch, which the dkv
-//     kernel reads instead of recomputing Dr for every key block.
-//   * dkv: a block owns BLOCK_N = 64 key rows, 4 warps of 16 keys each, and
-//     streams 32-row tiles of q, dO, lse and Dr. It builds the transposed
-//     tiles p^T and dS^T directly (k q^T and v dO^T), so no transpose is
-//     stored anywhere. Padded query rows of the last tile get p = 0.
-// - Operands are read in place through their strides (the last dimension
-//   contiguous, 16-byte aligned), as the forward kernel reads them.
-// - Tiles sit in shared memory with rows padded by 8 bf16, so the 32-bit
-//   fragment loads hit distinct banks. All products are mma.sync m16n8k16
-//   (bf16 x bf16 -> fp32), the forward kernel's instruction.
+//   * dq: a block owns 128 query rows of one (batch, head), two warpgroups of
+//     64. Q and dO arrive once; 128-key K/V tiles stream through the ring.
+//     S = Q K^T and dP = dO V^T are SS wgmma (both operands K-major); p and dS
+//     are formed in the accumulator registers; dQ += dS K takes dS from
+//     registers, rounded in place, with K as the MN-major B (the transpose
+//     bit) of the very tile that was S's K-major B. Dr for the block's rows is
+//     computed once from o and dO and written to a (B, H, S) fp32 scratch.
+//   * dkv: a block owns 128 keys, two warpgroups of 64. K and V arrive once;
+//     64-row query tiles of q and dO stream through the ring, with their lse
+//     and Dr (cp.async into a ring of their own). S^T = K Q^T and dP^T =
+//     V dO^T are SS wgmma; p^T and dS^T are formed in registers, each
+//     column's (query's) lse and Dr read from shared memory; dV += p^T dO and
+//     dK += dS^T Q are RS wgmma whose B operands dO and Q are the MN-major
+//     reading of the same swizzled tiles. Query rows at or past S get p = 0
+//     by index: TMA zero-fills them, but their lse is no number.
+// - Every product is wgmma.mma_async (m64nNk16, bf16 -> fp32). Tiles arrive
+//   by TMA into 128-byte swizzled shared memory through a 2-stage mbarrier
+//   ring: tile j + 1 is in flight while tile j is multiplied; one thread
+//   issues the copies. The tensor maps are 4-D {D, H, S, B} over the caller's
+//   strides, 64-row boxes, so q, k, v and dO are read in place (o only for
+//   Dr, by plain loads).
+// - Exponentials are exp2f of logits pre-scaled by scale * log2(e) less
+//   lse * log2(e). The shared-memory opt-in is set once a device.
+// - No producer warpgroup and no setmaxnreg: K1 found both slower.
+// - Registers: dkv at D = 128 holds 64 + 64 fp32 of dK and dV and 32 + 32 of
+//   S^T and dP^T for a 64-query tile (ptxas: 222 a thread, no spills); dq 64
+//   of dQ and 64 + 64 of S and dP for a 128-key tile (218).
+//
+// Measured by chip_smoke.py's phase 5 (one call through the Python wrapper,
+// CUDA events, host work included) on an NVIDIA H100 80GB HBM3, 700 W:
+// 1.4360-1.4691 ms at (B, S, H, D) = (1, 3456, 32, 128), 34 % of the
+// bound, of which dq 0.49 and dkv 0.73 ms of device time; 2.6514-2.8022 ms
+// at (1, 5184). The first version of this kernel (mma.sync m16n8k16 over
+// 64-row blocks, synchronous loads through registers) took 4.9004-5.1736 ms
+// and 10.2955-10.2984 ms on the same card type. Tried there and not kept:
+// 64-key dq tiles (dq ~9 % slower), 32-row dkv query tiles (dkv ~29 %
+// slower), a 3-stage ring and issuing dV's product before dS^T is formed
+// (no gain beyond the noise).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;  // dq kernel: query rows per block
-constexpr int BLOCK_N = 64;  // key rows per tile (dq) and per block (dkv)
-constexpr int BLOCK_Q = 32;  // dkv kernel: query rows per streamed tile
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr int PAD = 8;
-
-typedef __nv_bfloat16 bf16;
+constexpr int WG_ROWS = 64;       // rows of one warpgroup (wgmma's M)
+constexpr int NUM_THREADS = 256;  // two warpgroups
+constexpr int BLOCK = 128;        // query rows of a dq block, keys of a dkv block
+constexpr int KEY_TILE = 128;     // keys of a streamed dq tile
+constexpr int QUERY_TILE = 64;    // query rows of a streamed dkv tile
+constexpr int BOX = 64;           // rows of a TMA box
+constexpr int STAGES = 2;         // streamed tiles in the ring
 
 struct Operand {
   const bf16* ptr;
-  int64_t sb, ss, sh;  // element strides of batch, sequence and head
+  long long sb, ss, sh;  // element strides of batch, sequence and head
 };
 
-struct BwdParams {
-  Operand q, k, v, o, dout;
+struct BwdArgs {
+  Operand o, dout;   // read by plain loads for Dr
   const float* lse;  // (B, H, S)
   float* rowdot;     // (B, H, S) scratch: Dr, written by dq, read by dkv
   bf16* dq;          // (B, S, H, D) contiguous
@@ -68,125 +89,92 @@ struct BwdParams {
   float scale;
 };
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage `rows` rows of D bf16 from sequence row `row0` into shared memory
-// (row stride D + PAD), 16 bytes per load; rows at or past S become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* base, int64_t row_stride,
-                                          int row0, int S, int rows) {
-  constexpr int VEC = 8;
-  constexpr int VECS_PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < rows * VECS_PER_ROW; i += NUM_THREADS) {
-    const int r = i / VECS_PER_ROW;
-    const int c = (i % VECS_PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(base + static_cast<int64_t>(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(smem + r * (D + PAD) + c) = val;
-  }
-}
-
-// A fragment (16 x 16, row-major) of rows [r, r + 16) of a shared tile,
-// columns [c, c + 16): this thread's rows r + g and r + g + 8.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile, int ld, int r, int c, int g,
-                                       int t) {
-  const bf16* row0 = tile + (r + g) * ld + c + 2 * t;
-  const bf16* row1 = row0 + 8 * ld;
-  a[0] = ld32(row0);
-  a[1] = ld32(row1);
-  a[2] = ld32(row0 + 8);
-  a[3] = ld32(row1 + 8);
-}
-
-// B fragment of X^T (16 x 8) where X is a shared tile whose row n is column n
-// of B: rows [n, n + 8) of X, columns [c, c + 16).
-__device__ __forceinline__ void load_b_rows(uint32_t b[2], const bf16* tile, int ld, int n, int c,
-                                            int g, int t) {
-  const bf16* row = tile + (n + g) * ld + c + 2 * t;
-  b[0] = ld32(row);
-  b[1] = ld32(row + 8);
-}
-
-// B fragment (16 x 8) of a shared tile X used as it stands: k runs down rows
-// [k0, k0 + 16), n across columns [n0, n0 + 8).
-__device__ __forceinline__ void load_b_cols(uint32_t b[2], const bf16* tile, int ld, int k0, int n0,
-                                            int g, int t) {
-  const bf16* p = tile + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack_bf16(p[0], p[ld]);
-  b[1] = pack_bf16(p[8 * ld], p[9 * ld]);
-}
-
-// The accumulator fragments of 16 rows x 16 columns (n-tiles 2kk and 2kk + 1)
-// as an A fragment, rounded to bf16.
-__device__ __forceinline__ void acc_as_a(uint32_t a[4], const float (*s)[4], int kk) {
-  a[0] = pack_floats(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_floats(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_floats(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_floats(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
+// Byte offsets of a block's shared memory, from a 1024-byte aligned base:
+// two BLOCK-row operands held for the whole block, two streamed operands of
+// TILE rows in STAGES stages, FLOATS fp32 values and the barriers (2 for the
+// held operands, 2 * STAGES for the ring).
+template <int D, int TILE, int FLOATS>
+struct Layout {
+  static constexpr int HELD_BYTES = BLOCK * D * 2;
+  static constexpr int TILE_BYTES = TILE * D * 2;
+  static constexpr int HELD1_OFF = HELD_BYTES;
+  static constexpr int RING0_OFF = 2 * HELD_BYTES;  // stage s at + s * TILE_BYTES
+  static constexpr int RING1_OFF = RING0_OFF + STAGES * TILE_BYTES;
+  static constexpr int FLOAT_OFF = RING1_OFF + STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = FLOAT_OFF + FLOATS * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 + 2 * STAGES) + 1024;  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + BLOCK_M * LD;
-  bf16* sK = sdO + BLOCK_M * LD;
-  bf16* sV = sK + BLOCK_N * LD;
-  float* sLse = reinterpret_cast<float*>(sV + BLOCK_N * LD);
-  float* sDr = sLse + BLOCK_M;
+using DqLayout = Layout<D, KEY_TILE, BLOCK>;  // Q, dO held; K, V streamed; Dr of the block's rows
+template <int D>
+using DkvLayout = Layout<D, QUERY_TILE, 2 * STAGES * QUERY_TILE>;  // K, V held; Q, dO streamed; lse, Dr rings
 
-  const int S = p.S, H = p.H;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// 4 bytes global -> shared without the registers; `valid` 0 writes a zero.
+__device__ __forceinline__ void cp_async_f32(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const BwdArgs a) {
+  using L = DqLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t sdo = base + L::HELD1_OFF;
+  const uint32_t sk = base + L::RING0_OFF;
+  const uint32_t sv = base + L::RING1_OFF;
+  float* s_dr = reinterpret_cast<float*>(smem_raw + (base - raw) + L::FLOAT_OFF);
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_do = bar_q + 8;
+  const uint32_t bar_k = bar_q + 16;               // stage s at + 8 * s
+  const uint32_t bar_v = bar_q + 8 * (2 + STAGES);  // stage s at + 8 * s
+
+  const int S = a.S, H = a.H;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;  // 16 rows of the warpgroup's 64
+  const int lane = tid % 32;
+  const int g = lane >> 2;  // accumulator row group: rows g and g + 8
+  const int t = lane & 3;   // columns 2t, 2t + 1 of every 8
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int64_t bh = static_cast<int64_t>(b) * H + h;
-  const int m0 = blockIdx.x * BLOCK_M;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const int m0 = blockIdx.x * BLOCK;
+  const int num_tiles = (S + KEY_TILE - 1) / KEY_TILE;
+  const float scale_log2 = a.scale * LOG2E;
 
-  const bf16* qb = p.q.ptr + b * p.q.sb + h * p.q.sh;
-  const bf16* kb = p.k.ptr + b * p.k.sb + h * p.k.sh;
-  const bf16* vb = p.v.ptr + b * p.v.sb + h * p.v.sh;
-  const bf16* ob = p.o.ptr + b * p.o.sb + h * p.o.sh;
-  const bf16* dob = p.dout.ptr + b * p.dout.sb + h * p.dout.sh;
+  if (tid == 0) {
+    for (int i = 0; i < 2 + 2 * STAGES; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_rows<D, BOX>(sq, &tq, bar_q, BLOCK, h, m0, b);
+    load_rows<D, BOX>(sdo, &tdo, bar_do, BLOCK, h, m0, b);
+    for (int j = 0; j < STAGES && j < num_tiles; ++j) {
+      load_rows<D, BOX>(sk + j * L::TILE_BYTES, &tk, bar_k + 8 * j, KEY_TILE, h, j * KEY_TILE, b);
+      load_rows<D, BOX>(sv + j * L::TILE_BYTES, &tv, bar_v + 8 * j, KEY_TILE, h, j * KEY_TILE, b);
+    }
+  }
 
-  load_tile<D>(sQ, qb, p.q.ss, m0, S, BLOCK_M);
-  load_tile<D>(sdO, dob, p.dout.ss, m0, S, BLOCK_M);
-
-  // Dr = rowsum(dO * o) in fp32, two threads (neighbouring lanes) a row; it
-  // goes to shared memory and, once per row, to the scratch for dkv.
+  // Dr = rowsum(dO * o) in fp32 while the tiles land, two threads (neighbouring
+  // lanes) a row; to shared memory and, once a row, to the scratch for dkv.
   {
-    const int r = threadIdx.x >> 1;
-    const int half = threadIdx.x & 1;
+    const int r = tid >> 1;
+    const int half = tid & 1;
     const int row = m0 + r;
     float dot = 0.f;
     if (row < S) {
-      const bf16* orow = ob + static_cast<int64_t>(row) * p.o.ss + half * (D / 2);
-      const bf16* drow = dob + static_cast<int64_t>(row) * p.dout.ss + half * (D / 2);
+      const bf16* orow = a.o.ptr + b * a.o.sb + h * a.o.sh + row * a.o.ss + half * (D / 2);
+      const bf16* drow = a.dout.ptr + b * a.dout.sb + h * a.dout.sh + row * a.dout.ss + half * (D / 2);
 #pragma unroll
       for (int c = 0; c < D / 2; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
@@ -199,225 +187,303 @@ __global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dq_kernel(const BwdPara
     }
     dot += __shfl_xor_sync(0xffffffffu, dot, 1);
     if (half == 0) {
-      sDr[r] = dot;
-      sLse[r] = row < S ? p.lse[bh * S + row] : 0.f;
-      if (row < S) p.rowdot[bh * S + row] = dot;
+      s_dr[r] = dot;
+      if (row < S) a.rowdot[bh * S + row] = dot;
     }
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 of the block
-  const float lse_r[2] = {sLse[r0], sLse[r0 + 8]};
-  const float dr_r[2] = {sDr[r0], sDr[r0 + 8]};
-
-  float acc[D / 8][4];
+  // This thread's rows g and g + 8 of its warp's 16: lse (log2 domain) and Dr.
+  // Rows at or past S take 0 for both: their dO is zero, so dS is too.
+  float lse2[2], dr[2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int lr = wg * WG_ROWS + warp * 16 + g + 8 * r;
+    lse2[r] = m0 + lr < S ? a.lse[bh * S + m0 + lr] * LOG2E : 0.f;
+    dr[r] = s_dr[lr];
+  }
 
-  const int num_tiles = (S + BLOCK_N - 1) / BLOCK_N;
+  // Q and dO are the K-major A of S and dP (the warpgroup's 64 rows, panels
+  // BLOCK rows apart); K and V the K-major B (panels KEY_TILE rows apart); K again
+  // the MN-major B of dQ += dS K (leading offset: the panel stride).
+  const uint64_t desc_q = make_desc(sq + wg * WG_ROWS * PANEL_ROW_BYTES, 16, 1024);
+  const uint64_t desc_do = make_desc(sdo + wg * WG_ROWS * PANEL_ROW_BYTES, 16, 1024);
+  const uint64_t desc_k = make_desc(sk, 16, 1024);
+  const uint64_t desc_v = make_desc(sv, 16, 1024);
+  const uint64_t desc_kt = make_desc(sk, KEY_TILE * PANEL_ROW_BYTES, 1024);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  mbar_wait(bar_do, 0);
   for (int j = 0; j < num_tiles; ++j) {
-    const int n0 = j * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, p.k.ss, n0, S, BLOCK_N);
-    load_tile<D>(sV, vb, p.v.ss, n0, S, BLOCK_N);
-    __syncthreads();
+    const int stage = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const int n0 = j * KEY_TILE;
 
-    // s = q k^T and dp = dO v^T for this warp's 16 rows and 64 keys.
-    float s[BLOCK_N / 8][4];
-    float dp[BLOCK_N / 8][4];
+    // S = Q K^T and dP = dO V^T for KEY_TILE keys.
+    float s[KEY_TILE / 2], dp[KEY_TILE / 2];
+    mbar_wait(bar_k + 8 * stage, parity);
+    mbar_wait(bar_v + 8 * stage, parity);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * BLOCK * PANEL_ROW_BYTES + (kk % 4) * 32;
+      const uint32_t b_off = stage * L::TILE_BYTES + (kk / 4) * KEY_TILE * PANEL_ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<KEY_TILE>(s, desc_q + (a_off >> 4), desc_k + (b_off >> 4), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, sQ, LD, warp * 16, kk * 16, g, t);
-      load_a(da, sdO, LD, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-        uint32_t kf[2], vf[2];
-        load_b_rows(kf, sK, LD, nt * 8, kk * 16, g, t);
-        load_b_rows(vf, sV, LD, nt * 8, kk * 16, g, t);
-        mma_16816(s[nt], qa, kf);
-        mma_16816(dp[nt], da, vf);
-      }
+      const uint32_t a_off = (kk / 4) * BLOCK * PANEL_ROW_BYTES + (kk % 4) * 32;
+      const uint32_t b_off = stage * L::TILE_BYTES + (kk / 4) * KEY_TILE * PANEL_ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<KEY_TILE>(dp, desc_do + (a_off >> 4), desc_v + (b_off >> 4), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // p = exp(scale s - lse) (0 for keys at or past S); dS = p (dp - Dr) scale
+    // p = 2^(S scale log2(e) - lse log2(e)), 0 for keys at or past S;
+    // dS = p (dP - Dr) scale, in place of S.
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + 2 * t + (i & 1);
-        const int r = i >> 1;
-        const float pv = col < S ? expf(s[nt][i] * p.scale - lse_r[r]) : 0.f;
-        s[nt][i] = pv * (dp[nt][i] - dr_r[r]) * p.scale;
-      }
+    for (int i = 0; i < KEY_TILE / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
+      if (n0 + KEY_TILE > S && n0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) p = 0.f;
+      s[i] = p * (dp[i] - dr[r]) * a.scale;
     }
+    uint32_t da[KEY_TILE / 16][4];
+    acc_to_a<KEY_TILE>(da, s);
 
-    // dQ += dS k: dS's fragments are the A operand, k's rows run down k.
+    // dQ += dS K.
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t a[4];
-      acc_as_a(a, s, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t kf[2];
-        load_b_cols(kf, sK, LD, kk * 16, dt * 8, g, t);
-        mma_16816(acc[dt], a, kf);
-      }
+    for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
+      wgmma_rs<D>(acc, da[kk], desc_kt + ((stage * L::TILE_BYTES + kk * 16 * PANEL_ROW_BYTES) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    // Every warpgroup is done with this stage: refill it with tile j + STAGES.
+    __syncthreads();
+    if (tid == 0 && j + STAGES < num_tiles) {
+      const int n = (j + STAGES) * KEY_TILE;
+      load_rows<D, BOX>(sk + stage * L::TILE_BYTES, &tk, bar_k + 8 * stage, KEY_TILE, h, n, b);
+      load_rows<D, BOX>(sv + stage * L::TILE_BYTES, &tv, bar_v + 8 * stage, KEY_TILE, h, n, b);
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + 8 * r;
+    const int row = m0 + wg * WG_ROWS + warp * 16 + g + 8 * r;
     if (row >= S) continue;
-    bf16* orow = p.dq + ((static_cast<int64_t>(b) * S + row) * H + h) * D + 2 * t;
+    bf16* dst = a.dq + ((static_cast<long long>(b) * S + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) = pack_floats(acc[dt][2 * r], acc[dt][2 * r + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(dst + c * 8) = pack_floats(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BLOCK_N * LD;
-  bf16* sQ = sV + BLOCK_N * LD;
-  bf16* sdO = sQ + BLOCK_Q * LD;
-  float* sLse = reinterpret_cast<float*>(sdO + BLOCK_Q * LD);
-  float* sDr = sLse + BLOCK_Q;
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const BwdArgs a) {
+  using L = DkvLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base;
+  const uint32_t sv = base + L::HELD1_OFF;
+  const uint32_t sq = base + L::RING0_OFF;
+  const uint32_t sdo = base + L::RING1_OFF;
+  // lse (natural log) and Dr of the streamed query rows, QUERY_TILE a stage.
+  const uint32_t s_lse_addr = base + L::FLOAT_OFF;
+  const uint32_t s_dr_addr = s_lse_addr + STAGES * QUERY_TILE * 4;
+  const float* s_lse = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::FLOAT_OFF);
+  const float* s_dr = s_lse + STAGES * QUERY_TILE;
+  const uint32_t bar_k = base + L::BAR_OFF;
+  const uint32_t bar_v = bar_k + 8;
+  const uint32_t bar_q = bar_k + 16;                // stage s at + 8 * s
+  const uint32_t bar_do = bar_k + 8 * (2 + STAGES);  // stage s at + 8 * s
 
-  const int S = p.S, H = p.H;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int S = a.S, H = a.H;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int64_t bh = static_cast<int64_t>(b) * H + h;
-  const int n0 = blockIdx.x * BLOCK_N;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const int n0 = blockIdx.x * BLOCK;
+  const int num_tiles = (S + QUERY_TILE - 1) / QUERY_TILE;
+  const float scale_log2 = a.scale * LOG2E;
+  const float* lse_bh = a.lse + bh * S;
+  const float* dr_bh = a.rowdot + bh * S;
 
-  const bf16* qb = p.q.ptr + b * p.q.sb + h * p.q.sh;
-  const bf16* kb = p.k.ptr + b * p.k.sb + h * p.k.sh;
-  const bf16* vb = p.v.ptr + b * p.v.sb + h * p.v.sh;
-  const bf16* dob = p.dout.ptr + b * p.dout.sb + h * p.dout.sh;
-
-  load_tile<D>(sK, kb, p.k.ss, n0, S, BLOCK_N);
-  load_tile<D>(sV, vb, p.v.ss, n0, S, BLOCK_N);
-
-  // This thread's key rows r0 and r0 + 8 of the block: dK and dV.
-  const int r0 = warp * 16 + g;
-  float dk[D / 8][4];
-  float dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < 2 + 2 * STAGES; ++i) mbar_init(bar_k + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  for (int i0 = 0; i0 < S; i0 += BLOCK_Q) {
-    __syncthreads();  // every warp is done with the previous q/dO tile
-    load_tile<D>(sQ, qb, p.q.ss, i0, S, BLOCK_Q);
-    load_tile<D>(sdO, dob, p.dout.ss, i0, S, BLOCK_Q);
-    if (threadIdx.x < BLOCK_Q) {
-      const int row = i0 + threadIdx.x;
-      sLse[threadIdx.x] = row < S ? p.lse[bh * S + row] : 0.f;
-      sDr[threadIdx.x] = row < S ? p.rowdot[bh * S + row] : 0.f;
+  __syncthreads();
+  if (tid == 0) {
+    load_rows<D, BOX>(sk, &tk, bar_k, BLOCK, h, n0, b);
+    load_rows<D, BOX>(sv, &tv, bar_v, BLOCK, h, n0, b);
+    for (int j = 0; j < STAGES && j < num_tiles; ++j) {
+      load_rows<D, BOX>(sq + j * L::TILE_BYTES, &tq, bar_q + 8 * j, QUERY_TILE, h, j * QUERY_TILE, b);
+      load_rows<D, BOX>(sdo + j * L::TILE_BYTES, &tdo, bar_do + 8 * j, QUERY_TILE, h, j * QUERY_TILE, b);
     }
-    __syncthreads();
+  }
+  // lse and Dr of the first STAGES query tiles (stage s holds tile s).
+  if (tid < STAGES * QUERY_TILE) {
+    const int row = tid;
+    const bool valid = row < S;
+    cp_async_f32(s_lse_addr + 4 * tid, lse_bh + (valid ? row : 0), valid);
+    cp_async_f32(s_dr_addr + 4 * tid, dr_bh + (valid ? row : 0), valid);
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-    // s^T = k q^T and dp^T = v dO^T: 16 keys x 32 queries for this warp.
-    float s[BLOCK_Q / 8][4];
-    float dp[BLOCK_Q / 8][4];
+  // K and V are the K-major A of S^T and dP^T (the warpgroup's 64 keys,
+  // panels BLOCK rows apart); Q and dO the K-major B (panels QUERY_TILE rows apart),
+  // then the MN-major B of dK += dS^T Q and dV += p^T dO.
+  const uint64_t desc_k = make_desc(sk + wg * WG_ROWS * PANEL_ROW_BYTES, 16, 1024);
+  const uint64_t desc_v = make_desc(sv + wg * WG_ROWS * PANEL_ROW_BYTES, 16, 1024);
+  const uint64_t desc_q = make_desc(sq, 16, 1024);
+  const uint64_t desc_do = make_desc(sdo, 16, 1024);
+  const uint64_t desc_qt = make_desc(sq, QUERY_TILE * PANEL_ROW_BYTES, 1024);
+  const uint64_t desc_dot = make_desc(sdo, QUERY_TILE * PANEL_ROW_BYTES, 1024);
+
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_Q / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(bar_k, 0);
+  mbar_wait(bar_v, 0);
+  for (int j = 0; j < num_tiles; ++j) {
+    const int stage = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const int i0 = j * QUERY_TILE;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x QUERY_TILE queries a warpgroup.
+    float s[QUERY_TILE / 2], dp[QUERY_TILE / 2];
+    mbar_wait(bar_q + 8 * stage, parity);
+    mbar_wait(bar_do + 8 * stage, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * BLOCK * PANEL_ROW_BYTES + (kk % 4) * 32;
+      const uint32_t b_off = stage * L::TILE_BYTES + (kk / 4) * QUERY_TILE * PANEL_ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<QUERY_TILE>(s, desc_k + (a_off >> 4), desc_q + (b_off >> 4), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sK, LD, warp * 16, kk * 16, g, t);
-      load_a(va, sV, LD, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_Q / 8; ++nt) {
-        uint32_t qf[2], df[2];
-        load_b_rows(qf, sQ, LD, nt * 8, kk * 16, g, t);
-        load_b_rows(df, sdO, LD, nt * 8, kk * 16, g, t);
-        mma_16816(s[nt], ka, qf);
-        mma_16816(dp[nt], va, df);
-      }
+      const uint32_t a_off = (kk / 4) * BLOCK * PANEL_ROW_BYTES + (kk % 4) * 32;
+      const uint32_t b_off = stage * L::TILE_BYTES + (kk / 4) * QUERY_TILE * PANEL_ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<QUERY_TILE>(dp, desc_v + (a_off >> 4), desc_do + (b_off >> 4), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // p^T = exp(scale s^T - lse[query]), 0 for query rows at or past S;
-    // dS^T = p^T (dp^T - Dr[query]) scale.
+    // p^T = 2^(S^T scale log2(e) - lse log2(e)) with the lse of each column
+    // (query), 0 for queries at or past S; dS^T = p^T (dP^T - Dr) scale.
+    const float* lse_t = s_lse + stage * QUERY_TILE;
+    const float* dr_t = s_dr + stage * QUERY_TILE;
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_Q / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = nt * 8 + 2 * t + (i & 1);
-        const float pv = i0 + qi < S ? expf(s[nt][i] * p.scale - sLse[qi]) : 0.f;
-        s[nt][i] = pv;
-        dp[nt][i] = pv * (dp[nt][i] - sDr[qi]) * p.scale;
-      }
+    for (int i = 0; i < QUERY_TILE / 2; ++i) {
+      const int c = (i / 4) * 8 + 2 * t + (i & 1);
+      float p = exp2f(fmaf(s[i], scale_log2, -lse_t[c] * LOG2E));
+      if (i0 + QUERY_TILE > S && i0 + c >= S) p = 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - dr_t[c]) * a.scale;
     }
+    uint32_t pa[QUERY_TILE / 16][4], da[QUERY_TILE / 16][4];
+    acc_to_a<QUERY_TILE>(pa, s);
+    acc_to_a<QUERY_TILE>(da, dp);
 
-    // dV += p^T dO and dK += dS^T q: the queries run down k.
+    // dV += p^T dO, then dK += dS^T Q.
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_Q / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_as_a(pa, s, kk);
-      acc_as_a(sa, dp, kk);
+    for (int kk = 0; kk < QUERY_TILE / 16; ++kk) {
+      wgmma_rs<D>(dv, pa[kk], desc_dot + ((stage * L::TILE_BYTES + kk * 16 * PANEL_ROW_BYTES) >> 4));
+    }
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t df[2], qf[2];
-        load_b_cols(df, sdO, LD, kk * 16, dt * 8, g, t);
-        load_b_cols(qf, sQ, LD, kk * 16, dt * 8, g, t);
-        mma_16816(dv[dt], pa, df);
-        mma_16816(dk[dt], sa, qf);
+    for (int kk = 0; kk < QUERY_TILE / 16; ++kk) {
+      wgmma_rs<D>(dk, da[kk], desc_qt + ((stage * L::TILE_BYTES + kk * 16 * PANEL_ROW_BYTES) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+
+    // The lse and Dr of tile j + 1 (issued one tile ago) have landed, and
+    // every warpgroup is done with this stage: refill it with tile j + STAGES.
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + STAGES < num_tiles) {
+      const int i1 = (j + STAGES) * QUERY_TILE;
+      if (tid == 0) {
+        load_rows<D, BOX>(sq + stage * L::TILE_BYTES, &tq, bar_q + 8 * stage, QUERY_TILE, h, i1, b);
+        load_rows<D, BOX>(sdo + stage * L::TILE_BYTES, &tdo, bar_do + 8 * stage, QUERY_TILE, h, i1, b);
+      }
+      if (tid < QUERY_TILE) {
+        const int row = i1 + tid;
+        const bool valid = row < S;
+        cp_async_f32(s_lse_addr + 4 * (stage * QUERY_TILE + tid), lse_bh + (valid ? row : 0), valid);
+        cp_async_f32(s_dr_addr + 4 * (stage * QUERY_TILE + tid), dr_bh + (valid ? row : 0), valid);
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = n0 + r0 + 8 * r;
+    const int row = n0 + wg * WG_ROWS + warp * 16 + g + 8 * r;
     if (row >= S) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * S + row) * H + h) * D + 2 * t;
+    const long long off = ((static_cast<long long>(b) * S + row) * H + h) * D + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(p.dk + off + dt * 8) = pack_floats(dk[dt][2 * r], dk[dt][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(p.dv + off + dt * 8) = pack_floats(dv[dt][2 * r], dv[dt][2 * r + 1]);
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(a.dk + off + c * 8) = pack_floats(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(a.dv + off + c * 8) = pack_floats(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const BwdParams& p, int B, cudaStream_t stream) {
-  constexpr int LD = D + PAD;
-  const int smem_dq = (2 * BLOCK_M + 2 * BLOCK_N) * LD * static_cast<int>(sizeof(bf16)) +
-                      2 * BLOCK_M * static_cast<int>(sizeof(float));
-  const int smem_dkv = (2 * BLOCK_N + 2 * BLOCK_Q) * LD * static_cast<int>(sizeof(bf16)) +
-                       2 * BLOCK_Q * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+cudaError_t launch(const void* const* ptrs, const long long* strides, const BwdArgs& a, int B,
+                   cudaStream_t stream) {
+  // q, k, v and dO through 64-row boxes; o is read by plain loads.
+  CUtensorMap maps[4];
+  const int order[4] = {0, 1, 2, 4};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    const long long* st = strides + 3 * order[i];
+    err = make_map(&maps[i], ptrs[order[i]], B, a.S, a.H, D, st[0], st[1], st[2], BOX);
+  }
+  static bool dq_set[MAX_DEVICES] = {};
+  static bool dkv_set[MAX_DEVICES] = {};
+  if (err == cudaSuccess) err = opt_in_smem(flash_bwd_dq_kernel<D>, DqLayout<D>::BYTES, dq_set);
+  if (err == cudaSuccess) err = opt_in_smem(flash_bwd_dkv_kernel<D>, DkvLayout<D>::BYTES, dkv_set);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_dq((p.S + BLOCK_M - 1) / BLOCK_M, B * p.H);
-  flash_bwd_dq_kernel<D><<<grid_dq, NUM_THREADS, smem_dq, stream>>>(p);
+  const dim3 grid((a.S + BLOCK - 1) / BLOCK, B * a.H);
+  flash_bwd_dq_kernel<D><<<grid, NUM_THREADS, DqLayout<D>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_dkv((p.S + BLOCK_N - 1) / BLOCK_N, B * p.H);
-  flash_bwd_dkv_kernel<D><<<grid_dkv, NUM_THREADS, smem_dkv, stream>>>(p);
+  flash_bwd_dkv_kernel<D><<<grid, NUM_THREADS, DkvLayout<D>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                                                            a);
   return cudaGetLastError();
 }
 
@@ -434,16 +500,12 @@ extern "C" int mvt_flash_attention_bwd_bf16(
     const float* lse, float* rowdot, void* dq, void* dk, void* dv,
     int B, int S, int H, int D, const long long* strides, float scale, void* stream) {
   const void* ptrs[5] = {q, k, v, o, dout};
-  Operand ops[5];
-  for (int i = 0; i < 5; ++i) {
-    ops[i] = Operand{static_cast<const bf16*>(ptrs[i]), strides[3 * i], strides[3 * i + 1],
-                     strides[3 * i + 2]};
-  }
-  const BwdParams p{ops[0], ops[1], ops[2], ops[3], ops[4], lse, rowdot,
-                    static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                    S, H, scale};
+  const BwdArgs a{{static_cast<const bf16*>(o), strides[9], strides[10], strides[11]},
+                  {static_cast<const bf16*>(dout), strides[12], strides[13], strides[14]},
+                  lse, rowdot, static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                  S, H, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(p, B, st);
-  if (D == 64) return launch<64>(p, B, st);
+  if (D == 128) return launch<128>(ptrs, strides, a, B, st);
+  if (D == 64) return launch<64>(ptrs, strides, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -32,10 +32,12 @@ two warpgroups, with Q and 128-key K/V tiles brought into 128-byte swizzled
 shared memory by TMA through a two-stage ring, so the next tile's copy
 overlaps this tile's products; P never leaves the registers. The softmax is
 exact at every length: unlike the Pallas single-pass body, no logit clamp.
-K3, K4 and K5 keep K1's first design (``mma.sync`` over 64-row blocks with
-synchronous tile loads). The backward is two kernels without atomics
-(csrc/flash_attention_bwd.cu says how they split the work), so its gradients
-are bitwise repeatable.
+K3 follows the same design: a dq kernel over 128 query rows and a dkv kernel
+over 128 keys, each in two warpgroups, every product on ``wgmma``, 64-row
+tiles by TMA through a two-stage ring, p and dS kept in registers; the two
+kernels use no atomics (csrc/flash_attention_bwd.cu says how they split the
+work), so its gradients are bitwise repeatable. K4 and K5 keep K1's first
+design (``mma.sync`` over 64-row blocks with synchronous tile loads).
 
 :func:`flash_attention` is differentiable: when q, k or v needs a gradient
 the forward also keeps the logsumexp and the backward runs K3, as the JAX

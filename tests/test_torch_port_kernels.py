@@ -37,6 +37,8 @@ equals the CPU's. quantize_affine divides as JAX's quantize_affine does, so
 its scales, biases and words on the card equal the CPU's.
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -136,6 +138,8 @@ def _bwd_inputs(gen, b, s, h, d):
 @pytest.mark.parametrize("b, s, h, d", [
     (1, 320, 32, 128), (1, 1280, 4, 128), (2, 1000, 4, 128), (1, 1, 2, 128),
     (1, 63, 3, 64), (1, 65, 3, 64), (2, 700, 4, 64), (1, 3456, 2, 128),
+    # S on each side of the 64-row tile and of the 128-row block
+    (1, 64, 4, 128), (1, 127, 4, 128), (1, 128, 4, 128), (1, 129, 4, 128), (2, 255, 3, 128),
 ])
 def test_bwd_kernel_matches_plain(gen, b, s, h, d):
     q, k, v, o, lse, do = _bwd_inputs(gen, b, s, h, d)
@@ -178,6 +182,23 @@ def test_flash_attention_is_differentiable_on_the_card(gen):
     assert (fa.launch_count, fa.bwd_launch_count) == (k1 + 1, k3 + 1)
     o, lse = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), 128**-0.5, return_lse=True)
     _check_grads(got, fa.flash_attention_bwd_reference(q, k, v, o, lse, do, 128**-0.5))
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_a_fresh_thread(gen):
+    """K1 and K3 encode their tensor maps through the driver, which needs a
+    current context: a thread whose first CUDA call is the kernel's (an
+    autograd worker) must get the same results as the main thread."""
+    q, k, v, o, lse, do = _bwd_inputs(gen, 1, 300, 4, 128)
+    want = fa.flash_attention(q, k, v, return_lse=True), fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5)
+    got = []
+    worker = threading.Thread(target=lambda: got.append(
+        (fa.flash_attention(q, k, v, return_lse=True), fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5))))
+    worker.start()
+    worker.join()
+    assert got, "the kernels raised in the worker thread"
+    for a, b in zip((*got[0][0], *got[0][1]), (*want[0], *want[1])):
+        assert torch.equal(a, b)
 
 
 def _masked_bias(gen, b, skv, real):
