@@ -47,19 +47,25 @@ Phases, in order; any failure exits non-zero before the last line:
    bf16 at H=32, D=128: (B, Sq, Skv) = (2, 5184, 128) (the dev path's, batched
    CFG, no mask), (1, 3456, 1024) with 128 real keys (the trainer's), a ragged
    Skv = 77, a batch row whose keys are all masked (it must be the mean of v)
-   and two rows with different masks: max |d o| <= 2e-2 (K1's bar). Median
+   and two rows with different masks: max |d o| <= 2e-2 (K1's bar), every
+   case printed before a failure ends the phase. Median
    times of K4, the plain version and F.scaled_dot_product_attention with the
-   additive mask (a yardstick, never on the path).
-5b. K5 vs plain: flash attention with fused split RoPE against its plain
-   version (q and k rotated in fp32 and cast back, exact attention) at
-   (B, S) = (2, 5184) (the dev path's), (1, 3456) and (1, 1280), with the
-   DiT's tables: K1's bars; bitwise equality with K5 itself on the plainly
-   rotated q and k under identity tables (cos = 1, sin = 0), which holds the
-   in-kernel rotation to the plain one; and K1's bars against K1 on the
-   plainly rotated q and k (the error is printed). Median times of K5, the
-   plain version and "K1 + torch rotation" (the unfused route). Then the K5
-   Function's gradients (K3 on the rotated inputs, rotated back) against
-   plain autograd at S = 1280: K3's bars.
+   additive mask (a yardstick, never on the path), K4's share of its bound
+   and its time as a multiple of SDPA's; the device time a call of K4's
+   kernel and of SDPA's (torch.profiler), and K4's host time a call (the
+   enqueue of 50 calls back to back).
+5b. K5 vs plain: flash attention with split RoPE (a rotation pass, then K1's
+   kernel) against its plain version (q and k rotated in fp32 and cast back,
+   exact attention) at (B, S) = (2, 5184) (the dev path's), (1, 3456) and
+   (1, 1280), with the DiT's tables: K1's bars. Bitwise, with the elements
+   that differ printed (every shape before a failure ends the phase): the rotation pass against rotate_split, K5 against
+   K1 on the plainly rotated q and k (o and lse), and K5 against itself on
+   those under identity tables (cos = 1, sin = 0). Median times of K5, of its
+   rotation pass alone, of K1 on the rotated q and k, of the plain version
+   and of "K1 + torch rotation" (the unfused route), K5's share of its
+   bound, the device time a call of its two kernels and its host time a
+   call. Then the K5 Function's gradients (K3 on the rotated inputs,
+   rotated back) against plain autograd at S = 1280: K3's bars.
 5c. K6 vs plain: the int8 attention against its plain version (the same
    quantization prologue, exact integer products) in bf16 at H=32, D=128,
    (B, S) = (1, 320) and (1, 1280) (the distilled stages), (2, 5184) (config
@@ -113,8 +119,10 @@ Phases, in order; any failure exits non-zero before the last line:
    only: 2 steps with the routes on against off (96 K1 launches, plain
    cross-attention), each under torch.profiler (idle share, device time by
    kernel class; for the routes off K1's share of it and the step seconds),
-   per-frame latent PSNR >= 35 dB; and one step of sequential against batched
-   CFG (96 K4 and 96 K5 launches), the same bar. The routes are off again
+   per-frame latent PSNR >= 35 dB; the dev_denoise seconds a step of both,
+   without the profiler, 2 steps each in turns (off, on, on, off); and one
+   step of sequential against batched CFG (96 K4 and 96 K5 launches), the
+   same bar. The routes are off again
    for the phases below.
 8. full-width dense LoRA training: the Trainer (the ltx2_lora.yaml recipe:
    rank 8, alpha 16, lr 1e-4 cosine, shifted-logit-normal timesteps,
@@ -226,6 +234,22 @@ def median_ms(fn, reps: int = 20, warmup: int = 3, before=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time a call of ``fn``: the wall time to enqueue ``calls`` calls
+    back to back, over ``calls``. It is the host's own work as long as the
+    device takes longer per call (the host then never waits)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_ms_by_kernel(fn, reps: int = 20) -> dict:
@@ -368,7 +392,7 @@ def cross_kernel_vs_plain(ca) -> dict:
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(9)
-    rows, max_err = {}, 0.0
+    rows, max_err, failed = {}, 0.0, []
     print("K4 vs plain (bf16, H=32, D=128; bar max|d o| <= 2e-2):")
     for b, sq, skv, real in [(2, 5184, 128, None), (1, 3456, 1024, (128,)), (2, 5184, 77, None),
                              (2, 5184, 128, (128, 0)), (2, 5184, 128, (40, 100))]:
@@ -386,9 +410,9 @@ def cross_kernel_vs_plain(ca) -> dict:
             uni = (out[row].float() - v[row].float().mean(0)[None]).abs().max().item()
             line += f", all-masked row vs the mean of v {uni:.3e}"
             if not uni <= 2e-2:
-                fail("K4's all-masked row is not the uniform average of v")
+                failed.append(f"the mean of v on the all-masked row at B={b} Sq={sq} Skv={skv}")
         if not (err <= 2e-2 and torch.isfinite(out).all()):
-            fail(f"K4 disagrees with the plain version at B={b} Sq={sq} Skv={skv} real={real}")
+            failed.append(f"the plain version at B={b} Sq={sq} Skv={skv} real={real}")
         if real in (None, (128,)):
             mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
             ms = median_ms(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
@@ -396,9 +420,20 @@ def cross_kernel_vs_plain(ca) -> dict:
             lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=128**-0.5))
             rows[(b, sq, skv)] = (ms, plain_ms, lib_ms, bias is not None)
-            line += f"  K4 {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the mask {lib_ms:.4f} ms"
+            lim = bound(*cross_attention_work(b, sq, skv, 32, 128, bias is not None))
+            dev = device_ms_by_kernel(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
+            host = host_ms(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
+            lib_dev = sum(device_ms_by_kernel(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=128**-0.5)).values())
+            line += (f"  K4 {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the mask {lib_ms:.4f} ms; "
+                     f"{100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms bound ({lim['bound_by']}), "
+                     f"{ms / lib_ms:.2f}x SDPA's time; device time a call "
+                     + ", ".join(f"{n} {t:.4f} ms" for n, t in dev.items())
+                     + f", SDPA's kernels {lib_dev:.4f} ms; host time a call {host:.4f} ms")
         print(line, flush=True)
         del q, k, v, out, ref
+    if failed:
+        fail("K4 disagrees with " + "; ".join(failed))
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -422,15 +457,17 @@ def rope_tables(b: int, f: int, h: int, w: int):
 
 def rope_kernel_vs_plain(fa) -> dict:
     """K5 against its plain version (q and k rotated in fp32, cast back, exact
-    attention) at the dev path's shape and two more, with K1's bars, and
-    against K1 on the plainly rotated q and k: the same bits. Then the K5
-    Function's gradients (K3 on the rotated inputs) against plain autograd."""
+    attention) at the dev path's shape and two more, with K1's bars; its
+    rotation pass against the plain rotation, and K5 against K1 on the
+    plainly rotated q and k (and against itself there under identity
+    tables): the same bits. Then the K5 Function's gradients (K3 on the
+    rotated inputs) against plain autograd."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(10)
-    rows, max_err = {}, 0.0
-    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; K5 on rotated q, k under "
-          "identity tables: bitwise; K1 on rotated q, k: K1's bars):")
+    rows, max_err, failed = {}, 0.0, []
+    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; bitwise: the rotation pass "
+          "vs rotate_split, K5 vs K1 on the rotated q, k, and K5 on them under identity tables):")
     for b, (f, h, w) in [(2, (9, 24, 24)), (1, (9, 16, 24)), (1, (5, 16, 16))]:
         s = f * h * w
         q, k, v = (torch.randn(b, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
@@ -446,26 +483,42 @@ def rope_kernel_vs_plain(fa) -> dict:
             return fa.flash_attention(fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin), v)
 
         qr, kr = fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin)
+        rq, rk = fa.rope_rotate(q, k, cos, sin)
+        rot_q, rot_k = ((a != r).sum().item() for a, r in ((rq, qr), (rk, kr)))
         o_id, lse_id = fa.flash_attention_split_rope(qr, kr, v, torch.ones_like(cos), torch.zeros_like(sin),
                                                      return_lse=True)
-        same = torch.equal(out, o_id) and torch.equal(lse, lse_id)
+        same_id = torch.equal(out, o_id) and torch.equal(lse, lse_id)
         o1, lse1 = fa.flash_attention(qr, kr, v, return_lse=True)
-        k1_o, k1_lse = (out.float() - o1.float()).abs().max().item(), (lse - lse1).abs().max().item()
+        k1_o, k1_lse = (out != o1).sum().item(), (lse != lse1).sum().item()
+        del rq, rk, o_id, lse_id, o1, lse1
         ms = median_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
+        rot_ms = median_ms(lambda: fa.rope_rotate(q, k, cos, sin))
+        k1_ms = median_ms(lambda: fa.flash_attention(qr, kr, v))
         plain_ms = median_ms(lambda: fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5),
                              reps=5, warmup=1)
         unfused_ms = median_ms(unfused)
-        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; K5 on rotated q, k under identity "
-              f"tables bitwise equal: {same}; vs K1 on rotated q, k max|d o| {k1_o:.3e} max|d lse| {k1_lse:.3e}  "
-              f"K5 {ms:.4f} ms  plain {plain_ms:.4f} ms  K1 + torch rotation {unfused_ms:.4f} ms", flush=True)
+        lim = bound(*rope_attention_work(b, s, 32, 128))
+        dev = device_ms_by_kernel(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
+        host = host_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
+        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; rotation pass vs rotate_split: "
+              f"{rot_q} q and {rot_k} k elements differ; vs K1 on the rotated q, k: {k1_o} o and {k1_lse} lse "
+              f"elements differ; under identity tables bitwise equal: {same_id}  K5 {ms:.4f} ms (rotation pass "
+              f"{rot_ms:.4f}, K1 on the rotated q, k {k1_ms:.4f})  plain {plain_ms:.4f} ms  K1 + torch rotation "
+              f"{unfused_ms:.4f} ms; {100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms bound "
+              f"({lim['bound_by']}); device time a call " + ", ".join(f"{n} {t:.4f} ms" for n, t in dev.items())
+              + f"; host time a call {host:.4f} ms", flush=True)
         if not (err_o <= 2e-2 and err_lse <= 1e-3 and torch.isfinite(out).all()):
-            fail(f"K5 disagrees with the plain version at B={b} S={s}")
-        if not same:
-            fail(f"K5's rotation differs from the plain one at B={b} S={s}")
-        if not (k1_o <= 2e-2 and k1_lse <= 1e-3):
-            fail(f"K5 disagrees with K1 on the plainly rotated q and k at B={b} S={s}")
+            failed.append(f"the plain version at B={b} S={s}")
+        if rot_q or rot_k:
+            failed.append(f"rotate_split at B={b} S={s} (the rotation pass)")
+        if k1_o or k1_lse:
+            failed.append(f"K1 on the plainly rotated q and k at B={b} S={s}")
+        if not same_id:
+            failed.append(f"itself on the plainly rotated q and k under identity tables at B={b} S={s}")
         rows[(b, s)] = (ms, plain_ms, unfused_ms)
-        del q, k, v, out, lse, ref, ref_lse, qr, kr, o_id, lse_id, o1, lse1
+        del q, k, v, out, lse, ref, ref_lse, qr, kr
+    if failed:
+        fail("K5 disagrees with " + "; ".join(failed))
 
     s, (f, h, w) = 1280, (5, 16, 16)
     q, k, v, do = (torch.randn(1, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
@@ -923,7 +976,7 @@ def profile_lora_step(trainer, fa) -> None:
     k1, k3 = fa.launch_count, fa.bwd_launch_count
     busy = prof["busy"]
     shares = {name: 100 * prof["by_class"][key] / 1e3 / busy for name, key in (
-        ("K3", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)"), ("K1", "K1 (flash_fwd_kernel)"),
+        ("K3", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)"), ("K1", K1_CLASS),
         ("GEMM", "GEMM"), ("elementwise", "other (elementwise, norms, softmax, copies)"))}
     print(f"  profiled LoRA step: {step_s:.4f} s (under the profiler), loss {loss:.6f}, idle share "
           f"{1 - busy / prof['wall']:.3f}; of {busy:.4f} s device busy: "
@@ -1112,6 +1165,10 @@ def narrow_dev_check(work: Path) -> None:
             fail(f"narrow dev slice {name} PSNR {worst:.2f} dB < 35 dB")
 
 
+# K1's kernel also runs K5's attention (after K5's rotation pass).
+K1_CLASS = "K1's kernel (K1, and K5's attention: flash_fwd_kernel)"
+
+
 @contextlib.contextmanager
 def profiled(what: str):
     """torch.profiler over the block: device busy time against the wall (the
@@ -1134,8 +1191,9 @@ def profiled(what: str):
     ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     counts = {e.key: e.count for e in kernels}
     busy = sum(ms.values()) / 1e3
-    classes = {"K5 (flash_rope_kernel)": "flash_rope", "K4 (flash_cross_kernel)": "flash_cross",
-               "K1 (flash_fwd_kernel)": "flash_fwd", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)": "flash_bwd",
+    classes = {"K5's rotation (rope_rotate_kernel)": "rope_rotate",
+               "K4 (cross_resident_kernel, cross_stream_kernel)": ("cross_resident", "cross_stream"),
+               K1_CLASS: "flash_fwd", "K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)": "flash_bwd",
                "K2 (quant_matmul_kernel)": "quant_matmul",
                "K6 (flash_int8_kernel)": "flash_int8", "convolution": ("conv", "fprop", "implicit"), "int8 GEMM": ("gemm_s8", "imma", "s8s8", "i8i8"),
                "GEMM": ("gemm", "xmma", "nvjet", "cutlass")}
@@ -1242,7 +1300,7 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
     with profiled("2 warm dev steps (routes off: K1 and plain cross-attention; the image encode included)") as prof:
         off, counts_off, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
     check_dev_launches(counts_off, (96, 0, 0), "the 2-step run with the routes off")
-    k1_ms = prof["by_class"]["K1 (flash_fwd_kernel)"]
+    k1_ms = prof["by_class"][K1_CLASS]
     print(f"  routes off: K1 {k1_ms:.1f} ms over {counts_off[0]} launches, {100 * k1_ms / 1e3 / prof['busy']:.1f} % "
           f"of device busy time; dev_denoise {off.phase_seconds['dev_denoise'] / 2:.4f} s a step; idle share "
           f"{1 - prof['busy'] / prof['wall']:.3f}", flush=True)
@@ -1251,6 +1309,18 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
           f"off {counts_off}", flush=True)
     if not ab >= 35.0:
         fail(f"routes on vs off: {ab:.2f} dB < 35 dB")
+    # dev_denoise a step without the profiler, routes off and on in turns (off, on, on, off)
+    ab_step_s = {True: [], False: []}
+    for routes in (False, True, True, False):
+        set_routes(routes)
+        timed, timed_counts, _ = drive_dev(models, text, images, fa, ca, steps=2, seed=15, decode_latents_only=True)
+        check_dev_launches(timed_counts, (0, 96, 96) if routes else (96, 0, 0), "a timed 2-step run")
+        ab_step_s[routes].append(timed.phase_seconds["dev_denoise"] / 2)
+    print("  dev_denoise a step, in turns (off, on, on, off): routes on "
+          + ", ".join(f"{t:.4f}" for t in ab_step_s[True]) + " s; routes off "
+          + ", ".join(f"{t:.4f}" for t in ab_step_s[False])
+          + f" s; on / off {sum(ab_step_s[True]) / sum(ab_step_s[False]):.3f}",
+          flush=True)
 
     set_routes(True)
     batched, _, b_wall = drive_dev(models, text, images, fa, ca, steps=1, seed=16, decode_latents_only=True)
@@ -1732,7 +1802,7 @@ def main() -> int:
     k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
     k5_ms, k5_plain_ms, _ = k5["rows"][(2, 5184)]
     k6_ms, k6_plain_ms, _, _ = k6["rows"][(1, 1280, 128)]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "mlx_video_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1798,7 +1868,11 @@ def main() -> int:
         "plain_ms": k6_plain_ms,
         **bound(*int8_attention_work(1, 1280, 32, 128), peak_ops=PEAK_INT8_OPS),
         "library_ms": None,
-    }]}), flush=True)
+    }]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        fail(f"no launch on its path: {', '.join(idle)}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -12,253 +12,486 @@
 // Skv = 128, H = 32, D = 128) the two products are 4 * Sq * Skv * D * H
 // operations, ~1.4e10 (0.014 ms at the bf16 peak), on 170 MB of q read and o
 // written (0.051 ms at 3.35 TB/s); K and V are 4 MB. So it is bound by device
-// memory, and the design reads each q row once and writes each o row once.
-// Only with a long caption (the trainer's 1024 keys) does the operation count
-// take over.
+// memory: each q row must be read once and each o row written once, with
+// enough copies in flight to keep the memory busy. With the trainer's long
+// caption (1024 keys) the operation count takes over, as in K1.
 //
-// Layout and work split (the first version of K1's, csrc/flash_attention_fwd.cu):
-// - A block owns BLOCK_M = 64 query rows of one (batch, head); 4 warps own 16
-//   rows each. grid = (ceil(Sq / 64), B * H).
-// - q, k and v are read in place through their strides (the last dimension
-//   must be contiguous). Query rows at or past Sq are zero-filled in shared
-//   memory and not written; key rows at or past Skv are zero-filled and their
-//   bias is -inf.
-// - Key/value tiles of BLOCK_N = 64 rows are staged in shared memory with the
-//   tile's 64 bias values; the small caption stays in L2 across the query
-//   blocks that re-read it.
-// - Q K^T and P V run on the tensor cores as mma.sync m16n8k16 (bf16 x bf16
-//   -> fp32); the bias is added in fp32 before the running max. P is rounded
-//   to bf16 for P V, as the Pallas kernel does; the row sum uses the fp32 P.
-// - A row whose keys are all masked by a -1e9 bias stays finite: the bias
-//   swamps the fp32 logits, they are all equal, and the softmax is uniform
-//   over the Skv keys, as in the plain version.
+// What the design does about it, on K1's (csrc/flash_attention_fwd.cu,
+// helpers in csrc/hopper.cuh):
+// - 128 query rows a tile in two warpgroups. S = Q K^T is SS wgmma with both
+//   operands K-major; O += P V is RS wgmma with P from registers and V
+//   MN-major (the transpose bit). Tiles arrive by TMA in 128-byte swizzled
+//   shared memory; q's tensor map spans Sq rows, k's and v's Skv rows, so TMA
+//   zero-fills rows past either length. Keys at or past Skv get -inf by
+//   index (through the bias row), query rows past Sq are never written.
+// - The bias row goes into shared memory by plain loads, prescaled by
+//   log2(e): 4 * Skv bytes are no TMA box unless a multiple of 16. It is
+//   added to the scaled logits before the row max. A row whose keys all carry
+//   the -1e9 mask stays the uniform average of v: the bias swamps the fp32
+//   logits, they are all equal and every key gets p = 1.
+// - Skv <= 128 (the dev path: a 128-token caption): cross_resident_kernel.
+//   The caption tile, K, V and the bias, is loaded once per (batch, head) and
+//   stays in shared memory while the block's query tiles stream past it
+//   through a 2-stage TMA ring, so tile i + 1 lands while tile i is
+//   multiplied (at D = 128 the ring, the caption tile and the o staging tile
+//   take 161 KB). Measured on an H100 at (2, 5184, 128): rings of 3 and 4
+//   stages were no faster (device time 0.0719-0.0746 ms against
+//   0.0706-0.0711 ms). The grid is persistent, one wave of as many blocks as fit
+//   on the card; block i takes the i-th of equal runs of consecutive
+//   (batch * head, query tile) items, so every SM gets the same number of
+//   tiles (19 or 20 at (2, 5184) on 132 SMs) and a run spans at most a
+//   couple of (batch, head)s: the caption tile is reloaded only there.
+// - Skv > 128 (the trainer's 1024 caption keys): cross_stream_kernel, K1's
+//   loop: a block owns one query tile and K/V tiles stream through K1's
+//   2-stage ring, each stage with its 128 bias values.
+// - o leaves through shared memory: each warpgroup writes its normalised
+//   64 rows in bf16 into a swizzled tile and a TMA store
+//   (cp.async.bulk.tensor, global <- shared) copies them out; TMA drops rows
+//   past Sq. In the resident kernel the staging tile is its own, so a store
+//   overlaps the next tile's products. Copying the staged tile out by
+//   coalesced 16-byte stores instead took 0.0763-0.0770 ms of device time
+//   at (2, 5184, 128) on an H100, against the TMA store's 0.0708-0.0714 ms.
+// - The shared-memory opt-in, the SM count and the occupancy are read once
+//   a device, not on every call.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;
-constexpr int BLOCK_N = 64;
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr int PAD = 8;
+constexpr int WG_ROWS = 64;  // query rows of one warpgroup (wgmma's M)
+constexpr int WARPGROUPS = 2;
+constexpr int BLOCK_M = WARPGROUPS * WG_ROWS;  // query rows of one tile
+constexpr int NUM_THREADS = WARPGROUPS * 128;
+constexpr int BLOCK_N = 128;  // keys of one K/V tile
+constexpr int Q_STAGES = 2;   // query tiles in the resident kernel's ring
+constexpr int KV_STAGES = 2;  // K/V tiles in the streaming kernel's ring
 
-typedef __nv_bfloat16 bf16;
-
-struct CrossParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* bias;  // (B, Skv) rows, row stride bias_sb; or null
-  bf16* o;            // contiguous (B, Sq, H, D)
-  int Sq, Skv, H;
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
-  int64_t bias_sb;
-  float scale;
+// Byte offsets of the resident kernel's shared memory, from a 1024-byte aligned base.
+template <int D>
+struct ResidentLayout {
+  static constexpr int Q_BYTES = BLOCK_M * D * 2;  // one query (or o) tile
+  static constexpr int KV_BYTES = BLOCK_N * D * 2;
+  static constexpr int K_OFF = Q_STAGES * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int O_OFF = V_OFF + KV_BYTES;
+  static constexpr int BIAS_OFF = O_OFF + Q_BYTES;
+  static constexpr int BAR_OFF = BIAS_OFF + BLOCK_N * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (Q_STAGES + 2) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Stage `rows` rows of D bf16 from sequence row `row0` into shared memory
-// (row stride D + PAD), 16 bytes per load; rows at or past `len` are zeros.
+// Byte offsets of the streaming kernel's shared memory (K1's, plus the bias ring).
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* base, int64_t row_stride,
-                                          int row0, int len, int rows) {
-  constexpr int VEC = 8;
-  constexpr int VECS_PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < rows * VECS_PER_ROW; i += NUM_THREADS) {
-    const int r = i / VECS_PER_ROW;
-    const int c = (i % VECS_PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < len) {
-      val = *reinterpret_cast<const uint4*>(base + static_cast<int64_t>(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(smem + r * (D + PAD) + c) = val;
+struct StreamLayout {
+  static constexpr int Q_BYTES = BLOCK_M * D * 2;  // also the o staging tile
+  static constexpr int TILE_BYTES = BLOCK_N * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + KV_STAGES * TILE_BYTES;
+  static constexpr int BIAS_OFF = V_OFF + KV_STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = BIAS_OFF + KV_STAGES * BLOCK_N * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * KV_STAGES) + 1024;
+};
+
+struct CrossArgs {
+  const float* bias;  // (B, Skv) rows, row stride bias_sb; or null
+  int Sq, Skv, H;
+  long long bias_sb;
+  float scale_log2;
+};
+
+// One TMA box of shared memory (64 columns x `rows` rows, swizzled) to the
+// 4-D {D, H, S, B} tensor map, in the thread's bulk group; rows past S are dropped.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int d0, int h, int row0, int b) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(d0), "r"(h), "r"(row0), "r"(b)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// The thread's bulk stores have read their shared memory (it may be reused).
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// The thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Generic-proxy writes to shared memory become visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier of the 128 threads of warpgroup `wg` (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// The bias of key `col` in the log2 domain: -inf at or past Skv.
+__device__ __forceinline__ float key_bias(const CrossArgs& a, int b, int col) {
+  if (col >= a.Skv) return -INFINITY;
+  return a.bias != nullptr ? a.bias[b * a.bias_sb + col] * LOG2E : 0.f;
+}
+
+// This warpgroup's fp32 logits of one 128-key tile: s = Q K^T (SS wgmma, both
+// K-major), then scale * s + bias in the log2 domain. `sq` is the query
+// tile's base (panels BLOCK_M rows apart), `sk` the key tile's.
+template <int D>
+__device__ __forceinline__ void tile_logits(float (&s)[BLOCK_N / 2], uint32_t sq, uint32_t sk, int wg,
+                                            const float* sbias, float scale_log2) {
+  const uint64_t desc_q = make_desc(sq + wg * WG_ROWS * PANEL_ROW_BYTES, 16, 1024);
+  const uint64_t desc_k = make_desc(sk, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t q_off = (kk / 4) * BLOCK_M * PANEL_ROW_BYTES + (kk % 4) * 32;
+    const uint32_t k_off = (kk / 4) * BLOCK_N * PANEL_ROW_BYTES + (kk % 4) * 32;
+    wgmma_ss_n128(s, desc_q + (q_off >> 4), desc_k + (k_off >> 4), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int c = 0; c < BLOCK_N / 8; ++c) {
+    const float2 bias = *reinterpret_cast<const float2*>(sbias + 8 * c + 2 * t);
+    s[4 * c] = fmaf(s[4 * c], scale_log2, bias.x);
+    s[4 * c + 1] = fmaf(s[4 * c + 1], scale_log2, bias.y);
+    s[4 * c + 2] = fmaf(s[4 * c + 2], scale_log2, bias.x);
+    s[4 * c + 3] = fmaf(s[4 * c + 3], scale_log2, bias.y);
   }
 }
 
+// acc += P V for one 128-key tile (RS wgmma, V MN-major at `sv`).
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS) flash_cross_kernel(const CrossParams p) {
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BLOCK_M * LD;
-  bf16* sV = sK + BLOCK_N * LD;
-  float* sBias = reinterpret_cast<float*>(sV + BLOCK_N * LD);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int m0 = blockIdx.x * BLOCK_M;
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* biasb = p.bias != nullptr ? p.bias + b * p.bias_sb : nullptr;
-
-  load_tile<D>(sQ, qb, p.q_ss, m0, p.Sq, BLOCK_M);
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];
-  {
-    const bf16* row0 = sQ + (warp * 16 + g) * LD + 2 * t;
-    const bf16* row1 = row0 + 8 * LD;
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 2], uint32_t (&pa)[BLOCK_N / 16][4], uint32_t sv) {
+  const uint64_t desc_v = make_desc(sv, BLOCK_N * PANEL_ROW_BYTES, 1024);
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(row0 + kk * 16);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(row1 + kk * 16);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(row0 + kk * 16 + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(row1 + kk * 16 + 8);
+  for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+    wgmma_rs<D>(acc, pa[kk], desc_v + ((kk * 16 * PANEL_ROW_BYTES) >> 4));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// Write this warpgroup's 64 rows of acc * inv (bf16) to o through the
+// swizzled staging tile `so` (panels BLOCK_M rows apart, the warpgroup's
+// rows at wg * 64), then out by TMA store, which thread 0 of the warpgroup
+// issues. Query row m0 + wg * 64 + r; TMA drops rows past Sq. The caller made
+// sure no earlier store still reads `so`.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&inv)[2], uint32_t so_base,
+                                           unsigned char* so_ptr, const CUtensorMap* to, int Sq, int b, int h,
+                                           int m0, int wg) {
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int t = tid & 3;
+  const int wg_off = wg * WG_ROWS * PANEL_ROW_BYTES;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;  // of the warpgroup's 64; row % 8 == g
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int off = (c / 8) * BLOCK_M * PANEL_ROW_BYTES + wg_off + row * PANEL_ROW_BYTES +
+                      (((c % 8) ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(so_ptr + off) =
+          pack_floats(acc[4 * c + 2 * r] * inv[r], acc[4 * c + 2 * r + 1] * inv[r]);
+    }
+  }
+  const int row0 = m0 + wg * WG_ROWS;
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  if (tid == 0 && row0 < Sq) {
+#pragma unroll
+    for (int p = 0; p < D / PANEL_COLS; ++p) {
+      tma_store(to, so_base + p * BLOCK_M * PANEL_ROW_BYTES + wg_off, p * PANEL_COLS, h, row0, b);
+    }
+    bulk_commit();
+  }
+}
+
+// Before this warpgroup writes its staging rows again: its earlier store
+// has read them.
+__device__ __forceinline__ void staging_free(int wg) {
+  if (threadIdx.x % 128 == 0) bulk_wait_read();
+  warpgroup_sync(wg);
+}
+
+// Row max over the 128 keys of rows g and g + 8, then p = 2^(x - max) in
+// place, P in bf16 as the A operand of P V, and the row sums of the fp32 p.
+__device__ __forceinline__ void softmax_tile(float (&s)[BLOCK_N / 2], const float (&m_prev)[2], float (&m_new)[2],
+                                             float (&rs)[2], uint32_t (&pa)[BLOCK_N / 16][4]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // Key 0 of every tile is below Skv and the bias is finite: the max is finite.
+    m_new[r] = fmaxf(m_prev[r], mx[r]);
+    rs[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < BLOCK_N / 2; ++i) {
+    const float p = exp2f(s[i] - m_new[(i >> 1) & 1]);
+    s[i] = p;
+    rs[(i >> 1) & 1] += p;
+  }
+  acc_to_a<BLOCK_N>(pa, s);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+  }
+}
+
+// Skv <= 128. Block blockIdx.x takes items [w0, w1) of the B * H * nq
+// (batch * head, query tile) items, in order.
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+cross_resident_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                      const CrossArgs a, long long items) {
+  using L = ResidentLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const uint32_t sq = base;  // stage s at + s * Q_BYTES
+  const uint32_t sk = base + L::K_OFF;
+  const uint32_t sv = base + L::V_OFF;
+  const uint32_t so = base + L::O_OFF;
+  float* sbias = reinterpret_cast<float*>(base_ptr + L::BIAS_OFF);
+  const uint32_t bar_q = base + L::BAR_OFF;  // stage s at + 8 * s
+  const uint32_t bar_k = bar_q + 8 * Q_STAGES;
+  const uint32_t bar_v = bar_k + 8;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int nq = (a.Sq + BLOCK_M - 1) / BLOCK_M;
+  const long long w0 = items * blockIdx.x / gridDim.x;
+  const int n = static_cast<int>(items * (blockIdx.x + 1) / gridDim.x - w0);
+
+  if (tid == 0) {
+    for (int i = 0; i < Q_STAGES + 2; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < Q_STAGES && i < n; ++i) {
+      const long long w = w0 + i;
+      const int bh = static_cast<int>(w / nq);
+      load_rows<D, BLOCK_M>(sq + i * L::Q_BYTES, &tq, bar_q + 8 * i, BLOCK_M, bh % a.H,
+                            static_cast<int>(w % nq) * BLOCK_M, bh / a.H);
+    }
+  }
+
+  int cur_bh = -1;
+  uint32_t kv_parity = 1;  // flips to 0 at the first load
+  for (int i = 0; i < n; ++i) {
+    const long long w = w0 + i;
+    const int bh = static_cast<int>(w / nq);
+    const int b = bh / a.H;
+    const int h = bh % a.H;
+    const int m0 = static_cast<int>(w % nq) * BLOCK_M;
+    const int stage = i % Q_STAGES;
+
+    if (bh != cur_bh) {
+      // A new (batch, head): every thread is done with the old caption tile.
+      if (cur_bh >= 0) __syncthreads();
+      if (tid == 0) {
+        load_rows<D, BLOCK_N>(sk, &tk, bar_k, BLOCK_N, h, 0, b);
+        load_rows<D, BLOCK_N>(sv, &tv, bar_v, BLOCK_N, h, 0, b);
+      }
+      if (tid < BLOCK_N) sbias[tid] = key_bias(a, b, tid);
+      __syncthreads();
+      cur_bh = bh;
+      kv_parity ^= 1;
+    }
+
+    float s[BLOCK_N / 2];
+    mbar_wait(bar_k, kv_parity);
+    mbar_wait(bar_q + 8 * stage, (i / Q_STAGES) & 1);
+    tile_logits<D>(s, sq + stage * L::Q_BYTES, sk, wg, sbias, a.scale_log2);
+
+    // Both warpgroups are done with this query stage: refill it. (Letting the
+    // second warpgroup to finish refill it, through a shared counter, so that
+    // neither waits here, measured no faster on an H100.)
+    __syncthreads();
+    if (tid == 0 && i + Q_STAGES < n) {
+      const long long wn = w + Q_STAGES;
+      const int bhn = static_cast<int>(wn / nq);
+      load_rows<D, BLOCK_M>(sq + stage * L::Q_BYTES, &tq, bar_q + 8 * stage, BLOCK_M, bhn % a.H,
+                            static_cast<int>(wn % nq) * BLOCK_M, bhn / a.H);
+    }
+
+    const float m_prev[2] = {-INFINITY, -INFINITY};
+    float m_new[2], rs[2];
+    uint32_t pa[BLOCK_N / 16][4];
+    softmax_tile(s, m_prev, m_new, rs, pa);
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    mbar_wait(bar_v, kv_parity);
+    tile_pv<D>(acc, pa, sv);
+
+    const float inv[2] = {1.f / rs[0], 1.f / rs[1]};
+    staging_free(wg);
+    store_rows<D>(acc, inv, so, base_ptr + L::O_OFF, &to, a.Sq, b, h, m0, wg);
+  }
+  if (tid % 128 == 0) bulk_wait();
+}
+
+// Any Skv: K1's loop over K/V tiles for one query tile, grid = (nq, B * H).
+template <int D>
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+cross_stream_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                    const CrossArgs a) {
+  using L = StreamLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+  const uint32_t sq = base;
+  const uint32_t sk = base + L::K_OFF;  // stage s at + s * TILE_BYTES
+  const uint32_t sv = base + L::V_OFF;
+  float* sbias = reinterpret_cast<float*>(base_ptr + L::BIAS_OFF);  // stage s at + s * BLOCK_N
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_k = bar_q + 8;                   // stage s at + 8 * s
+  const uint32_t bar_v = bar_q + 8 * (1 + KV_STAGES);  // stage s at + 8 * s
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y % a.H;
+  const int m0 = blockIdx.x * BLOCK_M;
+  const int num_tiles = (a.Skv + BLOCK_N - 1) / BLOCK_N;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * KV_STAGES; ++i) mbar_init(bar_q + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Warpgroup j fills the bias of tile j.
+  if (wg < num_tiles) sbias[wg * BLOCK_N + tid % 128] = key_bias(a, b, wg * BLOCK_N + tid % 128);
+  __syncthreads();
+  if (tid == 0) {
+    load_rows<D, BLOCK_M>(sq, &tq, bar_q, BLOCK_M, h, m0, b);
+    for (int j = 0; j < KV_STAGES && j < num_tiles; ++j) {
+      load_rows<D, BLOCK_N>(sk + j * L::TILE_BYTES, &tk, bar_k + 8 * j, BLOCK_N, h, j * BLOCK_N, b);
+      load_rows<D, BLOCK_N>(sv + j * L::TILE_BYTES, &tv, bar_v + 8 * j, BLOCK_N, h, j * BLOCK_N, b);
     }
   }
 
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int num_tiles = (p.Skv + BLOCK_N - 1) / BLOCK_N;
+  mbar_wait(bar_q, 0);
   for (int j = 0; j < num_tiles; ++j) {
-    const int n0 = j * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, p.k_ss, n0, p.Skv, BLOCK_N);
-    load_tile<D>(sV, vb, p.v_ss, n0, p.Skv, BLOCK_N);
-    if (threadIdx.x < BLOCK_N) {
-      const int col = n0 + threadIdx.x;
-      sBias[threadIdx.x] = col < p.Skv ? (biasb != nullptr ? biasb[col] : 0.f) : -INFINITY;
-    }
-    __syncthreads();
+    const int stage = j % KV_STAGES;
+    const uint32_t parity = (j / KV_STAGES) & 1;
 
-    float s[BLOCK_N / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* krow = sK + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bfrag[2];
-        bfrag[0] = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        bfrag[1] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_16816(s[nt], qf[kk], bfrag);
-      }
-    }
-
-    // Scale, add the per-key bias (-inf past Skv), and take the row max.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float val = s[nt][i] * p.scale + sBias[nt * 8 + 2 * t + (i & 1)];
-        s[nt][i] = val;
-        mx[i >> 1] = fmaxf(mx[i >> 1], val);
-      }
-    }
-    float alpha[2];
-    float m_new[2];
+    float s[BLOCK_N / 2];
+    mbar_wait(bar_k + 8 * stage, parity);
+    tile_logits<D>(s, sq, sk + stage * L::TILE_BYTES, wg, sbias + stage * BLOCK_N, a.scale_log2);
+    float m_new[2], rs[2];
+    uint32_t pa[BLOCK_N / 16][4];
+    softmax_tile(s, m_run, m_new, rs, pa);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // Key n0 < Skv and the bias is finite, so every tile has a finite max.
-      m_new[r] = fmaxf(m_run[r], mx[r]);
-      alpha[r] = expf(m_run[r] - m_new[r]);
-    }
-
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pr = expf(s[nt][i] - m_new[i >> 1]);
-        s[nt][i] = pr;
-        rs[i >> 1] += pr;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + rs[r];
+      const float alpha = exp2f(m_run[r] - m_new[r]);  // 2^-inf = 0 on tile 0
+      l_run[r] = l_run[r] * alpha + rs[r];
       m_run[r] = m_new[r];
-    }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t afrag[4];
-      afrag[0] = pack_floats(s[2 * kk][0], s[2 * kk][1]);
-      afrag[1] = pack_floats(s[2 * kk][2], s[2 * kk][3]);
-      afrag[2] = pack_floats(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      afrag[3] = pack_floats(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vrow = sV + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* vp = vrow + dt * 8;
-        uint32_t bfrag[2];
-        bfrag[0] = pack_bf16(vp[0], vp[LD]);
-        bfrag[1] = pack_bf16(vp[8 * LD], vp[9 * LD]);
-        mma_16816(acc[dt], afrag, bfrag);
+      for (int c = 0; c < D / 8; ++c) {
+        acc[4 * c + 2 * r] *= alpha;
+        acc[4 * c + 2 * r + 1] *= alpha;
       }
     }
-  }
+    mbar_wait(bar_v + 8 * stage, parity);
+    tile_pv<D>(acc, pa, sv + stage * L::TILE_BYTES);
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= p.Sq) continue;
-    const float inv = 1.f / l_run[r];
-    bf16* orow = p.o + ((static_cast<int64_t>(b) * p.Sq + row) * p.H + h) * D + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_floats(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    // Every warpgroup is done with this stage: refill it with tile j + KV_STAGES.
+    __syncthreads();
+    if (j + KV_STAGES < num_tiles) {
+      const int n = (j + KV_STAGES) * BLOCK_N;
+      if (tid == 0) {
+        load_rows<D, BLOCK_N>(sk + stage * L::TILE_BYTES, &tk, bar_k + 8 * stage, BLOCK_N, h, n, b);
+        load_rows<D, BLOCK_N>(sv + stage * L::TILE_BYTES, &tv, bar_v + 8 * stage, BLOCK_N, h, n, b);
+      }
+      // Read at tile j + KV_STAGES, after the barrier that ends tile j + 1.
+      if (tid < BLOCK_N) sbias[stage * BLOCK_N + tid] = key_bias(a, b, n + tid);
     }
   }
+
+  // The query tile is spent: each warpgroup stages its own 64 rows of o there.
+  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+  store_rows<D>(acc, inv, sq, base_ptr, &to, a.Sq, b, h, m0, wg);
+  if (tid % 128 == 0) bulk_wait();
+}
+
+// The resident kernel's persistent grid on the current device: its SM count
+// times the blocks that fit on an SM, read once a device.
+template <int D>
+cudaError_t resident_blocks(int* out) {
+  static int blocks[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && blocks[dev] > 0) {
+    *out = blocks[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cross_resident_kernel<D>, NUM_THREADS,
+                                                        ResidentLayout<D>::BYTES);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *out = sms * per_sm;
+  if (dev < MAX_DEVICES) blocks[dev] = *out;
+  return cudaSuccess;
 }
 
 template <int D>
-cudaError_t launch(const CrossParams& p, int B, cudaStream_t stream) {
-  const int smem = (BLOCK_M + 2 * BLOCK_N) * (D + PAD) * static_cast<int>(sizeof(bf16)) +
-                   BLOCK_N * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_cross_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* o, int B, int Sq, int Skv,
+                   int H, const long long* st, float scale, cudaStream_t stream) {
+  const bool resident = Skv <= BLOCK_N;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err = make_map(&tq, q, B, Sq, H, D, st[0], st[1], st[2], BLOCK_M);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, Skv, H, D, st[3], st[4], st[5], BLOCK_N);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, Skv, H, D, st[6], st[7], st[8], BLOCK_N);
+  const long long o_ss = static_cast<long long>(H) * D;
+  if (err == cudaSuccess) err = make_map(&to, o, B, Sq, H, D, Sq * o_ss, o_ss, D, WG_ROWS);
+  static bool resident_set[MAX_DEVICES] = {};
+  static bool stream_set[MAX_DEVICES] = {};
+  if (err == cudaSuccess) {
+    err = resident ? opt_in_smem(cross_resident_kernel<D>, ResidentLayout<D>::BYTES, resident_set)
+                   : opt_in_smem(cross_stream_kernel<D>, StreamLayout<D>::BYTES, stream_set);
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BLOCK_M - 1) / BLOCK_M, B * p.H);
-  flash_cross_kernel<D><<<grid, NUM_THREADS, smem, stream>>>(p);
+  const CrossArgs a{bias, Sq, Skv, H, st[9], scale * LOG2E};
+  const int nq = (Sq + BLOCK_M - 1) / BLOCK_M;
+  if (resident) {
+    int blocks = 0;
+    err = resident_blocks<D>(&blocks);
+    if (err != cudaSuccess) return err;
+    const long long items = static_cast<long long>(B) * H * nq;
+    const int grid = static_cast<int>(items < blocks ? items : blocks);
+    cross_resident_kernel<D><<<grid, NUM_THREADS, ResidentLayout<D>::BYTES, stream>>>(tq, tk, tv, to, a, items);
+  } else {
+    const dim3 grid(nq, B * H);
+    cross_stream_kernel<D><<<grid, NUM_THREADS, StreamLayout<D>::BYTES, stream>>>(tq, tk, tv, to, a);
+  }
   return cudaGetLastError();
 }
 
@@ -272,15 +505,8 @@ cudaError_t launch(const CrossParams& p, int B, cudaStream_t stream) {
 extern "C" int mvt_flash_cross_attention_bf16(
     const void* q, const void* k, const void* v, const float* bias, void* o,
     int B, int Sq, int Skv, int H, int D, const long long* strides, float scale, void* stream) {
-  const CrossParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o),
-                      Sq, Skv, H,
-                      strides[0], strides[1], strides[2],
-                      strides[3], strides[4], strides[5],
-                      strides[6], strides[7], strides[8],
-                      strides[9], scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(p, B, st);
-  if (D == 64) return launch<64>(p, B, st);
+  if (D == 128) return launch<128>(q, k, v, bias, o, B, Sq, Skv, H, strides, scale, st);
+  if (D == 64) return launch<64>(q, k, v, bias, o, B, Sq, Skv, H, strides, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,8 @@ cross-attention call (Sq != Skv, no bias or a per-key-only (B, 1, 1, Skv)
 bias) goes to K4 (ops/cross_attention.py); everything else is
 :func:`plain_attention` (matmul, fp32 softmax, matmul, as the XLA path of the
 JAX package). :func:`sdpa_flat_fused_rope` takes a SPLIT-RoPE self-attention
-to K5, which rotates q and k inside the kernel.
+to K5, which rotates q and k in one pass of its own and runs K1's kernel on
+them.
 
 The two routes are the JAX package's own opt-in switches, read at import from
 the same environment variables and off by default:
@@ -120,7 +121,7 @@ def sdpa_flat_fused_rope(
     pe: Tuple[torch.Tensor, torch.Tensor],
 ) -> torch.Tensor:
     """Self-attention over flattened (B, S, H*D) unrotated q and k, with the
-    split RoPE applied inside K5 (no rotated q and k in device memory)."""
+    split RoPE applied by K5 (its rotation pass, then K1's kernel)."""
     b, s, dim = q.shape
     d_head = dim // heads
     out = flash_attention_split_rope(

@@ -13,8 +13,11 @@ What bounds it on the H100: at the dev path's shape (B = 2, Sq = 5184,
 Skv = 128, H = 32, D = 128) the work is reading q and writing o, 170 MB
 (0.051 ms at 3.35 TB/s), against 1.4e10 operations (0.014 ms at the bf16
 peak): device memory. The design reads each q row and writes each o row
-once, streams 64-key tiles with an exact online softmax (any Skv works) and
-adds the bias in fp32 before the running max; the csrc file says more.
+once: for a caption of up to 128 keys a persistent grid keeps K, V and the
+bias resident in shared memory while 128-row query tiles stream past by TMA
+(``wgmma`` for both products, o out by TMA store); longer captions stream
+128-key tiles with an exact online softmax, as K1 does. The bias is added in
+fp32 before the row max; the csrc file says more.
 
 On a CPU tensor :func:`flash_cross_attention` computes the plain version
 (:func:`flash_cross_attention_reference`: fp32 logits and softmax, the

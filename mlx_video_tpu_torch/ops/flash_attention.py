@@ -9,8 +9,9 @@ is ``mlx_video_tpu_torch/csrc/flash_attention_fwd.cu``. Backward (K3) replaces
 ``mlx_video_tpu_torch/csrc/flash_attention_bwd.cu``. The forward with fused
 split RoPE (K5) replaces ``_flash_attention_split_rope_impl`` (the Pallas
 kernel ``_flash_rope_kernel``); its kernel is
-``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: K1's function on q and k rotated
-in fp32 as they are staged, tile by tile (the csrc file says what that costs).
+``mlx_video_tpu_torch/csrc/flash_attention_rope.cu``: one pass that rotates q
+and k in fp32 exactly as :func:`rotate_split` does, then K1's kernel on the
+rotated tensors.
 The int8 attention (K6) replaces ``flash_attention_int8`` (the Pallas kernel
 ``_single_pass_int8_kernel``); its kernel is
 ``mlx_video_tpu_torch/csrc/flash_attention_int8.cu``: int8 products on the
@@ -36,8 +37,9 @@ K3 follows the same design: a dq kernel over 128 query rows and a dkv kernel
 over 128 keys, each in two warpgroups, every product on ``wgmma``, 64-row
 tiles by TMA through a two-stage ring, p and dS kept in registers; the two
 kernels use no atomics (csrc/flash_attention_bwd.cu says how they split the
-work), so its gradients are bitwise repeatable. K4 and K5 keep K1's first
-design (``mma.sync`` over 64-row blocks with synchronous tile loads).
+work), so its gradients are bitwise repeatable. K5 reads q, k and the tables
+once in its rotation pass and then runs K1 unchanged, so its o and lse are
+K1's on the plainly rotated q and k, bit for bit.
 
 :func:`flash_attention` is differentiable: when q, k or v needs a gradient
 the forward also keeps the logsumexp and the backward runs K3, as the JAX
@@ -81,8 +83,9 @@ _ARGTYPES = {
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
     "mvt_flash_attention_rope_bf16": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
+    "mvt_rope_rotate_bf16": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
     "mvt_flash_cross_attention_bf16": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
@@ -333,8 +336,41 @@ def _check_tables(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> None
                              "and have strides divisible by 4")
 
 
+def rope_rotate(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's rotation pass alone: ``(rotate_split(q, cos, sin),
+    rotate_split(k, cos, sin))`` as contiguous (B, S, H, D) tensors.
+
+    CPU tensors take :func:`rotate_split`; CUDA tensors launch the rotation
+    kernel of K5 (bf16, D in {64, 128}) or raise. It is the first half of a
+    K5 call, exposed so that a check can hold it against the plain rotation;
+    no path calls it, and it adds to no launch count.
+    """
+    if q.device.type == "cpu":
+        return rotate_split(q, cos, sin), rotate_split(k, cos, sin)
+    if q.device.type != "cuda":
+        raise ValueError(f"rope_rotate runs on CUDA or CPU tensors, got {q.device}")
+    _check_operands(q, k, k)
+    _check_tables(q, cos, sin)
+    b, s, h, d = q.shape
+    qr, kr = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(2))
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, cos, sin) for st in t.stride()[:3]))
+    fn = _kernel("mvt_rope_rotate_bf16")
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), qr.data_ptr(), kr.data_ptr(),
+            b, s, h, d, strides, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        _raise_launch_error("split RoPE rotation", err)
+    return qr, kr
+
+
 def _rope_forward(q, k, v, cos, sin, scale: float, return_lse: bool):
-    """K5 on CUDA tensors, the plain version on CPU tensors."""
+    """K5 on CUDA tensors (the rotation pass into two workspaces, then K1's
+    kernel on them: one launch count, on ``rope_launch_count``), the plain
+    version on CPU tensors."""
     global rope_launch_count
     if q.device.type == "cpu":
         return flash_attention_split_rope_reference(q, k, v, cos, sin, scale, return_lse)
@@ -343,15 +379,15 @@ def _rope_forward(q, k, v, cos, sin, scale: float, return_lse: bool):
     _check_operands(q, k, v)
     _check_tables(q, cos, sin)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    qr, kr, out = (torch.empty((b, s, h, d), dtype=q.dtype, device=q.device) for _ in range(3))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     strides = (ctypes.c_longlong * 15)(*(st for t in (q, k, v) for st in t.stride()[:3]),
                                        *(st for t in (cos, sin) for st in t.stride()[:3]))
     fn = _kernel("mvt_flash_attention_rope_bf16")
     with torch.cuda.device(q.device):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), qr.data_ptr(),
+            kr.data_ptr(), out.data_ptr(), lse.data_ptr() if lse is not None else None,
             b, s, h, d, strides, float(scale), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -168,6 +168,29 @@ def test_rotation_is_the_dit_rotation_and_its_transpose_inverts_it():
     np.testing.assert_allclose(tfa.rotate_split(rotated, cos, sin, inverse=True).numpy(), q, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b, d", [(1, 128), (2, 64)])
+def test_rotation_pass_is_the_pallas_kernels_rotation(b, d):
+    """K5's rotation pass (``rope_rotate``; on the CPU the plain rotation)
+    against the rotation the Pallas kernel applies in fp32
+    (``_apply_split_rope_f32``), one (batch, head) at a time, on q and k in
+    bf16 as the kernel takes them; at B = 2 the tables are concatenated as
+    batched CFG concatenates them."""
+    (q, k, _), cos, sin = _rope_inputs(np.random.default_rng(7), 1, 2, 4, 4, d=d)
+    if b == 2:
+        cos, sin = torch.cat([cos, cos]), torch.cat([sin, sin])
+        q, k = np.concatenate([q, k]), np.concatenate([k, q])
+    x = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k)]
+    got = tfa.rope_rotate(*x, cos, sin)
+    for g, t in zip(got, x):
+        assert g.is_contiguous() and torch.equal(g, tfa.rotate_split(t, cos, sin))
+        for i in range(b):
+            for j in range(t.shape[2]):
+                ref = jfa._apply_split_rope_f32(jnp.asarray(t[i, :, j].float().numpy()),
+                                                jnp.asarray(cos[i, j].numpy()), jnp.asarray(sin[i, j].numpy()))
+                np.testing.assert_array_equal(g[i, :, j].float().numpy(),
+                                              np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32)))
+
+
 def test_eligibility_keeps_only_the_defining_conditions(monkeypatch):
     """Tiny heads and short sequences route too; shapes that do not define
     the functions do not."""

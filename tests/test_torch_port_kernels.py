@@ -14,14 +14,14 @@ rounds p and dS to bf16 before their products (as the Pallas kernels do) and
 rounds dQ, dK and dV to bf16, each ~2^-9 relative (both bars have a floor of
 1e-4 an element, for dQ at S = 1, which is zero in exact arithmetic); its
 gradients are bitwise repeatable (no atomics).
-Cross-attention (K4) and flash attention with fused split RoPE (K5): K1's
-bars against their plain versions (K5's lse too). K5 rotates q and k in the
-kernel operation for operation as the plain rotation does, so it must give
-its own bits on q and k rotated by the plain rotation under identity tables
-(cos = 1, sin = 0); it is held against K1 on those rotated inputs at K1's
-bars (the two kernels no longer share one loop), and its autograd gradients
-(K3 on the rotated inputs) to K3's bars against plain autograd through the
-plain version.
+Cross-attention (K4) and flash attention with split RoPE (K5): K1's bars
+against their plain versions (K5's lse too). K5's rotation pass computes the
+plain rotation operation for operation, so its rotated q and k equal
+rotate_split's bit for bit, and K5 then runs K1's kernel on them: its o and
+lse equal K1's on the plainly rotated q and k bit for bit, and its own on
+those inputs under identity tables (cos = 1, sin = 0). Its autograd
+gradients (K3 on the rotated inputs) meet K3's bars against plain autograd
+through the plain version.
 Dequantizing matmul: max |d y| <= 1e-2 * max |y| and relative L2 <= 1e-3;
 both sides multiply the same bf16 weights, only the summation order and the
 bf16 rounding of y differ. The L2 bar separates a kernel that rounds fp32
@@ -215,10 +215,18 @@ def _masked_bias(gen, b, skv, real):
     (2, 5184, 128, 4, 128, None), (1, 3456, 1024, 2, 128, (128,)), (2, 1000, 77, 4, 128, None),
     (2, 700, 128, 4, 128, (128, 0)), (2, 640, 128, 3, 128, (40, 100)), (1, 65, 1, 2, 64, None),
     (2, 300, 200, 4, 64, (150, 7)),
+    # Sq below one 128-row query tile, and one past a whole number of them
+    (1, 100, 128, 4, 128, (100,)), (2, 1281, 127, 4, 128, None), (1, 127, 128, 8, 64, None),
+    # Skv on each side of the resident caption tile, one key, and all masked
+    # over streamed tiles
+    (2, 129, 1, 3, 128, None), (1, 257, 129, 4, 128, (129,)), (2, 300, 1024, 2, 128, (1024, 0)),
+    # D = 64 with a resident tile: runs of query tiles that cross heads
+    (2, 2000, 77, 16, 64, (77, 30)),
 ])
 def test_cross_kernel_matches_plain(gen, b, sq, skv, h, d, real):
     """No bias, the trainer's 128-real mask over 1024 keys, a ragged Skv, a
-    row whose keys are all masked, and two rows with different masks."""
+    row whose keys are all masked, two rows with different masks, and the
+    edges of the resident and streamed designs."""
     q = _bf16(gen, b, sq, h, d)
     k, v = (_bf16(gen, b, skv, h, d) for _ in range(2))
     bias = None if real is None else _masked_bias(gen, b, skv, real)
@@ -290,20 +298,47 @@ def test_rope_kernel_matches_plain_and_k1_on_rotated_inputs(gen, b, s, h, d):
     q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
     cos, sin = _tables(b, s, h, d)
     assert s == 1 or not cos.is_contiguous()
-    before = fa.rope_launch_count
+    before, before_rope = fa.launch_count, fa.rope_launch_count
     out = fa.flash_attention_split_rope(q, k, v, cos, sin, return_lse=True)
     torch.cuda.synchronize()
-    assert fa.rope_launch_count == before + 1
+    assert (fa.launch_count, fa.rope_launch_count) == (before, before_rope + 1)
     _check(out, fa.flash_attention_split_rope_reference(q, k, v, cos, sin, d**-0.5, return_lse=True))
     qr, kr = fa.rotate_split(q, cos, sin), fa.rotate_split(k, cos, sin)
     flat = q.reshape(b, s, h * d)
     assert torch.equal(qr.reshape(b, s, h * d), rope.apply_split_rotary_emb(flat, cos, sin))
-    # the in-kernel rotation is the plain one, bit for bit: K5 on the plainly
+    # the rotation pass is the plain one, bit for bit: K5 on the plainly
     # rotated q, k under identity tables (x * 1 - 0 * y = x) gives the same bits
     o_id, lse_id = fa.flash_attention_split_rope(qr, kr, v, torch.ones_like(cos), torch.zeros_like(sin),
                                                  return_lse=True)
     assert torch.equal(out[0], o_id) and torch.equal(out[1], lse_id)
-    _check(out, fa.flash_attention(qr, kr, v, return_lse=True))
+    # and K5 is K1 on those rotated inputs, bit for bit
+    before = fa.launch_count
+    o1, lse1 = fa.flash_attention(qr, kr, v, return_lse=True)
+    assert torch.equal(out[0], o1) and torch.equal(out[1], lse1)
+    assert fa.launch_count == before + 1 and fa.rope_launch_count == before_rope + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h, d, concat", [
+    (1, 1000, 4, 128, False), (2, 1280, 4, 128, True), (1, 1, 2, 128, False), (2, 1, 2, 64, True),
+    (1, 700, 4, 64, False), (2, 333, 3, 64, True),
+])
+def test_rope_rotation_pass_equals_rotate_split(gen, b, s, h, d, concat):
+    """K5's rotation pass against the plain rotation, bit for bit: tables as
+    the transposed view the DiT makes, or two of them concatenated to B = 2
+    as batched CFG does; q and k read in place through a fused projection's
+    strides."""
+    if concat:
+        cos, sin = (torch.cat([t, t]) for t in _tables(1, s, h, d))
+    else:
+        cos, sin = _tables(b, s, h, d)
+    q, k = _bf16(gen, b, s, 3, h, d).unbind(2)[:2]
+    counts = fa.launch_count, fa.rope_launch_count
+    qr, kr = fa.rope_rotate(q, k, cos, sin)
+    torch.cuda.synchronize()
+    assert (fa.launch_count, fa.rope_launch_count) == counts
+    assert qr.is_contiguous() and kr.is_contiguous()
+    assert torch.equal(qr, fa.rotate_split(q, cos, sin)) and torch.equal(kr, fa.rotate_split(k, cos, sin))
 
 
 @pytest.mark.cuda
