@@ -27,9 +27,12 @@ Phases, in order; any failure exits non-zero before the last line:
    <= 1e-2 max |y| and relative L2 <= 1e-3 (only the summation order and
    the bf16 rounding of y differ). The control, at every case with fp32
    scales: the plain version on bf16-rounded scales and biases (the Pallas
-   kernel's rounding) must fail the L2 bar. Median times of the kernel, the
-   plain version and dense cuBLAS on the dequantized bf16 weight, each
-   launch after an L2 flush.
+   kernel's rounding) must fail the L2 bar. Two calls must give bitwise-equal
+   y at every case (splits of K add in a fixed order). Median times of the
+   kernel (with fp32 scales, the dtype the q4 run's quantization gives, and
+   again with bf16 scales, the dtype of MLX's own snapshots), the plain
+   version and dense cuBLAS on the dequantized bf16 weight, each launch
+   after an L2 flush, and the kernel's share of its bound.
 5. K3 vs plain: the flash backward against its plain fp32 version on the same
    bf16 inputs (q, k, v, dO random, o and lse from K1) at B=1, H=32, D=128,
    S = 1280, 3456 (the training shape), 1000 (ragged) and 5184, plus one D=64
@@ -155,7 +158,9 @@ Phases, in order; any failure exits non-zero before the last line:
    memory of both, and a warm encode of each under torch.profiler.
 9. full-width q4 slice: the same DiT quantized in place on the card
    (quantize_dit_params, 4 bits, group 64, core scope: 10 linears a block),
-   then the same run: 528 K1 and 10 x 48 x 11 = 5280 K2 launches. Then W4A8
+   then the same run: 528 K1 and 10 x 48 x 11 = 5280 K2 launches, and a
+   warm run of it under torch.profiler (idle share, K2's device time and
+   share of busy time, the GEMM and elementwise classes). Then W4A8
    (quantize_models --w4a8 on it: prepare_w4a8, no K2): 528 K1, 0 K2 and
    5280 int8 products, then a warm run under torch.profiler; the int8 scales
    are then taken off.
@@ -585,8 +590,11 @@ def int8_kernel_vs_plain(fa) -> dict:
 def quant_kernel_vs_plain(qmm) -> dict:
     import torch
 
-    from mlx_video_tpu_torch.ops.quant import dequantize_affine, quantize_affine
+    from mlx_video_tpu_torch.ops.linear import Linear
+    from mlx_video_tpu_torch.ops.quant import dequantize_affine, quantize_affine, quantize_linear
 
+    # the scale dtype that quantize_dit_params (the q4 run's quantization) gives
+    path_sdt = quantize_linear(Linear(64, 8, bias=False, device="cuda"), 64, 4).scales.dtype
     g = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows, max_err, max_l2, min_control = {}, 0.0, 0.0, float("inf")
@@ -595,20 +603,24 @@ def quant_kernel_vs_plain(qmm) -> dict:
         (320, 4096, 4096, 4, 16, torch.float32), (300, 4096, 16384, 4, 64, torch.float32),
         (320, 4096, 4096, 4, 64, torch.bfloat16), (320, 4096, 4096, 4, 64, torch.float16),
     ]
-    print("K2 vs plain (bf16 x; times after an L2 flush):")
+    other_sdt = torch.bfloat16 if path_sdt == torch.float32 else path_sdt
+    print(f"K2 vs plain (bf16 x; times after an L2 flush; the q4 run carries {str(path_sdt)[6:]} scales, timed "
+          f"beside {str(other_sdt)[6:]} scales, MLX's own snapshots' dtype):")
     for m, k, n, bits, group, sdt in cases:
         x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
         packed, scales, biases = quantize_affine(torch.randn(n, k, generator=g, device="cuda") * k**-0.5, group, bits)
         scales, biases = scales.to(sdt), biases.to(sdt)
         y = qmm.quant_matmul(x, packed, scales, biases, bits, group)
+        again = qmm.quant_matmul(x, packed, scales, biases, bits, group)
         torch.cuda.synchronize()
+        bitwise = torch.equal(y, again)
         ref = qmm.quant_matmul_reference(x, packed, scales, biases, bits, group)
         d = y.float() - ref.float()
         err = d.abs().max().item()
         rel_max, rel_l2 = err / ref.float().abs().max().item(), (d.norm() / ref.float().norm()).item()
         max_err, max_l2 = max(max_err, err), max(max_l2, rel_l2)
         line = (f"  M={m} K={k} N={n} bits={bits} group={group} scales={str(sdt)[6:]}: max|d y| {err:.3e} "
-                f"({rel_max:.2e} of max|y|), rel L2 {rel_l2:.2e}")
+                f"({rel_max:.2e} of max|y|), rel L2 {rel_l2:.2e}, two calls bitwise equal: {bitwise}")
         control = float("inf")
         if sdt == torch.float32:
             rounded = qmm.quant_matmul_reference(x, packed, scales.bfloat16(), biases.bfloat16(), bits, group)
@@ -619,19 +631,25 @@ def quant_kernel_vs_plain(qmm) -> dict:
         if (m, k, n) in SHAPES_K2 and (bits, sdt) == (4, torch.float32):
             w = dequantize_affine(packed, scales, biases, bits=bits, dtype=torch.bfloat16)
             ms = median_ms(lambda: qmm.quant_matmul(x, packed, scales, biases, bits, group), before=flush.zero_)
+            s2, b2 = scales.to(other_sdt), biases.to(other_sdt)
+            other_ms = median_ms(lambda: qmm.quant_matmul(x, packed, s2, b2, bits, group), before=flush.zero_)
             plain_ms = median_ms(lambda: qmm.quant_matmul_reference(x, packed, scales, biases, bits, group),
                                  before=flush.zero_)
             dense_ms = median_ms(lambda: x @ w.T, before=flush.zero_)
+            b = bound(*quant_matmul_work(m, k, n, bits, group))
             rows[(m, k, n)] = (ms, plain_ms)
-            line += (f"  kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms  "
-                     f"dense cuBLAS {dense_ms:.4f} ms")
-            del w
+            line += (f"  kernel {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TFLOP/s; {100 * b['bound_ms'] / ms:.1f} % "
+                     f"of the {b['bound_ms']:.4f} ms bound, {b['bound_by']})  {str(other_sdt)[6:]} scales "
+                     f"{other_ms:.4f} ms  plain {plain_ms:.4f} ms  dense cuBLAS {dense_ms:.4f} ms")
+            del w, s2, b2
         print(line, flush=True)
         if not (rel_max <= 1e-2 and rel_l2 <= 1e-3 and torch.isfinite(y).all()):
             fail(f"K2 disagrees with the plain version at M={m} K={k} N={n} bits={bits} group={group}")
         if not control > 1e-3:
             fail(f"the control (bf16-rounded scales) passes the K2 bar at M={m} K={k} N={n} bits={bits}")
-        del x, packed, scales, biases, y, ref, d
+        if not bitwise:
+            fail(f"two K2 calls differ at M={m} K={k} N={n} bits={bits} group={group}")
+        del x, packed, scales, biases, y, again, ref, d
     del flush
     print(f"  K2 worst rel L2 {max_l2:.3e}; the control's least {min_control:.3e}; bar 1e-3", flush=True)
     return {"rows": rows, "max_abs_err": max_err}
@@ -1751,7 +1769,8 @@ def main() -> int:
         if entry:
             kernel = kernel_label(entry.group(1))
         if "registers" in line or "spill" in line:
-            print(f"  ptxas: {kernel}: {line.strip()}", flush=True)
+            named = re.search(r"in function '(\S+)'", line)  # a note that names its kernel
+            print(f"  ptxas: {kernel_label(named.group(1)) if named else kernel}: {line.strip()}", flush=True)
 
     k1 = kernel_vs_plain(fa)
     k2 = quant_kernel_vs_plain(qmm)
@@ -1786,7 +1805,7 @@ def main() -> int:
         full_width_text_encoder(models, fa, qmm, work)
         print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
         quantize_full_width(models)
-        drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3))
+        drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3), profile="a warm q4 distilled run")
         print("full-width W4A8 slice (the q4 DiT, int8 products):", flush=True)
         full_width_w4a8(models, text, fa, qmm)
         print("MLX pre-quantized snapshot -> load_model_bundle -> generate CLI; training CLI over the 4-bit "

@@ -17,11 +17,16 @@ Packed 4-bit words with group-64 fp32 scales are ~0.63 bytes per weight,
 3.2 * M operations per byte, so at every M of the path the kernel's floor
 is the tensor-core rate.
 
-What the design does about it: x, the packed words and the scales and
-biases are read in place (no strided split of x, no repeat of the scales, as
-the TPU wrapper needed); each block unpacks its weight tile in registers to
-bf16 in shared memory and runs bf16 ``mma.sync`` with fp32 accumulation, so
-no dequantized weight reaches device memory. Scales and biases are read in
+What the design does about it (the source's header note has the detail):
+the operands are swapped, so a block computes a y^T tile of 128 weight rows
+by up to 256 x rows with ``wgmma``, and each weight value is dequantized
+once per tile of x rows; each warpgroup dequantizes its rows of a K step
+into a bf16 tile in shared memory while the previous step's products run,
+so no dequantized weight reaches device memory; x, the words and (where
+their rows allow) the scales arrive by TMA, the rest by cp.async, through
+one mbarrier ring; small M splits K over a thread-block cluster whose
+blocks add their fp32 tiles through distributed shared memory in a fixed
+order, so every call gives the same bits. Scales and biases are read in
 their stored dtype (fp32, bf16 or fp16) and the affine is fp32, as in the
 JAX package's default XLA path (not the Pallas kernel's bf16 scales).
 
@@ -44,7 +49,7 @@ launch_count = 0
 
 KERNEL_BITS = (2, 4, 8)
 _SCALE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BLOCK_N = 64
+_BLOCK_N = 128
 _MAX_GRID_Y = 65535
 
 _fn = None
@@ -132,6 +137,10 @@ def quant_matmul(
             raise ValueError(f"{name} must be contiguous (x as its flattened (M, K) view)")
     if x2.data_ptr() % 16 or packed.data_ptr() % 4:
         raise ValueError("x must be 16-byte aligned and packed 4-byte aligned")
+    # The kernel copies scales and biases as 4-byte words; a 2-byte view that
+    # starts between two words is copied once to a fresh allocation.
+    scales = scales if scales.data_ptr() % 4 == 0 else scales.clone()
+    biases = biases if biases.data_ptr() % 4 == 0 else biases.clone()
     if m == 0 or k % 8 or (n + _BLOCK_N - 1) // _BLOCK_N > _MAX_GRID_Y:
         raise ValueError(f"unsupported shape: M = {m}, K = {k} (a multiple of 8), N = {n}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

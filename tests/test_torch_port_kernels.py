@@ -383,19 +383,48 @@ def _check_qmm(y, ref):
     assert (d.norm() / ref.float().norm()).item() <= 1e-3
 
 
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m, k, n, bits, group", [
-    (320, 4096, 4096, 4, 64), (128, 4096, 4096, 4, 64), (300, 4096, 16384, 4, 64),
-    (1280, 16384, 4096, 4, 64), (77, 512, 200, 8, 128), (1, 256, 64, 2, 32),
-    (5, 96, 130, 4, 32), (5, 96, 130, 4, 16), (33, 1024, 96, 8, 256),
+@pytest.mark.parametrize("m, k, n, bits, group, scale_dtype", [
+    (320, 4096, 4096, 4, 64, F32), (128, 4096, 4096, 4, 64, F32), (300, 4096, 16384, 4, 64, F32),
+    (1280, 16384, 4096, 4, 64, F32), (77, 512, 200, 8, 128, F32), (1, 256, 64, 2, 32, F32),
+    (5, 96, 130, 4, 32, F32), (5, 96, 130, 4, 16, F32), (33, 1024, 96, 8, 256, F32),
+    # where an x tile or a split of K ends: M = 1, 65, 257, 321
+    (1, 4096, 4096, 4, 64, F32), (65, 1024, 256, 4, 64, F32), (257, 4096, 1024, 4, 64, F32),
+    (321, 4096, 4096, 4, 64, F32),
+    # ragged weight tiles: N = 130 and 200
+    (64, 512, 130, 4, 64, F32), (300, 1024, 200, 4, 32, F32),
+    # K at the edge of a stage (64 values) and of a split: one stage, a stage
+    # and a bit, 65 stages over a cluster of 4, 3 stages
+    (128, 64, 256, 8, 64, F32), (16, 72, 128, 4, 8, F32), (128, 4160, 512, 4, 64, F32),
+    (128, 192, 384, 4, 64, F32),
+    # every bits x group the wrapper takes, at K = 96 (bits 2: 24-byte rows of words)
+    (5, 96, 130, 2, 16, F32), (5, 96, 130, 2, 48, F32), (70, 96, 64, 2, 96, F32),
+    (40, 96, 100, 4, 8, F32), (40, 96, 100, 4, 24, F32), (40, 192, 100, 4, 96, F32),
+    (33, 96, 70, 8, 4, F32), (33, 96, 70, 8, 12, F32),
+    # bf16 and fp16 scales at path shapes, and with an odd group count a row
+    (320, 4096, 4096, 4, 64, BF16), (128, 4096, 4096, 4, 64, F16), (5, 96, 130, 4, 32, F16),
+    (33, 96, 70, 8, 12, BF16),
 ])
-def test_quant_kernel_matches_plain(gen, m, k, n, bits, group):
-    x, packed, scales, biases = _quantized(gen, m, k, n, bits, group)
+def test_quant_kernel_matches_plain(gen, m, k, n, bits, group, scale_dtype):
+    x, packed, scales, biases = _quantized(gen, m, k, n, bits, group, scale_dtype)
     before = qmm.launch_count
     y = qmm.quant_matmul(x, packed, scales, biases, bits, group)
     torch.cuda.synchronize()
     assert qmm.launch_count == before + 1
     _check_qmm(y, qmm.quant_matmul_reference(x, packed, scales, biases, bits, group))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(128, 4096, 4096), (1280, 4096, 4096), (321, 4096, 1024)])
+def test_quant_kernel_is_bitwise_repeatable(gen, m, k, n):
+    """Splits of K add their fp32 tiles in a fixed order: no atomics."""
+    x, packed, scales, biases = _quantized(gen, m, k, n, 4, 64)
+    y1 = qmm.quant_matmul(x, packed, scales, biases, 4, 64)
+    y2 = qmm.quant_matmul(x, packed, scales, biases, 4, 64)
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.cuda
@@ -405,7 +434,13 @@ def test_quant_kernel_reads_half_scales(gen, scale_dtype):
     x, packed, scales, biases = _quantized(gen, 64, 1024, 256, 4, 64, scale_dtype)
     y = qmm.quant_matmul(x.reshape(2, 32, 1024), packed, scales, biases, 4, 64)
     assert y.shape == (2, 32, 256)
-    _check_qmm(y.reshape(64, 256), qmm.quant_matmul_reference(x, packed, scales, biases, 4, 64))
+    ref = qmm.quant_matmul_reference(x, packed, scales, biases, 4, 64)
+    _check_qmm(y.reshape(64, 256), ref)
+    # views that start between two 4-byte words
+    odd_s = torch.empty(scales.numel() + 1, dtype=scale_dtype, device="cuda")[1:].view_as(scales).copy_(scales)
+    odd_b = torch.empty(biases.numel() + 1, dtype=scale_dtype, device="cuda")[1:].view_as(biases).copy_(biases)
+    assert odd_s.data_ptr() % 4 == 2
+    assert torch.equal(qmm.quant_matmul(x, packed, odd_s, odd_b, 4, 64), y.reshape(64, 256))
 
 
 @pytest.mark.cuda
