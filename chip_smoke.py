@@ -72,12 +72,18 @@ Phases, in order; any failure exits non-zero before the last line:
 5c. K6 vs plain: the int8 attention against its plain version (the same
    quantization prologue, exact integer products) in bf16 at H=32, D=128,
    (B, S) = (1, 320) and (1, 1280) (the distilled stages), (2, 5184) (config
-   3, batched CFG), (1, 1000) (ragged), plus (1, 1280) at D=64: max |d o| <=
-   2e-2 and relative L2 <= 1e-3, with the p_q codes that differ counted (at
-   most 1e-4 of them); against K1 on the same bf16 inputs relative L2 < 5e-2
-   (the quantization error by design, the JAX test's bar). Median times of
-   K6 alone, of the prologue, of the plain version, of K1 and of SDPA's bf16
-   forward (the last two compute another function: yardsticks).
+   3, batched CFG), (1, 1000) (ragged; 8 of its heads have only negative
+   logits), plus (1, 1280) at D=64: max |d o| <= 2e-2 and relative L2 <=
+   1e-3, with the p_q codes that differ counted (at most 1e-4 of them);
+   against K1 on the same bf16 inputs relative L2 < 5e-2 (the quantization
+   error by design, the JAX test's bar). At every shape the CUDA prologue's
+   operands must equal the plain prologue's bit for bit (torch.equal, every
+   field), and two calls must give the same output and codes. Median times
+   of K6 alone, of the CUDA and the plain prologue (the CUDA one's device
+   time too, torch.profiler), of the whole call, of the plain version, of K1
+   and of SDPA's bf16 forward (the last two compute another function:
+   yardsticks); K6's share of its int8 bound and the MUFU floor of its
+   exponentials, S^2 H B / (16 x SMs x the card's maximum SM clock).
 6. small slices vs reference: a 2-layer DiT denoise (2 steps at 320 tokens),
    upsampler and decoder at narrow width, bf16 on the card against fp32 on
    the CPU (plain attention, plain dequantizing matmul) with the same
@@ -146,8 +152,10 @@ Phases, in order; any failure exits non-zero before the last line:
    528 K1, 0 K2 and 10 x 48 x 11 = 5280 int8 products, a finite video; then
    one warm run under torch.profiler (idle share, time by kernel class). The
    q, k and v of the 48 attn1 calls of the first stage-2 step (1280 tokens)
-   are recorded, and K6 and K1 run on each: K6's launches on the path and
-   their relative L2; K6 against its plain version on the first.
+   are recorded, and K6 and K1 run on each: K6's launches and its CUDA
+   prologue's on the path (48 each) and their relative L2; K6 against its
+   plain version, and its CUDA prologue bitwise against the plain one, on
+   the first.
 9b. full-width text encoder: the Gemma-3-12B geometry (48 layers of 3840,
    16 x 256 heads with 8 KV heads, FFN 15360, vocab 262208) and the
    connectors, seeded bf16 on the card; 1024 left-padded token ids, 128 of
@@ -546,19 +554,72 @@ def rope_kernel_vs_plain(fa) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+# The fields of Int8Operands that hold tensors.
+INT8_FIELDS = ("q", "k", "v_t", "qk_scale", "v_scale")
+
+
+def int8_times(fa, q, k, v) -> dict:
+    """Median ms of K6 alone (on the plain prologue's operands), of the
+    prologue a CUDA call runs (the CUDA one where the package has it, else
+    the plain one) and of the whole call, through entry points every version
+    of the port has: run with an older checkout's package, the same numbers
+    time that version."""
+    b, _, h, d = q.shape
+    prologue = getattr(fa, "int8_attention_prologue", fa.int8_attention_operands)
+    ops = fa.int8_attention_operands(q, k, v, d**-0.5)
+    return {
+        "k6": median_ms(lambda: fa.int8_attention_kernel(ops, b, h)),
+        "prologue": median_ms(lambda: prologue(q, k, v, d**-0.5)),
+        "call": median_ms(lambda: fa.flash_attention_int8(q, k, v)),
+    }
+
+
+def int8_turn(fa) -> None:
+    """One turn of a timing in turns: :func:`int8_times` at the path's two
+    K6 shapes, printed with the package it timed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for b, s in [(1, 1280), (2, 5184)]:
+        q, k, v = (torch.randn(b, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+        times = int8_times(fa, q, k, v)
+        print(f"  {Path(fa.__file__).parent.parent.parent.name or '.'}: B={b} S={s} "
+              + "  ".join(f"{key} {ms:.4f} ms" for key, ms in times.items()), flush=True)
+
+
+def mufu_floor_ms(b: int, s: int, h: int) -> float:
+    """The least time of K6's S^2 H B exponentials on the special-function
+    units: 16 a clock an SM at the card's maximum SM clock."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * s * s * h * b / (16 * sms * mhz * 1e6)
+
+
 def int8_kernel_vs_plain(fa) -> dict:
-    """K6 against its plain version and against K1, bf16, H = 32."""
+    """K6 and its CUDA prologue against their plain versions and K6 against
+    K1, bf16, H = 32."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(19)
     rows, max_err, worst_l2, worst_k1 = {}, 0.0, 0.0, 0.0
     print("K6 vs plain (bf16, H=32; bars max|d o| <= 2e-2, rel L2 <= 1e-3, p_q codes that differ <= 1e-4 of them; "
-          "vs K1 rel L2 < 5e-2):")
+          "vs K1 rel L2 < 5e-2; the CUDA prologue bitwise equal to the plain one; two calls bitwise equal):")
     for b, s, d in [(1, 320, 128), (1, 1280, 128), (2, 5184, 128), (1, 1000, 128), (1, 1280, 64)]:
         q, k, v = (torch.randn(b, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+        if s == 1000:  # ragged: heads 0-7 get only negative logits, which a max that took the padded keys' 0 would miss
+            q, k[:, :, :8] = q.abs(), -k[:, :, :8].abs()
+        ops, plain_ops = fa.int8_attention_prologue(q, k, v, d**-0.5), fa.int8_attention_operands(q, k, v, d**-0.5)
+        unequal = [name for name in INT8_FIELDS if not torch.equal(getattr(ops, name), getattr(plain_ops, name))]
+        del ops, plain_ops
         out, codes = fa.flash_attention_int8(q, k, v, return_codes=True)
+        again, codes_again = fa.flash_attention_int8(q, k, v, return_codes=True)
         torch.cuda.synchronize()
+        repeats = torch.equal(out, again) and torch.equal(codes, codes_again)
+        del again, codes_again
         ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
         diff = out.float() - ref.float()
         err, l2 = diff.abs().max().item(), (diff.norm() / ref.float().norm()).item()
@@ -567,22 +628,31 @@ def int8_kernel_vs_plain(fa) -> dict:
         k1 = fa.flash_attention(q, k, v)
         l2_k1 = ((out.float() - k1.float()).norm() / k1.float().norm()).item()
         max_err, worst_l2, worst_k1 = max(max_err, err), max(worst_l2, l2), max(worst_k1, l2_k1)
-        ops = fa.int8_attention_operands(q, k, v, d**-0.5)
-        ms = median_ms(lambda: fa.int8_attention_kernel(ops, b, 32))
-        prologue_ms = median_ms(lambda: fa.int8_attention_operands(q, k, v, d**-0.5))
+        times = int8_times(fa, q, k, v)
+        prologue_device_ms = sum(device_ms_by_kernel(lambda: fa.int8_attention_prologue(q, k, v, d**-0.5)).values())
+        plain_prologue_ms = median_ms(lambda: fa.int8_attention_operands(q, k, v, d**-0.5))
         plain_ms = median_ms(lambda: fa.flash_attention_int8_reference(q, k, v), reps=5, warmup=1)
         k1_ms = median_ms(lambda: fa.flash_attention(q, k, v))
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=d**-0.5))
+        share = bound(*int8_attention_work(b, s, 32, d), peak_ops=PEAK_INT8_OPS)["bound_ms"] / times["k6"]
+        floor_ms = mufu_floor_ms(b, s, 32)
         print(f"  B={b} S={s} D={d}: max|d o| {err:.3e} rel L2 {l2:.3e}; p_q codes that differ {flips} of {n_codes}; "
-              f"vs K1 rel L2 {l2_k1:.3e}  K6 {ms:.4f} ms (+ prologue {prologue_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"vs K1 rel L2 {l2_k1:.3e}; prologue fields unequal {unequal or 'none'}; two calls equal {repeats}  "
+              f"K6 {times['k6']:.4f} ms ({100 * share:.1f} % of its bound; MUFU floor {floor_ms:.4f} ms)  "
+              f"CUDA prologue {times['prologue']:.4f} ms (device {prologue_device_ms:.4f} ms)  plain prologue "
+              f"{plain_prologue_ms:.4f} ms  whole call {times['call']:.4f} ms  plain {plain_ms:.4f} ms  "
               f"K1 {k1_ms:.4f} ms  SDPA forward {lib_ms:.4f} ms", flush=True)
+        if unequal:
+            fail(f"the CUDA prologue's {', '.join(unequal)} differ from the plain prologue's at B={b} S={s} D={d}")
+        if not repeats:
+            fail(f"two K6 calls differ at B={b} S={s} D={d}")
         if not (err <= 2e-2 and l2 <= 1e-3 and flips <= 1e-4 * n_codes and torch.isfinite(out).all()):
             fail(f"K6 disagrees with the plain version at B={b} S={s} D={d}")
         if not l2_k1 < 5e-2:
             fail(f"K6 is {l2_k1:.3e} from K1 at B={b} S={s} D={d}, over the quantization bar 5e-2")
-        rows[(b, s, d)] = (ms, plain_ms, k1_ms, lib_ms)
-        del q, k, v, out, ref, k1, ops
+        rows[(b, s, d)] = (times["k6"], plain_ms, k1_ms, lib_ms, times["prologue"])
+        del q, k, v, out, ref, k1
     print(f"  K6 worst rel L2 {worst_l2:.3e} (bar 1e-3); worst vs K1 {worst_k1:.3e} (bar 5e-2)", flush=True)
     return {"rows": rows, "max_abs_err": max_err}
 
@@ -1400,20 +1470,27 @@ def full_width_w8a8(models, text, fa, qmm) -> dict:
     torch.cuda.empty_cache()
 
     q, k, v = captured[0]
+    ops, plain_ops = fa.int8_attention_prologue(q, k, v, 128**-0.5), fa.int8_attention_operands(q, k, v, 128**-0.5)
+    unequal = [name for name in INT8_FIELDS if not torch.equal(getattr(ops, name), getattr(plain_ops, name))]
+    print(f"  K6's CUDA prologue vs the plain one on the recorded q, k, v: fields unequal {unequal or 'none'}",
+          flush=True)
+    if unequal:
+        fail(f"the CUDA prologue's {', '.join(unequal)} differ from the plain prologue's on the W8A8 run's q, k, v")
     ref = fa.flash_attention_int8_reference(q, k, v)
     out = fa.flash_attention_int8(q, k, v)
     err, l2 = (out.float() - ref.float()).abs().max().item(), rel_l2(out, ref)
     print(f"  K6 vs plain on the recorded q, k, v of stage 2, block 0: max|d o| {err:.3e} rel L2 {l2:.3e}", flush=True)
     if not (err <= 2e-2 and l2 <= 1e-3):
         fail("K6 disagrees with its plain version on the W8A8 run's q, k, v")
-    fa.int8_launch_count = 0
+    fa.int8_launch_count = fa.int8_prologue_launch_count = 0
     worst = max(rel_l2(fa.flash_attention_int8(q, k, v), fa.flash_attention(q, k, v)) for q, k, v in captured)
-    launches = fa.int8_launch_count
+    launches, prologues = fa.int8_launch_count, fa.int8_prologue_launch_count
     print(f"  K6 on the {len(captured)} attn1 calls of the first stage-2 step ({tuple(q.shape)}): {launches} "
-          f"launches; worst rel L2 against K1 {worst:.3e} (bar 5e-2)", flush=True)
-    if launches != 48 or not worst < 5e-2:
-        fail(f"K6 on the W8A8 run's q, k, v: {launches} launches, rel L2 {worst:.3e} against K1")
-    return {"k6": launches, "k6_vs_k1": worst}
+          f"launches, {prologues} CUDA prologues; worst rel L2 against K1 {worst:.3e} (bar 5e-2)", flush=True)
+    if launches != 48 or prologues != 48 or not worst < 5e-2:
+        fail(f"K6 on the W8A8 run's q, k, v: {launches} launches, {prologues} prologues, rel L2 {worst:.3e} "
+             "against K1")
+    return {"k6": launches, "k6_prologue": prologues, "k6_vs_k1": worst}
 
 
 def full_width_text_encoder(models, fa, qmm, work: Path) -> dict:
@@ -1820,7 +1897,7 @@ def main() -> int:
     k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
     k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
     k5_ms, k5_plain_ms, _ = k5["rows"][(2, 5184)]
-    k6_ms, k6_plain_ms, _, _ = k6["rows"][(1, 1280, 128)]
+    k6_ms, k6_plain_ms, _, _, k6_prologue_ms = k6["rows"][(1, 1280, 128)]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1887,6 +1964,8 @@ def main() -> int:
         "plain_ms": k6_plain_ms,
         **bound(*int8_attention_work(1, 1280, 32, 128), peak_ops=PEAK_INT8_OPS),
         "library_ms": None,
+        "prologue_ms": k6_prologue_ms,
+        "prologue_launches": w8["k6_prologue"],
     }]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -109,14 +109,6 @@ constexpr int stage_bytes(int sb_bytes) {
 static_assert(2 * stage_bytes<8, 256>(2 * MAX_NG * BW * 4) <= SMEM_BYTES - BASE, "two stages must fit");
 static_assert(256 * P_STRIDE * 4 <= SMEM_BYTES - 1024, "the fp32 y tile must fit");
 
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Wait until at most N of this warpgroup's committed product groups are in flight.
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {

@@ -14,10 +14,11 @@ and k in fp32 exactly as :func:`rotate_split` does, then K1's kernel on the
 rotated tensors.
 The int8 attention (K6) replaces ``flash_attention_int8`` (the Pallas kernel
 ``_single_pass_int8_kernel``); its kernel is
-``mlx_video_tpu_torch/csrc/flash_attention_int8.cu``: int8 products on the
-tensor cores and an exact two-pass softmax over the keys, behind the same
-quantization prologue as JAX's, in plain PyTorch here. All are built by ``nvcc`` at first use (ops/_build.py) and called through
-``ctypes``.
+``mlx_video_tpu_torch/csrc/flash_attention_int8.cu``: int8 products on
+``wgmma`` over TMA-fed tiles and an exact two-pass softmax over the keys,
+behind JAX's quantization prologue as two exact CUDA passes
+(:func:`int8_attention_prologue`). All are built by ``nvcc`` at first use
+(ops/_build.py) and called through ``ctypes``.
 
 What bounds them on the H100: at the DiT's shapes (B=1, H=32, D=128, S=320 to
 5184) the forward does 4*S*S*D*H operations on 4*S*H*D*2 bytes of q, k, v and
@@ -64,13 +65,16 @@ from mlx_video_tpu_torch.ops import _build
 from mlx_video_tpu_torch.ops.int8 import int8_mm, scale_from_absmax
 
 # Kernel launches so far: K1 (forward), K3 (backward; one count per backward,
-# which launches its dq and its dkv kernel), K5 (forward with split RoPE) and
-# K6 (int8 attention). A run resets them to 0 and reads them to show that its
-# attention went through the kernels. Only a launch adds to them.
+# which launches its dq and its dkv kernel), K5 (forward with split RoPE), K6
+# (int8 attention) and K6's prologue (one count per prologue, which launches
+# its absmax and its quantize kernel). A run resets them to 0 and reads them
+# to show that its attention went through the kernels. Only a launch adds to
+# them.
 launch_count = 0
 bwd_launch_count = 0
 rope_launch_count = 0
 int8_launch_count = 0
+int8_prologue_launch_count = 0
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
@@ -90,6 +94,9 @@ _ARGTYPES = {
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     ),
     "mvt_flash_attention_int8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "mvt_int8_attention_operands": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 7
+    ),
 }
 _fns = {}
 
@@ -450,7 +457,8 @@ def flash_attention_split_rope(
 # K6: int8 single-pass attention
 # ---------------------------------------------------------------------------
 
-INT8_BLOCK = 64  # K6's query and key tile; the prologue pads S to a multiple
+# The prologue pads S to a multiple; K6's 128-row tiles read past it as TMA's zeros.
+INT8_BLOCK = 64
 
 
 class Int8Operands(NamedTuple):
@@ -534,6 +542,69 @@ def flash_attention_int8_reference(
     return (out, codes) if return_codes else out
 
 
+def _check_int8_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on (B, S, H, D) inputs that the CUDA prologue and K6 do not take."""
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be (B, S, H, D) {q.dtype} like q {tuple(q.shape)} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if q.dim() != 4 or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the int8 attention kernel takes (B, S, H, D) bf16 or fp32, got {tuple(q.shape)} {q.dtype}")
+    b, s, h, d = q.shape
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported (kernel takes {SUPPORTED_HEAD_DIMS})")
+    if s < 1 or b * h > _MAX_GRID_Y:
+        raise ValueError(f"unsupported shape {tuple(q.shape)}")
+
+
+def _reads_16_bytes(*ts: torch.Tensor) -> bool:
+    """Whether the prologue can read every tensor 16 bytes at a time: unit
+    channel stride, other strides whole 16-byte steps, 16-byte aligned."""
+    per = 16 // ts[0].element_size()
+    return all(t.stride(-1) == 1 and not any(st % per for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+               for t in ts)
+
+
+def int8_attention_prologue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> Int8Operands:
+    """K6's quantization prologue, :func:`int8_attention_operands` as two CUDA
+    passes: one reads q, k and v through their strides for |q|max, |k|max and
+    v's per-(batch * head, channel) absmax; the other writes the codes with
+    their zero padding and the scales. Its operands equal the plain
+    version's bit for bit.
+
+    CPU tensors take :func:`int8_attention_operands`; CUDA tensors (bf16 or
+    fp32, all three alike, D in {64, 128}) launch the two kernels or raise.
+    Each CUDA call adds one to ``int8_prologue_launch_count``."""
+    global int8_prologue_launch_count
+    if q.device.type == "cpu":
+        return int8_attention_operands(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"int8_attention_prologue runs on CUDA or CPU tensors, got {q.device}")
+    _check_int8_inputs(q, k, v)
+    b, s, h, d = q.shape
+    s_pad = -(-s // INT8_BLOCK) * INT8_BLOCK
+    dev, n = q.device, b * h * s_pad * d
+    codes = torch.empty(3 * n, dtype=torch.int8, device=dev)
+    q_q, k_q = codes[:n].view(b * h, s_pad, d), codes[n:2 * n].view(b * h, s_pad, d)
+    v_t = codes[2 * n:].view(b * h, d, s_pad)
+    scales = torch.empty(3 + 2 * b * h * d, dtype=torch.float32, device=dev)
+    qk_scale, v_scale = scales[0], scales[1:1 + b * h * d].view(b * h, d)
+    amax = scales[1 + b * h * d:]  # the absmax pass's scratch
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v) for st in t.stride()))
+    fn = _kernel("mvt_int8_attention_operands")
+    with torch.cuda.device(dev):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, b, s, h, d, s_pad,
+            int(q.dtype == torch.float32), int(_reads_16_bytes(q, k, v)), float(scale),
+            q_q.data_ptr(), k_q.data_ptr(), v_t.data_ptr(), qk_scale.data_ptr(), v_scale.data_ptr(),
+            amax.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        _raise_launch_error("int8 attention prologue", err)
+    int8_prologue_launch_count += 1
+    return Int8Operands(q_q, k_q, v_t, qk_scale, v_scale, s)
+
+
 def flash_attention_int8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -545,11 +616,12 @@ def flash_attention_int8(
     ``flash_attention_int8``. Output (B, S, H, D) in q's dtype.
 
     CPU tensors take :func:`flash_attention_int8_reference`; CUDA tensors run
-    the prologue and launch K6 (D in {64, 128}, bf16 or fp32 q, k, v) or
-    raise. Inference only, as in JAX (no VJP): an input that requires a
-    gradient is refused. With ``return_codes`` K6 also writes its p_q codes
-    as a (B*H, S, S) int8 tensor, so a check can count those that differ from
-    the plain version's."""
+    the CUDA prologue (:func:`int8_attention_prologue`) and launch K6 (D in
+    {64, 128}, bf16 or fp32 q, k, v) or raise. Inference only, as in JAX (no
+    VJP): an input that requires a gradient is refused. With
+    ``return_codes`` K6 also writes its p_q codes as a (B*H, S, S) int8
+    tensor, so a check can count those that differ from the plain
+    version's."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise ValueError("flash_attention_int8 is inference only (no gradient, as in the JAX package)")
     if scale is None:
@@ -558,36 +630,39 @@ def flash_attention_int8(
         return flash_attention_int8_reference(q, k, v, scale, return_codes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8 runs on CUDA or CPU tensors, got {q.device}")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.device != q.device:
-            raise ValueError(f"{name} must be (B, S, H, D) like q {tuple(q.shape)} on {q.device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-    if q.dim() != 4 or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the int8 attention kernel takes (B, S, H, D) bf16 or fp32, got {tuple(q.shape)} {q.dtype}")
-    b, s, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (kernel takes {SUPPORTED_HEAD_DIMS})")
-    if s < 1 or b * h > _MAX_GRID_Y:
-        raise ValueError(f"unsupported shape {tuple(q.shape)}")
-    return int8_attention_kernel(int8_attention_operands(q, k, v, scale), b, h, q.dtype, return_codes)
+    ops = int8_attention_prologue(q, k, v, scale)
+    return int8_attention_kernel(ops, q.shape[0], q.shape[2], q.dtype, return_codes)
 
 
 def int8_attention_kernel(
     ops: Int8Operands, b: int, h: int, out_dtype=torch.bfloat16, return_codes: bool = False
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K6 alone on the prologue's operands (CUDA tensors): the (B, S, H, D)
-    output in ``out_dtype`` (bf16 or fp32), and with ``return_codes`` p_q as
-    (B*H, S, S) int8. :func:`flash_attention_int8` checks the shapes."""
+    """K6 alone on the prologue's operands (CUDA tensors, the plain or the
+    CUDA prologue's): the (B, S, H, D) output in ``out_dtype`` (bf16 or
+    fp32), and with ``return_codes`` p_q as (B*H, S, S) int8."""
     global int8_launch_count
-    s, d = ops.s, ops.q.shape[2]
-    out = torch.empty((b, s, h, d), dtype=out_dtype, device=ops.q.device)
-    codes = torch.empty((b * h, s, s), dtype=torch.int8, device=ops.q.device) if return_codes else None
+    s, s_pad, d, dev = ops.s, ops.q.shape[1], ops.q.shape[2], ops.q.device
+    if dev.type != "cuda":
+        raise ValueError(f"int8_attention_kernel takes CUDA operands, got {dev}")
+    for name, t, shape in (("q", ops.q, (b * h, s_pad, d)), ("k", ops.k, (b * h, s_pad, d)),
+                           ("v_t", ops.v_t, (b * h, d, s_pad))):
+        if t.device != dev or t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"operand {name} must be a contiguous {shape} int8 tensor on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if d not in SUPPORTED_HEAD_DIMS or s_pad % INT8_BLOCK or not 1 <= s <= s_pad or out_dtype not in (
+            torch.bfloat16, torch.float32):
+        raise ValueError(f"unsupported int8 operands: S={s}, S_pad={s_pad}, D={d}, output {out_dtype}")
+    if ops.qk_scale.numel() != 1 or ops.v_scale.shape != (b * h, d) or not ops.v_scale.is_contiguous() or any(
+            t.dtype != torch.float32 or t.device != dev for t in (ops.qk_scale, ops.v_scale)):
+        raise ValueError(f"qk_scale must be one fp32 value and v_scale a contiguous (B*H, D) fp32 tensor on {dev}")
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
+    codes = torch.empty((b * h, s, s), dtype=torch.int8, device=dev) if return_codes else None
     fn = _kernel("mvt_flash_attention_int8")
-    with torch.cuda.device(ops.q.device):
+    with torch.cuda.device(dev):
         err = fn(
             ops.q.data_ptr(), ops.k.data_ptr(), ops.v_t.data_ptr(), ops.qk_scale.data_ptr(),
             ops.v_scale.data_ptr(), out.data_ptr(), codes.data_ptr() if codes is not None else None,
-            b, s, ops.q.shape[1], h, d, int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
+            b, s, s_pad, h, d, int(out_dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         _raise_launch_error("int8 attention", err)

@@ -20,10 +20,14 @@ with its reason:
   the int8 ones to 3e-7. At N(0, 0.1^2) the 4 layers amplify the dense
   difference to 5e-6, enough to move activation codes across a half, and
   one moved code moves a linear's output by ~1e-3: W8A8 then reads 1.2e-2;
-- the native int8 file: bit-exact.
+- the native int8 file: bit-exact;
+- the identities K6's CUDA kernel relies on (csrc/flash_attention_int8.cu),
+  in numpy float32: exact, so equal.
 """
 
 import json
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -130,6 +134,108 @@ def test_int8_operands_pad_and_transpose():
     torch.testing.assert_close(ops.v_scale, vh.abs().amax(dim=1) / 127.0, rtol=0, atol=0)
     assert torch.equal(ops.v_t[:, :, :70], torch.round(vh / ops.v_scale[:, None]).to(torch.int8).transpose(1, 2))
     assert ops.qk_scale.dtype == torch.float32 and ops.qk_scale.dim() == 0
+
+
+def test_int8_prologue_on_the_cpu_is_the_plain_prologue():
+    q, k, v = (torch.randn(2, 70, 3, 64) for _ in range(3))
+    before = fa.int8_prologue_launch_count
+    got, want = fa.int8_attention_prologue(q, k, v, 0.125), fa.int8_attention_operands(q, k, v, 0.125)
+    assert fa.int8_prologue_launch_count == before
+    assert got.s == want.s and all(torch.equal(a, b) for a, b in zip(got[:5], want[:5]))
+
+
+# ---------------------------------------------------------------------------
+# The exact identities K6's CUDA kernel relies on
+# ---------------------------------------------------------------------------
+
+_MAGIC_BITS = np.int32(0x4B400000)  # the bits of 1.5 * 2^23
+_MAGIC = np.float32(12582912.0)
+_K6_SOURCE = Path(fa.__file__).resolve().parent.parent / "csrc" / "flash_attention_int8.cu"
+
+
+def test_magic_int_to_float_is_exact():
+    """Every logit |s| <= 127^2 * 128 (D = 128): float(s) as
+    __int_as_float(0x4B400000 + s) - 1.5 * 2^23, on the FMA pipe."""
+    s = np.arange(-(127**2) * 128, 127**2 * 128 + 1, dtype=np.int32)
+    f = (s + _MAGIC_BITS).view(np.float32) - _MAGIC
+    assert f.dtype == np.float32 and np.array_equal(f, s.astype(np.float32))
+
+
+def test_magic_round_half_to_even_is_rint():
+    """127 p for a dense sample of p in [0, 1], exact halves and their
+    neighbours: the bits of 127 p + 1.5 * 2^23, less 0x4B400000, are rint's
+    integer, and the low byte alone is the code."""
+    p = np.linspace(0.0, 1.0, 2_000_001, dtype=np.float32)
+    halves = np.arange(127, dtype=np.float32) + np.float32(0.5)
+    y = np.concatenate([p * np.float32(127.0), halves, np.nextafter(halves, np.float32(0)),
+                        np.nextafter(halves, np.float32(200)), np.arange(128, dtype=np.float32)])
+    code = (y + _MAGIC).view(np.int32) - _MAGIC_BITS
+    assert np.array_equal(code, np.rint(y).astype(np.int32))
+    assert np.array_equal((y + _MAGIC).view(np.int32) & 0xFF, code)
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_masked_int32_extreme_scaled_is_the_max_logit(sign):
+    """Pass 1 keeps only the int32 extreme of a row: fp32(max s) * qk (the min
+    for a negative qk) equals the max of the fp32 logits fp32(s) * qk, keys
+    past S masked to INT_MIN (INT_MAX). Rows with ties, all-negative rows
+    and the full |s| range; without the mask, the padded keys' zero logits
+    win over the all-negative rows."""
+    rng = np.random.default_rng(7)
+    valid, keys = 250, 320
+    s = rng.integers(-(127**2) * 128, 127**2 * 128 + 1, (96, keys)).astype(np.int32)
+    s[:16] = rng.integers(-40, 40, (16, keys))  # many ties
+    s[16:32] = -np.abs(s[16:32]) - 1  # every logit negative
+    s[32:40] = 5  # all equal
+    s[:, valid:] = 0  # padded keys: zero codes
+    for qk in sign * rng.uniform(1e-4, 1.0, 20).astype(np.float32):
+        want = (s[:, :valid].astype(np.float32) * qk).max(axis=1)
+        fill = np.iinfo(np.int32).min if qk >= 0 else np.iinfo(np.int32).max
+        masked = np.where(np.arange(keys) < valid, s, fill)
+        ext = masked.max(axis=1) if qk >= 0 else masked.min(axis=1)
+        assert np.array_equal(ext.astype(np.float32) * qk, want)
+        unmasked = s.max(axis=1) if qk >= 0 else s.min(axis=1)
+        assert not np.array_equal(unmasked.astype(np.float32) * qk, want)
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    src = x.to_bytes(4, "little") + y.to_bytes(4, "little")
+    return int.from_bytes(bytes(src[(sel >> (4 * i)) & 7] for i in range(4)), "little")
+
+
+def test_p_fragment_permutation_gives_the_a_layout():
+    """codes_to_a, with the selectors read from the kernel's source: in a
+    16-key half, thread t of a quad holds keys 2t, 2t + 1 and 8 + 2t, 9 + 2t
+    of rows g and g + 8 (the s32 accumulator); after the exchange with lane
+    t ^ 1 and the swap of threads 1 and 2 it holds keys 4t .. 4t + 3 of each
+    row (the s8 A fragment)."""
+    src = _K6_SOURCE.read_text()
+    sel_g8 = re.search(r"sel_g8 = odd \? (0x[0-9A-Fa-f]+) : (0x[0-9A-Fa-f]+);", src)
+    sel_g = re.search(r"sel_g = odd \? (0x[0-9A-Fa-f]+) : (0x[0-9A-Fa-f]+);", src)
+    low = re.search(r"__byte_perm\(__byte_perm\(a, b, (0x[0-9A-Fa-f]+)\), __byte_perm\(c, d, \1\), "
+                    r"(0x[0-9A-Fa-f]+)\)", src)
+    assert sel_g and sel_g8 and low
+    sel = {row: [int(m.group(2), 16), int(m.group(1), 16)] for row, m in ((0, sel_g), (8, sel_g8))}  # [even, odd]
+    pick, join = int(low.group(1), 16), int(low.group(2), 16)
+
+    def code(row, key):  # a distinct byte for every (row, key) of the half
+        return 16 * (row // 8) + key
+
+    def low_bytes(a, b, c, d):
+        return _byte_perm(_byte_perm(a, b, pick), _byte_perm(c, d, pick), join)
+
+    # accumulator block c holds (row g, key 8c + 2t + e) at 4c + e and (row g + 8, ...) at 4c + 2 + e
+    acc = [[code(8 * r, 8 * c + 2 * t + e) for c in range(2) for r in range(2) for e in range(2)] for t in range(4)]
+    x = [low_bytes(*acc[t][0:4]) for t in range(4)]
+    y = [low_bytes(*acc[t][4:8]) for t in range(4)]
+    keep = [y[t] if t & 1 else x[t] for t in range(4)]
+    send = [x[t] if t & 1 else y[t] for t in range(4)]
+    swap = [0, 2, 1, 3]
+    for row in (0, 8):
+        exchanged = [_byte_perm(keep[t], send[t ^ 1], sel[row][t & 1]) for t in range(4)]
+        for t in range(4):
+            want = [code(row, 4 * t + i) for i in range(4)]
+            assert list(exchanged[swap[t]].to_bytes(4, "little")) == want
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,9 @@ Int8 attention (K6): max |d o| <= 2e-2 and relative L2 <= 1e-3 against its
 plain version on the same inputs (the same integer products; only p_q codes
 where an exp ulp crosses a half differ, and at most 1e-4 of them); against
 K1 on the same bf16 inputs relative L2 < 5e-2, the quantization error by
-design (the JAX test's bar).
+design (the JAX test's bar). Two calls give the same bits. Its CUDA
+prologue divides and rounds as the plain prologue does, so its operands
+equal int8_attention_operands' bit for bit.
 The int8 products of W8A8 (torch._int_mm) are exact, so the card's int32
 equals the CPU's. quantize_affine divides as JAX's quantize_affine does, so
 its scales, biases and words on the card equal the CPU's.
@@ -186,18 +188,21 @@ def test_flash_attention_is_differentiable_on_the_card(gen):
 
 @pytest.mark.cuda
 def test_kernels_launch_from_a_fresh_thread(gen):
-    """K1 and K3 encode their tensor maps through the driver, which needs a
-    current context: a thread whose first CUDA call is the kernel's (an
+    """K1, K3 and K6 encode their tensor maps through the driver, which needs
+    a current context: a thread whose first CUDA call is the kernel's (an
     autograd worker) must get the same results as the main thread."""
     q, k, v, o, lse, do = _bwd_inputs(gen, 1, 300, 4, 128)
-    want = fa.flash_attention(q, k, v, return_lse=True), fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5)
-    got = []
-    worker = threading.Thread(target=lambda: got.append(
-        (fa.flash_attention(q, k, v, return_lse=True), fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5))))
+
+    def run():
+        return (*fa.flash_attention(q, k, v, return_lse=True), *fa.flash_attention_bwd(q, k, v, o, lse, do, 128**-0.5),
+                *fa.flash_attention_int8(q, k, v, return_codes=True))
+
+    want, got = run(), []
+    worker = threading.Thread(target=lambda: got.append(run()))
     worker.start()
     worker.join()
     assert got, "the kernels raised in the worker thread"
-    for a, b in zip((*got[0][0], *got[0][1]), (*want[0], *want[1])):
+    for a, b in zip(got[0], want):
         assert torch.equal(a, b)
 
 
@@ -504,6 +509,91 @@ def test_int8_kernel_takes_fp32_and_non_uniform_rows(gen):
     ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
     assert out.dtype == torch.float32 and len(torch.unique(ref_codes)) > 100
     _check_int8(out, codes, ref, ref_codes, fa.flash_attention_reference(q, k, v, 128**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, s, h, d", [
+    # S on each side of the 128-key tile and of two 128-row query blocks
+    (1, 127, 4, 128), (1, 128, 4, 128), (1, 129, 4, 128), (2, 255, 3, 128), (2, 257, 3, 128),
+    (1, 127, 3, 64), (2, 129, 3, 64), (2, 257, 3, 64),
+    # B * H = 320 and 512: several waves of blocks over the 132 SMs
+    (4, 257, 80, 128), (8, 129, 64, 64),
+])
+def test_int8_kernel_at_tile_edges(gen, b, s, h, d):
+    q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
+    out, codes = fa.flash_attention_int8(q, k, v, return_codes=True)
+    ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, return_codes=True)
+    _check_int8(out, codes, ref, ref_codes, fa.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, -0.1])
+def test_int8_kernel_takes_all_negative_rows(gen, scale):
+    """Rows whose logits are all negative (padded keys have zero codes, which
+    a max that did not mask them would take), and a negative scale, which
+    makes the row max the scaled int32 minimum."""
+    q, k, v = (_bf16(gen, 2, 200, 3, 128) for _ in range(3))
+    q = q.abs()
+    k[:, :, :2] = -k[:, :, :2].abs()  # heads 0 and 1: every logit of every row below 0
+    out, codes = fa.flash_attention_int8(q, k, v, scale=scale, return_codes=True)
+    ref, ref_codes = fa.flash_attention_int8_reference(q, k, v, scale=scale, return_codes=True)
+    _check_int8(out, codes, ref, ref_codes, fa.flash_attention(q, k, v, scale=scale))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_repeats_its_bits(gen):
+    """No atomics and no order that varies: two calls give the same output and codes."""
+    q, k, v = (_bf16(gen, 2, 1000, 4, 128) for _ in range(3))
+    first = fa.flash_attention_int8(q, k, v, return_codes=True)
+    second = fa.flash_attention_int8(q, k, v, return_codes=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _check_prologue(q, k, v, scale):
+    before = fa.int8_prologue_launch_count
+    got = fa.int8_attention_prologue(q, k, v, scale)
+    assert fa.int8_prologue_launch_count == before + 1
+    want = fa.int8_attention_operands(q, k, v, scale)
+    assert got.s == want.s
+    for name in ("q", "k", "v_t", "qk_scale", "v_scale"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.dtype == w.dtype and a.shape == w.shape and torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_prologue_equals_plain(gen, dtype, s, d):
+    q, k, v = (torch.randn(2, s, 3, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    _check_prologue(q, k, v, d**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["slices", "transposed", "strided channels", "all zero", "one outlier"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_prologue_reads_views_and_edge_values(gen, dtype, kind):
+    """Views read through their strides (16 bytes at a time, or one element
+    at a time where the channels are strided); an all-zero q, whose scale is
+    the 1e-12 floor; one value 1e4 times the rest."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    if kind == "slices":
+        qk = rnd(2, 100, 3, 256)
+        q, k, v = qk[..., :128], qk[..., 128:], rnd(2, 100, 6, 128)[:, :, ::2]
+    elif kind == "transposed":
+        q, k, v = (rnd(2, 3, 100, 64).transpose(1, 2) for _ in range(3))
+    elif kind == "strided channels":
+        q, k, v = (rnd(2, 100, 3, 128)[..., ::2] for _ in range(3))
+    elif kind == "all zero":
+        q, k, v = torch.zeros(2, 100, 3, 128, device="cuda", dtype=dtype), rnd(2, 100, 3, 128), rnd(2, 100, 3, 128)
+        v[1, :, 2] = 0.0  # one head's v: every channel at the floor
+    else:
+        q, k, v = (rnd(2, 100, 3, 128) for _ in range(3))
+        q[1, 37, 2, 5] = 1e4
+        v[0, 99, 1, 100] = -1e4
+    _check_prologue(q, k, v, 0.09)
 
 
 @pytest.mark.cuda
