@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero before the last line:
    one process per source.
 3. K1 vs plain: the flash-attention kernel against its plain fp32 version in
    bf16 at H=32, D=128, (B, S) = (1, 320) and (1, 1280) (the distilled
-   path's shapes), (1, 3456) (the training shape), (1, 1000) (ragged),
+   path's shapes), (2, 320) and (2, 1280) (two videos in a batch; stage-2
+   CFG), (1, 3456) (the training shape), (1, 1000) (ragged),
    (1, 5184) and (2, 5184) (the dev path's with the routes off), plus (1,
    1280) at D=64. Every shape is checked with its lse: max |d o| <= 2e-2,
    relative L2 of o <= 4e-3 (bf16 rounding of P and of o reads about 2.4e-3;
@@ -132,7 +133,36 @@ Phases, in order; any failure exits non-zero before the last line:
    without the profiler, 2 steps each in turns (off, on, on, off); and one
    step of sequential against batched CFG (96 K4 and 96 K5 launches), the
    same bar. The routes are off again
-   for the phases below.
+   for the phases below; the encoder stays for phases 11 and 10.
+11. full-width conditioned distilled slice: generate_video at 512x512x33
+   (stage 1 at 320 tokens, stage 2 at 1280), 8 + 3 steps, on the same DiT,
+   encoder, decoder and upsampler and the 128-token embeddings. Every run
+   checks a finite video of the full shape (two where there are two) and its
+   K1 launches, and prints its phase seconds and peak device memory:
+   (a) one seeded 512x512 PNG at frame 0, replace mode: 528 K1, latent frame
+   0 equal to the encoded image to 2^-8 of its largest value; (b) the
+   keyframe pipeline, PNGs at media frames 0 and 32 (latent 0 and 4), guide
+   mode, streamed: 528 K1, the writer gets all 33 frames in more than one
+   piece and they equal frames_to_uint8 of the returned video bit for bit;
+   the same seed unstreamed gives bitwise-equal latents (its per-frame RGB
+   PSNR against the streamed video, whose decode is tiled, is printed
+   without a bar: on seeded weights a tiled decode is 18-30 dB from an
+   untiled one, in the JAX package too); then the streamed latents decoded
+   with the device blend against the host blend on the same tiles and
+   decode noise, max |d| <= 1e-6; (c) a seeded rank-32 adapter in
+   the reference format on the ltx2_ic_lora_v2v.yaml recipe (to_q, to_k,
+   to_v, to_out.0 of attn1 and attn2 in 48 blocks: 384 pairs), merged by
+   merge_lora_into_params (applied=384 skipped=0, its seconds and memory),
+   two merged linears against a CPU merge of the same bf16 tensors (at most
+   1e-4 of the elements one bf16 ulp apart), then the IC-LoRA pipeline on a
+   seeded 33-frame clip (cv2, mp4v) at frame 0: 528 K1, the base's two
+   linears unchanged; (f) num_videos=2 at seeds 35 and 36: 528 K1 at B = 2,
+   two mp4s, each video's latents >= 35 dB per frame against its single run
+   (528 K1 each); (d) stage 2 on the merged DiT of (c), stage 1 on the
+   base: 528 K1, latents that differ from the seed-35 single run; (e)
+   stage-2 CFG 4.0 on seeded negative embeddings, batched (528 K1) and
+   sequential (48 x 8 + 2 x 48 x 3 = 672 K1), >= 35 dB per latent frame
+   apart. The merged copy is freed at the end.
 8. full-width dense LoRA training: the Trainer (the ltx2_lora.yaml recipe:
    rank 8, alpha 16, lr 1e-4 cosine, shifted-logit-normal timesteps,
    first-frame conditioning p 0.1, max_grad_norm 1, batch 1) with gradient
@@ -179,15 +209,22 @@ Phases, in order; any failure exits non-zero before the last line:
    give tensors equal to the in-memory ones, and the CLI's main (--device
    cuda) must run from that directory with 528 K1 and 5280 K2 launches and
    write its output, and again with --w4a8: 528 K1, 0 K2 and 5280 int8
-   products. Then the training CLI (cli.train.main, --device cuda)
+   products. The snapshot's VAE file carries the seeded encoder too (the
+   loaded one must equal it), and phase 11's (g) runs the CLI with
+   --pipeline keyframe, phase 11's two images at frames 0 and 32,
+   --stage2-model-repo on the same snapshot (a second 4-bit DiT), --stream
+   and --lora with (c)'s adapter: "[LoRA] ... applied=0 skipped=384" (a
+   4-bit base is skipped, as in the JAX package), 528 K1 and 5280 K2 (3840
+   on the stage-1 model, 1440 on the stage-2 one) and an mp4. Then the training CLI (cli.train.main, --device cuda)
    trains LoRA for 2 steps over the 4-bit file of the snapshot on the
    dataset of phase 8, with gradient checkpointing: 96 K1, 48 K3 and
    10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
    written. The directories are removed at the end.
-Phases 7-10 print phase times and peak device memory. Last: the kernel
-summary line (K1-K6: launches on a path of this run, error against the plain
-version, times at the path's shapes, the bound, the library yardstick) and
-{"ok": true, "device": ...}.
+Phases 7-11 print phase times and peak device memory. The order on the card:
+1-7a, 11, 8, 9a, 9b, 9, 10. Last: the kernel summary line (K1-K6: launches
+on a path of this run, error against the plain version, times at the path's
+shapes, the bound, the library yardstick; K1 and K2 also their launches on
+every path of phases 8-11, "path_launches") and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -195,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import importlib.util
+import io
 import json
 import math
 import re
@@ -294,8 +332,9 @@ def psnr(a, b, peak: float) -> float:
 
 
 # K1's cases in phase 3: (B, S, D, timed with lse)
-K1_SHAPES = [(1, 320, 128, False), (1, 1280, 128, False), (1, 3456, 128, True), (1, 1000, 128, True),
-             (1, 5184, 128, True), (2, 5184, 128, False), (1, 1280, 64, True)]
+K1_SHAPES = [(1, 320, 128, False), (1, 1280, 128, False), (2, 320, 128, False), (2, 1280, 128, False),
+             (1, 3456, 128, True), (1, 1000, 128, True), (1, 5184, 128, True), (2, 5184, 128, False),
+             (1, 1280, 64, True)]
 K1_REL_L2 = 4e-3
 
 
@@ -1331,7 +1370,8 @@ def min_frame_psnr(a, b) -> float:
 def full_width_dev(models, fa, ca, work: Path) -> dict:
     """The dev pipeline on the 19B video DiT geometry with both routes on:
     the 40-step run with one image, then a 2-step A/B of the routes on
-    against off, then one step of sequential against batched CFG."""
+    against off, then one step of sequential against batched CFG. The
+    seeded default encoder stays on ``models`` for phases 11 and 10."""
     import numpy as np
     import torch
 
@@ -1421,10 +1461,249 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
     if not sq >= 35.0:
         fail(f"sequential vs batched CFG: {sq:.2f} dB < 35 dB")
     set_routes(False)
-    models.vae_encoder = models.vae_encoder_config = None
-    del encoder
     torch.cuda.empty_cache()
     return {"k4": counts[1], "k5": counts[2], "step_s": steps_s, "peak_gib": peak / 2**30}
+
+
+def write_clip(path: Path, frames: int, size: int, seed: int) -> None:
+    """A seeded clip of ``frames`` smooth RGB frames (a blurred pattern that
+    slides 4 pixels a frame), written with cv2 (mp4v)."""
+    import cv2
+    import numpy as np
+
+    base = cv2.GaussianBlur(np.random.default_rng(seed).uniform(0, 255, (size, size, 3)).astype(np.uint8),
+                            (0, 0), size / 64)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (size, size))
+    if not writer.isOpened():
+        fail(f"cv2 could not open an mp4v writer for {path}")
+    for i in range(frames):
+        writer.write(np.roll(base, 4 * i, axis=1))
+    writer.release()
+
+
+# Phase 11's runs: the distilled defaults at 512x512x33 (stage 1 at 320 tokens, stage 2 at 1280)
+PHASE11_RUN = dict(height=512, width=512, num_frames=33, stage1_steps=8, stage2_steps=3)
+
+
+def conditioned_run(models, text, fa, what: str, want_k1: Optional[int] = None, videos: int = 1, **kw):
+    """Phase 11's generate_video (PHASE11_RUN), the K1 count set to 0 just
+    before: prints the phase seconds, wall, peak device memory and K1
+    launches; checks finite videos of the full shape and the launches
+    (``want_k1``, by default one a block a step)."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.pipelines.generate import generate_video
+
+    run = PHASE11_RUN
+    if want_k1 is None:
+        want_k1 = models.transformer_config.num_layers * (run["stage1_steps"] + run["stage2_steps"])
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = 0
+    t0 = time.perf_counter()
+    res = generate_video(models, text, **run, **kw)
+    wall = time.perf_counter() - t0
+    k1 = fa.launch_count
+    print(f"  {what}: " + ", ".join(f"{n} {s:.4f} s" for n, s in res.phase_seconds.items())
+          + f"; wall {wall:.4f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"K1 launches {k1}", flush=True)
+    shape = (videos, 3, run["num_frames"], run["height"], run["width"])
+    if res.video is None or res.video.shape != shape or not np.isfinite(res.video).all() \
+            or not np.isfinite(res.latents).all():
+        fail(f"{what}: video {None if res.video is None else res.video.shape}, want a finite {shape}")
+    if k1 != want_k1:
+        fail(f"{what}: {k1} K1 launches, want {want_k1}")
+    return res, k1
+
+
+IC_LORA_LINEARS = [f"{attn}.{lin}" for attn in ("attn1", "attn2") for lin in ("to_q", "to_k", "to_v", "to_out.0")]
+
+
+def ic_lora_adapter(path: Path, config, device) -> dict:
+    """A seeded adapter in the reference format on the recipe of
+    ltx_trainer/configs/ltx2_ic_lora_v2v.yaml: rank 32 on to_q, to_k, to_v
+    and to_out.0 of attn1 and attn2 in every block (384 pairs at 48 blocks),
+    bf16."""
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+
+    g = torch.Generator(device=device).manual_seed(33)
+    d, state = config.inner_dim, {}
+    for i in range(config.num_layers):
+        for lin in IC_LORA_LINEARS:
+            key = f"diffusion_model.transformer_blocks.{i}.{lin}"
+            state[f"{key}.lora_A.weight"] = (torch.randn(32, d, generator=g, device=device) * 0.02).bfloat16()
+            state[f"{key}.lora_B.weight"] = (torch.randn(d, 32, generator=g, device=device) * 0.02).bfloat16()
+    save_safetensors(path, state)
+    return state
+
+
+def full_width_conditioned(models, text, fa, work: Path) -> dict:
+    """Phase 11: the conditioned distilled slice at full width on the bf16
+    DiT, with the seeded default encoder of phase 7a: (a) an image in replace
+    mode, (b) keyframes in guide mode, streamed, (c) IC-LoRA on a merged
+    adapter, (f) two videos in one batch, (d) a LoRA-merged stage-2 copy,
+    (e) stage-2 CFG batched and sequential."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.io import media
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+    from mlx_video_tpu_torch.models.ltx.video_vae import tiling
+    from mlx_video_tpu_torch.models.ltx.video_vae.decoder import add_decode_noise, video_decoder_apply
+    from mlx_video_tpu_torch.models.ltx.video_vae.encoder import video_encoder_apply
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning, decode_latents, select_tiling
+
+    device, bf16 = models.transformer.video.scale_shift_table.device, torch.bfloat16
+    config = models.transformer_config
+    size, frames = PHASE11_RUN["height"], PHASE11_RUN["num_frames"]
+    t_phase = time.perf_counter()
+    runs = {}
+    key_a, key_b, clip = work / "key_a.png", work / "key_b.png", work / "reference.mp4"
+    write_image(key_a, size, 31)
+    write_image(key_b, size, 32)
+    write_clip(clip, frames, size, 33)
+
+    res, runs["a"] = conditioned_run(models, text, fa, "(a) one image at frame 0, replace mode",
+                                     images=[(str(key_a), 0, 1.0)], seed=31)
+    with torch.no_grad():
+        pixels = media.prepare_image_for_encoding(media.load_image(key_a, size, size), size, size)
+        encoded = video_encoder_apply(models.vae_encoder, models.vae_encoder_config,
+                                      torch.from_numpy(pixels).to(device, bf16)).float().cpu()
+    d0 = ((torch.from_numpy(res.latents[:, :, :1]) - encoded).abs().max() / encoded.abs().max()).item()
+    print(f"  (a) latent frame 0 vs the encoded {size}x{size} image: max|d| {d0:.3e} of max (bar 2^-8)", flush=True)
+    if not d0 <= 2.0**-8:
+        fail("(a) latent frame 0 is not the encoded conditioning image")
+
+    keyframes = [(str(key_a), 0, 1.0), (str(key_b), frames - 1, 1.0)]
+    written, write = [], media.VideoWriter.write
+
+    def recording(self, frames):
+        written.append(frames.copy())
+        return write(self, frames)
+
+    media.VideoWriter.write = recording
+    try:
+        streamed, runs["b"] = conditioned_run(models, text, fa, "(b) keyframes at media frames 0 and 32, guide "
+                                              "mode, streamed", pipeline="keyframe", images=keyframes, stream=True,
+                                              output_path=work / "keyframe.mp4", seed=32)
+    finally:
+        media.VideoWriter.write = write
+    got = np.concatenate(written)
+    same = got.shape == (frames, size, size, 3) and np.array_equal(got, media.frames_to_uint8(streamed.video)[:frames])
+    print(f"  (b) the writer received {len(written)} pieces of {[len(w) for w in written]} frames; concatenated "
+          f"they equal frames_to_uint8 of the returned video bit for bit: {same}", flush=True)
+    if len(written) < 2 or not same:
+        fail("(b) the streamed frames are not the returned video's, in order, in more than one piece")
+    whole, runs["b_unstreamed"] = conditioned_run(models, text, fa, "(b) the same seed without the stream",
+                                                  pipeline="keyframe", images=keyframes, seed=32)
+    same_latents = np.array_equal(streamed.latents, whole.latents)
+    frame_db = [psnr(streamed.video[:, :, i], whole.video[:, :, i], 2.0) for i in range(frames)]
+    print(f"  (b) streamed vs unstreamed: latents bitwise equal {same_latents}; RGB per frame, two temporal tiles "
+          f"against none (no bar: a tiled decode on seeded weights, see PERF.md), min {min(frame_db):.2f} dB, "
+          f"frames 0-8 min {min(frame_db[:9]):.2f} dB, max {max(frame_db):.2f} dB", flush=True)
+    if not same_latents:
+        fail("(b) the stream changed the latents")
+    # the device blend against the host blend on the same tiles and decode noise
+    cfg = select_tiling("auto", size, size, frames, stream=True)
+    lat = torch.from_numpy(streamed.latents).to(device, bf16)
+    ts = torch.full((1,), 0.05, device=device)
+    noisy = add_decode_noise(models.vae_decoder_config, lat, generator=torch.Generator(device=device).manual_seed(7))
+    t0 = time.perf_counter()
+    host = tiling.decode_with_tiling(
+        lambda t: video_decoder_apply(models.vae_decoder, models.vae_decoder_config, torch.from_numpy(t).to(device, bf16),
+                                      timestep=ts).float().cpu().numpy(),
+        noisy.float().cpu().numpy(), cfg)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_card = decode_latents(models, lat, cfg, decode_timestep=0.05, generator=torch.Generator(device=device).manual_seed(7))
+    t_card = time.perf_counter() - t0
+    d_blend = float(np.abs(on_card - host).max())
+    print(f"  (b) decode with the device blend vs the host blend (2 temporal tiles): max|d| {d_blend:.3e} "
+          f"(bar 1e-6); {t_card:.4f} s vs {t_host:.4f} s", flush=True)
+    if not d_blend <= 1e-6:
+        fail(f"(b) the device blend differs from the host blend by {d_blend:.3e}")
+    del host, on_card, lat, noisy, streamed, whole
+
+    adapter = work / "ic_lora.safetensors"
+    state = ic_lora_adapter(adapter, config, device)
+    pairs = len(state) // 2
+    base = models.transformer
+    names = ("blocks.0.attn1.to_q", f"blocks.{config.num_layers - 1}.attn2.to_out")
+    base_w = {name: base.get_submodule(name).weight.detach().cpu().clone() for name in names}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        merged = merge_lora_into_params(base, [LoraSpec(adapter, 1.0)], verbose=True)
+    torch.cuda.synchronize()
+    print(f"  (c) {out.getvalue().strip()}; merge {time.perf_counter() - t0:.3f} s; device memory "
+          f"{before / 2**30:.3f} -> {torch.cuda.memory_allocated() / 2**30:.3f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if f"applied={pairs} skipped=0" not in out.getvalue():
+        fail(f"(c) the IC-LoRA adapter did not merge into all {pairs} linears")
+    for name in names:
+        key = "diffusion_model.transformer_blocks." + name[len("blocks."):].replace("to_out", "to_out.0")
+        a, b = state[f"{key}.lora_A.weight"].float().cpu(), state[f"{key}.lora_B.weight"].float().cpu()
+        want = (base_w[name].float() + (b @ a) * 1.0).to(bf16)
+        ulps = (merged.get_submodule(name).weight.cpu().view(torch.int16).long() - want.view(torch.int16).long()).abs()
+        n = int((ulps > 0).sum())
+        print(f"  (c) {name}: merged on the card vs the CPU merge: {n} of {ulps.numel()} elements differ, by at "
+              f"most {int(ulps.max())} bf16 ulp (bar: 1e-4 of them, 1 ulp)", flush=True)
+        if ulps.max() > 1 or n > 1e-4 * ulps.numel():
+            fail(f"(c) the merged {name} differs from the CPU merge")
+    del state
+    _, runs["c"] = conditioned_run(dataclasses.replace(models, transformer=merged), text, fa,
+                                   f"(c) IC-LoRA: a {frames}-frame reference clip at frame 0 on the merged DiT",
+                                   pipeline="ic_lora", video_conditionings=[(str(clip), 0, 1.0)], seed=33)
+    same = all(torch.equal(base.get_submodule(name).weight.cpu(), base_w[name]) for name in names)
+    print(f"  (c) the base DiT's {', '.join(names)} are unchanged: {same}", flush=True)
+    if not same:
+        fail("(c) the merge changed the base model")
+
+    batched, runs["f"] = conditioned_run(models, text, fa, "(f) num_videos=2 at seeds 35 and 36", videos=2,
+                                         num_videos=2, seed=35, output_path=work / "batch.mp4")
+    files = [work / f"batch_{i}.mp4" for i in range(2)]
+    if not all(f.is_file() and f.stat().st_size > 0 for f in files):
+        fail(f"(f) the batch wrote {[f.name for f in files if f.is_file()]}, want batch_0.mp4 and batch_1.mp4")
+    singles = [conditioned_run(models, text, fa, f"(f) the single run at seed {35 + i}", seed=35 + i)[0]
+               for i in range(2)]
+    worst = min(min_frame_psnr(batched.latents[i : i + 1], singles[i].latents) for i in range(2))
+    print(f"  (f) batched vs single runs: min per-frame latent PSNR {worst:.2f} dB (bar 35); files "
+          f"{[f.name for f in files]}", flush=True)
+    if not worst >= 35.0:
+        fail(f"(f) a batched video is {worst:.2f} dB from its single run")
+
+    with_lora, runs["d"] = conditioned_run(dataclasses.replace(models, stage2_transformer=merged), text, fa,
+                                           "(d) stage 2 on the merged DiT of (c), stage 1 on the base, seed 35",
+                                           seed=35)
+    moved = float(np.abs(with_lora.latents - singles[0].latents).max())
+    print(f"  (d) latents vs the same seed without the stage-2 copy: max|d| {moved:.4e} (must be > 0)", flush=True)
+    if not moved > 0:
+        fail("(d) the LoRA-merged stage-2 model changed nothing")
+    del merged, with_lora, batched, singles
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=device).manual_seed(36)
+    neg = torch.randn(*text.video_embeddings.shape, generator=g, device=device).to(bf16)
+    cfg_text = TextConditioning(text.video_embeddings, neg)
+    cfg_b, runs["e_batched"] = conditioned_run(models, cfg_text, fa, "(e) stage-2 CFG 4.0, batched", seed=36,
+                                               stage2_cfg=True, cfg_scale=4.0)
+    layers = config.num_layers
+    cfg_s, runs["e_sequential"] = conditioned_run(
+        models, cfg_text, fa, "(e) stage-2 CFG 4.0, sequential", seed=36, stage2_cfg=True, cfg_scale=4.0,
+        want_k1=layers * PHASE11_RUN["stage1_steps"] + 2 * layers * PHASE11_RUN["stage2_steps"], cfg_sequential=True)
+    de = min_frame_psnr(cfg_s.latents, cfg_b.latents)
+    print(f"  (e) sequential vs batched stage-2 CFG: min per-frame latent PSNR {de:.2f} dB (bar 35)", flush=True)
+    if not de >= 35.0:
+        fail(f"(e) sequential vs batched stage-2 CFG: {de:.2f} dB < 35 dB")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.2f} s; K1 launches by run {runs}", flush=True)
+    return {"k1": runs, "adapter": adapter, "keyframes": keyframes, "pairs": pairs}
 
 
 def full_width_w8a8(models, text, fa, qmm) -> dict:
@@ -1635,9 +1914,11 @@ def decoder_key(name: str) -> str:
     return key if key.startswith("per_channel") else "decoder." + key
 
 
-def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
-    """Write the q4 model as an MLX pre-quantized snapshot, load it back, run
-    the generate CLI on it, then the training CLI over its 4-bit file."""
+def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict:
+    """Write the q4 model as an MLX pre-quantized snapshot (with the seeded
+    encoder in its VAE file), load it back, run the generate CLI on it
+    (distilled, --w4a8, and phase 11's keyframe run: ``cond`` holds its
+    images and adapter), then the training CLI over its 4-bit file."""
     import torch
 
     from mlx_video_tpu_torch import loading
@@ -1651,7 +1932,8 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
             for k, v in models.transformer.state_dict().items()
         },
         "vae/diffusion_pytorch_model.safetensors": {
-            decoder_key(k): v for k, v in models.vae_decoder.state_dict().items()
+            **{decoder_key(k): v for k, v in models.vae_decoder.state_dict().items()},
+            **{f"encoder.{k}": v for k, v in models.vae_encoder.state_dict().items()},
         },
         loading.UPSAMPLER_FILE: dict(models.upsampler.state_dict()),
     }
@@ -1676,11 +1958,12 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
         del files
 
         t0 = time.perf_counter()
-        bundle = loading.load_model_bundle(snap, bits_hint=loading.bits_hint_for(str(snap)), device="cuda")
+        bundle = loading.load_model_bundle(snap, bits_hint=loading.bits_hint_for(str(snap)), load_encoder=True,
+                                           device="cuda")
         torch.cuda.synchronize()
         print(f"  load_model_bundle: {time.perf_counter() - t0:.2f} s", flush=True)
         n = 0
-        for part in ("transformer", "vae_decoder", "upsampler"):
+        for part in ("transformer", "vae_decoder", "upsampler", "vae_encoder"):
             want, got = getattr(models, part).state_dict(), getattr(bundle, part).state_dict()
             if set(want) != set(got):
                 fail(f"loaded {part} has other tensors: {sorted(set(want) ^ set(got))[:10]}")
@@ -1733,7 +2016,36 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path) -> dict:
               flush=True)
         check_launches(k1, k2, 0, int8, 10 * 48 * (8 + 3))
         torch.cuda.empty_cache()
-        return train_cli_over_q4(snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)
+
+        # phase 11 (g): the keyframe pipeline through the CLI, a 4-bit stage-2 model, streamed, with --lora
+        images = [arg for path, idx, strength in cond["keyframes"] for arg in ("--image", path, str(idx), str(strength))]
+        argv_g = [*argv[:argv.index("--output-path")], "--pipeline", "keyframe", *images, "--stage2-model-repo",
+                  str(snap), "--stream", "--lora", str(cond["adapter"]), "--output-path", str(tmp / "keyframe.mp4"),
+                  "--profile-json-path", str(report), "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        fa.launch_count = qmm.launch_count = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(argv_g)
+        finally:
+            print("  " + out.getvalue().strip().replace("\n", "\n  "), flush=True)
+        wall = time.perf_counter() - t0
+        k1, k2 = fa.launch_count, qmm.launch_count
+        for name, sec in json.loads(report.read_text())["phases"].items():
+            print(f"  CLI keyframe phase {name}: {sec:.4f} s", flush=True)
+        print(f"  CLI --pipeline keyframe --image x2 --stage2-model-repo --stream --lora: main wall {wall:.4f} s; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}",
+              flush=True)
+        if f"applied=0 skipped={cond['pairs']}" not in out.getvalue():
+            fail(f"(g) the CLI's --lora over the 4-bit base did not skip its {cond['pairs']} pairs")
+        if not (tmp / "keyframe.mp4").is_file() or (tmp / "keyframe.mp4").stat().st_size == 0:
+            fail("(g) the CLI wrote no keyframe.mp4")
+        check_launches(k1, k2, 10 * 48 * (8 + 3))
+        torch.cuda.empty_cache()
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **train_cli_over_q4(
+            snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1873,6 +2185,9 @@ def main() -> int:
         print("full-width dev slice (768x768x65: 5184 tokens, 40 steps, CFG 4.5, one image; K4 and K5 routes on):",
               flush=True)
         dev = full_width_dev(models, fa, ca, work)
+        print("full-width conditioned distilled slice (512x512x33, 8 + 3 steps; images, keyframes streamed, IC-LoRA, "
+              "a LoRA-merged stage-2 copy, stage-2 CFG, two videos):", flush=True)
+        cond = full_width_conditioned(models, text, fa, work)
         write_training_dataset(work / "data")
         print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
         train = full_width_training(models, fa, work / "data", work)
@@ -1887,7 +2202,7 @@ def main() -> int:
         full_width_w4a8(models, text, fa, qmm)
         print("MLX pre-quantized snapshot -> load_model_bundle -> generate CLI; training CLI over the 4-bit "
               "file:", flush=True)
-        cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data")
+        cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data", cond)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1904,6 +2219,8 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:102",
         "launches": train["k1"],
+        "path_launches": {"lora_training": train["k1"], "keyframe_cli": cli_train["k1_keyframe_cli"],
+                          **{f"conditioned_{run}": n for run, n in cond["k1"].items()}},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -1915,6 +2232,7 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "mlx_video_tpu/ops/quant_matmul.py:87",
         "launches": cli_train["k2"],
+        "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

@@ -1,21 +1,31 @@
-"""``python -m mlx_video_tpu_torch.generate`` — the distilled and dev video CLI.
+"""``python -m mlx_video_tpu_torch.generate`` — the video CLI: the distilled
+pipeline and its keyframe and IC-LoRA forms, and the dev pipeline.
 
 Counterpart of mlx_video_tpu/cli/generate.py on the same flag names (the
 port's own copy of the JAX package's framework-free ``build_parser`` and
 ``slugify``, as :func:`base_parser` and :func:`slugify`), plus ``--device`` (default
 ``cuda``; without CUDA it exits rather than run on the CPU, which takes
-``--device cpu``). The run loads the snapshot, optionally runs the
-transformer quantized (``--quantization``, ``--w8a8``, ``--w4a8``), encodes
-the prompt with the Gemma-3 text encoder (``--text-encoder-path``, bf16, or
-W8A8 with ``--w8a8``; the dev pipeline also encodes ``--negative-prompt`` or
-the default one) or reads precomputed text embeddings (``--embeddings``; a
-``video_neg`` entry is the negative prompt for CFG), generates, writes the
-mp4 and, with ``--profile-json-path``, the phase seconds.
+``--device cpu``). The run loads the snapshot (and a second transformer for
+stage 2 from ``--stage2-model-repo``), merges LoRA adapters into the dense
+weights (``--lora`` / ``--lora-strength`` into the transformer,
+``--distilled-lora`` into the stage-2 transformer, or into a copy of the
+transformer that then refines stage 2), optionally runs the transformers
+quantized (``--quantization``, ``--w8a8``, ``--w4a8``), encodes the prompt
+with the Gemma-3 text encoder (``--text-encoder-path``, bf16, or W8A8 with
+``--w8a8``; the dev pipeline and ``--stage2-dev`` also encode
+``--negative-prompt`` or the default one) or reads precomputed text
+embeddings (``--embeddings``; a ``video_neg`` entry is the negative prompt for
+CFG), generates, writes the mp4s (``--stream``: as the decode finalises
+frames; ``--num-videos N``: one a video, ``{stem}_{i}.mp4``; ``--save-frames``:
+also PNG frames) and, with ``--profile-json-path``, the phase seconds.
 ``--pipeline dev`` runs the dev pipeline (``--steps``, ``--cfg-scale``,
-``--no-cfg-batch``) with optional image conditioning (``--image PATH
-[FRAME_IDX] [STRENGTH]``, ``--condition-image``, ``--image-frame-idx``,
-``--image-strength``). Without ``video_neg`` the dev run has no CFG, as in
-the JAX package.
+``--no-cfg-batch``). Conditionings: ``--image PATH [FRAME_IDX] [STRENGTH]``
+(or ``--condition-image`` with ``--image-frame-idx`` and
+``--image-strength``), and for the distilled pipelines
+``--video-conditioning`` (``--reference-video``: one at frame 0, strength
+1); ``--pipeline keyframe`` puts images in guide mode and ``ic_lora`` needs a
+video. As in the JAX CLI, ``--conditioning-mode`` is accepted and never read:
+the pipeline decides the mode.
 
 Flags of features the port does not have yet exit with a message that names
 them; none is ignored.
@@ -253,14 +263,15 @@ _PORTED = frozenset({
     "model_repo", "checkpoint_path", "embeddings", "stage1_steps", "stage2_steps", "tiling",
     "video_encoder", "latents_only", "profile_json_path", "verbose", "quantize_bits", "pipeline",
     "device", "steps", "cfg_scale", "no_cfg_batch", "image", "condition_image", "image_frame_idx",
-    "image_strength", "w8a8", "w4a8", "text_encoder_path", "negative_prompt",
+    "image_strength", "w8a8", "w4a8", "text_encoder_path", "negative_prompt", "lora", "lora_strength",
+    "distilled_lora", "stage2_model_repo", "stage2_dev", "video_conditioning", "reference_video",
+    "conditioning_mode", "stream", "sigma_subsample", "num_videos", "save_frames",
 })
-_IMAGE_FLAGS = ("image", "condition_image", "image_frame_idx", "image_strength")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = base_parser()
-    p.description = "LTX-2 video generation, distilled and dev pipelines (PyTorch, CUDA)"
+    p.description = "LTX-2 video generation, distilled, keyframe, IC-LoRA and dev pipelines (PyTorch, CUDA)"
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; exits when CUDA is absent)")
     return p
@@ -269,18 +280,9 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) -> list:
     """Messages for the options in ``args`` that ask for what the port does
     not have yet."""
-    msgs = [action.option_strings[0] for action in parser._actions
+    return [action.option_strings[0] for action in parser._actions
             if action.dest not in _PORTED and action.option_strings
             and getattr(args, action.dest, action.default) != action.default]
-    if args.pipeline not in ("distilled", "dev"):
-        msgs.append(f"--pipeline {args.pipeline} (the distilled and dev pipelines are ported)")
-    elif args.pipeline == "distilled":
-        given = [action.option_strings[0] for action in parser._actions if action.dest in _IMAGE_FLAGS
-                 and getattr(args, action.dest) != action.default]
-        if given:
-            msgs.append(f"{', '.join(given)} with --pipeline distilled (image conditioning is ported for "
-                        "--pipeline dev)")
-    return msgs
 
 
 def load_embeddings(path, device=None):
@@ -303,9 +305,16 @@ def load_embeddings(path, device=None):
         return TextConditioning(video_embeddings=video, video_neg_embeddings=get("video_neg"))
 
 
+def _synced(device: torch.device) -> float:
+    """The host clock after a device synchronise on CUDA."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: dict):
-    """The prompt (and, for the dev pipeline, the negative prompt: the
-    given one or the default) through the Gemma-3 text encoder of
+    """The prompt (and, for the dev pipeline and ``--stage2-dev``, the
+    negative prompt: the given one or the default) through the Gemma-3 text encoder of
     ``--text-encoder-path`` (else the snapshot), bf16 or with ``--w8a8``
     W8A8, in ``dtype`` on ``device``; the encoder is freed after. Adds the
     ``text_encoder_load`` and ``text_encode`` phase seconds."""
@@ -313,25 +322,37 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     from mlx_video_tpu_torch.pipelines.generate import TextConditioning
     from mlx_video_tpu_torch.pipelines.prompts import DEFAULT_NEGATIVE_PROMPT
 
-    def synced():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
-
-    t0 = synced()
+    t0 = _synced(device)
     encoder = LTX2TextEncoder.load(model_path, args.text_encoder_path or model_path, dtype=dtype, w8a8=args.w8a8,
                                    device=device)
-    t1 = synced()
+    t1 = _synced(device)
     video, _ = encoder.encode(args.prompt)
     neg = args.negative_prompt
-    if neg is None and args.pipeline == "dev":
+    if neg is None and (args.pipeline == "dev" or args.stage2_dev):
         neg = DEFAULT_NEGATIVE_PROMPT
     video_neg = encoder.encode(neg)[0] if neg else None
-    phases["text_encoder_load"], phases["text_encode"] = t1 - t0, synced() - t1
+    phases["text_encoder_load"], phases["text_encode"] = t1 - t0, _synced(device) - t1
     del encoder
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return TextConditioning(video_embeddings=video, video_neg_embeddings=video_neg)
+
+
+def save_frames(video, output_path: Path) -> None:
+    """PNG frames of each (3, F, H, W) video in ``video``, to
+    ``{output_path without suffix}[_{i}]/frame_{n:05d}.png`` (``_{i}`` when
+    there are several videos), as the JAX CLI."""
+    from PIL import Image
+
+    from mlx_video_tpu_torch.io.media import frames_to_uint8
+
+    for vid in range(video.shape[0]):
+        frames_dir = output_path.with_suffix("")
+        if video.shape[0] > 1:
+            frames_dir = frames_dir.with_name(f"{frames_dir.name}_{vid}")
+        frames_dir.mkdir(parents=True, exist_ok=True)
+        for i, frame in enumerate(frames_to_uint8(video[vid : vid + 1])):
+            Image.fromarray(frame).save(frames_dir / f"frame_{i:05d}.png")
 
 
 def main(argv=None) -> None:
@@ -345,8 +366,11 @@ def main(argv=None) -> None:
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
     if args.condition_image:
         args.image.append([args.condition_image, str(args.image_frame_idx), str(args.image_strength)])
+    if args.reference_video:
+        args.video_conditioning.append([args.reference_video, "0", "1.0"])
 
     from mlx_video_tpu_torch import loading
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
     from mlx_video_tpu_torch.pipelines.generate import generate_video
     from mlx_video_tpu_torch.utils.hub import get_model_path
 
@@ -354,17 +378,30 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     models = loading.load_model_bundle(
         model_path, pipeline=args.pipeline, bits_hint=loading.bits_hint_for(args.checkpoint_path or args.model_repo),
-        load_encoder=bool(args.image), device=device,
+        stage2_path=get_model_path(args.stage2_model_repo) if args.stage2_model_repo else None,
+        load_encoder=bool(args.image or args.video_conditioning), device=device,
     )
+    merge_s = None
+    if args.lora or args.distilled_lora:
+        # merged into the dense weights before quantization, as the JAX CLI
+        t1 = _synced(device)
+        if args.lora:
+            specs = [LoraSpec(Path(p), args.lora_strength) for p in args.lora]
+            models.transformer = merge_lora_into_params(models.transformer, specs, verbose=True)
+        if args.distilled_lora:
+            specs = [LoraSpec(Path(p), args.lora_strength) for p in args.distilled_lora]
+            base = models.stage2_transformer if models.stage2_transformer is not None else models.transformer
+            models.stage2_transformer = merge_lora_into_params(base, specs, verbose=True)
+        merge_s = _synced(device) - t1
     try:
         loading.quantize_models(models, model_path, w8a8=args.w8a8, w4a8=args.w4a8,
                                 quantize_bits=args.quantize_bits,
                                 repo_hint=str(args.checkpoint_path or args.model_repo))
     except ValueError as e:
         raise SystemExit(str(e))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    phases = {"load": time.perf_counter() - t0}
+    phases = {"load": _synced(device) - t0 - (merge_s or 0.0)}
+    if merge_s is not None:
+        phases["lora_merge"] = merge_s
     print(f"Loaded {model_path} in {phases['load']:.2f} s", flush=True)
     if args.embeddings:
         text = load_embeddings(args.embeddings, device)
@@ -382,20 +419,27 @@ def main(argv=None) -> None:
         num_frames=args.num_frames,
         fps=args.fps,
         seed=args.seed,
+        num_videos=args.num_videos,
         stage1_steps=args.stage1_steps,
         stage2_steps=args.stage2_steps,
+        sigma_subsample=args.sigma_subsample,
+        stage2_cfg=args.stage2_dev,
         pipeline=args.pipeline,
         cfg_scale=args.cfg_scale,
         num_inference_steps=args.steps,
         cfg_sequential=args.no_cfg_batch,
         images=[_cond_arg(v) for v in args.image],
+        video_conditionings=[_cond_arg(v) for v in args.video_conditioning],
         output_path=None if args.latents_only else output_path,
         tiling=args.tiling,
+        stream=args.stream,
         decode_latents_only=args.latents_only,
         video_encoder=args.video_encoder,
         dtype=models.transformer.video.scale_shift_table.dtype,  # the dtype it was loaded in
     )
 
+    if args.save_frames and result.video is not None:
+        save_frames(result.video, output_path)
     phases.update(result.phase_seconds)
     if args.verbose:
         for name, secs in phases.items():

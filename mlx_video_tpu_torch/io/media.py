@@ -1,10 +1,12 @@
-"""Image loading and MP4 writing: the functions of mlx_video_tpu/io/media.py
-that the port calls (load_image and prepare_image_for_encoding, which resize
-with PIL's LANCZOS; frames_to_uint8, VideoWriter and write_video, with the cv2
-codec probe they need), copied whole and unchanged in behaviour, so that the
-port imports nothing of the JAX package.
+"""Image and video loading and MP4 writing: the functions of
+mlx_video_tpu/io/media.py that the port calls (load_image and
+prepare_image_for_encoding, which resize with PIL's LANCZOS; load_video and
+prepare_video_for_encoding, which read and resize with cv2; frames_to_uint8,
+VideoWriter and write_video, with the cv2 codec probe they need), copied whole
+and unchanged in behaviour, so that the port imports nothing of the JAX
+package.
 
-Behavioral spec: reference mlx_video/utils.py:529-683 (load/prepare) and
+Behavioral spec: reference mlx_video/utils.py:529-715 (load/prepare) and
 mlx_video/generate.py:1814-2033, 3569-3857 (cv2 writer, ffmpeg pipe writer).
 Host-side NumPy.
 """
@@ -48,6 +50,36 @@ def load_image(
     return np.asarray(image, dtype=np.float32) / 255.0
 
 
+def load_video(
+    video_path: Union[str, Path],
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+    frame_cap: Optional[int] = None,
+) -> np.ndarray:
+    """Load video frames as (F, H, W, 3) float32 in [0, 1]
+    (reference: utils.py:576-609)."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(video_path))
+    if not cap.isOpened():
+        raise ValueError(f"Unable to open video: {video_path}")
+    frames = []
+    while True:
+        ret, frame = cap.read()
+        if not ret:
+            break
+        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        if height is not None and width is not None:
+            frame = cv2.resize(frame, (width, height), interpolation=cv2.INTER_AREA)
+        frames.append(frame.astype(np.float32) / 255.0)
+        if frame_cap is not None and len(frames) >= frame_cap:
+            break
+    cap.release()
+    if not frames:
+        raise ValueError(f"No frames decoded from video: {video_path}")
+    return np.stack(frames, axis=0)
+
+
 def prepare_image_for_encoding(image: np.ndarray, height: int, width: int) -> np.ndarray:
     """(H, W, 3) [0,1] -> (1, 3, 1, H, W) in [-1, 1] (reference: utils.py:648-683)."""
     if image.shape[0] != height or image.shape[1] != width:
@@ -63,6 +95,18 @@ def prepare_image_for_encoding(image: np.ndarray, height: int, width: int) -> np
         )
     out = image * 2.0 - 1.0
     return np.transpose(out, (2, 0, 1))[None, :, None]
+
+
+def prepare_video_for_encoding(frames: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(F, H, W, 3) [0,1] -> (1, 3, F, H, W) in [-1, 1] (reference: utils.py:686-715)."""
+    import cv2
+
+    if frames.shape[1] != height or frames.shape[2] != width:
+        frames = np.stack(
+            [cv2.resize(f, (width, height), interpolation=cv2.INTER_AREA) for f in frames], axis=0
+        )
+    out = frames * 2.0 - 1.0
+    return np.transpose(out, (3, 0, 1, 2))[None]
 
 
 def frames_to_uint8(video: np.ndarray) -> np.ndarray:

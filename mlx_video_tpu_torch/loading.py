@@ -1,14 +1,14 @@
 """Model-bundle loading: resolve the weight files of a snapshot and build the
-components of the distilled or the dev video pipeline on one device.
+components of a video pipeline (distilled, keyframe, IC-LoRA or dev) on one
+device.
 
 Counterpart of mlx_video_tpu/loading.py for the video-only paths: the DiT of
 the pipeline's kind (PyTorch, MLX, MLX pre-quantized or native layout;
-io/weights.py), the VAE decoder, the VAE encoder when image conditioning
-needs it, and the 2x upsampler when the snapshot has it (io/vae_weights.py).
-:func:`quantize_models` applies the quantized execution modes (4/8-bit
-storage on K2, W8A8, W4A8). Not ported yet, and refused with
-``NotImplementedError``: the keyframe and IC-LoRA pipelines, audio and a
-separate stage-2 transformer.
+io/weights.py), a second DiT for stage 2 from another snapshot, the VAE
+decoder, the VAE encoder when conditionings need it, and the 2x upsampler
+when the snapshot has it (io/vae_weights.py). :func:`quantize_models`
+applies the quantized execution modes (4/8-bit storage on K2, W8A8, W4A8).
+Not ported yet, and refused with ``NotImplementedError``: audio.
 """
 
 from __future__ import annotations
@@ -124,27 +124,29 @@ def load_model_bundle(
 ) -> ModelBundle:
     """Load a video pipeline's components from a snapshot onto ``device``:
     the transformer of the pipeline's kind (``ltx-2-19b-dev*`` for the dev
-    pipeline, ``-distilled*`` otherwise), the VAE decoder, with
+    pipeline, ``-distilled*`` otherwise), with ``stage2_path`` a second one
+    of the same kind from that snapshot for stage 2, the VAE decoder, with
     ``load_encoder`` the VAE encoder (from the same VAE file), and, when the
     snapshot has it, the upsampler. The VAE parts are loaded over a seeded
     init, as the JAX loader fills its init."""
     pipeline = PipelineType(pipeline)
-    if pipeline not in (PipelineType.DISTILLED, PipelineType.DEV):
-        raise _not_ported(f"The {pipeline.value!r} pipeline", "Conditioning pipelines")
     if audio:
         raise _not_ported("Audio generation", "Audio")
-    if stage2_path is not None:
-        raise _not_ported("A separate stage-2 transformer", "Conditioning pipelines")
     model_path = Path(model_path)
     device = torch.device(device)
     config = model_config_for(pipeline.value, audio)
+    kind = "dev" if pipeline == PipelineType.DEV else "distilled"
 
     unified = unified_bundle_file(model_path)
     if unified is not None:
         transformer = load_native_params(unified, config, dtype=dtype, device=device, prefix="transformer.")
     else:
-        tf_file = resolve_transformer_file(model_path, pipeline.value, bits_hint)
+        tf_file = resolve_transformer_file(model_path, kind, bits_hint)
         transformer = load_dit_params([tf_file], config, dtype=dtype, device=device)
+    stage2 = None
+    if stage2_path is not None:
+        stage2 = load_dit_params([resolve_transformer_file(Path(stage2_path), kind, bits_hint)], config,
+                                 dtype=dtype, device=device)
 
     generator = torch.Generator(device=device).manual_seed(0)
     vae_file = resolve_vae_file(model_path, bits_hint)
@@ -172,6 +174,7 @@ def load_model_bundle(
         upsampler=upsampler,
         vae_encoder=encoder,
         vae_encoder_config=enc_cfg,
+        stage2_transformer=stage2,
     )
 
 
@@ -184,14 +187,17 @@ def quantize_models(
     quantize_bits: Optional[int] = None,
     repo_hint: str = "",
 ) -> None:
-    """Apply the quantized execution mode to the loaded transformer, in
+    """Apply the quantized execution mode to the loaded transformers, in
     place (the JAX function of the same name):
 
-    - ``quantize_bits``: quantize its dense block linears (group 64, ``core``
-      scope); linears a snapshot holds pre-quantized stay as they are;
-    - ``w8a8``: its dense block linears become ``Int8Linear``s;
-    - ``w4a8``: quantize it first if it holds no quantized linear, then give
-      every quantized linear its int8 scale (``prepare_w4a8``). The STORED
+    - ``quantize_bits``: quantize the stage-1 transformer's dense block
+      linears (group 64, ``core`` scope), as the JAX function does; linears a
+      snapshot holds pre-quantized stay as they are;
+    - ``w8a8``: the dense block linears of both transformers become
+      ``Int8Linear``s;
+    - ``w4a8``: quantize each transformer first if it holds no quantized
+      linear, then give every quantized linear its int8 scale
+      (``prepare_w4a8``). The STORED
       grid width comes from, in order: ``quantize_bits`` > ``quantization.json``
       next to the weights (``model_path``) > a hint in ``repo_hint``'s name >
       4; assuming 4 bits on an 8-bit snapshot would mis-scale every product.
@@ -200,11 +206,12 @@ def quantize_models(
     width of ``quantization.json``, raise ``ValueError``."""
     if w8a8 and w4a8:
         raise ValueError("--w8a8 and --w4a8 are mutually exclusive")
-    model = models.transformer
+    transformers = [m for m in (models.transformer, models.stage2_transformer) if m is not None]
     if quantize_bits:
-        quantize_dit_params(model, bits=quantize_bits)
+        quantize_dit_params(models.transformer, bits=quantize_bits)
     if w8a8:
-        quantize_params_w8a8(model)
+        for model in transformers:
+            quantize_params_w8a8(model)
     if w4a8:
         qmeta = (read_quantization_metadata(model_path) if model_path is not None else None) or {}
         bits = quantize_bits or qmeta.get("bits") or {"8bit": 8, "4bit": 4}.get(bits_hint_for(repo_hint)) or 4
@@ -213,6 +220,7 @@ def quantize_models(
                 f"--quantize-bits {quantize_bits} conflicts with the checkpoint's quantization.json "
                 f"bits={qmeta['bits']}"
             )
-        if not any(isinstance(m, QuantLinear) for m in model.modules()):
-            quantize_dit_params(model, bits=bits)
-        prepare_w4a8(model, bits=bits)
+        for model in transformers:
+            if not any(isinstance(m, QuantLinear) for m in model.modules()):
+                quantize_dit_params(model, bits=bits)
+            prepare_w4a8(model, bits=bits)

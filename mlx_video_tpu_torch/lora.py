@@ -1,20 +1,24 @@
-"""LoRA adapters for training: injection, the trainable mask, export in the
-reference adapter format, and loading an adapter back to continue training.
+"""LoRA adapters: the offline merge of adapter files into a model's dense
+weights for generation; for training, injection, the trainable mask, export
+in the reference adapter format, and loading an adapter back to continue
+training.
 
-Counterpart of the training half of mlx_video_tpu/lora.py (``inject_lora``,
-``lora_mask``, ``export_lora_state`` / ``save_lora`` and
-``load_lora_into_params``). The JAX package keeps the factors as extra leaves
+Counterpart of mlx_video_tpu/lora.py (``LoraSpec`` and
+``merge_lora_into_params``; ``inject_lora``, ``lora_mask``,
+``export_lora_state`` / ``save_lora`` and ``load_lora_into_params``). The JAX package keeps the factors as extra leaves
 of a linear's param dict, stacked (L, ...) over the blocks; here they are
 attributes of each ``Linear`` / ``QuantLinear`` / ``Int8Linear`` module:
 ``lora_A`` (r, in) and ``lora_B`` (out, r) fp32 parameters and a
 ``lora_scale`` fp32 buffer (alpha / rank), which ops/linear.py:linear applies. io/jax_bridge.py stacks
 and unstacks them like every other block leaf.
 
-The serving side (offline merge, runtime adapters and slots) is not ported yet.
+Runtime adapters and slots over a quantized base are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
@@ -43,6 +47,12 @@ DEFAULT_TARGET_MODULES = (
 )
 
 LORA_PARAMS = ("lora_A", "lora_B")
+
+
+@dataclass(frozen=True)
+class LoraSpec:
+    path: Path
+    strength: float = 1.0
 
 
 @dataclass
@@ -81,6 +91,65 @@ def iter_lora_pairs(
         base = _strip_lora_prefixes(prefix) + ".weight"
         base = sanitize_pt_key("model.diffusion_model." + base) or base
         yield base[: -len(".weight")], lora_sd[key], lora_sd[key_b]
+
+
+def _locate_linear(model: nn.Module, sanitized_module: str) -> Optional[nn.Module]:
+    """The linear of ``model`` that a sanitized module key names, or None
+    where the model has none there."""
+    mapped = dit_tree_path(sanitized_module + ".weight")
+    if mapped is None:
+        return None
+    try:
+        layer = model.get_submodule(mapped[: -len(".weight")])
+    except AttributeError:
+        return None
+    return layer if isinstance(layer, (Linear, QuantLinear, Int8Linear)) else None
+
+
+@contextmanager
+def _full_fp32_matmul():
+    """fp32 products without TF32 for the duration (the JAX merge's numpy
+    fp32 product); the caller's setting comes back after. Only the
+    ``allow_tf32`` flag is touched: PyTorch refuses to read the matmul
+    precision once its older and newer precision settings were mixed."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@torch.no_grad()
+def merge_lora_into_params(model: nn.Module, lora_specs: Sequence[LoraSpec], verbose: bool = False) -> nn.Module:
+    """Offline merge: W += strength * (B @ A) on each dense (out, in) weight
+    that an adapter names, computed in fp32 and cast back to W's dtype, one
+    spec after the other. As in the JAX package, only ``strength`` scales the
+    product (never alpha / rank), and a pair whose linear is quantized
+    (``QuantLinear``, ``Int8Linear``: use runtime adapters) or absent is
+    skipped and counted; ``[LoRA] {path} applied=N skipped=M`` is printed when
+    ``verbose`` or when nothing was applied.
+
+    Returns a new model and leaves ``model`` unchanged. The new model shares
+    every parameter and buffer that the merge does not write, so it costs
+    only the merged weights."""
+    shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    merged = copy.deepcopy(model, memo=shared)
+    for spec in lora_specs:
+        applied = skipped = 0
+        for module_key, a, b in iter_lora_pairs(load_lora_state(spec.path)):
+            layer = _locate_linear(merged, module_key)
+            if not isinstance(layer, Linear):
+                skipped += 1
+                continue
+            w = layer.weight
+            with _full_fp32_matmul():
+                delta = (b.to(w.device, torch.float32) @ a.to(w.device, torch.float32)) * spec.strength
+            layer.weight = nn.Parameter((w.float() + delta).to(w.dtype), requires_grad=w.requires_grad)
+            applied += 1
+        if verbose or applied == 0:
+            print(f"[LoRA] {spec.path} applied={applied} skipped={skipped}")
+    return merged
 
 
 def _module_matches(path_parts: Tuple[str, ...], targets: Sequence[str]) -> bool:

@@ -158,6 +158,28 @@ def _res_block(block: DecoderResBlock, x: torch.Tensor, causal: bool, padding_mo
     return h + x
 
 
+def add_decode_noise(
+    config: DecoderConfig,
+    sample: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The timestep-conditioned decoder's noise mix, noise * s + (1 - s) *
+    sample with s = ``decode_noise_scale``, in sample's dtype: ``noise``
+    (sample's shape) given or drawn in fp32 from ``generator``; the sample
+    unchanged with neither, or without timestep conditioning. Elementwise,
+    so mixing whole latents and then tiling them equals mixing each tile
+    with its slice of the noise."""
+    if not config.timestep_conditioning:
+        return sample
+    if noise is None and generator is not None:
+        noise = torch.randn(sample.shape, generator=generator, device=generator.device, dtype=torch.float32)
+    if noise is None:
+        return sample
+    noise = noise.to(device=sample.device, dtype=sample.dtype)
+    return noise * config.decode_noise_scale + (1.0 - config.decode_noise_scale) * sample
+
+
 def video_decoder_apply(
     decoder: VideoDecoder,
     config: DecoderConfig,
@@ -175,15 +197,7 @@ def video_decoder_apply(
     """
     b = sample.shape[0]
     dtype = sample.dtype
-    x = sample
-    if config.timestep_conditioning:
-        if noise is None and generator is not None:
-            noise = torch.randn(
-                sample.shape, generator=generator, device=generator.device, dtype=torch.float32
-            )
-        if noise is not None:
-            noise = noise.to(device=x.device, dtype=dtype)
-            x = noise * config.decode_noise_scale + (1.0 - config.decode_noise_scale) * x
+    x = add_decode_noise(config, sample, noise, generator)
     x = ops.denormalize_latents(x, decoder.latents_mean, decoder.latents_std)
 
     scaled_timestep = None

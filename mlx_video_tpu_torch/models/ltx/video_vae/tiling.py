@@ -1,17 +1,16 @@
 """Spatio-temporal tiled decoding with trapezoidal blending.
 
 The port's own copy of mlx_video_tpu/models/ltx/video_vae/tiling.py (framework-free code, copied whole and
-unchanged in behaviour), so that the port imports nothing of the JAX package.
+unchanged in behaviour), so that the port imports nothing of the JAX package, plus
+:func:`decode_with_tiling_device`, the PyTorch counterpart of the JAX module's device-blend path.
 
 Behavioral spec: reference mlx_video/models/ltx/video_vae/tiling.py:17-509
 (interval math, mask shapes, presets, causal temporal adjustment).
 
-TPU-native design: the tile loop runs on the host; each tile decode is a
-jitted device call (fixed tile shapes -> a handful of compiled graphs, one
-per distinct tile shape). Accumulation happens in host fp32 NumPy buffers:
-the decoded RGB video is usually far larger than the latents and may exceed
-HBM for long clips, and host accumulation makes the ``on_frames_ready``
-streaming callback a zero-copy slice.
+The tile loop runs on the host, one decoder call per tile. :func:`decode_with_tiling` accumulates in host
+fp32 NumPy buffers; :func:`decode_with_tiling_device` keeps the fp32 canvas and its weights on the tiles'
+device and reads back only finalised frame ranges. Both hand each finalised range to ``on_frames_ready``
+(streaming decode).
 """
 
 from __future__ import annotations
@@ -412,3 +411,61 @@ def decode_with_tiling(
     if on_frames_ready is not None and emitted < out_f:
         on_frames_ready(output[:, :, emitted:], emitted)
     return output
+
+
+def decode_with_tiling_device(
+    decode_tile_fn: Callable,
+    latents,
+    tiling_config: TilingConfig,
+    spatial_scale: int = 32,
+    temporal_scale: int = 8,
+    on_frames_ready: Optional[Callable[[np.ndarray, int], None]] = None,
+) -> np.ndarray:
+    """:func:`decode_with_tiling` with the blend and normalisation on the
+    latents' device (the JAX module's ``decode_with_tiling_device``).
+
+    ``latents`` is a torch tensor; ``decode_tile_fn`` maps a latent tile (a
+    view of it) to RGB on the same device. Each tile is blended into an fp32
+    canvas and weight buffer there, in the host path's order and arithmetic,
+    and only finalised frame ranges come back, normalised, as fp32 numpy (the
+    JAX module reads them back in fp16). Emission points and the return value
+    are the host path's. The canvas costs 4 x (3 + 1) / 3 bytes a video
+    element on the device.
+    """
+    import torch
+
+    b, device = latents.shape[0], latents.device
+    work, t_iv, num_t, out_f, out_h, out_w = _tile_work(latents, tiling_config, spatial_scale, temporal_scale)
+    canvas = torch.zeros((b, 3, out_f, out_h, out_w), dtype=torch.float32, device=device)
+    weights = torch.zeros((b, 1, out_f, out_h, out_w), dtype=torch.float32, device=device)
+    chunks: List[np.ndarray] = []
+    emitted = 0
+
+    def emit(stop: int) -> None:
+        nonlocal emitted
+        chunk = (canvas[:, :, emitted:stop] / weights[:, :, emitted:stop].clamp_min(1e-8)).cpu().numpy()
+        if on_frames_ready is not None:
+            on_frames_ready(chunk, emitted)
+        chunks.append(chunk)
+        emitted = stop
+
+    for t_idx, last, tile, region_sl, masks in work:
+        decoded = decode_tile_fn(tile).float()
+        out_t, out_h_sl, out_w_sl = region_sl
+        dt = min(decoded.shape[2], out_t.stop - out_t.start)
+        dh = min(decoded.shape[3], out_h_sl.stop - out_h_sl.start)
+        dw = min(decoded.shape[4], out_w_sl.stop - out_w_sl.start)
+        t_mask, h_mask, w_mask = (torch.from_numpy(m[:n]).to(device) for m, n in zip(masks, (dt, dh, dw)))
+        blend = t_mask.reshape(1, 1, -1, 1, 1) * h_mask.reshape(1, 1, 1, -1, 1) * w_mask.reshape(1, 1, 1, 1, -1)
+        region = (slice(None), slice(None), slice(out_t.start, out_t.start + dt),
+                  slice(out_h_sl.start, out_h_sl.start + dh), slice(out_w_sl.start, out_w_sl.start + dw))
+        canvas[region] += decoded[:, :, :dt, :dh, :dw] * blend
+        weights[region] += blend
+        if on_frames_ready is not None and last and num_t > 1 and t_idx < num_t - 1:
+            next_start_latent = t_iv.starts[t_idx + 1]
+            next_start_out = 0 if next_start_latent == 0 else 1 + (next_start_latent - 1) * temporal_scale
+            if next_start_out > emitted:
+                emit(next_start_out)
+    if emitted < out_f:
+        emit(out_f)
+    return np.concatenate(chunks, axis=2) if len(chunks) > 1 else chunks[0]

@@ -146,18 +146,18 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
 
 
 @pytest.mark.parametrize("flags, named", [
-    (["--lora", "x.safetensors"], "--lora"),
-    (["--distilled-lora", "x.safetensors"], "--distilled-lora"),
-    (["--stage2-model-repo", "x"], "--stage2-model-repo"),
+    (["--audio-mode", "joint"], "--audio-mode"),
+    (["--cfg-cache-interval", "2"], "--cfg-cache-interval"),
+    (["--attn-broadcast-interval", "2"], "--attn-broadcast-interval"),
     (["--mesh", "auto"], "--mesh"),
-    (["--image", "a.png"], "--image"),
+    (["--mem-log"], "--mem-log"),
     (["--audio"], "--audio"),
-    (["--pipeline", "keyframe"], "--pipeline keyframe"),
+    (["--profile"], "--profile"),
     (["--teacache-threshold", "0.1"], "--teacache-threshold"),
     (["--enhance-prompt"], "--enhance-prompt"),
     (["--skip-audio"], "--skip-audio"),
     (["--temperature", "0.2"], "--temperature"),
-    (["--image-strength", "0.5"], "--image-strength"),
+    (["--trace-dir", "x"], "--trace-dir"),
 ])
 def test_unported_flags_exit_with_their_names(emb_file, flags, named):
     with pytest.raises(SystemExit, match=named):
@@ -278,3 +278,171 @@ def test_load_embeddings(tmp_path, key, shape):
     save_safetensors(path, {"audio": arr})
     with pytest.raises(ValueError, match="video"):
         cli.load_embeddings(path)
+
+
+# --- LoRA merges, a stage-2 transformer, the conditioned pipelines, batches ---
+
+def _adapter_file(path, seed: int):
+    """A reference-format adapter on the attention linears of both layers of
+    the tiny DiT."""
+    rng = np.random.default_rng(seed)
+    d = tiny_test_config().inner_dim
+    state = {}
+    for i in (0, 1):
+        for lin in ("attn1.to_q", "attn1.to_k", "attn2.to_v", "attn2.to_out.0"):
+            key = f"diffusion_model.transformer_blocks.{i}.{lin}"
+            state[f"{key}.lora_A.weight"] = rng.normal(size=(4, d)).astype(np.float32) * 0.1
+            state[f"{key}.lora_B.weight"] = rng.normal(size=(d, 4)).astype(np.float32) * 0.1
+    save_safetensors(path, state)
+    return path
+
+
+def test_main_lora_then_quantize_equals_a_merge_followed_by_quantization(monkeypatch, tmp_path, emb_file, capsys):
+    """--lora A --lora-strength 0.5 --quantize-bits 4: the adapter is merged
+    into the dense weights first, then the DiT is quantized (as the JAX CLI:
+    a merge into 4-bit words would be skipped)."""
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+    from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+
+    adapter = _adapter_file(tmp_path / "a.safetensors", 1)
+    bundle = _tiny_bundle()
+    out = _run_main(monkeypatch, tmp_path, emb_file, bundle,
+                    ("--lora", str(adapter), "--lora-strength", "0.5", "--quantize-bits", "4"))
+    assert out.stat().st_size > 0 and f"[LoRA] {adapter} applied=8 skipped=0" in capsys.readouterr().out
+    want = merge_lora_into_params(_tiny_bundle().transformer, [LoraSpec(adapter, 0.5)])
+    quantize_dit_params(want, bits=4)
+    got = bundle.transformer.state_dict()
+    assert set(got) == set(want.state_dict())
+    for k, v in want.state_dict().items():
+        assert torch.equal(got[k], v), k
+    assert {"load", "lora_merge"} <= set(json.loads((tmp_path / "phases.json").read_text())["phases"])
+
+
+@pytest.mark.parametrize("with_stage2", [False, True])
+def test_main_distilled_lora_merges_into_the_stage2_transformer(monkeypatch, tmp_path, emb_file, with_stage2):
+    """--distilled-lora: merged into the stage-2 transformer, or, without
+    one, into a copy of the transformer that then refines stage 2; the
+    stage-1 transformer keeps its weights."""
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+
+    adapter = _adapter_file(tmp_path / "d.safetensors", 2)
+    bundle = _tiny_bundle()
+    if with_stage2:
+        bundle.stage2_transformer = init_ltx_params(bundle.transformer_config, torch.Generator().manual_seed(5),
+                                                    device="cpu", dtype=torch.float32)
+    stage1, base = bundle.transformer, bundle.stage2_transformer or bundle.transformer
+    before = {k: v.clone() for k, v in stage1.state_dict().items()}
+    seen, forward = [], dn.ltx_apply
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(m) or forward(m, c, video))
+    _run_main(monkeypatch, tmp_path, emb_file, bundle, ("--distilled-lora", str(adapter)))
+    assert bundle.transformer is stage1 and seen[0] is stage1 and seen[-1] is bundle.stage2_transformer
+    for k, v in stage1.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    want = merge_lora_into_params(base, [LoraSpec(adapter, 1.0)]).state_dict()
+    for k, v in bundle.stage2_transformer.state_dict().items():
+        assert torch.equal(v, want[k]), k
+
+
+def test_main_stage2_model_repo_loads_a_second_transformer(monkeypatch, tmp_path, emb_file):
+    stage2_dir = tmp_path / "stage2"
+    stage2_dir.mkdir()
+    calls = []
+
+    def fake_load(*args, **kwargs):
+        calls.append(kwargs)
+        return _tiny_bundle()
+
+    monkeypatch.setattr(loading, "load_model_bundle", fake_load)
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb_file),
+              "--stage2-model-repo", str(stage2_dir), "--height", "64", "--width", "64", "--num-frames", "9",
+              "--stage1-steps", "1", "--stage2-steps", "1", "--latents-only", "--device", "cpu"])
+    assert calls[0]["stage2_path"] == stage2_dir and calls[0]["load_encoder"] is False
+
+
+def _write_clip(path, frames: int = 9, size: int = 64):
+    import cv2
+
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (size, size))
+    rng = np.random.default_rng(3)
+    for _ in range(frames):
+        writer.write(rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8))
+    writer.release()
+    return path
+
+
+@pytest.mark.parametrize("pipeline", ["keyframe", "ic_lora", "distilled"])
+def test_main_conditioned_distilled_pipelines(monkeypatch, tmp_path, emb_file, pipeline):
+    """--pipeline keyframe with two images (guide mode), ic_lora with
+    --reference-video, distilled with --image and --video-conditioning; all
+    streamed, with uniformly subsampled sigmas, to an mp4."""
+    image = tmp_path / "img.png"
+    Image.fromarray(np.random.default_rng(4).integers(0, 256, size=(64, 64, 3), dtype=np.uint8)).save(image)
+    clip = str(_write_clip(tmp_path / "ref.mp4"))
+    extra = {
+        "keyframe": ["--image", str(image), "0", "1.0", "--image", str(image), "8", "0.8"],
+        "ic_lora": ["--reference-video", clip],
+        "distilled": ["--condition-image", str(image), "--video-conditioning", clip, "0", "0.9"],
+    }[pipeline]
+    calls = []
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: calls.append(kw) or _tiny_dev_bundle())
+    out = tmp_path / "c.mp4"
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb_file), "--pipeline",
+              pipeline, "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "2",
+              "--stage2-steps", "1", "--stream", "--sigma-subsample", "uniform", "--output-path", str(out),
+              "--profile-json-path", str(tmp_path / "phases.json"), "--device", "cpu", *extra])
+    assert out.stat().st_size > 0
+    assert calls[0]["pipeline"] == pipeline and calls[0]["load_encoder"] is True
+    assert "cond_encode" in json.loads((tmp_path / "phases.json").read_text())["phases"]
+
+
+def test_main_num_videos_writes_one_mp4_and_one_frame_folder_a_video(monkeypatch, tmp_path, emb_file):
+    _run_main(monkeypatch, tmp_path, emb_file, _tiny_bundle(), ("--num-videos", "2", "--save-frames"))
+    for i in (0, 1):
+        assert (tmp_path / f"out_{i}.mp4").stat().st_size > 0
+        assert sorted(p.name for p in (tmp_path / f"out_{i}").iterdir()) == [f"frame_{n:05d}.png" for n in range(9)]
+    assert not (tmp_path / "out.mp4").exists()
+
+
+def test_main_conditioning_mode_is_accepted_and_changes_nothing(monkeypatch, tmp_path, emb_file):
+    """As the JAX CLI, which parses --conditioning-mode and never reads it
+    (the pipeline decides the mode): the same run, the same latents."""
+    from mlx_video_tpu_torch.pipelines import generate as tgen
+
+    image = tmp_path / "img.png"
+    Image.fromarray(np.random.default_rng(5).integers(0, 256, size=(64, 64, 3), dtype=np.uint8)).save(image)
+    results, run = [], tgen.generate_video
+    monkeypatch.setattr(tgen, "generate_video", lambda *a, **kw: results.append(run(*a, **kw)) or results[-1])
+    for extra in ((), ("--conditioning-mode", "guide")):
+        _run_main(monkeypatch, tmp_path, emb_file, _tiny_dev_bundle(), ("--image", str(image), "--latents-only",
+                                                                        *extra))
+    np.testing.assert_array_equal(results[0].latents, results[1].latents)
+
+
+def test_main_stage2_dev_runs_cfg_at_stage2(monkeypatch, tmp_path):
+    """--stage2-dev with a video_neg entry: stage 1 without CFG, stage 2 with
+    one doubled forward a step (batched), or two with --no-cfg-batch."""
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+
+    emb, _ = _dev_files(tmp_path, with_neg=True)
+    seen, forward = [], dn.ltx_apply
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    for extra, want in (((), [1, 1, 2]), (("--no-cfg-batch",), [1, 1, 1, 1])):
+        seen.clear()
+        _run_main(monkeypatch, tmp_path, emb, _tiny_bundle(), ("--stage2-dev", "--stage1-steps", "2", "--latents-only",
+                                                               *extra))
+        assert seen == want
+
+
+def test_main_stage2_dev_prompt_encodes_the_default_negative_prompt(monkeypatch, tmp_path, text_encoder_dir):
+    """--stage2-dev without --negative-prompt encodes the default one, as the
+    JAX CLI, so stage 2 runs CFG."""
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+
+    seen, forward = [], dn.ltx_apply
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_bundle())
+    cli.main(["--prompt", "p", "--checkpoint-path", str(text_encoder_dir), "--stage2-dev", "--stage1-steps", "1",
+              "--stage2-steps", "1", "--height", "64", "--width", "64", "--num-frames", "9", "--latents-only",
+              "--device", "cpu"])
+    assert seen == [1, 2]

@@ -3,7 +3,7 @@ the originals, one parametrised test per copied module, on the same inputs.
 
 The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
 configuration, the sigma schedules, the position grids, the numpy part of the
-VAE tiling, the mp4 writer's frame conversion, the image loading, the generate
+VAE tiling, the mp4 writer's frame conversion, the image and video loading, the generate
 and train CLIs' parsers and ``slugify``, the hub's ``get_model_path``, the
 dev pipeline's default negative prompt, and the loader's ``bits_hint_for`` and
 ``read_quantization_metadata``. Every comparison
@@ -190,6 +190,30 @@ def test_image_copy(tmp_path, size, target):
     for h, w in ((got.shape[0], got.shape[1]), (32, 64)):
         np.testing.assert_array_equal(tmedia.prepare_image_for_encoding(got, h, w),
                                       jmedia.prepare_image_for_encoding(ref, h, w))
+
+
+@pytest.mark.parametrize("target, cap", [((64, 96), None), ((32, 48), 5), ((None, None), 3), ((64, 96), 20)])
+def test_video_copy(tmp_path, target, cap):
+    """load_video (cv2 decode, INTER_AREA resize, a frame cap) and
+    prepare_video_for_encoding (with and without its resize), on an mp4
+    written with cv2."""
+    import cv2
+
+    path = tmp_path / "clip.mp4"
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (96, 64))
+    rng = np.random.default_rng(2)
+    for _ in range(9):
+        writer.write(rng.integers(0, 256, size=(64, 96, 3), dtype=np.uint8))
+    writer.release()
+    got, ref = tmedia.load_video(path, *target, frame_cap=cap), jmedia.load_video(path, *target, frame_cap=cap)
+    assert got.shape[0] == min(9, cap or 9)
+    np.testing.assert_array_equal(got, ref)
+    for h, w in ((got.shape[1], got.shape[2]), (32, 64)):
+        np.testing.assert_array_equal(tmedia.prepare_video_for_encoding(got, h, w),
+                                      jmedia.prepare_video_for_encoding(ref, h, w))
+    for mod in (tmedia, jmedia):
+        with pytest.raises(ValueError, match="Unable to open video"):
+            mod.load_video(tmp_path / "missing.mp4")
 
 
 @pytest.mark.parametrize("layout", ["unified", "single_file", "subsystems", "incomplete"])

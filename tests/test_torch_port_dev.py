@@ -343,15 +343,20 @@ def test_generate_video_dev_with_an_image(dev_bundle, tmp_path):
 
 
 def test_generate_video_refuses_what_is_not_ported(dev_bundle, tmp_path):
+    """What generate_video refuses, as the JAX function does: the IC-LoRA
+    pipeline without a video, video conditionings in the dev pipeline, an
+    unknown sigma subsampling, conditionings in a batch of videos, and
+    conditioning without a VAE encoder."""
     text = tgen.TextConditioning(torch.zeros(1, 8, 48))
-    for pipeline in ("keyframe", "ic_lora"):
-        with pytest.raises(NotImplementedError, match=pipeline):
-            tgen.generate_video(dev_bundle, text, pipeline=pipeline, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Video conditioning"):
+    with pytest.raises(ValueError, match="IC-LoRA pipeline requires video conditionings"):
+        tgen.generate_video(dev_bundle, text, pipeline="ic_lora", dtype=torch.float32)
+    with pytest.raises(ValueError, match="Video conditioning is only supported"):
         tgen.generate_video(dev_bundle, text, pipeline="dev", video_conditionings=[("v.mp4", 0, 1.0)],
                             dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="distilled"):
-        tgen.generate_video(dev_bundle, text, images=[("a.png", 0, 1.0)], dtype=torch.float32)
+    with pytest.raises(ValueError, match="sigma_subsample"):
+        tgen.generate_video(dev_bundle, text, sigma_subsample="linear", dtype=torch.float32)
+    with pytest.raises(ValueError, match="num_videos > 1"):
+        tgen.generate_video(dev_bundle, text, num_videos=2, images=[("a.png", 0, 1.0)], dtype=torch.float32)
     no_encoder = tgen.ModelBundle(dev_bundle.transformer, dev_bundle.transformer_config, dev_bundle.vae_decoder,
                                   dev_bundle.vae_decoder_config)
     with pytest.raises(ValueError, match="VAE encoder"):

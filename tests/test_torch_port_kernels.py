@@ -37,8 +37,14 @@ equal int8_attention_operands' bit for bit.
 The int8 products of W8A8 (torch._int_mm) are exact, so the card's int32
 equals the CPU's. quantize_affine divides as JAX's quantize_affine does, so
 its scales, biases and words on the card equal the CPU's.
+The LoRA merge on the card (lora.merge_lora_into_params: fp32 B A in full
+fp32, even with TF32 switched on, added to W in fp32) against the CPU's:
+fp32 weights within one ulp, bf16 weights with at most 1e-4 of the elements
+one bf16 ulp apart (cuBLAS and the CPU sum the rank products in their own
+orders).
 """
 
+import copy
 import threading
 
 import pytest
@@ -636,3 +642,39 @@ def test_quantize_affine_on_the_card_equals_the_cpu(gen, bits, group, dtype):
     want = quantize_affine(w.cpu(), group, bits)
     for name, a, r in zip(("packed", "scales", "biases"), got, want):
         assert a.dtype == r.dtype and torch.equal(a.cpu(), r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_merge_on_the_card_equals_the_cpu(gen, tmp_path, dtype):
+    from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+    from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
+
+    cfg = tiny_test_config(LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT)
+    g = torch.Generator().manual_seed(1)
+    model = init_ltx_params(cfg, g, device="cpu", dtype=dtype)
+    state = {}
+    for i in range(cfg.num_layers):
+        for lin in ("attn1.to_q", "attn1.to_out.0", "attn2.to_k", "attn2.to_v"):
+            key = f"diffusion_model.transformer_blocks.{i}.{lin}"
+            state[f"{key}.lora_A.weight"] = torch.randn(32, cfg.inner_dim, generator=g) * 0.1
+            state[f"{key}.lora_B.weight"] = torch.randn(cfg.inner_dim, 32, generator=g) * 0.1
+    save_safetensors(tmp_path / "a.safetensors", state)
+    specs = [LoraSpec(tmp_path / "a.safetensors", 0.75)]
+    want = merge_lora_into_params(model, specs).state_dict()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = merge_lora_into_params(copy.deepcopy(model).to("cuda"), specs).state_dict()
+        assert torch.backends.cuda.matmul.allow_tf32  # the caller's setting comes back
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        ulps = (got[k].cpu().view(bits).long() - v.view(bits).long()).abs()
+        assert ulps.max().item() <= 1, k
+        if dtype == torch.bfloat16:
+            assert (ulps > 0).sum().item() <= 1e-4 * ulps.numel(), k

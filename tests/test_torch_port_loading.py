@@ -435,9 +435,13 @@ def test_read_quantization_metadata(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"pipeline": "keyframe"}, {"audio": True}, {"pipeline": "ic_lora"}, {"stage2_path": "x"},
+    {"audio": True, "pipeline": "keyframe"}, {"audio": True}, {"audio": True, "pipeline": "ic_lora"},
+    {"audio": True, "stage2_path": "x"},
 ])
 def test_load_model_bundle_refuses_unported_parts(tmp_path, kwargs):
+    """Audio is refused by name before anything loads, with every pipeline
+    and with a stage-2 transformer (the keyframe and IC-LoRA pipelines and
+    the stage-2 file are loaded: tests/test_torch_port_conditioned.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloading.load_model_bundle(tmp_path, device="cpu", **kwargs)
 

@@ -6,7 +6,8 @@ a tiled decode, and gates per-frame latent and RGB PSNR at >= 35 dB, the gate
 of tests/test_torch_cross_pipeline.py. The remaining tests run the port's
 ``generate_video`` end to end at a tiny size, and once in a process where
 JAX and ml_dtypes cannot be imported (distilled, dev with an image and both
-kernel routes on, q4, a training step, W8A8, a W8A8 text encoder on token ids
+kernel routes on, keyframe with a LoRA-merged stage-2 copy and stage-2 CFG,
+streamed, a batch of two videos, q4, a training step, W8A8, a W8A8 text encoder on token ids
 and the int8 attention's plain version).
 """
 
@@ -197,7 +198,9 @@ for info in pkgutil.walk_packages(mlx_video_tpu_torch.__path__, "mlx_video_tpu_t
     importlib.import_module(info.name)
 assert "mlx_video_tpu_torch.trainer.trainer" in sys.modules and "mlx_video_tpu_torch.cli.train" in sys.modules
 assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "mlx_video_tpu_torch.models.ltx.text_encoder",
-        "mlx_video_tpu_torch.io.text_encoder_weights", "mlx_video_tpu_torch.pipelines.prompts"} <= set(sys.modules)
+        "mlx_video_tpu_torch.io.text_encoder_weights", "mlx_video_tpu_torch.pipelines.prompts",
+        "mlx_video_tpu_torch.lora", "mlx_video_tpu_torch.io.media", "mlx_video_tpu_torch.models.ltx.video_vae.tiling",
+        "mlx_video_tpu_torch.pipelines.conditioning"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
@@ -234,6 +237,25 @@ with tempfile.TemporaryDirectory() as tmp:
 assert res.video.shape == (1, 3, 9, 64, 64) and set(res.phase_seconds) == {"cond_encode", "dev_denoise", "vae_decode"}
 use_cross_kernel(False)
 use_fused_rope(False)
+# the keyframe pipeline, streamed, with stage-2 CFG on a LoRA-merged stage-2 copy; then two videos in one batch
+from mlx_video_tpu_torch.io.safetensors import save_safetensors
+from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+with tempfile.TemporaryDirectory() as tmp:
+    Image.fromarray(np.full((64, 64, 3), 90, np.uint8)).save(f"{tmp}/key.png")
+    key = "diffusion_model.transformer_blocks.0.attn1.to_q"
+    save_safetensors(f"{tmp}/lora.safetensors", {f"{key}.lora_A.weight": torch.ones(2, cfg.inner_dim),
+                                                 f"{key}.lora_B.weight": torch.full((cfg.inner_dim, 2), 0.01)})
+    models.stage2_transformer = merge_lora_into_params(models.transformer, [LoraSpec(f"{tmp}/lora.safetensors", 0.5)])
+    res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels),
+                                                  torch.ones(1, 4, cfg.caption_channels)),
+                         height=64, width=64, num_frames=9, pipeline="keyframe", stage1_steps=1, stage2_steps=1,
+                         stage2_cfg=True, images=[(f"{tmp}/key.png", 0, 1.0)], stream=True,
+                         output_path=f"{tmp}/k.mp4", video_encoder="cv2", dtype=torch.float32)
+    assert res.video.shape == (1, 3, 9, 64, 64)
+models.stage2_transformer = None
+res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64, width=64,
+                     num_frames=9, stage1_steps=1, stage2_steps=1, num_videos=2, dtype=torch.float32)
+assert res.video.shape == (2, 3, 9, 64, 64)
 # the q4 path: quantize in place, write and read a native file, generate
 import tempfile
 from mlx_video_tpu_torch.io.weights import load_dit_params, save_dit_params
