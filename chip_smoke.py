@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero before the last line:
    path's shapes), (2, 320) and (2, 1280) (two videos in a batch; stage-2
    CFG), (1, 3456) (the training shape), (1, 1000) (ragged),
    (1, 5184) and (2, 5184) (the dev path's with the routes off), plus (1,
-   1280) at D=64. Every shape is checked with its lse: max |d o| <= 2e-2,
-   relative L2 of o <= 4e-3 (bf16 rounding of P and of o reads about 2.4e-3;
-   one key tile's P V left out reads 0.16 at S=5184) and max |d lse| <= 1e-3;
+   1280) at D=64 and the AV paths' audio self-attention at D=64: (1, 34),
+   (2, 34) (the AudioOnly DiT under audio CFG), (2, 68) and (2, 1). Every
+   shape is checked with its lse: max |d o| <= 2e-2, relative L2 of o <=
+   4e-3 (bf16 rounding of P and of o reads about 2.4e-3; one key tile's P V
+   left out reads 0.16 at S=5184) and max |d lse| <= 1e-3;
    every shape is printed before a failure ends the phase. Median times of
    both and of F.scaled_dot_product_attention's forward (a yardstick, never
    on the path) from CUDA events after warm-up, K1's share of its bound and
@@ -22,8 +24,13 @@ Phases, in order; any failure exits non-zero before the last line:
 4. K2 vs plain: the dequantizing matmul against its plain version (the same
    bf16 weights, dequantized, then a matmul) at the q4 paths' shapes, M in
    (128, 320, 1280) (inference) and 3456 (a LoRA step's video rows) x (K, N)
-   in ((4096, 4096), (4096, 16384), (16384, 4096)), and (1024, 4096, 4096)
-   (a LoRA step's caption rows), bits 4, group 64, plus bits 8 / group 128, bits 2 / group 32,
+   in ((4096, 4096), (4096, 16384), (16384, 4096)), (1024, 4096, 4096)
+   (a LoRA step's caption rows), and the AV path's (34, 2048, 2048), (34,
+   2048, 8192), (34, 8192, 2048) (audio rows; 68 rows at B = 2 under audio
+   CFG), (128, 2048, 2048) and (256, 2048, 2048) (audio caption rows, B = 1
+   and 2), (320 and 1280, 4096, 2048) and (320 and 1280, 2048, 4096) (the
+   cross-modal projections of the video rows), bits 4, group 64, plus bits
+   8 / group 128, bits 2 / group 32,
    bits 4 / group 16, a ragged M = 300 and bf16 and fp16 scales: max |d y|
    <= 1e-2 max |y| and relative L2 <= 1e-3 (only the summation order and
    the bf16 rounding of y differ). The control, at every case with fp32
@@ -51,7 +58,10 @@ Phases, in order; any failure exits non-zero before the last line:
    bf16 at H=32, D=128: (B, Sq, Skv) = (2, 5184, 128) (the dev path's, batched
    CFG, no mask), (1, 3456, 1024) with 128 real keys (the trainer's), a ragged
    Skv = 77, a batch row whose keys are all masked (it must be the mean of v)
-   and two rows with different masks: max |d o| <= 2e-2 (K1's bar), every
+   and two rows with different masks; then the AV dev path's at D=64: (2, 68,
+   128) (audio text attention), (2, 5184, 68) (audio-to-video, the resident
+   kernel) and (2, 68, 5184) (video-to-audio, the streamed kernel):
+   max |d o| <= 2e-2 (K1's bar), every
    case printed before a failure ends the phase. Median
    times of K4, the plain version and F.scaled_dot_product_attention with the
    additive mask (a yardstick, never on the path), K4's share of its bound
@@ -61,12 +71,14 @@ Phases, in order; any failure exits non-zero before the last line:
 5b. K5 vs plain: flash attention with split RoPE (a rotation pass, then K1's
    kernel) against its plain version (q and k rotated in fp32 and cast back,
    exact attention) at (B, S) = (2, 5184) (the dev path's), (1, 3456) and
-   (1, 1280), with the DiT's tables: K1's bars. Bitwise, with the elements
+   (1, 1280), with the DiT's tables, and (2, 68) at D=64 with the audio
+   stream's tables (the AV dev path's audio self-attention): K1's bars. Bitwise, with the elements
    that differ printed (every shape before a failure ends the phase): the rotation pass against rotate_split, K5 against
    K1 on the plainly rotated q and k (o and lse), and K5 against itself on
    those under identity tables (cos = 1, sin = 0). Median times of K5, of its
-   rotation pass alone, of K1 on the rotated q and k, of the plain version
-   and of "K1 + torch rotation" (the unfused route), K5's share of its
+   rotation pass alone, of K1 on the rotated q and k, of the plain version,
+   of "K1 + torch rotation" (the unfused route) and of SDPA's forward on the
+   rotated q and k, K5's share of its
    bound, the device time a call of its two kernels and its host time a
    call. Then the K5 Function's gradients (K3 on the rotated inputs,
    rotated back) against plain autograd at S = 1280: K3's bars.
@@ -112,6 +124,15 @@ Phases, in order; any failure exits non-zero before the last line:
    activations move about a quarter of their int8 codes by one step: the CPU
    reads 2.2e-2 to 2.8e-2 bf16 against fp32 there); one LoRA step over a
    W4A8 base with phase 6's LoRA-step bars.
+6b. audio at narrow width: a 2-layer AudioVideo DiT (video 4 x 128 heads,
+   audio 4 x 64) through 2 joint distilled steps at 320 video tokens and 34
+   audio frames, bf16 on the card (8 K1) against fp32 on the CPU: >= 35 dB
+   per video latent frame and over the audio latents; a narrow audio VAE
+   decoder (ch 32) and vocoder (128 channels) on those frames, on the card
+   as generate_video runs them (fp32 latents into the bf16 weights: the
+   convolutions run in fp32), with cuDNN's TF32 off and on, against fp32 on
+   the CPU: waveform SNR >= AUDIO_SNR_BAR_DB (37 dB, set from the card's
+   41.64 and 41.60 dB on an H100, PERF.md §6).
 7. full-width dense slice: generate_video, distilled, 512x512x33, on
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
@@ -163,6 +184,26 @@ Phases, in order; any failure exits non-zero before the last line:
    stage-2 CFG 4.0 on seeded negative embeddings, batched (528 K1) and
    sequential (48 x 8 + 2 x 48 x 3 = 672 K1), >= 35 dB per latent frame
    apart. The merged copy is freed at the end.
+12. full-width audio slice: the 19B AudioVideo DiT (18.88 B params: the
+   phase-7 video DiT's modules, shared, plus 5.83 B seeded audio and
+   cross-modal params, 32 x 64 audio heads), the AudioOnly DiT on its audio
+   modules, the default audio VAE decoder and vocoder (seeded bf16), seeded
+   128-token audio and negative embeddings. Every run checks its exact
+   launches, finite video and audio latents of the full shape, a finite (2,
+   240 (4T - 3)) waveform, a 24 kHz 2-channel WAV of that length, an mp4
+   (with an audio stream where ffmpeg exists; the machine's ffmpeg is
+   printed), phase seconds and peak memory: (a) joint distilled 512x512x33
+   (T = 34), 8 + 3 steps: 1056 K1, then a warm run under torch.profiler and
+   a profile of decode_audio alone on its latents; (b) separate, the
+   AudioOnly DiT 8 steps at B = 2 (audio CFG): 912 K1, audio_denoise seconds;
+   (c) joint dev 768x768x65 (T = 68), 40 steps, CFG 4.5, one image, both
+   routes on: 3840 K5, 7680 K4, 0 K1, latent frame 0 equal to the encoded
+   image; then 2 steps with the routes on against off and 1 step of
+   sequential against batched CFG: >= 35 dB per video latent frame and over
+   the audio latents. The audio tensors are freed at the end. Every K1 and
+   K2 launch of (a)-(d) is at a shape that phase 3 or 4 compared with the
+   plain version (their (B, S, H, D) and (M, K, N, bits, group) are
+   recorded at the C entry; any other fails the phase).
 8. full-width dense LoRA training: the Trainer (the ltx2_lora.yaml recipe:
    rank 8, alpha 16, lr 1e-4 cosine, shifted-logit-normal timesteps,
    first-frame conditioning p 0.1, max_grad_norm 1, batch 1) with gradient
@@ -215,16 +256,25 @@ Phases, in order; any failure exits non-zero before the last line:
    --stage2-model-repo on the same snapshot (a second 4-bit DiT), --stream
    and --lora with (c)'s adapter: "[LoRA] ... applied=0 skipped=384" (a
    4-bit base is skipped, as in the JAX package), 528 K1 and 5280 K2 (3840
-   on the stage-1 model, 1440 on the stage-2 one) and an mp4. Then the training CLI (cli.train.main, --device cuda)
+   on the stage-1 model, 1440 on the stage-2 one) and an mp4. The
+   snapshot's DiT file is an AudioVideo one (phase 12's audio tensors drawn
+   again on the q4 video modules, their 18 linears a block quantized in the
+   core scope: 28 x 48 QuantLinears), with audio_vae/ and vocoder/ beside
+   it; load_model_bundle(audio=True, audio_mode="joint") must give it back
+   bit for bit, and phase 12 (d) runs the CLI with --audio --audio-mode
+   joint (1056 K1, 28 x 48 x 11 = 14784 K2) and with --audio and
+   --audio-model-repo at a directory whose ltx-2-19b-distilled-mlx.safetensors
+   is that file (separate: 912 K1, 5280 + 10 x 48 x 8 = 9120 K2), each with
+   its WAV and mp4. Then the training CLI (cli.train.main, --device cuda)
    trains LoRA for 2 steps over the 4-bit file of the snapshot on the
    dataset of phase 8, with gradient checkpointing: 96 K1, 48 K3 and
    10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
    written. The directories are removed at the end.
-Phases 7-11 print phase times and peak device memory. The order on the card:
-1-7a, 11, 8, 9a, 9b, 9, 10. Last: the kernel summary line (K1-K6: launches
+Phases 7-12 print phase times and peak device memory. The order on the card:
+1-7a, 11, 12, 8, 9a, 9b, 9, 10. Last: the kernel summary line (K1-K6: launches
 on a path of this run, error against the plain version, times at the path's
-shapes, the bound, the library yardstick; K1 and K2 also their launches on
-every path of phases 8-11, "path_launches") and {"ok": true, "device": ...}.
+shapes, the bound, the library yardstick; K1, K2, K4 and K5 also their
+launches on every path of phases 7a-12, "path_launches") and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -246,9 +296,14 @@ from typing import Optional
 
 # (M, K, N) of the 4-bit linears: the q4 inference path's video rows, then
 # the LoRA step's (3456 video rows through attn1, attn2 q/out and ff; 1024
-# caption rows through attn2 to_k/to_v)
+# caption rows through attn2 to_k/to_v), then the AV paths': 34 audio rows
+# (68 at B = 2 under audio CFG) through the audio linears (2048 wide, FFN
+# 8192), 128 caption rows (256 at B = 2) through the audio attn2 to_k/to_v,
+# and 320 and 1280 video rows through the cross-modal q, k, v (4096 -> 2048)
+# and out (2048 -> 4096)
 SHAPES_K2 = [(m, k, n) for m in (128, 320, 1280, 3456) for k, n in ((4096, 4096), (4096, 16384), (16384, 4096))] + [
-    (1024, 4096, 4096)]
+    (1024, 4096, 4096)] + [(m, k, n) for m in (34, 68) for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))] + [
+    (128, 2048, 2048), (256, 2048, 2048)] + [(m, k, n) for m in (320, 1280) for k, n in ((4096, 2048), (2048, 4096))]
 K2_TRAIN_SHAPE = (3456, 4096, 4096)  # 6 of a block's 10 K2 launches in a LoRA step
 
 
@@ -334,7 +389,7 @@ def psnr(a, b, peak: float) -> float:
 # K1's cases in phase 3: (B, S, D, timed with lse)
 K1_SHAPES = [(1, 320, 128, False), (1, 1280, 128, False), (2, 320, 128, False), (2, 1280, 128, False),
              (1, 3456, 128, True), (1, 1000, 128, True), (1, 5184, 128, True), (2, 5184, 128, False),
-             (1, 1280, 64, True)]
+             (1, 1280, 64, True), (1, 34, 64, False), (2, 34, 64, False), (2, 68, 64, False), (2, 1, 64, False)]
 K1_REL_L2 = 4e-3
 
 
@@ -435,6 +490,15 @@ def masked_bias(b: int, skv: int, real) -> "torch.Tensor":
     return ((mask.to(torch.bfloat16) - 1.0) * 1e9).float()
 
 
+# K4's cases in phase 5a: (B, Sq, Skv, real keys a row or None, D). The dev
+# path's text attention, the trainer's, a ragged Skv, an all-masked row, two
+# masks; then the AV dev path's at 32 x 64 heads: audio text attention,
+# audio-to-video (resident) and video-to-audio (streamed)
+K4_CASES = [(2, 5184, 128, None, 128), (1, 3456, 1024, (128,), 128), (2, 5184, 77, None, 128),
+            (2, 5184, 128, (128, 0), 128), (2, 5184, 128, (40, 100), 128),
+            (2, 68, 128, None, 64), (2, 5184, 68, None, 64), (2, 68, 5184, None, 64)]
+
+
 def cross_kernel_vs_plain(ca) -> dict:
     """K4 against its plain version: the dev path's shape (no bias), the
     trainer's 1024 caption keys with 128 real, a ragged Skv, a row whose keys
@@ -445,18 +509,17 @@ def cross_kernel_vs_plain(ca) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(9)
     rows, max_err, failed = {}, 0.0, []
-    print("K4 vs plain (bf16, H=32, D=128; bar max|d o| <= 2e-2):")
-    for b, sq, skv, real in [(2, 5184, 128, None), (1, 3456, 1024, (128,)), (2, 5184, 77, None),
-                             (2, 5184, 128, (128, 0)), (2, 5184, 128, (40, 100))]:
-        q = torch.randn(b, sq, 32, 128, generator=g, device="cuda").to(torch.bfloat16)
-        k, v = (torch.randn(b, skv, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    print("K4 vs plain (bf16, H=32; bar max|d o| <= 2e-2):")
+    for b, sq, skv, real, d in K4_CASES:
+        q = torch.randn(b, sq, 32, d, generator=g, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, skv, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
         bias = None if real is None else masked_bias(b, skv, real)
         out = ca.flash_cross_attention(q, k, v, bias=bias)
         torch.cuda.synchronize()
         ref = ca.flash_cross_attention_reference(q, k, v, bias=bias)
         err = (out.float() - ref.float()).abs().max().item()
         max_err = max(max_err, err)
-        line = f"  B={b} Sq={sq} Skv={skv} real keys {real}: max|d o| {err:.3e}"
+        line = f"  B={b} Sq={sq} Skv={skv} D={d} real keys {real}: max|d o| {err:.3e}"
         if real is not None and 0 in real:
             row = real.index(0)
             uni = (out[row].float() - v[row].float().mean(0)[None]).abs().max().item()
@@ -470,13 +533,13 @@ def cross_kernel_vs_plain(ca) -> dict:
             ms = median_ms(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
             plain_ms = median_ms(lambda: ca.flash_cross_attention_reference(q, k, v, bias=bias))
             lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=128**-0.5))
-            rows[(b, sq, skv)] = (ms, plain_ms, lib_ms, bias is not None)
-            lim = bound(*cross_attention_work(b, sq, skv, 32, 128, bias is not None))
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=d**-0.5))
+            rows[(b, sq, skv, d)] = (ms, plain_ms, lib_ms, bias is not None)
+            lim = bound(*cross_attention_work(b, sq, skv, 32, d, bias is not None))
             dev = device_ms_by_kernel(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
             host = host_ms(lambda: ca.flash_cross_attention(q, k, v, bias=bias))
             lib_dev = sum(device_ms_by_kernel(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=128**-0.5)).values())
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, scale=d**-0.5)).values())
             line += (f"  K4 {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA with the mask {lib_ms:.4f} ms; "
                      f"{100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms bound ({lim['bound_by']}), "
                      f"{ms / lib_ms:.2f}x SDPA's time; device time a call "
@@ -507,6 +570,19 @@ def rope_tables(b: int, f: int, h: int, w: int):
     return cos, sin
 
 
+def audio_rope_tables(b: int, t: int):
+    """The audio stream's split-RoPE tables for T latent frames at the 19B
+    geometry: (B, 32, T, 32) fp32, as precompute_audio_pe makes them."""
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXRopeType
+    from mlx_video_tpu_torch.pipelines.denoise import precompute_audio_pe
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid
+
+    config = LTXModelConfig(rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
+    return precompute_audio_pe(config, torch.from_numpy(create_audio_position_grid(b, t)).cuda())
+
+
 def rope_kernel_vs_plain(fa) -> dict:
     """K5 against its plain version (q and k rotated in fp32, cast back, exact
     attention) at the dev path's shape and two more, with K1's bars; its
@@ -515,18 +591,20 @@ def rope_kernel_vs_plain(fa) -> dict:
     tables): the same bits. Then the K5 Function's gradients (K3 on the
     rotated inputs) against plain autograd."""
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(10)
     rows, max_err, failed = {}, 0.0, []
-    print("K5 vs plain (bf16, H=32, D=128; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; bitwise: the rotation pass "
+    print("K5 vs plain (bf16, H=32; bars max|d o| <= 2e-2, max|d lse| <= 1e-3; bitwise: the rotation pass "
           "vs rotate_split, K5 vs K1 on the rotated q, k, and K5 on them under identity tables):")
-    for b, (f, h, w) in [(2, (9, 24, 24)), (1, (9, 16, 24)), (1, (5, 16, 16))]:
-        s = f * h * w
-        q, k, v = (torch.randn(b, s, 32, 128, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-        cos, sin = rope_tables(b, f, h, w)
+    for b, grid in [(2, (9, 24, 24)), (1, (9, 16, 24)), (1, (5, 16, 16)), (2, 68)]:
+        # a latent grid at D = 128, or the audio stream's T frames at D = 64
+        s, d = (grid, 64) if isinstance(grid, int) else (grid[0] * grid[1] * grid[2], 128)
+        q, k, v = (torch.randn(b, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+        cos, sin = audio_rope_tables(b, s) if d == 64 else rope_tables(b, *grid)
         out, lse = fa.flash_attention_split_rope(q, k, v, cos, sin, return_lse=True)
         torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5, return_lse=True)
+        ref, ref_lse = fa.flash_attention_split_rope_reference(q, k, v, cos, sin, d**-0.5, return_lse=True)
         err_o = (out.float() - ref.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         max_err = max(max_err, err_o, err_lse)
@@ -546,17 +624,20 @@ def rope_kernel_vs_plain(fa) -> dict:
         ms = median_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
         rot_ms = median_ms(lambda: fa.rope_rotate(q, k, cos, sin))
         k1_ms = median_ms(lambda: fa.flash_attention(qr, kr, v))
-        plain_ms = median_ms(lambda: fa.flash_attention_split_rope_reference(q, k, v, cos, sin, 128**-0.5),
+        plain_ms = median_ms(lambda: fa.flash_attention_split_rope_reference(q, k, v, cos, sin, d**-0.5),
                              reps=5, warmup=1)
         unfused_ms = median_ms(unfused)
-        lim = bound(*rope_attention_work(b, s, 32, 128))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2), scale=d**-0.5))
+        lim = bound(*rope_attention_work(b, s, 32, d))
         dev = device_ms_by_kernel(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
         host = host_ms(lambda: fa.flash_attention_split_rope(q, k, v, cos, sin))
-        print(f"  B={b} S={s}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; rotation pass vs rotate_split: "
+        print(f"  B={b} S={s} D={d}: max|d o| {err_o:.3e} max|d lse| {err_lse:.3e}; rotation pass vs rotate_split: "
               f"{rot_q} q and {rot_k} k elements differ; vs K1 on the rotated q, k: {k1_o} o and {k1_lse} lse "
               f"elements differ; under identity tables bitwise equal: {same_id}  K5 {ms:.4f} ms (rotation pass "
               f"{rot_ms:.4f}, K1 on the rotated q, k {k1_ms:.4f})  plain {plain_ms:.4f} ms  K1 + torch rotation "
-              f"{unfused_ms:.4f} ms; {100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms bound "
+              f"{unfused_ms:.4f} ms  SDPA forward on the rotated q, k {lib_ms:.4f} ms; "
+              f"{100 * lim['bound_ms'] / ms:.1f} % of the {lim['bound_ms']:.4f} ms bound "
               f"({lim['bound_by']}); device time a call " + ", ".join(f"{n} {t:.4f} ms" for n, t in dev.items())
               + f"; host time a call {host:.4f} ms", flush=True)
         if not (err_o <= 2e-2 and err_lse <= 1e-3 and torch.isfinite(out).all()):
@@ -567,7 +648,7 @@ def rope_kernel_vs_plain(fa) -> dict:
             failed.append(f"K1 on the plainly rotated q and k at B={b} S={s}")
         if not same_id:
             failed.append(f"itself on the plainly rotated q and k under identity tables at B={b} S={s}")
-        rows[(b, s)] = (ms, plain_ms, unfused_ms)
+        rows[(b, s)] = (ms, plain_ms, unfused_ms, lib_ms)
         del q, k, v, out, lse, ref, ref_lse, qr, kr
     if failed:
         fail("K5 disagrees with " + "; ".join(failed))
@@ -818,7 +899,7 @@ def small_slice_check(mode: str) -> None:
         d = to_card(dit, device, dtype)
         u, m = (copy.deepcopy(x).to(**to) for x in (ups, dec))
         m.latents_mean, m.latents_std = dec.latents_mean.to(device), dec.latents_std.to(device)
-        x = dn.denoise(d, cfg, lat.to(**to), pos.to(device), ctx.to(**to), sigmas)
+        x, _ = dn.denoise(d, cfg, lat.to(**to), pos.to(device), ctx.to(**to), sigmas)
         up = upsample_latents(u, x, m.latents_mean, m.latents_std)
         rgb = video_decoder_apply(m, dec_cfg, up)
         return [t.float().cpu().numpy() for t in (x, up, rgb)]
@@ -836,6 +917,101 @@ def small_slice_check(mode: str) -> None:
         print(f"  {kind}, {name}: min per-frame PSNR {worst:.2f} dB (card bf16 vs CPU fp32)", flush=True)
         if not np.isfinite(o).all() or worst < 35.0:
             fail(f"small slice ({kind}) {name} PSNR {worst:.2f} dB < 35 dB")
+
+
+# The narrow audio decoder and vocoder's waveform SNR bar: bf16 weights and
+# fp32 latents on the card, as generate_video decodes, against fp32 on the
+# CPU (set from the card's readings: see PERF.md)
+AUDIO_SNR_BAR_DB = 37.0
+
+
+def narrow_audio_check() -> None:
+    """Phase 6b: a 2-layer AudioVideo DiT (video 4 x 128 heads, audio 4 x 64)
+    through 2 joint distilled steps at 320 video tokens and 34 audio frames,
+    bf16 on the card (K1 for both self-attentions) against fp32 on the CPU:
+    per-frame video latent PSNR and audio latent PSNR >= 35 dB. Then a narrow
+    audio VAE decoder and vocoder on those 34 frames, called on the card as
+    generate_video calls them (fp32 latents into bf16 weights, so the
+    convolutions run in fp32), with cuDNN's TF32 off (this script's setting)
+    and on (PyTorch's default), against fp32 on the CPU: the waveform's SNR
+    >= AUDIO_SNR_BAR_DB in both."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
+    from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_decoder
+    from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import VocoderConfig, decode_audio, init_vocoder
+    from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
+    from mlx_video_tpu_torch.ops import flash_attention as fa
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+    from mlx_video_tpu_torch.pipelines.generate import STAGE_1_SIGMAS, create_position_grid, subsample_sigmas
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid
+
+    cfg = LTXModelConfig(
+        model_type=LTXModelType.AudioVideo, rope_type=LTXRopeType.SPLIT, double_precision_rope=True,
+        num_attention_heads=4, attention_head_dim=128, num_layers=2, cross_attention_dim=512, caption_channels=256,
+        audio_num_attention_heads=4, audio_attention_head_dim=64, audio_cross_attention_dim=256,
+        audio_caption_channels=256,
+    )
+    g = torch.Generator().manual_seed(17)
+    dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            if "scale_shift_table" in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    x = dict(lat=torch.randn(1, 128, 5, 8, 8, generator=g), ctx=torch.randn(1, 16, 256, generator=g),
+             alat=torch.randn(1, 8, 34, 16, generator=g), actx=torch.randn(1, 16, 256, generator=g))
+    pos = torch.from_numpy(create_position_grid(1, 5, 8, 8))
+    apos = torch.from_numpy(create_audio_position_grid(1, 34))
+    sigmas = subsample_sigmas(STAGE_1_SIGMAS, 2, "farthest")
+
+    def run(device, dtype):
+        t = {k: v.to(device, dtype) for k, v in x.items()}
+        return dn.denoise(to_card(dit, device, dtype), cfg, t["lat"], pos.to(device), t["ctx"], sigmas,
+                          audio_latents=t["alat"], audio_positions=apos.to(device), audio_context=t["actx"])
+
+    ref_v, ref_a = run("cpu", torch.float32)
+    fa.launch_count = 0
+    got_v, got_a = run("cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    if fa.launch_count != 2 * 2 * 2:
+        fail(f"narrow AV slice: {fa.launch_count} K1 launches, want 8 (2 layers x 2 steps x 2 streams)")
+    ref_v, ref_a, got_v, got_a = (t.float().cpu().numpy() for t in (ref_v, ref_a, got_v, got_a))
+    v = min_frame_psnr(got_v, ref_v)
+    a = psnr(got_a, ref_a, float(np.abs(ref_a).max()))
+    print(f"  narrow AV slice (2 joint distilled steps, 320 video tokens, 34 audio frames): min per-frame video "
+          f"latent PSNR {v:.2f} dB, audio latent PSNR {a:.2f} dB (card bf16 vs CPU fp32)", flush=True)
+    if not (np.isfinite(got_v).all() and np.isfinite(got_a).all() and v >= 35.0 and a >= 35.0):
+        fail(f"narrow AV slice: {v:.2f} / {a:.2f} dB < 35 dB")
+
+    dcfg, vcfg = AudioVAEConfig(ch=32), VocoderConfig(upsample_initial_channel=128)
+    dec, voc = init_audio_decoder(g, dcfg, device="cpu", dtype=torch.float32), init_vocoder(g, vcfg, device="cpu",
+                                                                                          dtype=torch.float32)
+    with torch.no_grad():
+        dec.per_channel_statistics.mean_of_means.normal_(generator=g).mul_(0.1)
+        dec.per_channel_statistics.std_of_means.uniform_(0.7, 1.3, generator=g)
+    z = torch.from_numpy(ref_a)
+    ref = decode_audio(z, dec, dcfg, voc, vcfg).numpy()
+    dec_card = copy.deepcopy(dec).to("cuda", torch.bfloat16)
+    dec_card.per_channel_statistics = copy.deepcopy(dec.per_channel_statistics).to("cuda")  # fp32, as loaded
+    voc_card = copy.deepcopy(voc).to("cuda", torch.bfloat16)
+    tf32 = torch.backends.cudnn.allow_tf32
+    for cudnn_tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        try:
+            got = decode_audio(z.to("cuda"), dec_card, dcfg, voc_card, vcfg).cpu().numpy()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        snr = 10 * math.log10(float(np.sum(ref.astype(np.float64) ** 2)
+                                    / np.sum((got - ref).astype(np.float64) ** 2)))
+        print(f"  narrow audio decoder (ch 32) + vocoder (128 channels) on those 34 frames: waveform {got.shape}, "
+              f"SNR {snr:.2f} dB, the card (bf16 weights, fp32 latents, cuDNN TF32 {cudnn_tf32}) vs fp32 on the "
+              f"CPU (bar {AUDIO_SNR_BAR_DB:g} dB); rms {ref.std():.3e}", flush=True)
+        if got.shape != (2, 240 * (4 * 34 - 3)) or not np.isfinite(got).all() or snr < AUDIO_SNR_BAR_DB:
+            fail(f"narrow audio decode (cuDNN TF32 {cudnn_tf32}): shape {got.shape}, SNR {snr:.2f} dB < "
+                 f"{AUDIO_SNR_BAR_DB:g} dB")
 
 
 def lora_slice_check(w4a8: bool = False) -> None:
@@ -893,7 +1069,7 @@ def lora_slice_check(w4a8: bool = False) -> None:
     m = cfg.timestep_scale_multiplier
     video = inputs.video._replace(timesteps=(inputs.video.timesteps.bfloat16() * m).float() / m)
     with torch.enable_grad():
-        ref_loss = compute_loss(ltx_apply(d, cfg, video), inputs)
+        ref_loss = compute_loss(ltx_apply(d, cfg, video)[0], inputs)
         ref = dict(zip(params, torch.autograd.grad(ref_loss, list(params.values()))))
     ref_loss = ref_loss.item()
     d, params = model_on("cuda", torch.bfloat16)
@@ -1706,6 +1882,291 @@ def full_width_conditioned(models, text, fa, work: Path) -> dict:
     return {"k1": runs, "adapter": adapter, "keyframes": keyframes, "pairs": pairs}
 
 
+# Phase 12: audio. The seed of the audio and cross-modal tensors; phase 10
+# (d) draws the same tensors again from it on the q4 video modules.
+AUDIO_SEED = 41
+
+
+def audio_video_model(dit, seed: int = AUDIO_SEED):
+    """The 19B AudioVideo DiT on ``dit``'s video modules (shared, not
+    copied), its audio and cross-modal tensors drawn on the card from
+    ``seed`` (the video modules draw nothing, so the draws do not depend on
+    them being dense or 4-bit)."""
+    import torch
+
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
+    from mlx_video_tpu_torch.models.ltx.model import LTXModel, init_params_
+
+    cfg = LTXModelConfig(model_type=LTXModelType.AudioVideo, rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
+    device = dit.video.scale_shift_table.device
+    av = LTXModel(cfg, device="meta", dtype=dit.video.scale_shift_table.dtype)
+    av.video = dit.video
+    for blk, vblk in zip(av.blocks, dit.blocks):
+        blk.attn1, blk.attn2, blk.ff, blk.scale_shift_table = vblk.attn1, vblk.attn2, vblk.ff, vblk.scale_shift_table
+    init_params_(av, torch.Generator(device=device).manual_seed(seed), device)
+    return av, cfg
+
+
+def audio_only_model(av):
+    """The AudioOnly DiT on the AudioVideo model's audio modules (shared)."""
+    from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
+    from mlx_video_tpu_torch.models.ltx.model import LTXModel
+
+    cfg = LTXModelConfig(model_type=LTXModelType.AudioOnly, rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
+    ao = LTXModel(cfg, device="meta", dtype=av.audio.scale_shift_table.dtype)
+    ao.audio = av.audio
+    for blk, ablk in zip(ao.blocks, av.blocks):
+        for name in ("audio_attn1", "audio_attn2", "audio_ff", "audio_scale_shift_table"):
+            setattr(blk, name, getattr(ablk, name))
+    if any(p.is_meta for p in ao.parameters()):
+        fail("the AudioOnly model has parameters the AudioVideo one does not share")
+    return ao, cfg
+
+
+def audio_decoders(device, seed: int = 43):
+    """The default audio VAE decoder and vocoder, seeded bf16 on the card
+    (latent statistics drawn too)."""
+    import torch
+
+    from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_decoder
+    from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import VocoderConfig, init_vocoder
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    dec = init_audio_decoder(g, AudioVAEConfig(), device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        dec.per_channel_statistics.mean_of_means.normal_(generator=g).mul_(0.1)
+        dec.per_channel_statistics.std_of_means.uniform_(0.7, 1.3, generator=g)
+    return dict(audio_decoder=dec, audio_decoder_config=AudioVAEConfig(),
+                vocoder=init_vocoder(g, VocoderConfig(), device=device, dtype=torch.bfloat16),
+                vocoder_config=VocoderConfig())
+
+
+def audio_frames_for(num_frames: int) -> int:
+    from mlx_video_tpu_torch.pipelines.positions import compute_audio_frames
+
+    return compute_audio_frames(num_frames, 24.0)
+
+
+def check_wav(path, t: int, what: str) -> None:
+    """A 24 kHz, 2-channel WAV of 240 (4T - 3) samples a channel at ``path``."""
+    import wave
+
+    want = 240 * (4 * t - 3)
+    if path is None or not Path(path).is_file():
+        fail(f"{what}: audio asked for and no WAV written")
+    with wave.open(str(path), "rb") as wf:
+        got = (wf.getnchannels(), wf.getnframes(), wf.getframerate())
+    if got != (2, want, 24000):
+        fail(f"{what}: WAV (channels, samples, rate) {got}, want (2, {want}, 24000)")
+    print(f"  {what}: {Path(path).name}, 2 channels x {want} samples at 24 kHz (T = {t}: 240 x (4T - 3))", flush=True)
+
+
+def check_mp4_audio(path, what: str) -> None:
+    """With ffmpeg, the mp4 must carry an audio stream (ffprobe); without it,
+    the silent video is the output, as the JAX function leaves it."""
+    if path is None or not Path(path).is_file() or Path(path).stat().st_size == 0:
+        fail(f"{what}: no mp4 at {path}")
+    probe = shutil.which("ffprobe")
+    if shutil.which("ffmpeg") is None or probe is None:
+        print(f"  {what}: {Path(path).name} {Path(path).stat().st_size} bytes, silent (no ffmpeg here to mux)",
+              flush=True)
+        return
+    streams = subprocess.run([probe, "-v", "error", "-show_entries", "stream=codec_type", "-of", "csv=p=0",
+                              str(path)], capture_output=True, text=True, timeout=60).stdout.split()
+    if "audio" not in streams:
+        fail(f"{what}: the mp4 has no audio stream (streams {streams})")
+    print(f"  {what}: {Path(path).name} with streams {streams}", flush=True)
+
+
+def audio_run(models, text, fa, ca, what: str, want: dict, **kw):
+    """generate_video with audio, the K1, K4 and K5 counts set to 0 just
+    before: prints the phase seconds, wall, peak memory and launches, checks
+    the launches in ``want`` and finite video and audio latents; with an
+    output path, the waveform, the WAV and the mp4."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.pipelines.generate import generate_video
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = fa.rope_launch_count = ca.launch_count = 0
+    t0 = time.perf_counter()
+    res = generate_video(models, text, audio=True, tiling="auto", **kw)
+    wall = time.perf_counter() - t0
+    counts = {"k1": fa.launch_count, "k4": ca.launch_count, "k5": fa.rope_launch_count}
+    print(f"  {what}: " + ", ".join(f"{n} {s:.4f} s" for n, s in res.phase_seconds.items())
+          + f"; wall {wall:.4f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          + ", ".join(f"{k.upper()} {v}" for k, v in counts.items()), flush=True)
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        fail(f"{what}: launches (got, want) {bad}")
+    t = audio_frames_for(kw["num_frames"])
+    if res.audio_latents is None or res.audio_latents.shape != (1, 8, t, 16) or not np.isfinite(
+            res.audio_latents).all() or not np.isfinite(res.latents).all():
+        fail(f"{what}: audio latents {None if res.audio_latents is None else res.audio_latents.shape}, want a finite "
+             f"(1, 8, {t}, 16)")
+    if kw.get("output_path") is not None:
+        shape = (1, 3, kw["num_frames"], kw["height"], kw["width"])
+        if res.video is None or res.video.shape != shape or not np.isfinite(res.video).all():
+            fail(f"{what}: video {None if res.video is None else res.video.shape}, want a finite {shape}")
+        wav = res.audio
+        if wav is None or wav.shape != (2, 240 * (4 * t - 3)) or not np.isfinite(wav).all():
+            fail(f"{what}: waveform {None if wav is None else wav.shape}, want a finite (2, {240 * (4 * t - 3)})")
+        print(f"  {what}: video {shape} and waveform {wav.shape} finite; waveform range [{wav.min():.4f}, "
+              f"{wav.max():.4f}], rms {float(np.sqrt(np.mean(wav ** 2))):.4f}", flush=True)
+        check_wav(res.audio_path, t, what)
+        check_mp4_audio(res.video_path, what)
+    return res, counts
+
+
+@contextlib.contextmanager
+def launch_shapes(fa, qmm):
+    """Records the shape of every K1 and K2 launch in the block: K1's (B, S,
+    H, D) and K2's (M, K, N, bits, group), read from the arguments of their
+    bound C entries, which are wrapped for the block. The Python wrappers and
+    their counts are untouched."""
+    k1_fn, k2_fn = fa._kernel(), qmm._kernel()
+    shapes = {"k1": set(), "k2": set()}
+
+    def k1(*args):
+        shapes["k1"].add(tuple(args[5:9]))
+        return k1_fn(*args)
+
+    def k2(*args):
+        m, n, k, bits, group = args[5:10]
+        shapes["k2"].add((m, k, n, bits, group))
+        return k2_fn(*args)
+
+    fa._fns["mvt_flash_attention_fwd_bf16"], qmm._fn = k1, k2
+    try:
+        yield shapes
+    finally:
+        fa._fns["mvt_flash_attention_fwd_bf16"], qmm._fn = k1_fn, k2_fn
+
+
+def check_compared(shapes: dict, what: str) -> None:
+    """Fails unless every recorded K1 and K2 shape is one that phase 3 or 4
+    compared with the plain version."""
+    compared = {"k1": {(b, s, 32, d) for b, s, d, _ in K1_SHAPES},
+                "k2": {(m, k, n, 4, 64) for m, k, n in SHAPES_K2}}
+    print(f"  {what}: K1 ran at (B, S, H, D) {sorted(shapes['k1'])}; K2 at (M, K, N, bits, group) "
+          f"{sorted(shapes['k2'])}", flush=True)
+    missed = {name: sorted(got - compared[name]) for name, got in shapes.items() if got - compared[name]}
+    if missed:
+        fail(f"{what}: launches at shapes phases 3 and 4 never compared with the plain version: {missed}")
+
+
+def full_width_audio(models, text, fa, ca, work: Path) -> dict:
+    """Phase 12: the AudioVideo model (the video DiT's modules plus seeded
+    audio and cross-modal tensors), the AudioOnly one on its audio modules,
+    the default audio VAE decoder and vocoder; (a) joint distilled, with a
+    warm profiled run; (b) separate distilled; (c) joint dev with an image,
+    CFG and both routes on, then routes on/off and sequential/batched CFG
+    A/Bs. The audio tensors are freed at the end."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.io import media
+    from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import decode_audio
+    from mlx_video_tpu_torch.models.ltx.video_vae.encoder import video_encoder_apply
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+
+    device, bf16 = models.transformer.video.scale_shift_table.device, torch.bfloat16
+    t_phase = time.perf_counter()
+    av, av_cfg = audio_video_model(models.transformer)
+    ao, ao_cfg = audio_only_model(av)
+    decoders = audio_decoders(device)
+    video_ids = {id(p) for p in models.transformer.parameters()}
+    n_av = sum(p.numel() for p in av.parameters())
+    n_audio = sum(p.numel() for p in av.parameters() if id(p) not in video_ids)
+    torch.cuda.synchronize()
+    print(f"  AudioVideo DiT {n_av / 1e9:.2f} B params ({n_audio / 1e9:.2f} B audio and cross-modal, drawn on the "
+          f"card; {n_audio * 2 / 2**30:.2f} GiB bf16), AudioOnly DiT {sum(p.numel() for p in ao.parameters()) / 1e9:.2f}"
+          f" B params (shared), audio decoder {sum(p.numel() for p in decoders['audio_decoder'].parameters()) / 1e6:.1f}"
+          f" M, vocoder {sum(p.numel() for p in decoders['vocoder'].parameters()) / 1e6:.1f} M, in "
+          f"{time.perf_counter() - t_phase:.2f} s; ffmpeg on this machine: {shutil.which('ffmpeg') is not None}",
+          flush=True)
+    g = torch.Generator(device=device).manual_seed(44)
+    video_neg, audio, audio_neg = (torch.randn(1, 128, 3840, generator=g, device=device).to(bf16) for _ in range(3))
+    joint = dataclasses.replace(models, transformer=av, transformer_config=av_cfg, **decoders)
+    separate = dataclasses.replace(models, audio_transformer=ao, audio_transformer_config=ao_cfg, **decoders)
+    distilled_text = TextConditioning(text.video_embeddings, None, audio, audio_neg)
+    steps = PHASE11_RUN["stage1_steps"] + PHASE11_RUN["stage2_steps"]
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(45)
+
+    # (a) joint AV, distilled
+    want_a = 2 * 48 * steps
+    res_a, counts_a = audio_run(joint, distilled_text, fa, ca, "(a) joint AV distilled", {"k1": want_a, "k4": 0,
+                                "k5": 0}, **PHASE11_RUN, audio_mode="joint", output_path=work / "a.mp4",
+                                generator=gen())
+    with profiled("a warm joint AV distilled run"):
+        audio_run(joint, distilled_text, fa, ca, "(a) warm, profiled", {"k1": want_a}, **PHASE11_RUN,
+                  audio_mode="joint", output_path=work / "a_warm.mp4", generator=gen())
+    latents = torch.from_numpy(res_a.audio_latents).to(device).float()
+    with profiled("decode_audio alone on (a)'s latents (fp32, as generate_video calls it)"), torch.no_grad():
+        decode_audio(latents, decoders["audio_decoder"], joint.audio_decoder_config, decoders["vocoder"],
+                     joint.vocoder_config)
+    del latents
+
+    # (b) separate audio, distilled: the AudioOnly DiT after the video, 8 steps, batched CFG
+    want_b = 48 * steps + 48 * 8
+    res_b, counts_b = audio_run(separate, distilled_text, fa, ca, "(b) separate audio distilled", {"k1": want_b},
+                         **PHASE11_RUN, audio_steps=8, output_path=work / "b.mp4", generator=gen())
+    print(f"  (b) audio_denoise {res_b.phase_seconds['audio_denoise']:.4f} s for 8 steps at B = 2 (CFG)", flush=True)
+
+    # (c) joint AV, dev: BASELINE config 3 with audio, both routes on
+    dev_text = TextConditioning(text.video_embeddings, video_neg, audio, audio_neg)
+    image = work / "audio_cond.png"
+    write_image(image, 768, 46)
+    dev_run = dict(height=768, width=768, num_frames=65, pipeline="dev", cfg_scale=4.5, images=[(str(image), 0, 1.0)])
+    set_routes(True)
+    res_c, counts_c = audio_run(joint, dev_text, fa, ca, "(c) joint AV dev (routes on)",
+                                {"k1": 0, "k4": 40 * 4 * 48, "k5": 40 * 2 * 48}, **dev_run, num_inference_steps=40,
+                                output_path=work / "c.mp4", generator=gen())
+    with torch.no_grad():
+        pixels = media.prepare_image_for_encoding(media.load_image(image, 768, 768), 768, 768)
+        encoded = video_encoder_apply(models.vae_encoder, models.vae_encoder_config,
+                                      torch.from_numpy(pixels).to(device, bf16)).float().cpu()
+    d0 = ((torch.from_numpy(res_c.latents[:, :, :1]) - encoded).abs().max() / encoded.abs().max()).item()
+    print(f"  (c) latent frame 0 vs the encoded image: max|d| {d0:.3e} of max", flush=True)
+    if not d0 <= 2.0**-8:
+        fail("(c) latent frame 0 is not the encoded conditioning image")
+    del res_a, res_b, res_c
+
+    def ab(a, b, what: str) -> None:
+        v = min_frame_psnr(a.latents, b.latents)
+        aud = psnr(a.audio_latents, b.audio_latents, float(np.abs(b.audio_latents).max()))
+        same = np.array_equal(a.latents, b.latents) and np.array_equal(a.audio_latents, b.audio_latents)
+        print(f"  {what}: min per-frame video latent PSNR {v:.2f} dB, audio latent PSNR {aud:.2f} dB; bitwise "
+              f"equal: {same}", flush=True)
+        if not (v >= 35.0 and aud >= 35.0):
+            fail(f"{what}: {v:.2f} / {aud:.2f} dB < 35 dB")
+
+    short = dict(**dev_run, decode_latents_only=True)
+    on, _ = audio_run(joint, dev_text, fa, ca, "(c) 2 steps, routes on", {"k1": 0, "k4": 2 * 4 * 48,
+                      "k5": 2 * 2 * 48}, **short, num_inference_steps=2, generator=gen())
+    set_routes(False)
+    off, _ = audio_run(joint, dev_text, fa, ca, "(c) 2 steps, routes off", {"k1": 2 * 2 * 48, "k4": 0, "k5": 0},
+                       **short, num_inference_steps=2, generator=gen())
+    ab(on, off, "(c) routes on vs off at 2 steps")
+    set_routes(True)
+    batched, _ = audio_run(joint, dev_text, fa, ca, "(c) 1 step, batched CFG", {"k4": 4 * 48, "k5": 2 * 48},
+                           **short, num_inference_steps=1, generator=gen())
+    seq, _ = audio_run(joint, dev_text, fa, ca, "(c) 1 step, sequential CFG", {"k4": 2 * 4 * 48, "k5": 2 * 2 * 48},
+                       **short, num_inference_steps=1, cfg_sequential=True, generator=gen())
+    ab(seq, batched, "(c) sequential vs batched CFG at 1 step")
+    set_routes(False)
+    del av, ao, joint, separate, decoders, on, off, batched, seq
+    torch.cuda.empty_cache()
+    print(f"  phase 12 (a)-(c): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"k1": {"audio_joint_distilled": counts_a["k1"], "audio_separate_distilled": counts_b["k1"]},
+            "k4": counts_c["k4"], "k5": counts_c["k5"]}
+
+
 def full_width_w8a8(models, text, fa, qmm) -> dict:
     """Phase 9a's W8A8 run: a W8A8 copy of the bf16 DiT (Int8Linears; every
     other tensor shared with the bf16 model), the distilled run with the q,
@@ -1886,8 +2347,24 @@ def full_width_w4a8(models, text, fa, qmm) -> None:
 def mlx_key(name: str) -> str:
     """Port DiT state name -> sanitized MLX key (packed words under .weight):
     the inverse of io/weights.py's mapping, for writing a snapshot."""
-    key = "transformer_blocks." + name[len("blocks."):] if name.startswith("blocks.") else name[len("video."):]
+    head, _, rest = name.partition(".")
+    key = {"blocks": "transformer_blocks." + rest, "video": rest, "audio": "audio_" + rest}.get(head)
+    if head == "av":  # av.<adaln>.x -> <adaln>_single.x
+        adaln, _, leaf = rest.partition(".")
+        key = f"{adaln}_single.{leaf}"
     return key[: -len("quant_weight")] + "weight" if key.endswith(".quant_weight") else key
+
+
+def audio_decoder_key(name: str) -> str:
+    """Port audio decoder state name -> checkpoint key: ``decoder.``, the
+    convs of CausalConv2d wrappers one level deeper, the statistics under
+    their own prefix and the reference's hyphenated names."""
+    if name.startswith("per_channel_statistics."):
+        return name.replace("_of_", "-of-")
+    parts = name.split(".")
+    if parts[-2] in ("conv1", "conv2", "nin_shortcut", "conv_in", "conv_out", "conv"):
+        parts.insert(len(parts) - 1, "conv")
+    return "decoder." + ".".join(parts)
 
 
 def decoder_key(name: str) -> str:
@@ -1925,17 +2402,35 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict
     from mlx_video_tpu_torch.cli import generate as cli
     from mlx_video_tpu_torch.io.safetensors import save_safetensors
     from mlx_video_tpu_torch.ops import int8 as i8
+    from mlx_video_tpu_torch.ops.linear import QuantLinear
+    from mlx_video_tpu_torch.ops.quant import quantize_dit_params
 
+    # phase 12 (d): the snapshot's DiT file is an AudioVideo one, phase 12's
+    # audio tensors drawn again on the q4 video modules and their audio and
+    # cross-modal linears quantized in the core scope
+    t0 = time.perf_counter()
+    av, _ = audio_video_model(models.transformer)
+    quantize_dit_params(av, group_size=64, bits=4, scope="core")
+    n_quant = sum(isinstance(m, QuantLinear) for m in av.modules())
+    decoders = audio_decoders(models.transformer.video.scale_shift_table.device)
+    torch.cuda.synchronize()
+    print(f"  the AudioVideo DiT on the q4 video modules, its audio and cross-modal linears quantized: {n_quant} "
+          f"QuantLinears in {time.perf_counter() - t0:.2f} s", flush=True)
+    if n_quant != 28 * 48:
+        fail(f"{n_quant} quantized linears in the AudioVideo DiT, want {28 * 48}")
     files = {
         "ltx-2-19b-distilled-4bit-mlx.safetensors": {
             mlx_key(k): v.view(torch.uint32) if k.endswith(".quant_weight") else v
-            for k, v in models.transformer.state_dict().items()
+            for k, v in av.state_dict().items()
         },
         "vae/diffusion_pytorch_model.safetensors": {
             **{decoder_key(k): v for k, v in models.vae_decoder.state_dict().items()},
             **{f"encoder.{k}": v for k, v in models.vae_encoder.state_dict().items()},
         },
         loading.UPSAMPLER_FILE: dict(models.upsampler.state_dict()),
+        "audio_vae/diffusion_pytorch_model.safetensors": {
+            audio_decoder_key(k): v for k, v in decoders["audio_decoder"].state_dict().items()},
+        "vocoder/diffusion_pytorch_model.safetensors": dict(decoders["vocoder"].state_dict()),
     }
     need = sum(t.numel() * t.element_size() for f in files.values() for t in f.values())
     roots = [Path(tempfile.gettempdir()), Path(__file__).resolve().parent]
@@ -1948,23 +2443,28 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict
     tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_", dir=root))
     try:
         snap = tmp / "ltx2-distilled-4bit-mlx"
-        (snap / "vae").mkdir(parents=True)
         t0 = time.perf_counter()
         for name, tensors in files.items():
+            (snap / name).parent.mkdir(parents=True, exist_ok=True)
             save_safetensors(snap / name, tensors)
         embeddings = tmp / "embeddings.safetensors"
-        save_safetensors(embeddings, {"video_prompt_embeds": text.video_embeddings[0]})
-        print(f"  wrote the snapshot to {root} in {time.perf_counter() - t0:.2f} s", flush=True)
+        g = torch.Generator(device="cuda").manual_seed(47)
+        save_safetensors(embeddings, {"video_prompt_embeds": text.video_embeddings[0], **{
+            name: torch.randn(128, 3840, generator=g, device="cuda").bfloat16() for name in ("audio", "audio_neg")}})
+        print(f"  wrote the snapshot (an AudioVideo DiT file, audio_vae/, vocoder/) to {root} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         del files
 
         t0 = time.perf_counter()
         bundle = loading.load_model_bundle(snap, bits_hint=loading.bits_hint_for(str(snap)), load_encoder=True,
-                                           device="cuda")
+                                           audio=True, audio_mode="joint", device="cuda")
         torch.cuda.synchronize()
-        print(f"  load_model_bundle: {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"  load_model_bundle (audio, joint: the AudioVideo DiT): {time.perf_counter() - t0:.2f} s", flush=True)
         n = 0
-        for part in ("transformer", "vae_decoder", "upsampler", "vae_encoder"):
-            want, got = getattr(models, part).state_dict(), getattr(bundle, part).state_dict()
+        ref = dict(transformer=av, **decoders)
+        for part in ("transformer", "vae_decoder", "upsampler", "vae_encoder", "audio_decoder", "vocoder"):
+            want = (ref[part] if part in ref else getattr(models, part)).state_dict()
+            got = getattr(bundle, part).state_dict()
             if set(want) != set(got):
                 fail(f"loaded {part} has other tensors: {sorted(set(want) ^ set(got))[:10]}")
             bad = [k for k in want if want[k].dtype != got[k].dtype or not torch.equal(want[k], got[k])]
@@ -1972,7 +2472,7 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict
                 fail(f"loaded {part} differs from the in-memory one at {bad[:10]}")
             n += len(want)
         print(f"  the loaded snapshot equals the in-memory model: {n} tensors, torch.equal", flush=True)
-        del bundle
+        del bundle, av, decoders, ref
         torch.cuda.empty_cache()
 
         has_ffmpeg, has_cv2 = shutil.which("ffmpeg") is not None, importlib.util.find_spec("cv2") is not None
@@ -2044,10 +2544,55 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict
             fail("(g) the CLI wrote no keyframe.mp4")
         check_launches(k1, k2, 10 * 48 * (8 + 3))
         torch.cuda.empty_cache()
-        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **train_cli_over_q4(
+        audio = audio_cli(argv, snap, tmp, fa, qmm)
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **train_cli_over_q4(
             snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def audio_cli(argv: list, snap: Path, tmp: Path, fa, qmm) -> dict:
+    """Phase 12 (d): the generate CLI with --audio on the AudioVideo 4-bit
+    snapshot: joint (28 linears a block on K2: 10 video, 18 audio and
+    cross-modal), then separate with --audio-model-repo at a directory whose
+    ltx-2-19b-distilled-mlx.safetensors is the same file (the VideoOnly DiT's
+    10 a block over 11 steps, the AudioOnly DiT's 10 a block over 8 steps at
+    B = 2)."""
+    import torch
+
+    from mlx_video_tpu_torch.cli import generate as cli
+
+    audio_repo = tmp / "audio_repo"
+    audio_repo.mkdir()
+    (audio_repo / "ltx-2-19b-distilled-mlx.safetensors").symlink_to(snap / "ltx-2-19b-distilled-4bit-mlx.safetensors")
+    base = argv[:argv.index("--output-path")]
+    t = audio_frames_for(33)
+    out = {}
+    with launch_shapes(fa, qmm) as shapes:
+        for mode, flags, want in (
+                ("joint", ["--audio", "--audio-mode", "joint"], (2 * 48 * 11, 28 * 48 * 11)),
+                ("separate", ["--audio", "--audio-model-repo", str(audio_repo)],
+                 (48 * 11 + 48 * 8, 10 * 48 * 11 + 10 * 48 * 8))):
+            video, report = tmp / f"audio_{mode}.mp4", tmp / f"audio_{mode}.json"
+            torch.cuda.reset_peak_memory_stats()
+            fa.launch_count = qmm.launch_count = 0
+            t0 = time.perf_counter()
+            cli.main([*base, *flags, "--output-path", str(video), "--profile-json-path", str(report),
+                      "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            k1, k2 = fa.launch_count, qmm.launch_count
+            for name, sec in json.loads(report.read_text())["phases"].items():
+                print(f"  CLI --audio ({mode}) phase {name}: {sec:.4f} s", flush=True)
+            print(f"  CLI --audio ({mode}) main wall {wall:.4f} s; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}", flush=True)
+            if (k1, k2) != want:
+                fail(f"CLI --audio ({mode}): launches K1 {k1}, K2 {k2}; want {want}")
+            check_wav(video.with_suffix(".wav"), t, f"CLI --audio ({mode})")
+            check_mp4_audio(video, f"CLI --audio ({mode})")
+            out.update({f"k1_audio_{mode}_cli": k1, f"k2_audio_{mode}_cli": k2})
+            torch.cuda.empty_cache()
+    check_compared(shapes, "phase 12 (d)")
+    return out
 
 
 def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm) -> dict:
@@ -2179,6 +2724,8 @@ def main() -> int:
         small_slice_check("w4a8")
         small_text_encoder_check()
         lora_slice_check(w4a8=True)
+        print("audio at narrow width, card vs CPU reference:", flush=True)
+        narrow_audio_check()
         models, text = full_width_models()
         print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
         drive_slice(models, text, fa, qmm, want_k2=0, profile="a warm dense distilled run")
@@ -2188,6 +2735,11 @@ def main() -> int:
         print("full-width conditioned distilled slice (512x512x33, 8 + 3 steps; images, keyframes streamed, IC-LoRA, "
               "a LoRA-merged stage-2 copy, stage-2 CFG, two videos):", flush=True)
         cond = full_width_conditioned(models, text, fa, work)
+        print("full-width audio slice (the 19B AudioVideo DiT: 32 x 128 video and 32 x 64 audio heads, bf16; the "
+              "AudioOnly DiT on its audio tensors; the default audio VAE decoder and vocoder):", flush=True)
+        with launch_shapes(fa, qmm) as shapes:
+            audio = full_width_audio(models, text, fa, ca, work)
+        check_compared(shapes, "phase 12 (a)-(c)")
         write_training_dataset(work / "data")
         print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
         train = full_width_training(models, fa, work / "data", work)
@@ -2210,8 +2762,8 @@ def main() -> int:
     k1_ms, k1_plain_ms, k1_lib_ms = k1["rows"][(1, s_train, 128)]
     k3_ms, k3_plain_ms, k3_lib_ms = k3["rows"][(s_train, 128)]
     k2_ms, k2_plain_ms = k2["rows"][K2_TRAIN_SHAPE]
-    k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128)]
-    k5_ms, k5_plain_ms, _ = k5["rows"][(2, 5184)]
+    k4_ms, k4_plain_ms, k4_lib_ms, _ = k4["rows"][(2, 5184, 128, 128)]
+    k5_ms, k5_plain_ms, _, _ = k5["rows"][(2, 5184)]
     k6_ms, k6_plain_ms, _, _, k6_prologue_ms = k6["rows"][(1, 1280, 128)]
     kernels = [{
         "name": "flash_attention_fwd",
@@ -2220,7 +2772,9 @@ def main() -> int:
         "replaces": "mlx_video_tpu/ops/flash_attention.py:102",
         "launches": train["k1"],
         "path_launches": {"lora_training": train["k1"], "keyframe_cli": cli_train["k1_keyframe_cli"],
-                          **{f"conditioned_{run}": n for run, n in cond["k1"].items()}},
+                          **{f"conditioned_{run}": n for run, n in cond["k1"].items()}, **audio["k1"],
+                          "audio_joint_cli": cli_train["k1_audio_joint_cli"],
+                          "audio_separate_cli": cli_train["k1_audio_separate_cli"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -2232,7 +2786,9 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "mlx_video_tpu/ops/quant_matmul.py:87",
         "launches": cli_train["k2"],
-        "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"]},
+        "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"],
+                          "audio_joint_cli": cli_train["k2_audio_joint_cli"],
+                          "audio_separate_cli": cli_train["k2_audio_separate_cli"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -2255,6 +2811,7 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_cross_attention.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:691",
         "launches": dev["k4"],
+        "path_launches": {"dev": dev["k4"], "audio_joint_dev": audio["k4"]},
         "max_abs_err": k4["max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
@@ -2266,6 +2823,7 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_attention_rope.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:547",
         "launches": dev["k5"],
+        "path_launches": {"dev": dev["k5"], "audio_joint_dev": audio["k5"]},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5_ms,
         "plain_ms": k5_plain_ms,

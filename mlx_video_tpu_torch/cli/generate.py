@@ -25,7 +25,16 @@ also PNG frames) and, with ``--profile-json-path``, the phase seconds.
 ``--video-conditioning`` (``--reference-video``: one at frame 0, strength
 1); ``--pipeline keyframe`` puts images in guide mode and ``ic_lora`` needs a
 video. As in the JAX CLI, ``--conditioning-mode`` is accepted and never read:
-the pipeline decides the mode.
+the pipeline decides the mode. ``--audio`` adds synchronized audio
+(``--skip-audio`` turns it off again): ``--audio-mode`` joint (an AudioVideo
+transformer; the dev pipeline's default) or separate (an AudioOnly
+transformer after the video, ``--audio-steps``, from ``--audio-model-repo`` or
+the snapshot; the other pipelines' default); the WAV goes to
+``--output-audio`` (default: the mp4's name with ``.wav``) and is muxed into
+the mp4 by ffmpeg (``--audio-filter``, ``--audio-bitrate``, default
+``$LTX_AUDIO_BITRATE`` or 256k) when ffmpeg exists. The audio context comes
+from the text encoder or from the embeddings file's ``audio`` and
+``audio_neg`` entries.
 
 Flags of features the port does not have yet exit with a message that names
 them; none is ignored.
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import time
 from pathlib import Path
@@ -266,12 +276,15 @@ _PORTED = frozenset({
     "image_strength", "w8a8", "w4a8", "text_encoder_path", "negative_prompt", "lora", "lora_strength",
     "distilled_lora", "stage2_model_repo", "stage2_dev", "video_conditioning", "reference_video",
     "conditioning_mode", "stream", "sigma_subsample", "num_videos", "save_frames",
+    "audio", "skip_audio", "audio_mode", "audio_steps", "audio_filter", "audio_bitrate", "audio_model_repo",
+    "output_audio",
 })
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = base_parser()
-    p.description = "LTX-2 video generation, distilled, keyframe, IC-LoRA and dev pipelines (PyTorch, CUDA)"
+    p.description = ("LTX-2 video generation, distilled, keyframe, IC-LoRA and dev pipelines, with or without "
+                     "audio (PyTorch, CUDA)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; exits when CUDA is absent)")
     return p
@@ -287,8 +300,9 @@ def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) ->
 
 def load_embeddings(path, device=None):
     """Precomputed text embeddings (``video`` or ``video_prompt_embeds``, and
-    the negative prompt's ``video_neg`` if present; a 2-D array gains a batch
-    axis) -> TextConditioning on ``device``."""
+    the negative prompt's ``video_neg`` if present; the audio context's
+    ``audio`` or ``audio_prompt_embeds`` and ``audio_neg`` likewise; a 2-D
+    array gains a batch axis) -> TextConditioning on ``device``."""
     from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
     from mlx_video_tpu_torch.pipelines.generate import TextConditioning
 
@@ -302,7 +316,11 @@ def load_embeddings(path, device=None):
         video = get("video") if "video" in r else get("video_prompt_embeds")
         if video is None:
             raise ValueError(f"{path} holds no 'video' or 'video_prompt_embeds' embeddings")
-        return TextConditioning(video_embeddings=video, video_neg_embeddings=get("video_neg"))
+        return TextConditioning(
+            video_embeddings=video, video_neg_embeddings=get("video_neg"),
+            audio_embeddings=get("audio") if "audio" in r else get("audio_prompt_embeds"),
+            audio_neg_embeddings=get("audio_neg"),
+        )
 
 
 def _synced(device: torch.device) -> float:
@@ -317,7 +335,8 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     negative prompt: the given one or the default) through the Gemma-3 text encoder of
     ``--text-encoder-path`` (else the snapshot), bf16 or with ``--w8a8``
     W8A8, in ``dtype`` on ``device``; the encoder is freed after. Adds the
-    ``text_encoder_load`` and ``text_encode`` phase seconds."""
+    ``text_encoder_load`` and ``text_encode`` phase seconds. The audio
+    contexts come from the same encodes."""
     from mlx_video_tpu_torch.models.ltx.text_encoder import LTX2TextEncoder
     from mlx_video_tpu_torch.pipelines.generate import TextConditioning
     from mlx_video_tpu_torch.pipelines.prompts import DEFAULT_NEGATIVE_PROMPT
@@ -326,16 +345,17 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     encoder = LTX2TextEncoder.load(model_path, args.text_encoder_path or model_path, dtype=dtype, w8a8=args.w8a8,
                                    device=device)
     t1 = _synced(device)
-    video, _ = encoder.encode(args.prompt)
+    video, audio = encoder.encode(args.prompt)
     neg = args.negative_prompt
     if neg is None and (args.pipeline == "dev" or args.stage2_dev):
         neg = DEFAULT_NEGATIVE_PROMPT
-    video_neg = encoder.encode(neg)[0] if neg else None
+    video_neg, audio_neg = encoder.encode(neg) if neg else (None, None)
     phases["text_encoder_load"], phases["text_encode"] = t1 - t0, _synced(device) - t1
     del encoder
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return TextConditioning(video_embeddings=video, video_neg_embeddings=video_neg)
+    return TextConditioning(video_embeddings=video, video_neg_embeddings=video_neg, audio_embeddings=audio,
+                            audio_neg_embeddings=audio_neg)
 
 
 def save_frames(video, output_path: Path) -> None:
@@ -364,6 +384,8 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
+    if args.skip_audio:
+        args.audio = False
     if args.condition_image:
         args.image.append([args.condition_image, str(args.image_frame_idx), str(args.image_strength)])
     if args.reference_video:
@@ -380,6 +402,8 @@ def main(argv=None) -> None:
         model_path, pipeline=args.pipeline, bits_hint=loading.bits_hint_for(args.checkpoint_path or args.model_repo),
         stage2_path=get_model_path(args.stage2_model_repo) if args.stage2_model_repo else None,
         load_encoder=bool(args.image or args.video_conditioning), device=device,
+        audio=args.audio, audio_mode=args.audio_mode,
+        audio_model_path=get_model_path(args.audio_model_repo) if args.audio_model_repo else None,
     )
     merge_s = None
     if args.lora or args.distilled_lora:
@@ -436,6 +460,12 @@ def main(argv=None) -> None:
         decode_latents_only=args.latents_only,
         video_encoder=args.video_encoder,
         dtype=models.transformer.video.scale_shift_table.dtype,  # the dtype it was loaded in
+        audio=args.audio,
+        audio_mode=args.audio_mode,
+        audio_steps=args.audio_steps,
+        audio_filter=args.audio_filter,
+        audio_bitrate=args.audio_bitrate or os.getenv("LTX_AUDIO_BITRATE", "256k"),
+        output_audio_path=args.output_audio,
     )
 
     if args.save_frames and result.video is not None:
@@ -450,6 +480,8 @@ def main(argv=None) -> None:
         path.write_text(json.dumps({"phases": phases, "total": sum(phases.values())}, indent=2))
     if result.video_path is not None:
         print(f"Saved video to {result.video_path}")
+    if result.audio_path is not None:
+        print(f"Saved audio to {result.audio_path}")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,11 @@ names, so the mapping is mechanical:
   and go back as uint32;
 - LoRA leaves (``lora_A`` (r, in), ``lora_B`` (out, r), ``lora_scale``) are
   copied as they are: stacked (L, r, in), (L, out, r) and (L,) in the JAX
-  tree, per block here.
+  tree, per block here;
+- the vocoder's 1-D convs are (K, I, O) in JAX and (O, I, K) here, its
+  transposed convs (``ups``) (I, O, K) here (:func:`vocoder_state_dict`,
+  :func:`vocoder_to_jax_tree`); the audio VAE decoder's JAX tree keeps an
+  empty ``attn`` dict in each up stage (:func:`audio_decoder_to_jax_tree`).
 
 bfloat16 arrays (ml_dtypes) are read through their bits, so this module
 imports no JAX and no ml_dtypes; on the way back to numpy bfloat16 tensors
@@ -204,3 +208,32 @@ def encoder_to_jax_tree(encoder: nn.Module) -> dict:
     """A ``VideoEncoder`` as the JAX ``init_video_encoder`` tree: nothing is
     stacked."""
     return _restack(encoder.state_dict(), _leaf_to_numpy, None, ())
+
+
+def audio_decoder_to_jax_tree(decoder: nn.Module) -> dict:
+    """An ``AudioDecoder`` as the JAX ``init_audio_decoder`` tree: nothing is
+    stacked, and every up stage has its ``attn`` dict (empty without
+    attention blocks)."""
+    tree = _restack(decoder.state_dict(), _leaf_to_numpy, None, ())
+    for stage in tree["up"].values():
+        stage.setdefault("attn", {})
+    return tree
+
+
+def _vocoder_layout(state: Dict[str, torch.Tensor], transposed: Callable, conv: Callable) -> Dict[str, torch.Tensor]:
+    return {path: (transposed(t) if path.startswith("ups.") else conv(t))
+            if path.endswith(".weight") and t.dim() == 3 else t for path, t in state.items()}
+
+
+def vocoder_state_dict(tree: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_vocoder`` tree -> a ``Vocoder``'s state dict: (K, I, O)
+    -> (O, I, K) for the convs, (I, O, K) for the transposed convs."""
+    state = jax_tree_to_state_dict(tree, stacked=())
+    return {k: t.contiguous() for k, t in _vocoder_layout(
+        state, lambda t: t.permute(1, 2, 0), lambda t: t.permute(2, 1, 0)).items()}
+
+
+def vocoder_to_jax_tree(vocoder: nn.Module) -> dict:
+    """A ``Vocoder`` as the JAX ``init_vocoder`` tree of numpy arrays."""
+    state = _vocoder_layout(vocoder.state_dict(), lambda t: t.permute(2, 0, 1), lambda t: t.permute(2, 1, 0))
+    return _restack(state, _leaf_to_numpy, None, ())

@@ -2,7 +2,8 @@
 mlx_video_tpu/io/media.py that the port calls (load_image and
 prepare_image_for_encoding, which resize with PIL's LANCZOS; load_video and
 prepare_video_for_encoding, which read and resize with cv2; frames_to_uint8,
-VideoWriter and write_video, with the cv2 codec probe they need), copied whole
+VideoWriter and write_video, with the cv2 codec probe they need; mux_audio,
+which puts a WAV track into an mp4 with ffmpeg), copied whole
 and unchanged in behaviour, so that the port imports nothing of the JAX
 package.
 
@@ -288,3 +289,45 @@ def write_video(path: Union[str, Path], video: np.ndarray, fps: float, encoder: 
     frames = frames_to_uint8(video)
     with VideoWriter(path, frames.shape[2], frames.shape[1], fps, encoder=encoder) as w:
         w.write(frames)
+
+
+def mux_audio(
+    video_path: Union[str, Path],
+    audio_path: Union[str, Path],
+    output_path: Union[str, Path],
+    audio_filter: Optional[str] = None,
+    audio_bitrate: str = "256k",
+    audio_sample_rate: int = 24000,
+) -> bool:
+    """Mux a WAV track into an MP4 via ffmpeg (reference: generate.py:1980-2033
+    mux_video_audio). Returns False when ffmpeg is unavailable or fails.
+
+    Parity notes: explicit stream mapping (avoids ffmpeg picking wrong streams),
+    AAC at ``audio_bitrate``, stereo at ``audio_sample_rate``, and deliberately
+    NO ``-shortest`` — hop-size rounding can make audio slightly shorter than
+    video and ``-shortest`` would drop the final frames. A filter value of
+    none/off/false/0 disables the filter chain.
+    """
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        return False
+    af = (audio_filter or "").strip()
+    if af.lower() in {"none", "off", "false", "0"}:
+        af = ""
+    cmd = [
+        ffmpeg, "-y",
+        "-i", str(video_path),
+        "-i", str(audio_path),
+        "-map", "0:v:0",
+        "-map", "1:a:0",
+        "-c:v", "copy",
+        "-c:a", "aac",
+        "-b:a", str(audio_bitrate),
+        "-ar", str(audio_sample_rate),
+        "-ac", "2",
+    ]
+    if af:
+        cmd += ["-af", af]
+    cmd += ["-movflags", "+faststart", str(output_path)]
+    result = subprocess.run(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    return result.returncode == 0

@@ -1,7 +1,7 @@
-"""Checkpoint loaders for the video VAE decoder and encoder and the latent
-upsampler.
+"""Checkpoint loaders for the video VAE decoder and encoder, the latent
+upsampler, the audio VAE decoder and the vocoder.
 
-Counterpart of the decoder, encoder and upsampler loaders of
+Counterpart of the decoder, encoder, upsampler, audio VAE and vocoder loaders of
 mlx_video_tpu/io/vae_weights.py, with the same prefixes, the same key remapping
 (``mid_block.resnets.i`` -> ``up_blocks.0.res_blocks.i``,
 ``up_blocks.b.resnets.i`` -> ``up_blocks.(2b+2).res_blocks.i``,
@@ -13,7 +13,11 @@ the port's, so nothing is transposed; the port's res blocks are a
 
 The loaders fill a built module in place (values cast to its dtypes and
 device) and return the number of tensors loaded; a tensor whose shape does
-not match raises. The audio VAE and vocoder loaders are not ported yet.
+not match raises. The audio loaders are strict where the JAX ones are not:
+a file that leaves a parameter of the module unfilled raises (the JAX
+loaders keep the init's values). Audio conv weights keep their checkpoint
+layouts too: Conv2d (O, I, kh, kw), Conv1d (O, I, K) and ConvTranspose1d
+(I, O, K). Not ported yet: the audio VAE encoder's side.
 """
 
 from __future__ import annotations
@@ -179,3 +183,48 @@ def load_video_encoder_weights(path: Union[str, Path], encoder: nn.Module) -> in
         if _assign_any(state, key.split("."), value):
             loaded += 1
     return loaded
+
+
+def _check_filled(what: str, state: Dict[str, torch.Tensor], filled: set) -> None:
+    missing = sorted(n for n in state if n not in filled)
+    if missing:
+        raise ValueError(f"{what}: {len(missing)} parameters not in the file (sample: {missing[:20]})")
+
+
+_AUDIO_STATS = {
+    "std_of_means": ("std_of_means", "std-of-means", "_std_of_means"),
+    "mean_of_means": ("mean_of_means", "mean-of-means", "_mean_of_means"),
+}
+
+
+def load_audio_vae_weights(path: Union[str, Path], decoder: nn.Module) -> int:
+    """Fill an ``AudioDecoder`` from a checkpoint, in place: the
+    ``decoder.`` (or a unified bundle's ``audio_vae.decoder.``) tensors and
+    the per-channel statistics under any of their three spellings. Every
+    parameter must be in the file."""
+    stats = _read_stats(path, ("per_channel_statistics.", "audio_vae.per_channel_statistics."),
+                        [n for names in _AUDIO_STATS.values() for n in names])
+    weights = _read_all(path, ("decoder.", "audio_vae.decoder."), _device_of(decoder))
+    state = decoder.state_dict()
+    filled = set()
+    for target, names in _AUDIO_STATS.items():
+        name = next((n for n in names if n in stats), None)
+        if name is not None and _assign(state, ("per_channel_statistics", target), stats[name].float()):
+            filled.add(f"per_channel_statistics.{target}")
+    for key, value in weights.items():
+        # CausalConv2d wrappers nest the conv one level deeper (.conv)
+        cand = next((c for c in _leaf_candidates(key.split(".")) if _assign(state, c, value)), None)
+        if cand is not None:
+            filled.add(".".join(cand))
+    _check_filled("audio VAE decoder", state, filled)
+    return len(filled)
+
+
+def load_vocoder_weights(path: Union[str, Path], vocoder: nn.Module) -> int:
+    """Fill a ``Vocoder`` from a checkpoint (``vocoder.``-prefixed keys, or
+    bare ones), in place. Every parameter must be in the file."""
+    weights = _read_all(path, _detect_prefixes(path, [("vocoder.",)]), _device_of(vocoder))
+    state = vocoder.state_dict()
+    filled = {key for key, value in weights.items() if _assign(state, tuple(key.split(".")), value)}
+    _check_filled("vocoder", state, filled)
+    return len(filled)

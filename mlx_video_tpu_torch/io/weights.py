@@ -42,8 +42,15 @@ PT_PREFIX = "model.diffusion_model."
 NATIVE_FORMAT = "mlx_video_tpu"
 
 # Sanitized names that live at the model top level (everything else belongs
-# to transformer_blocks.{i}).
+# to transformer_blocks.{i}); the audio ones carry an ``audio_`` prefix.
 _VIDEO_TOP = {"patchify_proj", "adaln_single", "caption_projection", "scale_shift_table", "proj_out"}
+# The cross-modal adaLNs of an AudioVideo checkpoint -> their names under ``av``
+_AV_ADALN = {
+    "av_ca_video_scale_shift_adaln_single": "av_ca_video_scale_shift_adaln",
+    "av_ca_audio_scale_shift_adaln_single": "av_ca_audio_scale_shift_adaln",
+    "av_ca_a2v_gate_adaln_single": "av_ca_a2v_gate_adaln",
+    "av_ca_v2a_gate_adaln_single": "av_ca_v2a_gate_adaln",
+}
 _QUANT_AUX = ("scales", "biases")
 _KEEP_DTYPE = (*_QUANT_AUX, "int8_scale")  # fp32 scales of the quantized and int8 linears
 
@@ -70,14 +77,23 @@ def sanitize_pt_key(key: str) -> Optional[str]:
 
 
 def dit_tree_path(sanitized_key: str) -> Optional[str]:
-    """Sanitized key -> name in the port's video DiT state dict
+    """Sanitized key -> name in the port's DiT state dict
     (``transformer_blocks.{i}.*`` -> ``blocks.{i}.*``, video top-level
-    names -> ``video.*``); None for keys the video model has no place for
-    (audio, audio-video and parameter-free norms)."""
+    names -> ``video.*``, ``audio_`` top-level names -> ``audio.*``, the
+    cross-modal adaLNs -> ``av.*``); None for keys no model type has a place
+    for (parameter-free norms such as ``audio_norm_out``). A loader skips the
+    names its model type lacks: a VideoOnly or AudioOnly model reads its part
+    of an AudioVideo file."""
     parts = sanitized_key.split(".")
-    if parts[0] == "transformer_blocks":
+    name = parts[0]
+    if name == "transformer_blocks":
         return ".".join(["blocks"] + parts[1:])
-    if parts[0] in _VIDEO_TOP:
+    if name in _AV_ADALN:
+        return ".".join(["av", _AV_ADALN[name]] + parts[1:])
+    if name.startswith("audio_"):
+        sub = name[len("audio_"):]
+        return ".".join(["audio", sub] + parts[1:]) if sub in _VIDEO_TOP else None
+    if name in _VIDEO_TOP:
         return "video." + sanitized_key
     return None
 
@@ -112,11 +128,13 @@ def load_dit_params(
     dtype=torch.bfloat16,
     device="cuda",
 ) -> LTXModel:
-    """Build the video DiT on ``device`` (default the card, as
-    ``load_model_bundle``) from safetensors shard(s).
+    """Build the DiT of ``config``'s model type on ``device`` (default the
+    card, as ``load_model_bundle``) from safetensors shard(s).
 
     Every parameter of the model must be in the files (the strict check of
-    the JAX loader); a missing one raises with a sample of the names.
+    the JAX loader); a missing one raises with a sample of the names. Tensors
+    the model has no place for are skipped, so a VideoOnly or AudioOnly model
+    loads from an AudioVideo file (the JAX loader's ``strict=False`` load).
     """
     paths = [paths] if isinstance(paths, (str, Path)) else list(paths)
     if len(paths) == 1 and read_metadata(paths[0]).get("format") == NATIVE_FORMAT:
@@ -203,12 +221,14 @@ def load_native_params(
     path: Union[str, Path], config: LTXModelConfig, dtype=torch.bfloat16, device="cuda", prefix: str = ""
 ) -> LTXModel:
     """Load a native-layout file (:func:`save_dit_params`, or the JAX
-    package's) into the video DiT on ``device``. With ``prefix``, read only
-    that subset (``"transformer."`` of a unified ``model.safetensors``)."""
+    package's) into the DiT of ``config``'s model type on ``device`` (its
+    part of the file). With ``prefix``, read only that subset
+    (``"transformer."`` of a unified ``model.safetensors``)."""
     with SafetensorsReader(path) as reader:
         flat = {k[len(prefix) :]: reader.get(k, device) for k in reader.keys() if k.startswith(prefix)}
-    state = jax_tree_to_state_dict(_unflatten(flat))
     model = LTXModel(config, device="meta", dtype=dtype)
+    modules = dict(model.named_modules())
+    state = {k: t for k, t in jax_tree_to_state_dict(_unflatten(flat)).items() if k.rpartition(".")[0] in modules}
     use_quant_linears(model, quant_specs(model, state))
     use_int8_linears(model, state)
     return _assign_state(model, state, dtype)

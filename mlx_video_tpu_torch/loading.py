@@ -1,14 +1,15 @@
 """Model-bundle loading: resolve the weight files of a snapshot and build the
-components of a video pipeline (distilled, keyframe, IC-LoRA or dev) on one
-device.
+components of a video pipeline (distilled, keyframe, IC-LoRA or dev), with
+or without audio, on one device.
 
-Counterpart of mlx_video_tpu/loading.py for the video-only paths: the DiT of
-the pipeline's kind (PyTorch, MLX, MLX pre-quantized or native layout;
-io/weights.py), a second DiT for stage 2 from another snapshot, the VAE
-decoder, the VAE encoder when conditionings need it, and the 2x upsampler
-when the snapshot has it (io/vae_weights.py). :func:`quantize_models`
-applies the quantized execution modes (4/8-bit storage on K2, W8A8, W4A8).
-Not ported yet, and refused with ``NotImplementedError``: audio.
+Counterpart of mlx_video_tpu/loading.py: the DiT of the pipeline's kind
+(PyTorch, MLX, MLX pre-quantized or native layout; io/weights.py), VideoOnly,
+or AudioVideo for joint audio, a second DiT for stage 2 from another
+snapshot, the VAE decoder, the VAE encoder when conditionings need it, the 2x
+upsampler when the snapshot has it, and with audio the audio VAE decoder and
+the vocoder (io/vae_weights.py) and, for separate audio, an AudioOnly DiT
+from the audio part of an AudioVideo file. :func:`quantize_models` applies
+the quantized execution modes (4/8-bit storage on K2, W8A8, W4A8).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
 from mlx_video_tpu_torch.io import vae_weights
 from mlx_video_tpu_torch.io.safetensors import read_metadata
 from mlx_video_tpu_torch.io.weights import load_dit_params, load_native_params
+from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_decoder
+from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import VocoderConfig, init_vocoder
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import DecoderConfig, init_video_decoder
 from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
@@ -33,10 +36,6 @@ from mlx_video_tpu_torch.pipelines.generate import ModelBundle, PipelineType
 
 UNIFIED_FORMAT = "mlx_video_tpu_unified"
 UPSAMPLER_FILE = "ltx-2-spatial-upscaler-x2-1.0.safetensors"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to mlx_video_tpu_torch yet (ROADMAP.md queue: {item})")
 
 
 def resolve_transformer_file(model_path: Path, kind: str, bits_hint: Optional[str] = None) -> Path:
@@ -86,11 +85,34 @@ def unified_bundle_file(model_path: Path) -> Optional[Path]:
 
 
 def model_config_for(pipeline: str = "distilled", audio: bool = False) -> LTXModelConfig:
-    """The 19B video DiT configuration (the pipeline does not change it)."""
-    if audio:
-        raise _not_ported("The audio-video transformer", "Audio")
-    return LTXModelConfig(model_type=LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT,
+    """The 19B DiT configuration: AudioVideo for joint audio, else
+    VideoOnly (the pipeline does not change it)."""
+    return LTXModelConfig(model_type=LTXModelType.AudioVideo if audio else LTXModelType.VideoOnly,
+                          rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
+
+
+def audio_only_config() -> LTXModelConfig:
+    """The separate-audio transformer's configuration."""
+    return LTXModelConfig(model_type=LTXModelType.AudioOnly, rope_type=LTXRopeType.SPLIT,
                           double_precision_rope=True)
+
+
+def resolve_audio_transformer_file(model_path: Path, audio_model_path: Optional[Path] = None) -> Optional[Path]:
+    """Weights of the separate-audio AudioOnly transformer: under
+    ``audio_model_path``, then the snapshot, the dev weights before the
+    distilled ones; None when there are none."""
+    roots = [Path(p) for p in (audio_model_path, model_path) if p is not None]
+    names = [
+        "ltx-2-19b-dev-mlx.safetensors",
+        "ltx-2-19b-dev.safetensors",
+        "ltx-2-19b-distilled-mlx.safetensors",
+        "ltx-2-19b-distilled.safetensors",
+    ]
+    for root in roots:
+        for name in names:
+            if (root / name).exists():
+                return root / name
+    return None
 
 
 def bits_hint_for(repo: str) -> Optional[str]:
@@ -116,6 +138,8 @@ def load_model_bundle(
     model_path: Path,
     pipeline: Union[PipelineType, str] = PipelineType.DISTILLED,
     audio: bool = False,
+    audio_mode: str = "auto",
+    audio_model_path: Optional[Path] = None,
     dtype=torch.bfloat16,
     bits_hint: Optional[str] = None,
     stage2_path: Optional[Path] = None,
@@ -128,13 +152,19 @@ def load_model_bundle(
     of the same kind from that snapshot for stage 2, the VAE decoder, with
     ``load_encoder`` the VAE encoder (from the same VAE file), and, when the
     snapshot has it, the upsampler. The VAE parts are loaded over a seeded
-    init, as the JAX loader fills its init."""
+    init, as the JAX loader fills its init.
+
+    With ``audio``: the audio VAE decoder (``audio_vae/``) and the vocoder
+    (``vocoder/``), or a unified bundle's; for joint audio (``audio_mode``
+    "joint", or "auto" with the dev pipeline) an AudioVideo transformer, for
+    separate audio a VideoOnly one and an AudioOnly one from the file
+    :func:`resolve_audio_transformer_file` finds (``audio_model_path``
+    first), none when there is none."""
     pipeline = PipelineType(pipeline)
-    if audio:
-        raise _not_ported("Audio generation", "Audio")
     model_path = Path(model_path)
     device = torch.device(device)
-    config = model_config_for(pipeline.value, audio)
+    separate_audio = audio and (audio_mode == "separate" or (audio_mode == "auto" and pipeline != PipelineType.DEV))
+    config = model_config_for(pipeline.value, audio and not separate_audio)
     kind = "dev" if pipeline == PipelineType.DEV else "distilled"
 
     unified = unified_bundle_file(model_path)
@@ -166,6 +196,29 @@ def load_model_bundle(
         upsampler = init_latent_upsampler(generator, device=device, dtype=dtype)
         vae_weights.load_upsampler_weights(ups_file, upsampler)
 
+    audio_parts = {}
+    if audio:
+        def component(name: str) -> Path:
+            path = model_path / name / "diffusion_pytorch_model.safetensors"
+            return unified if unified is not None and not path.exists() else path
+
+        if component("audio_vae").exists():
+            cfg = AudioVAEConfig()
+            decoder_a = init_audio_decoder(generator, cfg, device=device, dtype=dtype)
+            vae_weights.load_audio_vae_weights(component("audio_vae"), decoder_a)
+            audio_parts.update(audio_decoder=decoder_a, audio_decoder_config=cfg)
+        if component("vocoder").exists():
+            cfg = VocoderConfig()
+            vocoder = init_vocoder(generator, cfg, device=device, dtype=dtype)
+            vae_weights.load_vocoder_weights(component("vocoder"), vocoder)
+            audio_parts.update(vocoder=vocoder, vocoder_config=cfg)
+    if separate_audio:
+        audio_file = resolve_audio_transformer_file(model_path, audio_model_path)
+        if audio_file is not None:
+            cfg = audio_only_config()
+            audio_parts.update(audio_transformer=load_dit_params([audio_file], cfg, dtype=dtype, device=device),
+                               audio_transformer_config=cfg)
+
     return ModelBundle(
         transformer=transformer,
         transformer_config=config,
@@ -175,6 +228,7 @@ def load_model_bundle(
         vae_encoder=encoder,
         vae_encoder_config=enc_cfg,
         stage2_transformer=stage2,
+        **audio_parts,
     )
 
 
@@ -187,8 +241,10 @@ def quantize_models(
     quantize_bits: Optional[int] = None,
     repo_hint: str = "",
 ) -> None:
-    """Apply the quantized execution mode to the loaded transformers, in
-    place (the JAX function of the same name):
+    """Apply the quantized execution mode to the loaded transformers (not the
+    separate-audio one, as in JAX), in place (the JAX function of the same
+    name; an AudioVideo transformer's audio and cross-modal linears are in
+    the ``core`` scope):
 
     - ``quantize_bits``: quantize the stage-1 transformer's dense block
       linears (group 64, ``core`` scope), as the JAX function does; linears a

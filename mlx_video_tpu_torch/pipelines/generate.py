@@ -1,10 +1,10 @@
 """Video generation: the distilled two-stage pipeline (stage-1 denoise at half
 size, 2x latent upsample, renoise, stage-2 refine, VAE decode) with its
 keyframe and IC-LoRA forms, and the dev pipeline (single stage,
-classifier-free guidance over the ``ltx2_scheduler`` schedule, VAE decode).
+classifier-free guidance over the ``ltx2_scheduler`` schedule, VAE decode);
+each with or without synchronized audio.
 
-Counterpart of the video-only branches of
-mlx_video_tpu/pipelines/generate.py:generate_video, with ``decode_latents``,
+Counterpart of mlx_video_tpu/pipelines/generate.py:generate_video, with ``decode_latents``,
 ``select_tiling`` and the helpers they need. The text conditioning arrives as
 precomputed embeddings (and, for CFG, negative embeddings), as the JAX CLI's
 ``--embeddings`` path gives it. What the distilled branch adds to plain text
@@ -19,19 +19,33 @@ to video:
   one at a time;
 - streaming decode (``stream``): the writer gets frames as the tiled decode
   finalises them.
-Not ported yet: audio, the TeaCache, PAB and CFG-cache dials, the parallel
+Audio (``audio``): ``joint`` denoises (B, 8, T, 16) audio latents with the
+video in one AudioVideo transformer (the dev pipeline's default; stage 2
+renoises them as it renoises the video), ``separate`` denoises them after the
+video with ``ModelBundle.audio_transformer``, an AudioOnly model, over
+``audio_steps`` of the stage-1 schedule (the distilled pipelines' default;
+CFG when negative audio embeddings exist). Both then decode them to a
+waveform (audio VAE decoder, HiFi-GAN vocoder), write a 16-bit WAV and mux it
+into the mp4 with ffmpeg; without ffmpeg the silent video is the output, as
+in the JAX function.
+Not ported yet: the TeaCache, PAB and CFG-cache dials, the parallel
 and host-staging options.
 
 Randomness: video i draws all its noise from its own ``torch.Generator``
 (the one given, or one seeded with ``seed + i`` or ``seeds[i]`` on the
 model's device), in this order: distilled, the stage-1 noise (with
 conditionings, inside the mask-scaled renoise of the conditioned state),
-the stage-2 renoise (with image conditionings, the masked renoise of the
-stage-2 state) and the decode noise; dev, the initial noise (masked by the
-conditioning state) and the decode noise. The order is the same with and
+[joint audio: the audio noise], the stage-2 renoise (with image
+conditionings, the masked renoise of the stage-2 state), [joint audio: the
+stage-2 audio renoise], [separate audio: the audio noise] and the decode
+noise; dev, the initial noise (masked by the conditioning state), [joint
+audio: the audio noise], [separate audio: the audio noise] and the decode
+noise. The bracketed draws exist only with audio, so a run without audio
+draws what it drew before audio was ported. The order is the same with and
 without conditionings, and a batch of N videos draws exactly the noise of N
 single runs. (The JAX function splits one key into 8 and takes keys 0, 1
-and 2 for the same three draws.)
+and 2 for the three video draws, keys 5 and 6 for the joint audio noise and
+its stage-2 renoise and key 7 for the separate audio noise.)
 
 Differences from the JAX function, on purpose:
 - The video is decoded whether or not ``output_path`` is given; the mp4 is
@@ -42,6 +56,10 @@ Differences from the JAX function, on purpose:
 - The decode noise is drawn once for the whole latents and mixed in before
   tiling, so a streamed (tiled) decode sees the noise of an untiled one
   (the JAX decoder draws each tile's noise from the same key).
+- The waveform is decoded whether or not a path is given
+  (``GenerateResult.audio``); the WAV is written when ``output_path`` or
+  ``output_audio_path`` is given. Its decode runs in fp32 on the latents, as
+  the JAX function decodes the fp32 host copy of its latents.
 """
 
 from __future__ import annotations
@@ -58,6 +76,9 @@ import torch
 
 from mlx_video_tpu_torch.config import LTXModelConfig, VideoVAEConfig
 from mlx_video_tpu_torch.io import media
+from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioDecoder, AudioVAEConfig
+from mlx_video_tpu_torch.models.ltx.audio_vae.processing import save_wav
+from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import Vocoder, VocoderConfig, decode_audio
 from mlx_video_tpu_torch.models.ltx.model import LTXModel
 from mlx_video_tpu_torch.models.ltx.upsampler import LatentUpsampler, upsample_latents
 from mlx_video_tpu_torch.models.ltx.video_vae.decoder import (
@@ -81,7 +102,13 @@ from mlx_video_tpu_torch.pipelines.conditioning import (
     add_noise_with_state,
     apply_conditioning,
 )
-from mlx_video_tpu_torch.pipelines.positions import create_position_grid
+from mlx_video_tpu_torch.pipelines.positions import (
+    AUDIO_LATENT_CHANNELS,
+    AUDIO_MEL_BINS,
+    compute_audio_frames,
+    create_audio_position_grid,
+    create_position_grid,
+)
 from mlx_video_tpu_torch.pipelines.schedulers import (
     STAGE_1_SIGMAS,
     STAGE_2_SIGMAS,
@@ -107,7 +134,9 @@ class PipelineType(Enum):
 class ModelBundle:
     """The model components the pipelines run: the distilled pipeline needs
     the upsampler, conditionings the VAE encoder; ``stage2_transformer``,
-    when given, refines stage 2 in place of ``transformer``."""
+    when given, refines stage 2 in place of ``transformer``. Audio needs the
+    audio decoder and vocoder, joint audio an AudioVideo ``transformer`` and
+    separate audio an AudioOnly ``audio_transformer``."""
 
     transformer: LTXModel
     transformer_config: LTXModelConfig
@@ -117,6 +146,12 @@ class ModelBundle:
     vae_encoder: Optional[VideoEncoder] = None
     vae_encoder_config: Optional[VideoVAEConfig] = None
     stage2_transformer: Optional[LTXModel] = None
+    audio_decoder: Optional[AudioDecoder] = None
+    audio_decoder_config: Optional[AudioVAEConfig] = None
+    vocoder: Optional[Vocoder] = None
+    vocoder_config: Optional[VocoderConfig] = None
+    audio_transformer: Optional[LTXModel] = None
+    audio_transformer_config: Optional[LTXModelConfig] = None
 
     @property
     def latents_mean(self) -> torch.Tensor:
@@ -133,6 +168,8 @@ class TextConditioning:
 
     video_embeddings: torch.Tensor  # (B, S_ctx, caption_channels)
     video_neg_embeddings: Optional[torch.Tensor] = None  # the negative prompt, for CFG
+    audio_embeddings: Optional[torch.Tensor] = None  # (B, S_ctx, audio_caption_channels)
+    audio_neg_embeddings: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -142,6 +179,9 @@ class GenerateResult:
     video: Optional[np.ndarray] = None  # (N, 3, F, H, W) fp32 in [-1, 1]
     phase_seconds: Dict[str, float] = field(default_factory=dict)
     video_paths: Optional[List[Path]] = None  # num_videos > 1: {stem}_{i}{suffix}, one a video
+    audio_latents: Optional[np.ndarray] = None  # (1, 8, T, 16) fp32
+    audio: Optional[np.ndarray] = None  # (2, 240 * (4T - 3)) fp32 waveform in [-1, 1]
+    audio_path: Optional[Path] = None  # the WAV
 
 
 def pad_dimensions(height: int, width: int, divisor: int) -> Tuple[int, int, Optional[Tuple[int, int, int, int]]]:
@@ -301,8 +341,9 @@ def decode_latents(
 
 def _check_params_dtype(models: ModelBundle, dtype) -> None:
     # the output table is never quantized; any linear may be a QuantLinear
-    for model in (models.transformer, models.stage2_transformer):
-        got = None if model is None else model.video.scale_shift_table.dtype
+    for model in (models.transformer, models.stage2_transformer, models.audio_transformer):
+        head = None if model is None else (model.video if hasattr(model, "video") else model.audio)
+        got = None if head is None else head.scale_shift_table.dtype
         if got is not None and got != dtype:
             raise ValueError(
                 f"transformer params are {got} but the pipeline dtype is {dtype}; "
@@ -358,6 +399,12 @@ def generate_video(
     decode_latents_only: bool = False,
     dtype=torch.bfloat16,
     video_encoder: str = "ffmpeg",
+    audio: bool = False,
+    audio_mode: str = "auto",
+    audio_steps: int = 8,
+    audio_filter: Optional[str] = None,
+    audio_bitrate: str = "256k",
+    output_audio_path: Optional[Union[str, Path]] = None,
 ) -> GenerateResult:
     """Generate videos with the distilled two-stage pipeline (``distilled``,
     ``keyframe``, ``ic_lora``) or the dev pipeline.
@@ -383,6 +430,14 @@ def generate_video(
     ``video_encoder`` (``ffmpeg``, falling back to cv2; or ``cv2``), to
     ``{stem}_{i}{suffix}`` when there are several, and with ``stream`` the
     writer gets frames as the tiled decode finalises them.
+
+    ``audio`` adds synchronized audio: ``audio_mode`` "joint" (an
+    AudioVideo ``models.transformer`` denoises it with the video), "separate"
+    (``models.audio_transformer`` denoises it after the video, ``audio_steps``
+    steps) or "auto" (joint for dev, separate otherwise). The waveform goes to
+    ``output_audio_path`` (default: the output path with ``.wav``) and is
+    muxed into the mp4 (``audio_filter``, an ffmpeg -af chain, and
+    ``audio_bitrate``) when ffmpeg exists. One video only.
     """
     pipeline = PipelineType(pipeline)
     if seeds is not None:
@@ -404,6 +459,17 @@ def generate_video(
         raise ValueError("num_videos > 1 does not compose with image/video conditioning")
     if generator is not None and num_videos > 1:
         raise ValueError("generator draws one video's noise; give seed or seeds for num_videos > 1")
+    joint_audio = separate_audio = False
+    if audio:
+        if audio_mode == "auto":
+            audio_mode = "separate" if pipeline != PipelineType.DEV else "joint"
+        if audio_mode not in ("joint", "separate"):
+            raise ValueError("audio_mode must be 'auto', 'joint' or 'separate'")
+        joint_audio, separate_audio = audio_mode == "joint", audio_mode == "separate"
+        if joint_audio and not models.transformer_config.model_type.audio_enabled:
+            raise ValueError("Joint audio requires an AudioVideo transformer config")
+        if num_videos > 1:
+            raise ValueError("num_videos > 1 does not compose with audio yet")
     device = models.transformer.video.scale_shift_table.device
     vid_seeds = [int(s) for s in seeds] if seeds is not None else [seed + i for i in range(num_videos)]
     generators = [generator] if generator is not None else [
@@ -436,6 +502,22 @@ def generate_video(
     def positions(h: int, w: int) -> torch.Tensor:
         return torch.from_numpy(create_position_grid(num_videos, latent_frames, h, w)).to(device)
 
+    audio_frames = compute_audio_frames(num_frames, fps) if audio else 0
+    audio_shape = (1, AUDIO_LATENT_CHANNELS, audio_frames, AUDIO_MEL_BINS)
+    audio_positions = (torch.from_numpy(create_audio_position_grid(1, audio_frames)).to(device)
+                       if audio else None)
+
+    def audio_embeddings(name: str) -> Optional[torch.Tensor]:
+        emb = getattr(text, name)
+        return None if emb is None else emb.to(device=device, dtype=dtype)
+
+    joint = {}  # the audio arguments of a joint denoise
+
+    def joint_audio_args(latents_a: torch.Tensor) -> dict:
+        return dict(audio_latents=latents_a, audio_positions=audio_positions,
+                    audio_context=audio_embeddings("audio_embeddings"),
+                    audio_neg_context=audio_embeddings("audio_neg_embeddings"))
+
     if dev:
         conds = []
         if images:
@@ -445,10 +527,12 @@ def generate_video(
         shape = (num_videos, latent_channels, latent_frames, latent_h, latent_w)
         state = _conditioned_state(zeros(shape), conds, noise, float(sigmas[0])) if conds else None
         latents = noise(shape) if state is None else state.latent
+        if joint_audio:
+            joint = joint_audio_args(noise(audio_shape))
         with _phase(times, "dev_denoise", device):
-            latents = dn.denoise(
+            latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h, latent_w), context, sigmas,
-                neg_context=neg, cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential,
+                neg_context=neg, cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential, **joint,
             )
     else:
         if not 1 <= stage1_steps <= len(STAGE_1_SIGMAS) - 1:
@@ -471,9 +555,12 @@ def generate_video(
         with _phase(times, "stage1_denoise", device):
             shape1 = (num_videos, latent_channels, latent_frames, latent_h // 2, latent_w // 2)
             state1 = _conditioned_state(zeros(shape1), s1_conds, noise, s1_sigmas[0]) if s1_conds else None
-            latents = dn.denoise(
-                models.transformer, config, noise(shape1) if state1 is None else state1.latent,
-                positions(latent_h // 2, latent_w // 2), context, s1_sigmas, state=state1,
+            latents = noise(shape1) if state1 is None else state1.latent
+            if joint_audio:
+                joint = joint_audio_args(noise(audio_shape))
+            latents, audio_latents = dn.denoise(
+                models.transformer, config, latents, positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
+                state=state1, **joint,
             )
 
         with _phase(times, "upsample", device):
@@ -483,22 +570,44 @@ def generate_video(
             sigma0 = s2_sigmas[0]
             state2 = _conditioned_state(latents, s2_conds, noise, sigma0) if s2_conds else None
             latents = noise(latents.shape) * sigma0 + latents * (1.0 - sigma0) if state2 is None else state2.latent
+            if joint_audio:
+                joint["audio_latents"] = noise(audio_latents.shape) * sigma0 + audio_latents * (1.0 - sigma0)
+                if stage2_cfg and neg is not None and joint["audio_neg_context"] is None:
+                    raise ValueError("stage2_cfg with joint audio requires audio_neg_embeddings "
+                                     "(the negative-prompt audio context) in TextConditioning.")
             stage2 = models.stage2_transformer if models.stage2_transformer is not None else models.transformer
-            latents = dn.denoise(
+            latents, audio_latents = dn.denoise(
                 stage2, config, latents, positions(latent_h, latent_w), context, s2_sigmas,
                 neg_context=neg if stage2_cfg else None, cfg_scale=cfg_scale, state=state2,
-                cfg_sequential=cfg_sequential,
+                cfg_sequential=cfg_sequential, **joint,
+            )
+
+    if separate_audio:
+        if models.audio_transformer is None:
+            raise ValueError("Separate audio requires an AudioOnly transformer")
+        a_context, a_neg = audio_embeddings("audio_embeddings"), audio_embeddings("audio_neg_embeddings")
+        if a_context is None:
+            raise ValueError("Separate audio requires audio text embeddings")
+        a_init = noise(audio_shape)
+        with _phase(times, "audio_denoise", device):
+            audio_latents = dn.denoise_audio_only(
+                models.audio_transformer, models.audio_transformer_config or config, a_init, audio_positions,
+                a_context, subsample_sigmas(STAGE_1_SIGMAS, audio_steps, "farthest"), audio_neg_context=a_neg,
+                cfg_scale=cfg_scale if a_neg is not None else 1.0,
             )
 
     latents_np = latents.float().cpu().numpy()
+    audio_np = audio_latents.float().cpu().numpy() if audio else None
     if decode_latents_only:
-        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=times)
+        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=times, audio_latents=audio_np)
 
     video_paths: List[Optional[Path]] = [None] * num_videos
     if output_path is not None:
         output_path = Path(output_path)
         video_paths = [output_path] if num_videos == 1 else [
             output_path.with_name(f"{output_path.stem}_{i}{output_path.suffix}") for i in range(num_videos)]
+        if audio:  # the silent video, until the audio is muxed in
+            video_paths = [output_path.with_suffix(".temp.mp4")]
     out_h, out_w = (height, width) if crop is None else crop[2:]
     decoded = []
     with _phase(times, "vae_decode", device):
@@ -520,5 +629,42 @@ def generate_video(
                 if writer is not None:
                     writer.close()
     video = decoded[0] if num_videos == 1 else np.concatenate(decoded, axis=0)
-    return GenerateResult(video_path=video_paths[0], latents=latents_np, video=video, phase_seconds=times,
-                          video_paths=video_paths if num_videos > 1 and output_path is not None else None)
+    result = GenerateResult(video_path=video_paths[0], latents=latents_np, video=video, phase_seconds=times,
+                            video_paths=video_paths if num_videos > 1 and output_path is not None else None,
+                            audio_latents=audio_np)
+    if audio and models.audio_decoder is not None:
+        _decode_and_mux_audio(models, audio_latents, result, output_path, output_audio_path, audio_filter,
+                              audio_bitrate, device)
+    elif audio and output_path is not None:
+        video_paths[0].rename(output_path)  # audio asked for, none decoded: the video still lands there
+        result.video_path = output_path
+    return result
+
+
+def _decode_and_mux_audio(models: ModelBundle, audio_latents: torch.Tensor, result: GenerateResult,
+                          output_path: Optional[Path], output_audio_path, audio_filter: Optional[str],
+                          audio_bitrate: str, device: torch.device) -> None:
+    """The ``audio_decode`` phase (latents -> fp32 waveform, the WAV) and,
+    with an mp4, the ``audio_mux`` phase: ffmpeg muxes the WAV into the
+    silent video at ``result.video_path``, or without ffmpeg that video
+    becomes the output. Fills ``result``'s audio fields."""
+    rate = models.vocoder_config.output_sample_rate
+    with _phase(result.phase_seconds, "audio_decode", device):
+        wav = decode_audio(audio_latents.float(), models.audio_decoder, models.audio_decoder_config,
+                           models.vocoder, models.vocoder_config)
+        result.audio = wav.cpu().numpy()
+        wav_path = Path(output_audio_path) if output_audio_path else (
+            None if output_path is None else output_path.with_suffix(".wav"))
+        if wav_path is not None:
+            save_wav(str(wav_path), result.audio, rate)
+            result.audio_path = wav_path
+    if output_path is None:
+        return
+    silent = result.video_path
+    with _phase(result.phase_seconds, "audio_mux", device):
+        if media.mux_audio(silent, wav_path, output_path, audio_filter=audio_filter, audio_bitrate=audio_bitrate,
+                           audio_sample_rate=rate):
+            silent.unlink(missing_ok=True)
+        else:
+            silent.rename(output_path)
+    result.video_path = output_path

@@ -56,7 +56,8 @@ class ModelInputs(NamedTuple):
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to mlx_video_tpu_torch yet (ROADMAP.md queue: Audio)")
+    return NotImplementedError(
+        f"{what} is not ported to mlx_video_tpu_torch yet (ROADMAP.md §1 item 3: training data and validation)")
 
 
 def patchify_video_latents(latents: np.ndarray) -> np.ndarray:
@@ -221,4 +222,4 @@ def strategy_loss_fn(
     """Inputs from the draws -> model forward -> masked MSE. The model input
     is cast to the model's dtype (its output table's)."""
     inputs = make_inputs(sb, draws, dtype=model.video.scale_shift_table.dtype)
-    return compute_loss(ltx_apply(model, config, inputs.video), inputs)
+    return compute_loss(ltx_apply(model, config, inputs.video)[0], inputs)

@@ -123,7 +123,7 @@ def test_main_dev_cfg_follows_the_embeddings(monkeypatch, tmp_path, with_neg, ex
     emb, image = _dev_files(tmp_path, with_neg)
     seen = []
     forward = dn.ltx_apply
-    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, v, a: seen.append(v.latent.shape[0]) or forward(m, c, v, a))
     monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_dev_bundle())
     cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb), "--pipeline", "dev",
               "--condition-image", str(image), "--steps", "2", "--height", "64", "--width", "64", "--num-frames", "9",
@@ -146,16 +146,16 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
 
 
 @pytest.mark.parametrize("flags, named", [
-    (["--audio-mode", "joint"], "--audio-mode"),
+    (["--pipeline-parallel", "2"], "--pipeline-parallel"),
     (["--cfg-cache-interval", "2"], "--cfg-cache-interval"),
     (["--attn-broadcast-interval", "2"], "--attn-broadcast-interval"),
     (["--mesh", "auto"], "--mesh"),
     (["--mem-log"], "--mem-log"),
-    (["--audio"], "--audio"),
+    (["--sequence-parallel"], "--sequence-parallel"),
     (["--profile"], "--profile"),
     (["--teacache-threshold", "0.1"], "--teacache-threshold"),
     (["--enhance-prompt"], "--enhance-prompt"),
-    (["--skip-audio"], "--skip-audio"),
+    (["--low-memory"], "--low-memory"),
     (["--temperature", "0.2"], "--temperature"),
     (["--trace-dir", "x"], "--trace-dir"),
 ])
@@ -245,7 +245,7 @@ def test_main_dev_prompt_encodes_the_default_negative_prompt(monkeypatch, tmp_pa
     from mlx_video_tpu_torch.pipelines import denoise as dn
 
     seen, forward = [], dn.ltx_apply
-    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, v, a: seen.append(v.latent.shape[0]) or forward(m, c, v, a))
     monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_dev_bundle())
     cli.main(["--prompt", "p", "--checkpoint-path", str(text_encoder_dir), "--pipeline", "dev", "--steps", "2",
               "--height", "64", "--width", "64", "--num-frames", "9", "--latents-only", "--device", "cpu"])
@@ -334,7 +334,7 @@ def test_main_distilled_lora_merges_into_the_stage2_transformer(monkeypatch, tmp
     stage1, base = bundle.transformer, bundle.stage2_transformer or bundle.transformer
     before = {k: v.clone() for k, v in stage1.state_dict().items()}
     seen, forward = [], dn.ltx_apply
-    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(m) or forward(m, c, video))
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, v, a: seen.append(m) or forward(m, c, v, a))
     _run_main(monkeypatch, tmp_path, emb_file, bundle, ("--distilled-lora", str(adapter)))
     assert bundle.transformer is stage1 and seen[0] is stage1 and seen[-1] is bundle.stage2_transformer
     for k, v in stage1.state_dict().items():
@@ -426,7 +426,7 @@ def test_main_stage2_dev_runs_cfg_at_stage2(monkeypatch, tmp_path):
 
     emb, _ = _dev_files(tmp_path, with_neg=True)
     seen, forward = [], dn.ltx_apply
-    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, v, a: seen.append(v.latent.shape[0]) or forward(m, c, v, a))
     for extra, want in (((), [1, 1, 2]), (("--no-cfg-batch",), [1, 1, 1, 1])):
         seen.clear()
         _run_main(monkeypatch, tmp_path, emb, _tiny_bundle(), ("--stage2-dev", "--stage1-steps", "2", "--latents-only",
@@ -440,9 +440,134 @@ def test_main_stage2_dev_prompt_encodes_the_default_negative_prompt(monkeypatch,
     from mlx_video_tpu_torch.pipelines import denoise as dn
 
     seen, forward = [], dn.ltx_apply
-    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, video: seen.append(video.latent.shape[0]) or forward(m, c, video))
+    monkeypatch.setattr(dn, "ltx_apply", lambda m, c, v, a: seen.append(v.latent.shape[0]) or forward(m, c, v, a))
     monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_bundle())
     cli.main(["--prompt", "p", "--checkpoint-path", str(text_encoder_dir), "--stage2-dev", "--stage1-steps", "1",
               "--stage2-steps", "1", "--height", "64", "--width", "64", "--num-frames", "9", "--latents-only",
               "--device", "cpu"])
     assert seen == [1, 2]
+
+
+# --- audio ---
+
+def _tiny_av_bundle(joint: bool = True) -> ModelBundle:
+    """A tiny AudioVideo (joint) or VideoOnly + AudioOnly (separate) bundle
+    with a narrow audio VAE decoder and vocoder; 128-wide audio tokens."""
+    import dataclasses
+
+    from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_decoder
+    from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import VocoderConfig, init_vocoder
+
+    bundle = _tiny_bundle()
+    g = torch.Generator().manual_seed(5)
+    av = dataclasses.replace(tiny_test_config(LTXModelType.AudioVideo, rope_type=LTXRopeType.SPLIT),
+                             audio_in_channels=128, audio_out_channels=128)
+    if joint:
+        bundle.transformer_config = av
+        bundle.transformer = init_ltx_params(av, g, device="cpu", dtype=torch.float32)
+    else:
+        bundle.audio_transformer_config = dataclasses.replace(av, model_type=LTXModelType.AudioOnly)
+        bundle.audio_transformer = init_ltx_params(bundle.audio_transformer_config, g, device="cpu",
+                                                   dtype=torch.float32)
+    bundle.audio_decoder_config, bundle.vocoder_config = AudioVAEConfig(ch=8), VocoderConfig(upsample_initial_channel=32)
+    bundle.audio_decoder = init_audio_decoder(g, bundle.audio_decoder_config, device="cpu", dtype=torch.float32)
+    bundle.vocoder = init_vocoder(g, bundle.vocoder_config, device="cpu", dtype=torch.float32)
+    return bundle
+
+
+def _av_emb_file(tmp_path, keys=("video", "video_neg", "audio", "audio_neg")):
+    rng = np.random.default_rng(4)
+    path = tmp_path / "av_emb.safetensors"
+    save_safetensors(path, {k: rng.standard_normal((8, 48)).astype(np.float32) for k in keys})
+    return path
+
+
+@pytest.mark.parametrize("flags, env, want", [
+    (["--audio"], None, dict(audio=True, audio_mode="auto", audio_steps=8, audio_filter=None, audio_bitrate="256k",
+                             output_audio_path=None)),
+    (["--audio", "--skip-audio"], None, dict(audio=False)),
+    (["--skip-audio"], None, dict(audio=False)),
+    (["--audio"], "320k", dict(audio=True, audio_bitrate="320k")),
+    (["--audio", "--audio-bitrate", "96k"], "320k", dict(audio_bitrate="96k")),
+    (["--audio", "--audio-mode", "joint", "--audio-steps", "3", "--audio-filter", "volume=2", "--output-audio",
+      "x.wav"], None, dict(audio_mode="joint", audio_steps=3, audio_filter="volume=2", output_audio_path="x.wav")),
+])
+def test_main_passes_the_audio_flags(monkeypatch, tmp_path, emb_file, flags, env, want):
+    """Every audio flag reaches the loader and generate_video: --skip-audio
+    wins over --audio, --audio-bitrate falls back to $LTX_AUDIO_BITRATE and
+    then 256k, --output-audio sets the WAV path."""
+    from mlx_video_tpu_torch.pipelines import generate as tgen
+
+    if env is None:
+        monkeypatch.delenv("LTX_AUDIO_BITRATE", raising=False)
+    else:
+        monkeypatch.setenv("LTX_AUDIO_BITRATE", env)
+    loads, runs = [], []
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: loads.append(kw) or _tiny_bundle())
+    monkeypatch.setattr(tgen, "generate_video", lambda *a, **kw: runs.append(kw) or tgen.GenerateResult(None, None))
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb_file), "--device", "cpu",
+              *flags])
+    (load,), (run,) = loads, runs
+    assert {k: run[k] for k in want} == want
+    assert load["audio"] is run["audio"] and load["audio_mode"] == run["audio_mode"] == want.get("audio_mode", "auto")
+    assert load["audio_model_path"] is None
+
+
+def test_main_resolves_the_audio_model_repo(monkeypatch, tmp_path):
+    loads = []
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: loads.append(kw) or _tiny_av_bundle())
+    (tmp_path / "audio_repo").mkdir()
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(_av_emb_file(tmp_path)),
+              "--device", "cpu", "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "1",
+              "--stage2-steps", "1", "--audio", "--latents-only",
+              "--audio-model-repo", str(tmp_path / "audio_repo"), "--audio-mode", "joint"])
+    assert loads[0]["audio_model_path"] == tmp_path / "audio_repo"
+
+
+@pytest.mark.parametrize("keys", [("video", "video_neg", "audio", "audio_neg"), ("video", "audio_prompt_embeds")])
+def test_load_embeddings_reads_the_audio_contexts(tmp_path, keys):
+    path = _av_emb_file(tmp_path, keys)
+    text = cli.load_embeddings(path)
+    assert text.audio_embeddings.shape == (1, 8, 48)
+    assert (text.audio_neg_embeddings is None) == ("audio_neg" not in keys)
+    assert (text.video_neg_embeddings is None) == ("video_neg" not in keys)
+
+
+@pytest.mark.parametrize("mode", ["joint", "separate"])
+def test_main_generates_audio_to_a_wav(monkeypatch, tmp_path, mode):
+    """The whole CLI path with --audio on a tiny bundle: the audio contexts
+    from the embeddings file, the WAV beside the mp4 (no ffmpeg here: the
+    silent video is the output, as in the JAX CLI)."""
+    import wave
+
+    from mlx_video_tpu_torch.io import media
+
+    monkeypatch.setattr(media.shutil, "which", lambda name: None)
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_av_bundle(joint=mode == "joint"))
+    out = tmp_path / "av.mp4"
+    cli.main(["--prompt", "p", "--checkpoint-path", str(tmp_path), "--embeddings", str(_av_emb_file(tmp_path)),
+              "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "1", "--stage2-steps", "1",
+              "--audio-steps", "2", "--tiling", "none", "--output-path", str(out), "--profile-json-path",
+              str(tmp_path / "phases.json"), "--device", "cpu", "--audio", "--audio-mode", mode])
+    assert out.stat().st_size > 0 and not (tmp_path / "av.temp.mp4").exists()
+    with wave.open(str(tmp_path / "av.wav"), "rb") as wf:
+        assert wf.getnchannels() == 2 and wf.getnframes() == 240 * (4 * 9 - 3)  # 9 audio latent frames at 9 frames
+    phases = json.loads((tmp_path / "phases.json").read_text())["phases"]
+    assert {"audio_decode", "audio_mux"} <= set(phases) and ("audio_denoise" in phases) == (mode == "separate")
+
+
+def test_encode_prompts_returns_the_audio_contexts(monkeypatch, tmp_path):
+    """The prompt's and the negative prompt's audio contexts come from the
+    same encodes as the video ones."""
+    from mlx_video_tpu_torch.models.ltx import text_encoder as tte
+
+    class Fake:
+        def encode(self, prompt):
+            v = torch.full((1, 2, 4), float(len(prompt)))
+            return v, -v
+
+    monkeypatch.setattr(tte.LTX2TextEncoder, "load", lambda *a, **kw: Fake())
+    args = cli.build_parser().parse_args(["--prompt", "abc", "--negative-prompt", "xy", "--device", "cpu"])
+    text = cli.encode_prompts(args, tmp_path, torch.device("cpu"), torch.float32, {})
+    assert float(text.audio_embeddings[0, 0, 0]) == -3.0 and float(text.audio_neg_embeddings[0, 0, 0]) == -2.0
+    assert float(text.video_embeddings[0, 0, 0]) == 3.0

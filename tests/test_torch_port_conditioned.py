@@ -326,9 +326,9 @@ def test_stage2_model_and_cfg_are_used(parts):
     port, _ = _bundles(parts, stage1, stage2=stage2)
     seen, forward = [], dn.ltx_apply
 
-    def spy(model, config, video):
+    def spy(model, config, video, audio):
         seen.append(("stage1" if model is stage1 else "stage2", video.latent.shape[0]))
-        return forward(model, config, video)
+        return forward(model, config, video, audio)
 
     kw = dict(height=H, width=W, num_frames=9, stage1_steps=2, stage2_steps=1, dtype=torch.float32,
               decode_latents_only=True, stage2_cfg=True)

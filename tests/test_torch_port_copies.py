@@ -254,3 +254,50 @@ def test_quantize_models_bits_helpers_copy(tmp_path, repo):
     (tmp_path / "quantization.json").write_text(json.dumps({"bits": 8, "repo": repo}))
     sub = tmp_path / "weights"
     assert tloading.read_quantization_metadata(sub) == jaux.read_quantization_metadata(sub) == {"bits": 8, "repo": repo}
+
+
+@pytest.mark.parametrize("case", ["stereo", "mono_1d", "clipped"])
+def test_save_wav_copy(tmp_path, case):
+    """The WAV writer (audio_vae/processing.py): the same file bytes."""
+    from mlx_video_tpu.models.ltx.audio_vae import processing as jproc
+    from mlx_video_tpu_torch.models.ltx.audio_vae import processing as tproc
+
+    rng = np.random.default_rng(3)
+    wav = {"stereo": rng.uniform(-1, 1, (2, 480)), "mono_1d": rng.uniform(-1, 1, 300),
+           "clipped": 3.0 * rng.standard_normal((2, 200))}[case].astype(np.float32)
+    jproc.save_wav(str(tmp_path / "j.wav"), wav, 16000)
+    tproc.save_wav(str(tmp_path / "t.wav"), wav, 16000)
+    assert (tmp_path / "j.wav").read_bytes() == (tmp_path / "t.wav").read_bytes()
+
+
+@pytest.mark.parametrize("branch", ["no_ffmpeg", "command", "filter_off", "ffmpeg"])
+def test_mux_audio_copy(tmp_path, monkeypatch, branch):
+    """mux_audio: without ffmpeg both return False and run nothing; with it
+    (stood in for) both run the same command and return its success; with a
+    real ffmpeg both write a muxed mp4."""
+    import shutil
+    import types
+
+    if branch == "ffmpeg":
+        if shutil.which("ffmpeg") is None:
+            pytest.skip("no ffmpeg on this machine")
+        from mlx_video_tpu.models.ltx.audio_vae.processing import save_wav
+
+        tmedia.write_video(tmp_path / "v.mp4", np.zeros((1, 3, 9, 32, 32), np.float32), 24.0)
+        save_wav(str(tmp_path / "a.wav"), np.zeros((2, 4000), np.float32))
+        for mod, out in ((jmedia, "j.mp4"), (tmedia, "t.mp4")):
+            assert mod.mux_audio(tmp_path / "v.mp4", tmp_path / "a.wav", tmp_path / out)
+            assert (tmp_path / out).stat().st_size > 0
+        return
+    ran = []  # both modules call the one shutil.which and subprocess.run
+    monkeypatch.setattr(tmedia.shutil, "which", lambda n: None if branch == "no_ffmpeg" else "/bin/ffmpeg")
+    monkeypatch.setattr(tmedia.subprocess, "run",
+                        lambda cmd, **kw: ran.append(cmd) or types.SimpleNamespace(returncode=(len(ran) - 1) // 2))
+    kw = dict(audio_filter="off" if branch == "filter_off" else "volume=2", audio_bitrate="96k",
+              audio_sample_rate=16000)
+    results = [[mod.mux_audio("v.mp4", "a.wav", "o.mp4", **kw) for mod in (jmedia, tmedia)] for _ in range(2)]
+    if branch == "no_ffmpeg":
+        assert ran == [] and results == [[False, False]] * 2
+    else:  # the stand-in fails its second pair of runs
+        assert results == [[True, True], [False, False]] and ran[0] == ran[1] == ran[2] == ran[3]
+        assert ("-af" in ran[0]) == (branch == "command")

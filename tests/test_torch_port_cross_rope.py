@@ -289,7 +289,7 @@ def _port_forward(model, inputs, monkeypatch, on: bool):
         monkeypatch.setattr(tattention, name, spy)
     video = tm.Modality(**{k: torch.from_numpy(np.asarray(v)) for k, v in inputs.items()})
     with torch.no_grad():
-        out = tm.ltx_apply(model, tconfig.LTXModelConfig.from_dict(ROUTE_CFG.to_dict()), video)
+        out, _ = tm.ltx_apply(model, tconfig.LTXModelConfig.from_dict(ROUTE_CFG.to_dict()), video)
     return out.numpy(), calls
 
 

@@ -239,7 +239,7 @@ def test_cfg_denoise_with_state_matches_jax(tiny_dit, sequential):
     ref, _ = jdn.denoise(params, jcfg, None, jnp.asarray(pos), jnp.asarray(ctx), sigmas, neg_context=jnp.asarray(neg),
                          cfg_scale=4.5, state=jstate, cfg_sequential=sequential)
     tstate = tcond.LatentState(*(torch.from_numpy(np.array(x)) for x in jstate))
-    got = tdn.denoise(model, cfg, None, torch.from_numpy(pos), torch.from_numpy(ctx), sigmas,
+    got, _ = tdn.denoise(model, cfg, None, torch.from_numpy(pos), torch.from_numpy(ctx), sigmas,
                       neg_context=torch.from_numpy(neg), cfg_scale=4.5, state=tstate, cfg_sequential=sequential)
     ref = np.asarray(ref)
     assert np.abs(got.numpy() - ref).max() <= 5e-4 * np.abs(ref).max()
@@ -252,9 +252,9 @@ def test_denoise_without_negative_context_has_no_cfg(tiny_dit):
     lat = torch.from_numpy(rng.normal(size=(1, 16, 2, 4, 4)).astype(np.float32))
     pos, ctx = torch.from_numpy(create_position_grid(1, 2, 4, 4)), torch.from_numpy(rng.normal(size=(1, 8, 48))).float()
     sigmas = ltx2_scheduler(2, num_tokens=32)
-    a = tdn.denoise(model, cfg, lat, pos, ctx, sigmas, cfg_scale=4.5)
-    assert torch.equal(a, tdn.denoise(model, cfg, lat, pos, ctx, sigmas, cfg_scale=1.0))
-    guided = tdn.denoise(model, cfg, lat, pos, ctx, sigmas, neg_context=ctx.flip(1), cfg_scale=4.5)
+    a, _ = tdn.denoise(model, cfg, lat, pos, ctx, sigmas, cfg_scale=4.5)
+    assert torch.equal(a, tdn.denoise(model, cfg, lat, pos, ctx, sigmas, cfg_scale=1.0)[0])
+    guided, _ = tdn.denoise(model, cfg, lat, pos, ctx, sigmas, neg_context=ctx.flip(1), cfg_scale=4.5)
     assert not torch.equal(a, guided)
 
 
@@ -296,7 +296,7 @@ def test_composed_dev_pipeline_psnr_gate(tiny_dit, tmp_path):
     state = tcond.apply_conditioning(tcond.LatentState(zeros, zeros, torch.ones(1, 1, 2, 1, 1)), tconds)
     noise = torch.from_numpy(np.array(jax.random.normal(key, shape, dtype=jnp.float32)))
     state = tcond.add_noise_with_state(state, float(sigmas[0]), noise=noise)
-    out = tdn.denoise(model, cfg, state.latent, torch.from_numpy(pos), torch.from_numpy(ctx), sigmas,
+    out, _ = tdn.denoise(model, cfg, state.latent, torch.from_numpy(pos), torch.from_numpy(ctx), sigmas,
                       neg_context=torch.from_numpy(neg), cfg_scale=4.5, state=state)
     rgb = tgen.decode_latents(bundle, out, tiling, decode_timestep=0.05)
 

@@ -154,7 +154,7 @@ def test_ltx_apply_matches(dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(timesteps),
         context=jnp.asarray(context), positions=jnp.asarray(pos),
     ))
-    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
+    got, _ = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(timesteps),
         context=torch.from_numpy(context), positions=torch.from_numpy(pos),
     ))
@@ -175,7 +175,7 @@ def test_ltx_apply_with_context_mask_matches(dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos), context_mask=jnp.asarray(mask),
     ))
-    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
+    got, _ = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts),
         context=torch.from_numpy(context), positions=torch.from_numpy(pos),
         context_mask=torch.from_numpy(mask),

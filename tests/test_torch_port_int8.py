@@ -379,7 +379,7 @@ def _forward_both(cfg, jparams, model):
     ref, _ = jm.ltx_apply(jparams, cfg, video=jm.Modality(
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos)))
-    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
+    got, _ = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts), context=torch.from_numpy(context),
         positions=torch.from_numpy(pos)))
     return got.numpy(), np.asarray(ref)
@@ -529,7 +529,7 @@ def test_lora_trains_over_an_int8_base(dense_dit, mode):
                         context=torch.from_numpy(rng.normal(size=(1, 6, cfg.caption_channels)).astype(np.float32)),
                         positions=torch.from_numpy(create_position_grid(1, 2, 4, 4)))
     with torch.enable_grad():
-        loss = tm.ltx_apply(model, _port(cfg), video).square().mean()
+        loss = tm.ltx_apply(model, _port(cfg), video)[0].square().mean()
         grads = torch.autograd.grad(loss, list(lora.values()))
     assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
     with pytest.raises(ValueError, match="LoRA training only"):

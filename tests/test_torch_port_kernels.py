@@ -85,6 +85,10 @@ def _check(out, ref):
     (1, 127, 3, 64), (2, 129, 3, 64), (2, 257, 3, 64),
     # B * H = 320 and 512: several waves of blocks over the 132 SMs
     (4, 257, 80, 128), (8, 129, 64, 64),
+    # the audio self-attention of the AV paths (32 x 64 heads): 34 tokens
+    # (512x512x33), 34 at B = 2 (the AudioOnly DiT under audio CFG), 68 at
+    # B = 2 (768x768x65, batched CFG), and one
+    (1, 34, 32, 64), (2, 34, 32, 64), (2, 68, 32, 64), (2, 1, 32, 64),
 ])
 def test_kernel_matches_plain(gen, b, s, h, d):
     q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
@@ -233,6 +237,10 @@ def _masked_bias(gen, b, skv, real):
     (2, 129, 1, 3, 128, None), (1, 257, 129, 4, 128, (129,)), (2, 300, 1024, 2, 128, (1024, 0)),
     # D = 64 with a resident tile: runs of query tiles that cross heads
     (2, 2000, 77, 16, 64, (77, 30)),
+    # the AV dev path's (32 x 64 heads, batched CFG): audio text attention,
+    # audio-to-video (resident, 68 audio keys) and video-to-audio (streamed,
+    # 68 query rows over 5184 video keys)
+    (2, 68, 128, 32, 64, None), (2, 5184, 68, 32, 64, None), (2, 68, 5184, 32, 64, None),
 ])
 def test_cross_kernel_matches_plain(gen, b, sq, skv, h, d, real):
     """No bias, the trainer's 128-real mask over 1024 keys, a ragged Skv, a
@@ -303,11 +311,23 @@ def _tables(b, s, h, d):
                                      max_pos=[20, 2048, 2048], use_middle_indices_grid=True)
 
 
+def _audio_tables(b, t, h, d):
+    """Split-RoPE tables of the audio stream: its 1-D time grid."""
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid
+
+    pos = torch.from_numpy(create_audio_position_grid(b, t)).cuda()
+    return rope.precompute_freqs_cis(pos, dim=h * d, num_attention_heads=h, rope_type=rope.LTXRopeType.SPLIT,
+                                     max_pos=[20], use_middle_indices_grid=True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, s, h, d", [(2, 1280, 4, 128), (1, 1000, 4, 128), (1, 1, 2, 128), (2, 700, 4, 64)])
+@pytest.mark.parametrize("b, s, h, d", [(2, 1280, 4, 128), (1, 1000, 4, 128), (1, 1, 2, 128), (2, 700, 4, 64),
+                                        (2, 68, 32, 64)])
 def test_rope_kernel_matches_plain_and_k1_on_rotated_inputs(gen, b, s, h, d):
+    """The last case is the AV dev path's audio self-attention, on the
+    audio stream's tables."""
     q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
-    cos, sin = _tables(b, s, h, d)
+    cos, sin = (_audio_tables if s == 68 else _tables)(b, s, h, d)
     assert s == 1 or not cos.is_contiguous()
     before, before_rope = fa.launch_count, fa.rope_launch_count
     out = fa.flash_attention_split_rope(q, k, v, cos, sin, return_lse=True)
@@ -418,6 +438,10 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     # bf16 and fp16 scales at path shapes, and with an odd group count a row
     (320, 4096, 4096, 4, 64, BF16), (128, 4096, 4096, 4, 64, F16), (5, 96, 130, 4, 32, F16),
     (33, 96, 70, 8, 12, BF16),
+    # the AV paths': cross-modal projections of 320 video rows, 68 audio rows
+    # (B = 2, audio CFG) through the FFN, 256 audio caption rows
+    (320, 4096, 2048, 4, 64, F32), (320, 2048, 4096, 4, 64, F32), (68, 2048, 8192, 4, 64, F32),
+    (68, 8192, 2048, 4, 64, F32), (256, 2048, 2048, 4, 64, F32),
 ])
 def test_quant_kernel_matches_plain(gen, m, k, n, bits, group, scale_dtype):
     x, packed, scales, biases = _quantized(gen, m, k, n, bits, group, scale_dtype)
@@ -678,3 +702,62 @@ def test_lora_merge_on_the_card_equals_the_cpu(gen, tmp_path, dtype):
         assert ulps.max().item() <= 1, k
         if dtype == torch.bfloat16:
             assert (ulps > 0).sum().item() <= 1e-4 * ulps.numel(), k
+
+
+def _narrow_av_config():
+    """A 2-layer AudioVideo DiT whose heads the kernels take (64 wide, both
+    streams), with 128-wide audio tokens."""
+    import dataclasses
+
+    from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
+
+    return dataclasses.replace(
+        tiny_test_config(LTXModelType.AudioVideo, rope_type=LTXRopeType.SPLIT),
+        num_attention_heads=2, attention_head_dim=64, audio_num_attention_heads=2, audio_attention_head_dim=64,
+        audio_cross_attention_dim=128, audio_in_channels=128, audio_out_channels=128, double_precision_rope=True,
+    )
+
+
+@pytest.mark.cuda
+def test_narrow_av_slice_on_the_card_matches_the_cpu(gen):
+    """Two joint distilled steps of a narrow AudioVideo DiT, bf16 on the card
+    (K1 for both self-attentions) against fp32 on the CPU: per-frame PSNR of
+    the video latents and PSNR of the audio latents >= 35 dB, the repo's
+    pipeline gate."""
+    import math
+
+    from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid, create_position_grid
+
+    cfg = _narrow_av_config()
+    model = init_ltx_params(cfg, torch.Generator().manual_seed(3), device="cpu", dtype=torch.float32)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "scale_shift_table" in name:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    x = dict(latents=torch.randn(1, 16, 2, 4, 4, generator=g), audio_latents=torch.randn(1, 8, 6, 16, generator=g),
+             context=torch.randn(1, 8, 48, generator=g), audio_context=torch.randn(1, 8, 48, generator=g))
+    pos = torch.from_numpy(create_position_grid(1, 2, 4, 4))
+    apos = torch.from_numpy(create_audio_position_grid(1, 6))
+    sigmas = [1.0, 0.725, 0.0]
+
+    def run(m, device, dtype):
+        t = {k: v.to(device, dtype) for k, v in x.items()}
+        return dn.denoise(m, cfg, t["latents"], pos.to(device), t["context"], sigmas, audio_latents=t["audio_latents"],
+                          audio_positions=apos.to(device), audio_context=t["audio_context"])
+
+    ref_v, ref_a = run(model, "cpu", torch.float32)
+    before = fa.launch_count
+    got_v, got_a = run(copy.deepcopy(model).to("cuda", torch.bfloat16), "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.launch_count - before == 2 * 2 * 2  # layers x steps x (video, audio)
+
+    def psnr(a, b):
+        peak = b.abs().max().item()
+        mse = (a.float().cpu() - b).square().mean().item()
+        return math.inf if mse == 0 else 10 * math.log10(peak * peak / mse)
+
+    assert min(psnr(got_v[:, :, i], ref_v[:, :, i]) for i in range(2)) >= 35.0
+    assert psnr(got_a, ref_a) >= 35.0

@@ -211,7 +211,7 @@ def test_key_mapping_matches_jax(key):
         return
     mapped = jweights.dit_tree_path(sani)
     want = None
-    if mapped is not None and mapped[1][0] in ("blocks", "video"):  # the port holds the video model only
+    if mapped is not None:  # every model type's names: blocks, video, audio, av
         layer, path = mapped
         want = ".".join(path[:1] + ((str(layer),) if layer is not None else ()) + path[1:])
     assert tweights.dit_tree_path(sani) == want
@@ -248,7 +248,7 @@ def test_fully_quantized_snapshot_runs_like_jax(tmp_path):
     ref, _ = jm.ltx_apply(ref_tree, CFG, video=jm.Modality(
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos)))
-    got = tm.ltx_apply(ours, TCFG, tm.Modality(
+    got, _ = tm.ltx_apply(ours, TCFG, tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts), context=torch.from_numpy(context),
         positions=torch.from_numpy(pos)))
     ref = np.asarray(ref)
@@ -434,16 +434,44 @@ def test_read_quantization_metadata(tmp_path):
     assert tloading.read_quantization_metadata(tmp_path / "sub") == {"bits": 4, "group_size": 64}
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"audio": True, "pipeline": "keyframe"}, {"audio": True}, {"audio": True, "pipeline": "ic_lora"},
-    {"audio": True, "stage2_path": "x"},
+@pytest.mark.parametrize("kwargs, joint", [
+    ({"audio": True, "pipeline": "keyframe"}, False), ({"audio": True}, False),
+    ({"audio": True, "pipeline": "dev"}, True), ({"audio": True, "audio_mode": "joint", "stage2_path": "s2"}, True),
 ])
-def test_load_model_bundle_refuses_unported_parts(tmp_path, kwargs):
-    """Audio is refused by name before anything loads, with every pipeline
-    and with a stage-2 transformer (the keyframe and IC-LoRA pipelines and
-    the stage-2 file are loaded: tests/test_torch_port_conditioned.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloading.load_model_bundle(tmp_path, device="cpu", **kwargs)
+def test_load_model_bundle_loads_the_audio_parts(tmp_path, monkeypatch, kwargs, joint):
+    """With audio: the audio VAE decoder and the vocoder from their folders;
+    joint audio (the dev default, or asked for) an AudioVideo transformer
+    (and stage-2 one), separate audio a VideoOnly one plus an AudioOnly one
+    from the file resolve_audio_transformer_file finds."""
+    from mlx_video_tpu_torch.models.ltx.audio_vae import audio_vae as taudio
+    from mlx_video_tpu_torch.models.ltx.audio_vae import vocoder as tvoc
+
+    loads = []
+    monkeypatch.setattr(tloading, "load_dit_params", lambda paths, cfg, **kw: loads.append((paths[0], cfg)) or cfg)
+    monkeypatch.setattr(tloading, "DecoderConfig", lambda: DecoderConfig(**DEC_KW))
+    monkeypatch.setattr(tloading.vae_weights, "load_video_decoder_weights", lambda *a: None)
+    monkeypatch.setattr(tloading, "AudioVAEConfig", lambda: taudio.AudioVAEConfig(ch=8))
+    monkeypatch.setattr(tloading, "VocoderConfig", lambda: tvoc.VocoderConfig(upsample_initial_channel=32))
+    filled = []
+    monkeypatch.setattr(tloading.vae_weights, "load_audio_vae_weights", lambda path, m: filled.append(path))
+    monkeypatch.setattr(tloading.vae_weights, "load_vocoder_weights", lambda path, m: filled.append(path))
+    for snap in (tmp_path, tmp_path / "s2"):
+        for name in ("ltx-2-19b-distilled.safetensors", "ltx-2-19b-dev.safetensors"):
+            snap.mkdir(exist_ok=True)
+            (snap / name).write_bytes(b"")
+    for part in ("audio_vae", "vocoder"):
+        (tmp_path / part).mkdir()
+        (tmp_path / part / "diffusion_pytorch_model.safetensors").write_bytes(b"")
+    kwargs = {**kwargs, "stage2_path": tmp_path / kwargs["stage2_path"]} if "stage2_path" in kwargs else kwargs
+    bundle = tloading.load_model_bundle(tmp_path, device="cpu", **kwargs)
+    assert filled == [tmp_path / p / "diffusion_pytorch_model.safetensors" for p in ("audio_vae", "vocoder")]
+    assert isinstance(bundle.audio_decoder, taudio.AudioDecoder) and isinstance(bundle.vocoder, tvoc.Vocoder)
+    types = [cfg.model_type.name for _, cfg in loads]
+    if joint:
+        assert types == ["AudioVideo"] * (2 if "stage2_path" in kwargs else 1) and bundle.audio_transformer is None
+    else:
+        assert types == ["VideoOnly", "AudioOnly"] and bundle.audio_transformer_config.model_type.name == "AudioOnly"
+        assert loads[1][0] == tmp_path / "ltx-2-19b-dev.safetensors"  # the dev weights first
 
 
 def test_quantize_models_quantizes_in_place_and_refuses_int8_modes():

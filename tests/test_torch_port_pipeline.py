@@ -7,8 +7,9 @@ of tests/test_torch_cross_pipeline.py. The remaining tests run the port's
 ``generate_video`` end to end at a tiny size, and once in a process where
 JAX and ml_dtypes cannot be imported (distilled, dev with an image and both
 kernel routes on, keyframe with a LoRA-merged stage-2 copy and stage-2 CFG,
-streamed, a batch of two videos, q4, a training step, W8A8, a W8A8 text encoder on token ids
-and the int8 attention's plain version).
+streamed, a batch of two videos, joint and separate audio to a WAV, q4, a
+training step, W8A8, a W8A8 text encoder on token ids and the int8
+attention's plain version).
 """
 
 import dataclasses
@@ -113,9 +114,9 @@ def test_composed_pipeline_psnr_gate():
 
     # port, on the same weights and noise
     ctx = torch.from_numpy(context)
-    t1 = tdn.denoise(models.transformer, cfg, torch.from_numpy(latents0), torch.from_numpy(pos1), ctx, s1)
+    t1, _ = tdn.denoise(models.transformer, cfg, torch.from_numpy(latents0), torch.from_numpy(pos1), ctx, s1)
     tup = tups.upsample_latents(models.upsampler, t1, decoder.latents_mean, decoder.latents_std)
-    t2 = tdn.denoise(models.transformer, cfg, torch.from_numpy(renoise) * s2[0] + tup * (1.0 - s2[0]),
+    t2, _ = tdn.denoise(models.transformer, cfg, torch.from_numpy(renoise) * s2[0] + tup * (1.0 - s2[0]),
                      torch.from_numpy(pos2), ctx, s2)
     rgb = tgen.decode_latents(models, t2, tiling, decode_timestep=0.05)
 
@@ -256,6 +257,30 @@ models.stage2_transformer = None
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64, width=64,
                      num_frames=9, stage1_steps=1, stage2_steps=1, num_videos=2, dtype=torch.float32)
 assert res.video.shape == (2, 3, 9, 64, 64)
+# audio: a tiny AudioVideo DiT (joint), then a tiny AudioOnly one (separate), each to a WAV
+import dataclasses, wave
+from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_decoder
+from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import VocoderConfig, init_vocoder
+av_cfg = dataclasses.replace(tiny_test_config(LTXModelType.AudioVideo, rope_type=LTXRopeType.SPLIT),
+                             audio_in_channels=128, audio_out_channels=128)
+ao_cfg = dataclasses.replace(av_cfg, model_type=LTXModelType.AudioOnly)
+audio_parts = dict(audio_decoder=init_audio_decoder(g, AudioVAEConfig(ch=8), device="cpu", dtype=torch.float32),
+                   audio_decoder_config=AudioVAEConfig(ch=8), vocoder_config=VocoderConfig(upsample_initial_channel=32),
+                   vocoder=init_vocoder(g, VocoderConfig(upsample_initial_channel=32), device="cpu",
+                                        dtype=torch.float32))
+joint = dataclasses.replace(models, transformer=init_ltx_params(av_cfg, g, device="cpu", dtype=torch.float32),
+                            transformer_config=av_cfg, **audio_parts)
+separate = dataclasses.replace(models, audio_transformer=init_ltx_params(ao_cfg, g, device="cpu", dtype=torch.float32),
+                               audio_transformer_config=ao_cfg, **audio_parts)
+with tempfile.TemporaryDirectory() as tmp:
+    for mode, bundle in (("joint", joint), ("separate", separate)):
+        res = generate_video(bundle, TextConditioning(torch.zeros(1, 4, 48), audio_embeddings=torch.ones(1, 4, 48)),
+                             height=64, width=64, num_frames=9, stage1_steps=1, stage2_steps=1, audio_steps=1,
+                             audio=True, audio_mode=mode, output_path=f"{tmp}/{mode}.mp4", video_encoder="cv2",
+                             dtype=torch.float32)
+        with wave.open(f"{tmp}/{mode}.wav", "rb") as wf:
+            assert (wf.getnchannels(), wf.getnframes()) == (2, 240 * (4 * 9 - 3))
+        assert res.audio_latents.shape == (1, 8, 9, 16) and res.video_path.stat().st_size > 0
 # the q4 path: quantize in place, write and read a native file, generate
 import tempfile
 from mlx_video_tpu_torch.io.weights import load_dit_params, save_dit_params

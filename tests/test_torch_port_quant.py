@@ -229,7 +229,7 @@ def test_quantized_dit_matches_jax(quantized_dit):
         latent=jnp.asarray(tokens), timesteps=jnp.asarray(ts), context=jnp.asarray(context),
         positions=jnp.asarray(pos),
     ))
-    got = tm.ltx_apply(model, _port(cfg), tm.Modality(
+    got, _ = tm.ltx_apply(model, _port(cfg), tm.Modality(
         latent=torch.from_numpy(tokens), timesteps=torch.from_numpy(ts), context=torch.from_numpy(context),
         positions=torch.from_numpy(pos),
     ))

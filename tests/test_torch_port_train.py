@@ -380,7 +380,7 @@ def test_bf16_lora_gap_is_the_timestep_rounding():
         if rounded_timesteps:
             m = cfg.timestep_scale_multiplier
             video = video._replace(timesteps=(video.timesteps.bfloat16() * m).float() / m)
-        loss = tstrat.compute_loss(tm.ltx_apply(model, cfg, video), inputs)
+        loss = tstrat.compute_loss(tm.ltx_apply(model, cfg, video)[0], inputs)
         return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
     bf16 = step(torch.bfloat16, False)
