@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero before the last line:
    CFG), (1, 3456) (the training shape), (1, 1000) (ragged),
    (1, 5184) and (2, 5184) (the dev path's with the routes off), plus (1,
    1280) at D=64 and the AV paths' audio self-attention at D=64: (1, 34),
-   (2, 34) (the AudioOnly DiT under audio CFG), (2, 68) and (2, 1). Every
+   (2, 34) (the AudioOnly DiT under audio CFG), (2, 68), (2, 1) and (1, 67)
+   (the AV LoRA step's 67 audio tokens, AV_TRAIN_T, with its lse). Every
    shape is checked with its lse: max |d o| <= 2e-2, relative L2 of o <=
    4e-3 (bf16 rounding of P and of o reads about 2.4e-3; one key tile's P V
    left out reads 0.16 at S=5184) and max |d lse| <= 1e-3;
@@ -29,7 +30,10 @@ Phases, in order; any failure exits non-zero before the last line:
    2048, 8192), (34, 8192, 2048) (audio rows; 68 rows at B = 2 under audio
    CFG), (128, 2048, 2048) and (256, 2048, 2048) (audio caption rows, B = 1
    and 2), (320 and 1280, 4096, 2048) and (320 and 1280, 2048, 4096) (the
-   cross-modal projections of the video rows), bits 4, group 64, plus bits
+   cross-modal projections of the video rows), the AV LoRA step's (67,
+   2048, 2048), (67, 2048, 8192), (67, 8192, 2048) (its audio rows), (3456,
+   4096, 2048), (3456, 2048, 4096) (the cross-modal projections of its video
+   rows) and (1024, 2048, 2048) (its audio caption rows), bits 4, group 64, plus bits
    8 / group 128, bits 2 / group 32,
    bits 4 / group 16, a ragged M = 300 and bf16 and fp16 scales: max |d y|
    <= 1e-2 max |y| and relative L2 <= 1e-3 (only the summation order and
@@ -43,8 +47,9 @@ Phases, in order; any failure exits non-zero before the last line:
    after an L2 flush, and the kernel's share of its bound.
 5. K3 vs plain: the flash backward against its plain fp32 version on the same
    bf16 inputs (q, k, v, dO random, o and lse from K1) at B=1, H=32, D=128,
-   S = 1280, 3456 (the training shape), 1000 (ragged) and 5184, plus one D=64
-   case: per gradient relative L2 <= 5e-3 and max |d| <= 2e-2 max |ref| (the
+   S = 1280, 3456 (the training shape), 1000 (ragged) and 5184, plus D=64 at
+   S = 1280 and 67 (the AV LoRA step's audio tokens: under one 128-key dkv
+   block and ragged): per gradient relative L2 <= 5e-3 and max |d| <= 2e-2 max |ref| (the
    kernel rounds p and dS to bf16 before their products, as the Pallas
    kernels do, and its outputs to bf16: ~2^-9 relative each), every shape
    printed before a failure ends the phase; two runs must give bitwise-equal
@@ -132,7 +137,11 @@ Phases, in order; any failure exits non-zero before the last line:
    as generate_video runs them (fp32 latents into the bf16 weights: the
    convolutions run in fp32), with cuDNN's TF32 off and on, against fp32 on
    the CPU: waveform SNR >= AUDIO_SNR_BAR_DB (37 dB, set from the card's
-   41.64 and 41.60 dB on an H100, PERF.md §6).
+   41.64 and 41.60 dB on an H100, PERF.md §6); one AV LoRA step on that
+   DiT (adapters on the 28 linears of a block, 67 audio frames), bf16 on the
+   card against fp32 on the CPU on the same draws, the audio noise included,
+   the reference on the bf16-rounded timesteps of both streams, with phase
+   6's LoRA-step bars.
 7. full-width dense slice: generate_video, distilled, 512x512x33, on
    synthetic bf16 weights of the 19B video DiT geometry (48 layers, 32x128
    heads), the default VAE decoder and the 1024-channel upsampler, all drawn
@@ -269,12 +278,48 @@ Phases, in order; any failure exits non-zero before the last line:
    trains LoRA for 2 steps over the 4-bit file of the snapshot on the
    dataset of phase 8, with gradient checkpointing: 96 K1, 48 K3 and
    10 x 48 x 2 = 960 K2 launches a step, and lora_step_2.safetensors
-   written. The directories are removed at the end.
-Phases 7-12 print phase times and peak device memory. The order on the card:
-1-7a, 11, 12, 8, 9a, 9b, 9, 10. Last: the kernel summary line (K1-K6: launches
-on a path of this run, error against the plain version, times at the path's
-shapes, the bound, the library yardstick; K1, K2, K4 and K5 also their
-launches on every path of phases 7a-12, "path_launches") and {"ok": true, "device": ...}.
+   written; then phase 13 (c). Every K1, K3 and K2 launch of both training
+   CLI runs is at a shape that phases 3-5 compared. The directories are
+   removed at the end.
+13. training data and audio-video training, in three parts. (a) runs inside
+   phase 9b, on its bf16 text encoder before the W8A8 step: first a narrow
+   check, precompute_dataset on one 96x64x9 clip with a narrow video
+   encoder, a narrow audio encoder and phase 6a's tiny Gemma-3, bf16 on the
+   card against fp32 on the CPU (video, reference and audio latents >= 35 dB
+   per latent frame, embeddings relative L2 <= 2e-2); then precompute_dataset
+   at full width on 2 seeded 65-frame 832x544 clips (cv2, mp4v) bucketed by
+   parse_buckets("768x512x65"): the seeded default video encoder of phase 7a,
+   the 12B encoder on 1024 left-padded seeded token ids (128 real), the
+   default audio VAE encoder (seeded bf16) on a seeded 2-channel 16 kHz
+   waveform of each clip's 43,333 samples (the card machine has no ffmpeg),
+   Canny edge references. Every clip must have latents (128, 9, 16, 24),
+   reference latents of that shape, conditions (1024, 3840) video and audio,
+   and audio latents (8, 67, 16) with num_time_steps 67, all finite; prints
+   seconds a clip and peak memory. (b) runs after phase 9b, before phase 9
+   quantizes the DiT: the AudioVideo DiT (phase 12's audio tensors drawn
+   again on the bf16 video modules) trains LoRA on the ltx2_av_lora.yaml
+   recipe (rank 16, alpha 32, lr 5e-5) with gradient checkpointing over
+   (a)'s files, 4 steps, saves every 2, and a ValidationSampler (512x512x33,
+   8 + 3 steps, (a)'s first caption) at step 0 and after step 2: exactly
+   4 x 192 K1 and 4 x 96 K3 in training and 528 K1 a validation call, a
+   non-empty mp4 each, finite losses, video and audio LoRA B norms that
+   moved, the 2688 reference keys of the adapter (28 linears a block);
+   every K1 and K3 launch at a shape phases 3 and 5 compared; then a fresh
+   Trainer without validation resumes from state_step_2 and must repeat the
+   losses of steps 2 and 3 bit for bit; then one warm step under
+   torch.profiler (idle share; K1, K3, GEMM and elementwise shares; step
+   seconds; tokens a second; peak memory). (c) in phase 10, the training
+   CLI --with-audio over the snapshot's 4-bit AudioVideo file on (a)'s
+   files: 2 steps, 192 K1, 96 K3 and 28 x 48 x 2 = 2688 K2 a step, and
+   lora_step_2.safetensors written.
+Phases 7-13 print phase times and peak device memory. Every profile records
+the CUDA activity alone (host op events slow the host side and, past
+~140,000 launches, take minutes to aggregate). The order on the card:
+1-7a, 11, 12, 8, 9a, 9b with 13 (a), 13 (b), 9, 10 with 13 (c). Last: the
+kernel summary line (K1-K6: launches on a path of this run, error against
+the plain version, times at the path's shapes, the bound, the library
+yardstick; K1, K2, K3, K4 and K5 also their launches on every path of phases
+7a-13, "path_launches") and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -294,16 +339,37 @@ import time
 from pathlib import Path
 from typing import Optional
 
+# Phase 13's clips: 65 frames at 832x544 (the 768x512x65 bucket crops them),
+# each with a 2-channel 16 kHz waveform of its 2.708 s
+AV_CLIP_FRAMES, AV_CLIP_SIZE, AV_SAMPLE_RATE = 65, (832, 544), 16000
+AV_CLIP_SAMPLES = int(AV_CLIP_FRAMES / 24.0 * AV_SAMPLE_RATE)
+
+
+def audio_latent_frames(samples: int) -> int:
+    """Latent frames the default audio VAE gives a 16 kHz waveform: log-mel
+    frames (n_fft 1024, hop 160, not centred), then two causal stride-2
+    downsamples. Phase 13 (a) checks its files against it."""
+    t = 1 + (samples - 1024) // 160
+    for _ in range(2):
+        t = (t - 1) // 2 + 1
+    return t
+
+
+AV_TRAIN_T = audio_latent_frames(AV_CLIP_SAMPLES)  # 67: the audio tokens of an AV LoRA step
+
 # (M, K, N) of the 4-bit linears: the q4 inference path's video rows, then
 # the LoRA step's (3456 video rows through attn1, attn2 q/out and ff; 1024
 # caption rows through attn2 to_k/to_v), then the AV paths': 34 audio rows
 # (68 at B = 2 under audio CFG) through the audio linears (2048 wide, FFN
 # 8192), 128 caption rows (256 at B = 2) through the audio attn2 to_k/to_v,
 # and 320 and 1280 video rows through the cross-modal q, k, v (4096 -> 2048)
-# and out (2048 -> 4096)
+# and out (2048 -> 4096), then the AV LoRA step's: AV_TRAIN_T audio rows, the
+# cross-modal projections of its 3456 video rows, its 1024 audio caption rows
 SHAPES_K2 = [(m, k, n) for m in (128, 320, 1280, 3456) for k, n in ((4096, 4096), (4096, 16384), (16384, 4096))] + [
-    (1024, 4096, 4096)] + [(m, k, n) for m in (34, 68) for k, n in ((2048, 2048), (2048, 8192), (8192, 2048))] + [
-    (128, 2048, 2048), (256, 2048, 2048)] + [(m, k, n) for m in (320, 1280) for k, n in ((4096, 2048), (2048, 4096))]
+    (1024, 4096, 4096)] + [(m, k, n) for m in (34, 68, AV_TRAIN_T) for k, n in (
+        (2048, 2048), (2048, 8192), (8192, 2048))] + [
+    (128, 2048, 2048), (256, 2048, 2048), (1024, 2048, 2048)] + [
+    (m, k, n) for m in (320, 1280, 3456) for k, n in ((4096, 2048), (2048, 4096))]
 K2_TRAIN_SHAPE = (3456, 4096, 4096)  # 6 of a block's 10 K2 launches in a LoRA step
 
 
@@ -389,7 +455,10 @@ def psnr(a, b, peak: float) -> float:
 # K1's cases in phase 3: (B, S, D, timed with lse)
 K1_SHAPES = [(1, 320, 128, False), (1, 1280, 128, False), (2, 320, 128, False), (2, 1280, 128, False),
              (1, 3456, 128, True), (1, 1000, 128, True), (1, 5184, 128, True), (2, 5184, 128, False),
-             (1, 1280, 64, True), (1, 34, 64, False), (2, 34, 64, False), (2, 68, 64, False), (2, 1, 64, False)]
+             (1, 1280, 64, True), (1, 34, 64, False), (2, 34, 64, False), (2, 68, 64, False), (2, 1, 64, False),
+             (1, AV_TRAIN_T, 64, True)]
+# K3's cases in phase 5: (S, D) at B = 1, H = 32
+K3_SHAPES = [(1280, 128), (3456, 128), (1000, 128), (5184, 128), (1280, 64), (AV_TRAIN_T, 64)]
 K1_REL_L2 = 4e-3
 
 
@@ -437,7 +506,7 @@ def bwd_kernel_vs_plain(fa) -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     rows, max_err, worst_l2, failed = {}, 0.0, 0.0, []
     print("K3 vs plain (bf16, B=1, H=32; bars per gradient: rel L2 <= 5e-3, max|d| <= 2e-2 max|ref|):")
-    for s, d in [(1280, 128), (3456, 128), (1000, 128), (5184, 128), (1280, 64)]:
+    for s, d in K3_SHAPES:
         q, k, v, do = (torch.randn(1, s, 32, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
         scale = d**-0.5
         o, lse = fa.flash_attention(q, k, v, scale=scale, return_lse=True)
@@ -1014,10 +1083,13 @@ def narrow_audio_check() -> None:
                  f"{AUDIO_SNR_BAR_DB:g} dB")
 
 
-def lora_slice_check(w4a8: bool = False) -> None:
+def lora_slice_check(w4a8: bool = False, audio: bool = False) -> None:
     """One LoRA grad step on the 2-layer narrow DiT (dense, or over a W4A8
-    base): bf16 on the card against fp32 on the CPU, same weights (fp32
-    adapters on both) and draws."""
+    base; with ``audio`` the AudioVideo DiT of phase 6b with adapters on the
+    28 linears of a block and 67 audio frames): bf16 on the card against fp32
+    on the CPU, same weights (fp32 adapters on both) and draws, the audio
+    noise included. The reference takes the bf16-rounded timesteps of both
+    streams."""
     import numpy as np
     import torch
 
@@ -1030,9 +1102,11 @@ def lora_slice_check(w4a8: bool = False) -> None:
     from mlx_video_tpu_torch.trainer.train_step import grad_step
 
     cfg = LTXModelConfig(
-        model_type=LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT, double_precision_rope=True,
-        num_attention_heads=4, attention_head_dim=128, num_layers=2,
+        model_type=LTXModelType.AudioVideo if audio else LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT,
+        double_precision_rope=True, num_attention_heads=4, attention_head_dim=128, num_layers=2,
         cross_attention_dim=512, caption_channels=256, gradient_checkpointing=True,
+        audio_num_attention_heads=4, audio_attention_head_dim=64, audio_cross_attention_dim=256,
+        audio_caption_channels=256,
     )
     g = torch.Generator().manual_seed(6)
     dit = init_ltx_params(cfg, g, device="cpu", dtype=torch.float32)
@@ -1052,7 +1126,10 @@ def lora_slice_check(w4a8: bool = False) -> None:
         conditions={"video_prompt_embeds": rng.normal(size=(1, 16, 256)).astype(np.float32),
                     "prompt_attention_mask": mask[None]},
     )
-    sb_cpu = prepare_text_to_video(batch)
+    if audio:
+        batch.conditions["audio_prompt_embeds"] = rng.normal(size=(1, 16, 256)).astype(np.float32)
+        batch.audio_latents = {"latents": rng.normal(size=(1, 8, 67, 16)).astype(np.float32)}
+    sb_cpu = prepare_text_to_video(batch, with_audio=audio)
     draws = draw_inputs(sb_cpu, torch.Generator().manual_seed(7), first_frame_conditioning_p=1.0,
                         timestep_sampling_mode="shifted_logit_normal")
 
@@ -1067,25 +1144,29 @@ def lora_slice_check(w4a8: bool = False) -> None:
     d, params = model_on("cpu", torch.float32)
     inputs = make_inputs(sb_cpu, draws)
     m = cfg.timestep_scale_multiplier
-    video = inputs.video._replace(timesteps=(inputs.video.timesteps.bfloat16() * m).float() / m)
+    video, audio_in = (None if x is None else x._replace(timesteps=(x.timesteps.bfloat16() * m).float() / m)
+                       for x in (inputs.video, inputs.audio))
     with torch.enable_grad():
-        ref_loss = compute_loss(ltx_apply(d, cfg, video)[0], inputs)
+        video_pred, audio_pred = ltx_apply(d, cfg, video, audio_in)
+        ref_loss = compute_loss(video_pred, inputs, audio_pred)
         ref = dict(zip(params, torch.autograd.grad(ref_loss, list(params.values()))))
     ref_loss = ref_loss.item()
     d, params = model_on("cuda", torch.bfloat16)
-    loss, got = grad_step(d, params, prepare_text_to_video(batch, device="cuda"),
-                          type(draws)(*(t.to("cuda") for t in draws)), cfg)
+    loss, got = grad_step(d, params, prepare_text_to_video(batch, with_audio=audio, device="cuda"),
+                          type(draws)(*(None if t is None else t.to("cuda") for t in draws)), cfg)
     loss, got = loss.item(), {k: v.float().cpu() for k, v in got.items()}
     del d, params
     rel_loss = abs(loss - ref_loss) / abs(ref_loss)
     l2 = {k: ((got[k] - r).norm() / r.norm()).item() for k, r in ref.items()}
     worst = max(l2, key=l2.get)
-    print(f"  LoRA step, 2-layer {'W4A8' if w4a8 else 'dense'} DiT, 320 tokens, sigma {draws.sigmas.item():.6f}: loss card {loss:.6f} vs CPU "
+    if audio and not any(".audio_attn1." in k for k in l2):
+        fail("the AV LoRA check has no audio adapter")
+    print(f"  LoRA step, 2-layer {'W4A8' if w4a8 else 'dense'} {'AV DiT, 320 + 67' if audio else 'DiT, 320'} tokens, sigma {draws.sigmas.item():.6f}: loss card {loss:.6f} vs CPU "
           f"{ref_loss:.6f} (rel {rel_loss:.2e}); "
           f"{len(l2)} LoRA gradients, worst rel L2 {l2[worst]:.3e} at {worst}, median "
           f"{sorted(l2.values())[len(l2) // 2]:.3e}", flush=True)
     if not (rel_loss <= 1e-2 and l2[worst] <= 5e-2):
-        fail("the LoRA step on the card disagrees with the CPU reference")
+        fail(f"the {'AV ' if audio else ''}LoRA step on the card disagrees with the CPU reference")
 
 
 def rel_l2(a, b) -> float:
@@ -1253,11 +1334,15 @@ def full_width_training(models, fa, data_root: Path, out_root: Path) -> dict:
     return {"k1": k1, "k3": k3, "step_seconds": secs, "peak_gib": peak / 2**30}
 
 
-def profile_lora_step(trainer, fa) -> None:
+def profile_lora_step(trainer, fa, tokens: int = 3456) -> None:
     """One more warm step of ``trainer`` (its first batch, the draws of step
     4) under torch.profiler: forward, recompute, backward and the AdamW
     update, ended by reading the loss. Outside the counted run and the
-    resume check; it must launch 96 K1 and 48 K3."""
+    resume check; it must launch 96 K1 and 48 K3 (twice that with audio:
+    the audio self-attention too). Prints ``tokens`` a second and the peak
+    memory."""
+    import torch
+
     from mlx_video_tpu_torch.trainer.datasets import iter_batches
     from mlx_video_tpu_torch.trainer.strategies import draw_inputs
     from mlx_video_tpu_torch.trainer.train_step import apply_updates, grad_step
@@ -1269,8 +1354,11 @@ def profile_lora_step(trainer, fa) -> None:
                         first_frame_conditioning_p=cfg.first_frame_conditioning_p,
                         timestep_sampling_mode=cfg.timestep_sampling_mode,
                         timestep_sampling_std=cfg.timestep_sampling_std)
+    streams = 2 if cfg.with_audio else 1
     fa.launch_count = fa.bwd_launch_count = 0
-    with profiled("one warm LoRA step (3456 tokens; forward, recompute, backward, AdamW)") as prof:
+    torch.cuda.reset_peak_memory_stats()
+    with profiled(f"one warm {'AV ' if cfg.with_audio else ''}LoRA step ({tokens} tokens; forward, recompute, "
+                  "backward, AdamW)") as prof:
         t0 = time.perf_counter()
         loss, grads = grad_step(trainer.model, trainer.params, sb, draws, trainer.model_config)
         apply_updates(trainer.params, trainer.opt_state, grads, trainer.optimizer, 1)
@@ -1285,9 +1373,11 @@ def profile_lora_step(trainer, fa) -> None:
           f"{1 - busy / prof['wall']:.3f}; of {busy:.4f} s device busy: "
           + ", ".join(f"{n} {v:.1f} %" for n, v in shares.items())
           + f"; K3 {prof['by_class']['K3 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)'] / max(k3, 1):.4f} ms a call; "
-          f"launches K1 {k1}, K3 {k3}", flush=True)
-    if (k1, k3) != (2 * 48, 48) or not math.isfinite(loss):
-        fail(f"the profiled LoRA step: {k1} K1 and {k3} K3 launches (want 96 and 48), loss {loss}")
+          f"launches K1 {k1}, K3 {k3}; {tokens / step_s:.1f} tokens/s under the profiler; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    want = (2 * 48 * streams, 48 * streams)
+    if (k1, k3) != want or not math.isfinite(loss):
+        fail(f"the profiled LoRA step: {k1} K1 and {k3} K3 launches (want {want}), loss {loss}")
 
 
 def full_width_models():
@@ -1474,18 +1564,18 @@ K1_CLASS = "K1's kernel (K1, and K5's attention: flash_fwd_kernel)"
 
 @contextlib.contextmanager
 def profiled(what: str):
-    """torch.profiler over the block: device busy time against the wall (the
-    idle share) and the device time by kernel class and of the top kernels.
-    The profiler slows the host side, so the idle share is an upper bound.
-    Yields a dict that holds, after the block, ``wall`` and ``busy`` seconds
-    and ``by_class`` ms."""
+    """torch.profiler over the block, the CUDA activity alone: device busy
+    time against the wall (the idle share) and the device time by kernel
+    class and of the top kernels. The profiler still slows the host side a
+    little, so the idle share is an upper bound. Yields a dict that holds,
+    after the block, ``wall`` and ``busy`` seconds and ``by_class`` ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     stats = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         yield stats
         torch.cuda.synchronize()
@@ -1641,15 +1731,17 @@ def full_width_dev(models, fa, ca, work: Path) -> dict:
     return {"k4": counts[1], "k5": counts[2], "step_s": steps_s, "peak_gib": peak / 2**30}
 
 
-def write_clip(path: Path, frames: int, size: int, seed: int) -> None:
-    """A seeded clip of ``frames`` smooth RGB frames (a blurred pattern that
-    slides 4 pixels a frame), written with cv2 (mp4v)."""
+def write_clip(path: Path, frames: int, size: int, seed: int, height: Optional[int] = None) -> None:
+    """A seeded clip of ``frames`` smooth RGB frames of size x size (or size
+    wide and ``height`` high: a blurred pattern that slides 4 pixels a
+    frame), written with cv2 (mp4v)."""
     import cv2
     import numpy as np
 
-    base = cv2.GaussianBlur(np.random.default_rng(seed).uniform(0, 255, (size, size, 3)).astype(np.uint8),
+    height = height or size
+    base = cv2.GaussianBlur(np.random.default_rng(seed).uniform(0, 255, (height, size, 3)).astype(np.uint8),
                             (0, 0), size / 64)
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (size, size))
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 24.0, (size, height))
     if not writer.isOpened():
         fail(f"cv2 could not open an mp4v writer for {path}")
     for i in range(frames):
@@ -2021,39 +2113,45 @@ def audio_run(models, text, fa, ca, what: str, want: dict, **kw):
 
 @contextlib.contextmanager
 def launch_shapes(fa, qmm):
-    """Records the shape of every K1 and K2 launch in the block: K1's (B, S,
-    H, D) and K2's (M, K, N, bits, group), read from the arguments of their
-    bound C entries, which are wrapped for the block. The Python wrappers and
-    their counts are untouched."""
-    k1_fn, k2_fn = fa._kernel(), qmm._kernel()
-    shapes = {"k1": set(), "k2": set()}
+    """Records the shape of every K1, K3 and K2 launch in the block: K1's and
+    K3's (B, S, H, D) and K2's (M, K, N, bits, group), read from the
+    arguments of their bound C entries, which are wrapped for the block. The
+    Python wrappers and their counts are untouched."""
+    k1_fn, k3_fn, k2_fn = fa._kernel(), fa._kernel("mvt_flash_attention_bwd_bf16"), qmm._kernel()
+    shapes = {"k1": set(), "k3": set(), "k2": set()}
 
     def k1(*args):
         shapes["k1"].add(tuple(args[5:9]))
         return k1_fn(*args)
+
+    def k3(*args):
+        shapes["k3"].add(tuple(args[10:14]))
+        return k3_fn(*args)
 
     def k2(*args):
         m, n, k, bits, group = args[5:10]
         shapes["k2"].add((m, k, n, bits, group))
         return k2_fn(*args)
 
-    fa._fns["mvt_flash_attention_fwd_bf16"], qmm._fn = k1, k2
+    fns = fa._fns
+    fns["mvt_flash_attention_fwd_bf16"], fns["mvt_flash_attention_bwd_bf16"], qmm._fn = k1, k3, k2
     try:
         yield shapes
     finally:
-        fa._fns["mvt_flash_attention_fwd_bf16"], qmm._fn = k1_fn, k2_fn
+        fns["mvt_flash_attention_fwd_bf16"], fns["mvt_flash_attention_bwd_bf16"], qmm._fn = k1_fn, k3_fn, k2_fn
 
 
 def check_compared(shapes: dict, what: str) -> None:
-    """Fails unless every recorded K1 and K2 shape is one that phase 3 or 4
-    compared with the plain version."""
+    """Fails unless every recorded K1, K3 and K2 shape is one that phase 3, 5
+    or 4 compared with the plain version."""
     compared = {"k1": {(b, s, 32, d) for b, s, d, _ in K1_SHAPES},
+                "k3": {(1, s, 32, d) for s, d in K3_SHAPES},
                 "k2": {(m, k, n, 4, 64) for m, k, n in SHAPES_K2}}
-    print(f"  {what}: K1 ran at (B, S, H, D) {sorted(shapes['k1'])}; K2 at (M, K, N, bits, group) "
-          f"{sorted(shapes['k2'])}", flush=True)
+    print(f"  {what}: K1 ran at (B, S, H, D) {sorted(shapes['k1'])}; K3 at {sorted(shapes['k3'])}; K2 at "
+          f"(M, K, N, bits, group) {sorted(shapes['k2'])}", flush=True)
     missed = {name: sorted(got - compared[name]) for name, got in shapes.items() if got - compared[name]}
     if missed:
-        fail(f"{what}: launches at shapes phases 3 and 4 never compared with the plain version: {missed}")
+        fail(f"{what}: launches at shapes phases 3-5 never compared with the plain version: {missed}")
 
 
 def full_width_audio(models, text, fa, ca, work: Path) -> dict:
@@ -2233,10 +2331,11 @@ def full_width_w8a8(models, text, fa, qmm) -> dict:
     return {"k6": launches, "k6_prologue": prologues, "k6_vs_k1": worst}
 
 
-def full_width_text_encoder(models, fa, qmm, work: Path) -> dict:
+def full_width_text_encoder(models, fa, qmm, work: Path, precompute=None) -> dict:
     """Phase 9b: the Gemma-3-12B geometry and the connectors, seeded bf16, on
     1024 left-padded token ids (128 real); the embeddings drive a distilled
-    run to an mp4; then the same encoder in W8A8."""
+    run to an mp4; then ``precompute(te, cfg)`` (phase 13 (a)) on the bf16
+    encoder; then the same encoder in W8A8."""
     import numpy as np
     import torch
 
@@ -2292,6 +2391,8 @@ def full_width_text_encoder(models, fa, qmm, work: Path) -> dict:
         fail("the run from token ids wrote no mp4")
     print(f"  token ids -> embeddings -> distilled run -> {Path(run['video_path']).name}: "
           f"{Path(run['video_path']).stat().st_size} bytes", flush=True)
+    if precompute is not None:
+        precompute(te, cfg)
     t0 = time.perf_counter()
     i8.quantize_text_encoder_w8a8(te)
     torch.cuda.synchronize()
@@ -2305,6 +2406,314 @@ def full_width_text_encoder(models, fa, qmm, work: Path) -> dict:
     del te, video, video8, audio8
     torch.cuda.empty_cache()
     return {"bf16_s": secs, "w8a8_s": secs8, "bf16_peak": peak, "w8a8_peak": peak8, "l2": l2}
+
+
+# Phase 13: training data and audio-video training.
+AV_DATA_SOURCES = {"latents": "latents", "conditions": "conditions", "audio_latents": "audio_latents"}
+
+
+def av_waveform(stem: str, samples: int) -> "np.ndarray":
+    """A seeded 2-channel waveform in [-1, 1] (two tones and noise), seeded
+    by the clip's name."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(stem.encode()))
+    t = np.arange(samples) / AV_SAMPLE_RATE
+    tones = np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 330 * t)])
+    return np.clip(0.4 * tones + 0.1 * rng.standard_normal(tones.shape), -1, 1).astype(np.float32)
+
+
+def seeded_prompt_encoder(te, te_cfg, device, length: int = 1024, real: int = 128):
+    """prompt -> (video, audio) embeddings from encode_tokens on ``length``
+    left-padded token ids (``real`` of them drawn, seeded by the prompt):
+    the text encoder as precompute calls it, where there is no tokenizer."""
+    import zlib
+
+    import torch
+
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens
+
+    def encode(prompt: str):
+        g = torch.Generator().manual_seed(zlib.crc32(prompt.encode()))  # on the host: the same ids on any device
+        mask = torch.zeros(1, length, dtype=torch.long)
+        mask[:, -real:] = 1
+        ids = torch.randint(1, te_cfg.vocab_size, (1, length), generator=g) * mask
+        with torch.no_grad():
+            return encode_tokens(te, te_cfg, ids.to(device), mask.to(device))
+
+    return encode
+
+
+def narrow_precompute_check(work: Path) -> None:
+    """precompute_dataset on one seeded 96x64x9 clip (bucket 64x64x9, edge
+    references, a seeded waveform): a narrow video encoder, a narrow audio
+    encoder and phase 6a's tiny Gemma-3, bf16 on the card against fp32 on
+    the CPU with the same weights. Bars: video and audio latents >= 35 dB
+    per latent frame; embeddings relative L2 <= 2e-2 (phase 6a's)."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.config import VideoVAEConfig
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+    from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_encoder
+    from mlx_video_tpu_torch.models.ltx.text_encoder import init_text_encoder_params
+    from mlx_video_tpu_torch.models.ltx.video_vae.encoder import init_video_encoder
+    from mlx_video_tpu_torch.trainer import precompute as pre
+
+    te_cfg = Gemma3TextConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+                              num_attention_heads=4, num_key_value_heads=2, head_dim=64, sliding_window=16,
+                              sliding_window_pattern=2)
+    g = torch.Generator().manual_seed(53)
+    te = init_text_encoder_params(te_cfg, g, 256, device="cpu", dtype=torch.float32,
+                                  language_model=init_gemma3_params(te_cfg, g, device="cpu", dtype=torch.float32))
+    for conn in (te.video_embeddings_connector, te.audio_embeddings_connector):
+        conn.learnable_registers.data.normal_(generator=g)
+    vcfg, acfg = VideoVAEConfig(encoder_blocks=NARROW_ENCODER_BLOCKS), AudioVAEConfig(ch=32)
+    venc, aenc = init_video_encoder(g, vcfg, device="cpu"), init_audio_encoder(g, acfg, device="cpu",
+                                                                                dtype=torch.float32)
+    with torch.no_grad():
+        venc.per_channel_statistics.mean.normal_(generator=g).mul_(0.1)
+        venc.per_channel_statistics.std.uniform_(0.7, 1.3, generator=g)
+        aenc.per_channel_statistics.mean_of_means.normal_(generator=g).mul_(0.1)
+        aenc.per_channel_statistics.std_of_means.uniform_(0.7, 1.3, generator=g)
+    clips = work / "narrow_clips"
+    clips.mkdir()
+    write_clip(clips / "narrow.mp4", 9, 96, 54, height=64)
+    processor = pre.audio_processor_for(acfg)
+    outs = {}
+    for device, dtype in (("cpu", torch.float32), ("cuda", torch.bfloat16)):
+        v = init_video_encoder(torch.Generator(device=device), vcfg, device=device, dtype=dtype)
+        a = init_audio_encoder(torch.Generator(device=device), acfg, device=device, dtype=dtype)
+        v.load_state_dict(venc.state_dict())
+        a.load_state_dict(aenc.state_dict())  # convs in dtype, statistics fp32
+        t = to_card(te, device, dtype)
+        outs[device] = work / f"narrow_{device}"
+        pre.precompute_dataset(
+            [clips / "narrow.mp4"], outs[device], pre.make_video_encode_fn(v, vcfg),
+            text_encode_fn=pre.make_text_encode_fn(seeded_prompt_encoder(t, te_cfg, device, 64, 40)),
+            prompts={"narrow": "a narrow clip"}, buckets=pre.parse_buckets("64x64x9"),
+            audio_encode_fn=lambda path: pre.encode_waveform(a, acfg, processor, av_waveform(path.stem, 6000),
+                                                             AV_SAMPLE_RATE),
+            reference_fn=pre.compute_edge_reference)
+        del v, a, t
+
+    def read(device, sub, name):
+        with SafetensorsReader(outs[device] / sub / name) as r:
+            return {k: r.get(k).float().numpy() for k in r.keys()}
+
+    line, ok = "  narrow precompute, bf16 on the card vs fp32 on the CPU:", True
+    for sub, axis in (("latents", 1), ("reference_latents", 1), ("audio_latents", 1)):
+        ref, got = read("cpu", sub, "latent_narrow.safetensors"), read("cuda", sub, "latent_narrow.safetensors")
+        peak = float(np.abs(ref["latents"]).max())
+        frames = [psnr(np.take(got["latents"], i, axis), np.take(ref["latents"], i, axis), peak)
+                  for i in range(ref["latents"].shape[axis])]
+        finite = bool(np.isfinite(got["latents"]).all())
+        line += f" {sub} min per-frame PSNR {min(frames):.2f} dB over {len(frames)} frames;"
+        ok = ok and finite and min(frames) >= 35.0
+    ref, got = (read(d, "conditions", "condition_narrow.safetensors") for d in ("cpu", "cuda"))
+    for key in ("video_prompt_embeds", "audio_prompt_embeds"):
+        l2 = float(np.linalg.norm(got[key] - ref[key]) / np.linalg.norm(ref[key]))
+        line += f" {key} rel L2 {l2:.3e};"
+        ok = ok and l2 <= 2e-2 and bool(np.isfinite(got[key]).all())
+    print(line + " bars 35 dB and 2e-2", flush=True)
+    if not ok:
+        fail("the narrow precompute on the card disagrees with the CPU")
+
+
+def full_width_precompute(models, te, te_cfg, work: Path) -> Path:
+    """Phase 13 (a): precompute_dataset at full width on 2 seeded 65-frame
+    832x544 clips (cv2, mp4v) bucketed to 768x512x65: the seeded default
+    video VAE encoder of phase 7a, phase 9b's text encoder on seeded token
+    ids, the default audio VAE encoder (seeded bf16) on a seeded waveform
+    of each clip's duration, Canny edge references. Returns the dataset's
+    root; every clip must have each of its four files."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+    from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioVAEConfig, init_audio_encoder
+    from mlx_video_tpu_torch.trainer import precompute as pre
+
+    dev = torch.device("cuda")
+    narrow_precompute_check(work)
+    clips = work / "av_clips"
+    clips.mkdir()
+    stems = [f"clip_{i:03d}" for i in range(2)]
+    for i, stem in enumerate(stems):
+        write_clip(clips / f"{stem}.mp4", AV_CLIP_FRAMES, AV_CLIP_SIZE[0], 55 + i, height=AV_CLIP_SIZE[1])
+    g = torch.Generator(device=dev).manual_seed(56)
+    acfg = AudioVAEConfig()
+    aenc = init_audio_encoder(g, acfg, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        aenc.per_channel_statistics.mean_of_means.normal_(generator=g).mul_(0.1)
+        aenc.per_channel_statistics.std_of_means.uniform_(0.7, 1.3, generator=g)
+    processor = pre.audio_processor_for(acfg)
+
+    def audio_encode(path: Path):
+        # the card machine has no ffmpeg, so extract_audio_pcm finds no track: a seeded waveform stands in
+        return pre.encode_waveform(aenc, acfg, processor, av_waveform(path.stem, AV_CLIP_SAMPLES), AV_SAMPLE_RATE)
+
+    out = work / "av_data"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = pre.precompute_dataset(
+        sorted(clips.iterdir()), out, pre.make_video_encode_fn(models.vae_encoder, models.vae_encoder_config),
+        text_encode_fn=pre.make_text_encode_fn(seeded_prompt_encoder(te, te_cfg, dev)),
+        prompts={stem: f"seeded clip {stem}" for stem in stems}, buckets=pre.parse_buckets("768x512x65"),
+        audio_encode_fn=audio_encode, reference_fn=pre.compute_edge_reference)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  precompute_dataset: {n} clips in {secs:.2f} s ({secs / max(n, 1):.2f} s a clip: two video encodes, "
+          f"one text and one audio encode each); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; ffmpeg on this machine: {shutil.which('ffmpeg') is not None}", flush=True)
+    want = {("latents", "latent"): {"latents": (128, 9, 16, 24)},
+            ("reference_latents", "latent"): {"latents": (128, 9, 16, 24)},
+            ("conditions", "condition"): {"video_prompt_embeds": (1024, 3840), "audio_prompt_embeds": (1024, 3840),
+                                          "prompt_attention_mask": (1024,)},
+            ("audio_latents", "latent"): {"latents": (8, AV_TRAIN_T, 16), "num_time_steps": (1,)}}
+    for stem in stems:
+        for (sub, prefix), shapes in want.items():
+            path = out / sub / f"{prefix}_{stem}.safetensors"
+            if not path.is_file():
+                fail(f"precompute wrote no {sub} for {stem}")
+            with SafetensorsReader(path) as r:
+                got = {k: r.get(k) for k in r.keys()}
+            for key, shape in shapes.items():
+                if key not in got or tuple(got[key].shape) != shape:
+                    fail(f"{path.name} in {sub}: {key} {tuple(got[key].shape) if key in got else None}, want {shape}")
+            if not all(torch.isfinite(t.float()).all() for t in got.values()):
+                fail(f"{path.name} in {sub} is not finite")
+            if sub == "audio_latents":
+                if int(got["num_time_steps"][0]) != AV_TRAIN_T:
+                    fail(f"{stem}: {int(got['num_time_steps'][0])} audio latent frames, want {AV_TRAIN_T}")
+                print(f"  {stem}: audio latents {tuple(got['latents'].shape)}, {float(got['duration'][0]):.4f} s "
+                      f"of audio; the video's {AV_CLIP_FRAMES / 24.0:.4f} s", flush=True)
+    del aenc
+    torch.cuda.empty_cache()
+    return out
+
+
+def av_lora_recipe(**kw):
+    """ltx_trainer/configs/ltx2_av_lora.yaml as a TrainingConfig (rank 16,
+    alpha 32, lr 5e-5, batch 1, seed 42, with_audio on audio_latents/, the
+    trainer's defaults otherwise), with gradient checkpointing on."""
+    from mlx_video_tpu_torch.trainer.config import TrainingConfig
+
+    base = dict(training_mode="lora", lora_rank=16, lora_alpha=32.0, strategy="text_to_video", with_audio=True,
+                audio_latents_dir="audio_latents", lr=5e-5, batch_size=1, seed=42,
+                enable_gradient_checkpointing=True, handle_preemption=False)
+    return TrainingConfig(**{**base, **kw})
+
+
+def full_width_av_training(models, fa, qmm, data_root: Path, out_root: Path) -> dict:
+    """Phase 13 (b): 4 AV LoRA steps on the 19B AudioVideo DiT (the bf16
+    video DiT's modules plus phase 12's audio tensors, drawn again) over (a)'s
+    files, a ValidationSampler at step 0 and after step 2; then a resume from
+    state_step_2 without validation, and a profiled warm step."""
+    import dataclasses
+
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+    from mlx_video_tpu_torch.trainer.trainer import Trainer
+    from mlx_video_tpu_torch.trainer.validation_sampler import ValidationSampler
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    av, av_cfg = audio_video_model(models.transformer)
+    with SafetensorsReader(data_root / "conditions" / "condition_clip_000.safetensors") as r:
+        text = TextConditioning(r.get("video_prompt_embeds")[None].to(dev, torch.bfloat16))
+    sampler = ValidationSampler(dataclasses.replace(models, transformer_config=av_cfg),
+                                output_dir=out_root / "validation", prompts=["seeded clip clip_000"], width=512,
+                                height=512, num_frames=33, steps=8, seed=57, precomputed_text=text)
+    val_k1 = []
+
+    def validate(model, step):
+        before, t0 = fa.launch_count, time.perf_counter()
+        (path,) = sampler(model, step)
+        val_k1.append(fa.launch_count - before)
+        print(f"  validation at step {step}: {time.perf_counter() - t0:.2f} s, {val_k1[-1]} K1, {path.name} "
+              f"{path.stat().st_size if path.is_file() else 0} bytes", flush=True)
+        if not path.is_file() or path.stat().st_size == 0:
+            fail(f"validation at step {step} wrote no mp4")
+
+    out = out_root / "av"
+    cfg = av_lora_recipe(steps=4, save_every=2, output_dir=str(out), data_root=str(data_root), validation_interval=2)
+    trainer = Trainer(cfg, model_config=av_cfg, params=av, validation_fn=validate)
+    if trainer.dataset.data_sources != AV_DATA_SOURCES:
+        fail(f"the AV Trainer reads {trainer.dataset.data_sources}, want {AV_DATA_SOURCES}")
+    print(f"  AV Trainer set up in {time.perf_counter() - t_phase:.2f} s: {len(trainer.params)} LoRA tensors, "
+          f"{sum(p.numel() for p in trainer.params.values()) / 1e6:.3f} M parameters", flush=True)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with launch_shapes(fa, qmm) as shapes:
+        fa.launch_count = fa.bwd_launch_count = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        wall = time.perf_counter() - t0
+        k1, k3 = fa.launch_count - sum(val_k1), fa.bwd_launch_count
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = list(trainer.loss_history), list(trainer.step_seconds)
+    tokens = 3456 + AV_TRAIN_T
+    norms = {kind: sum(p.float().norm().item() for n, p in trainer.params.items()
+                       if n.endswith("lora_B") and (".audio_" in n or "_to_" in n) == (kind == "audio"))
+             for kind in ("video", "audio")}
+    print(f"  losses {['%.6f' % x for x in losses]}; step seconds {['%.4f' % x for x in secs]} (steps 0 and 2 "
+          f"include no validation: it runs before a step's timer and after its update); tokens/s after the first "
+          f"step {tokens * (len(secs) - 1) / sum(secs[1:]):.1f} ({tokens} a step: 3456 video, {AV_TRAIN_T} audio)",
+          flush=True)
+    print(f"  train wall {wall:.4f} s (saves and 2 validations included); device memory {base_mem / 2**30:.3f} GiB "
+          f"before, peak {peak / 2**30:.3f} GiB; launches K1 {k1} (+{sum(val_k1)} in validation), K3 {k3}; sum of "
+          f"LoRA B norms: video {norms['video']:.4e}, audio and cross-modal {norms['audio']:.4e}", flush=True)
+    check_compared(shapes, "phase 13 (b)")
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        fail(f"AV training losses {losses}")
+    if not (norms["video"] > 0 and norms["audio"] > 0):
+        fail(f"the LoRA B factors did not move: {norms}")
+    if (k1, k3) != (4 * 192, 4 * 96) or val_k1 != [528, 528]:
+        fail(f"{k1} K1 and {k3} K3 launches in 4 AV steps, want {4 * 192} and {4 * 96}; validation K1 {val_k1}, "
+             "want [528, 528]")
+    with SafetensorsReader(out / "lora_step_4.safetensors") as r:
+        keys = set(r.keys())
+    attns = ("attn1", "attn2", "audio_attn1", "audio_attn2", "audio_to_video_attn", "video_to_audio_attn")
+    mods = [f"{a}.{lin}" for a in attns for lin in ("to_q", "to_k", "to_v", "to_out")] + [
+        "ff.proj_in", "ff.proj_out", "audio_ff.proj_in", "audio_ff.proj_out"]
+    want = {f"diffusion_model.transformer_blocks.{i}.{m}.lora_{ab}.weight" for i in range(48) for m in mods
+            for ab in "AB"}
+    if keys != want:
+        fail(f"AV adapter keys differ from the reference format: {sorted(keys ^ want)[:5]}")
+    print(f"  lora_step_4.safetensors: {len(keys)} reference keys (28 linears a block); files "
+          f"{sorted(p.name for p in out.iterdir())}", flush=True)
+    del trainer
+
+    resume_dir = out_root / "av_resume"
+    resume_dir.mkdir()
+    shutil.copy(out / "state_step_2.safetensors", resume_dir)
+    resumed = Trainer(av_lora_recipe(steps=4, save_every=2, output_dir=str(resume_dir), data_root=str(data_root),
+                                     resume=True), model_config=av_cfg, params=av)
+    if resumed.start_step != 2:
+        fail(f"the AV run resumed at step {resumed.start_step}, want 2")
+    resumed.train()
+    again = list(resumed.loss_history)
+    print(f"  resumed from state_step_2 without validation: losses of steps 2, 3 {['%.6f' % x for x in again]} vs "
+          f"{['%.6f' % x for x in losses[2:]]}", flush=True)
+    if again != losses[2:]:
+        fail("the resumed AV run's losses differ from the validated run's")
+    profile_lora_step(resumed, fa, tokens=tokens)
+    del resumed
+    strip_lora(av)
+    for p in av.parameters():
+        p.requires_grad_(False)
+    del av
+    torch.cuda.empty_cache()
+    print(f"  phase 13 (b): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"k1": k1, "k3": k3, "k1_validation": val_k1[0], "step_seconds": secs, "peak_gib": peak / 2**30}
 
 
 def quantize_full_width(models) -> None:
@@ -2391,11 +2800,12 @@ def decoder_key(name: str) -> str:
     return key if key.startswith("per_channel") else "decoder." + key
 
 
-def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict:
+def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data: Path) -> dict:
     """Write the q4 model as an MLX pre-quantized snapshot (with the seeded
     encoder in its VAE file), load it back, run the generate CLI on it
     (distilled, --w4a8, and phase 11's keyframe run: ``cond`` holds its
-    images and adapter), then the training CLI over its 4-bit file."""
+    images and adapter), then the training CLI over its 4-bit file, and
+    again with --with-audio over ``av_data`` (phase 13 (c))."""
     import torch
 
     from mlx_video_tpu_torch import loading
@@ -2545,8 +2955,10 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict) -> dict
         check_launches(k1, k2, 10 * 48 * (8 + 3))
         torch.cuda.empty_cache()
         audio = audio_cli(argv, snap, tmp, fa, qmm)
-        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **train_cli_over_q4(
-            snap / "ltx-2-19b-distilled-4bit-mlx.safetensors", data_root, tmp / "train", fa, qmm)}
+        q4_file = snap / "ltx-2-19b-distilled-4bit-mlx.safetensors"
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio,
+                **train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm),
+                **train_cli_over_q4(q4_file, av_data, tmp / "train_av", fa, qmm, audio=True)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2595,32 +3007,43 @@ def audio_cli(argv: list, snap: Path, tmp: Path, fa, qmm) -> dict:
     return out
 
 
-def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm) -> dict:
+def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio: bool = False) -> dict:
     """python -m mlx_video_tpu_torch.train, in-process: LoRA over the frozen
-    4-bit base read from the snapshot file, 2 steps of the recipe."""
+    4-bit base read from the snapshot file, 2 steps: the ltx2_lora.yaml
+    recipe on phase 8's dataset, or with ``audio`` the ltx2_av_lora.yaml
+    recipe (--with-audio, the AudioVideo DiT of the same file) on phase 13
+    (a)'s files, its K1, K3 and K2 launches recorded by shape."""
     import torch
 
     from mlx_video_tpu_torch.cli import train as train_cli
 
+    recipe = (["--lora-rank", "16", "--lora-alpha", "32", "--lr", "5e-5", "--with-audio", "--audio-latents-dir",
+               "audio_latents"] if audio else
+              ["--lora-rank", "8", "--lora-alpha", "16", "--lr", "1e-4", "--scheduler-type", "cosine",
+               "--timestep-sampling-mode", "shifted_logit_normal", "--first-frame-conditioning-p", "0.1"])
     argv = ["--model-repo", str(q4_file), "--training-mode", "lora", "--data-root", str(data_root),
-            "--steps", "2", "--lr", "1e-4", "--scheduler-type", "cosine", "--lora-rank", "8", "--lora-alpha", "16",
-            "--timestep-sampling-mode", "shifted_logit_normal", "--first-frame-conditioning-p", "0.1",
-            "--max-grad-norm", "1.0", "--seed", "42", "--output-dir", str(out),
+            "--steps", "2", *recipe, "--max-grad-norm", "1.0", "--seed", "42", "--output-dir", str(out),
             "--enable-gradient-checkpointing", "--device", "cuda"]
+    what = "AV training CLI (--with-audio)" if audio else "training CLI"
     torch.cuda.reset_peak_memory_stats()
-    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
-    t0 = time.perf_counter()
-    train_cli.main(argv)
-    wall = time.perf_counter() - t0
-    k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
-    print(f"  training CLI wall {wall:.4f} s (the 4-bit file's load included); peak device memory "
+    with launch_shapes(fa, qmm) as shapes:
+        fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        wall = time.perf_counter() - t0
+        k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
+    print(f"  {what} wall {wall:.4f} s (the 4-bit file's load included); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K3 {k3}, K2 {k2}; files "
           f"{sorted(p.name for p in out.iterdir())}", flush=True)
-    if (k1, k3, k2) != (2 * 2 * 48, 2 * 48, 2 * 2 * 10 * 48):
-        fail(f"training CLI launches K1 {k1}, K3 {k3}, K2 {k2}; want {2 * 2 * 48}, {2 * 48}, {2 * 2 * 10 * 48}")
+    streams, linears = (2, 28) if audio else (1, 10)
+    want = (2 * 2 * 48 * streams, 2 * 48 * streams, 2 * 2 * linears * 48)
+    if (k1, k3, k2) != want:
+        fail(f"{what} launches K1 {k1}, K3 {k3}, K2 {k2}; want {want}")
     if not (out / "lora_step_2.safetensors").is_file():
-        fail("the training CLI wrote no lora_step_2.safetensors")
-    return {"k1": k1, "k3": k3, "k2": k2}
+        fail(f"the {what} wrote no lora_step_2.safetensors")
+    check_compared(shapes, f"phase 13 (c), the {what}" if audio else f"phase 10, the {what}")
+    tag = "_av_cli" if audio else ""
+    return {f"k1{tag}": k1, f"k3{tag}": k3, f"k2{tag}": k2}
 
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -2726,6 +3149,7 @@ def main() -> int:
         lora_slice_check(w4a8=True)
         print("audio at narrow width, card vs CPU reference:", flush=True)
         narrow_audio_check()
+        lora_slice_check(audio=True)
         models, text = full_width_models()
         print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
         drive_slice(models, text, fa, qmm, want_k2=0, profile="a warm dense distilled run")
@@ -2745,8 +3169,16 @@ def main() -> int:
         train = full_width_training(models, fa, work / "data", work)
         print("full-width W8A8 slice (a W8A8 copy of the same DiT); K6 on its q, k, v:", flush=True)
         w8 = full_width_w8a8(models, text, fa, qmm)
-        print("full-width text encoder (Gemma-3-12B geometry and the connectors, seeded bf16, then W8A8):", flush=True)
-        full_width_text_encoder(models, fa, qmm, work)
+        print("full-width text encoder (Gemma-3-12B geometry and the connectors, seeded bf16, then W8A8); phase 13 "
+              "(a), full-width precompute (768x512x65 clips: video, caption and audio latents, edge references) on "
+              "its bf16 encoder:", flush=True)
+        av_data = []
+        full_width_text_encoder(models, fa, qmm, work, precompute=lambda te, te_cfg: av_data.append(
+            full_width_precompute(models, te, te_cfg, work)))
+        (av_data,) = av_data
+        print(f"full-width AV LoRA training (ltx2_av_lora.yaml, 768x512x65: 3456 video and {AV_TRAIN_T} audio tokens, "
+              "the 19B AudioVideo DiT, bf16) with a ValidationSampler:", flush=True)
+        av = full_width_av_training(models, fa, qmm, av_data, work)
         print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
         quantize_full_width(models)
         drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3), profile="a warm q4 distilled run")
@@ -2754,7 +3186,7 @@ def main() -> int:
         full_width_w4a8(models, text, fa, qmm)
         print("MLX pre-quantized snapshot -> load_model_bundle -> generate CLI; training CLI over the 4-bit "
               "file:", flush=True)
-        cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data", cond)
+        cli_train = snapshot_and_cli(models, text, fa, qmm, work / "data", cond, av_data)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2774,7 +3206,9 @@ def main() -> int:
         "path_launches": {"lora_training": train["k1"], "keyframe_cli": cli_train["k1_keyframe_cli"],
                           **{f"conditioned_{run}": n for run, n in cond["k1"].items()}, **audio["k1"],
                           "audio_joint_cli": cli_train["k1_audio_joint_cli"],
-                          "audio_separate_cli": cli_train["k1_audio_separate_cli"]},
+                          "audio_separate_cli": cli_train["k1_audio_separate_cli"],
+                          "av_lora_training": av["k1"], "validation": av["k1_validation"],
+                          "av_training_cli": cli_train["k1_av_cli"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -2788,7 +3222,8 @@ def main() -> int:
         "launches": cli_train["k2"],
         "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"],
                           "audio_joint_cli": cli_train["k2_audio_joint_cli"],
-                          "audio_separate_cli": cli_train["k2_audio_separate_cli"]},
+                          "audio_separate_cli": cli_train["k2_audio_separate_cli"],
+                          "av_training_cli": cli_train["k2_av_cli"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -2800,6 +3235,8 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:301",
         "launches": train["k3"],
+        "path_launches": {"lora_training": train["k3"], "training_cli": cli_train["k3"],
+                          "av_lora_training": av["k3"], "av_training_cli": cli_train["k3_av_cli"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,

@@ -6,8 +6,13 @@ own copy of its parser, :func:`base_parser`), plus ``--device`` (default
 ``--device cpu``), and ``--enable-gradient-checkpointing`` (the YAML schema's
 ``optimization.enable_gradient_checkpointing``, which the JAX CLI reaches only
 through ``--config``). ``--config`` reads an LTX-2-schema YAML file (PyYAML is
-imported only then). Options of features the port does not have yet (meshes,
-validation, W&B, hub push, audio) exit with a message that names them.
+imported only then). ``--with-audio`` trains the AudioVideo DiT over the
+``--audio-latents-dir`` latents. The ``--validation-*`` flags are accepted
+and, as in the JAX CLI (which builds no validation function), do nothing
+here: the CLI prints one line saying so; validation runs through
+``Trainer(validation_fn=ValidationSampler(...))``. Options of features the
+port does not have yet (meshes, sequence parallelism, W&B, hub push) exit
+with a message that names them.
 """
 
 from __future__ import annotations
@@ -180,6 +185,10 @@ def main(argv=None) -> None:
             enable_gradient_checkpointing=args.enable_gradient_checkpointing,
         )
 
+    if cfg.validation_prompts or cfg.validation_interval:
+        print("train: the --validation-* options are accepted but, as in the JAX CLI, run no validation "
+              "(the CLI builds no validation function; pass Trainer(validation_fn=ValidationSampler(...)) "
+              "from Python)", flush=True)
     try:
         trainer = Trainer(cfg, device=device)
     except NotImplementedError as e:

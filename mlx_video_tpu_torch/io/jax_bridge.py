@@ -26,8 +26,9 @@ names, so the mapping is mechanical:
   tree, per block here;
 - the vocoder's 1-D convs are (K, I, O) in JAX and (O, I, K) here, its
   transposed convs (``ups``) (I, O, K) here (:func:`vocoder_state_dict`,
-  :func:`vocoder_to_jax_tree`); the audio VAE decoder's JAX tree keeps an
-  empty ``attn`` dict in each up stage (:func:`audio_decoder_to_jax_tree`).
+  :func:`vocoder_to_jax_tree`); the audio VAE decoder's and encoder's JAX
+  trees keep an empty ``attn`` dict in each up or down stage
+  (:func:`audio_decoder_to_jax_tree`, :func:`audio_encoder_to_jax_tree`).
 
 bfloat16 arrays (ml_dtypes) are read through their bits, so this module
 imports no JAX and no ml_dtypes; on the way back to numpy bfloat16 tensors
@@ -210,14 +211,25 @@ def encoder_to_jax_tree(encoder: nn.Module) -> dict:
     return _restack(encoder.state_dict(), _leaf_to_numpy, None, ())
 
 
+def _audio_vae_tree(module: nn.Module, stages: str) -> dict:
+    tree = _restack(module.state_dict(), _leaf_to_numpy, None, ())
+    for stage in tree[stages].values():
+        stage.setdefault("attn", {})
+    return tree
+
+
 def audio_decoder_to_jax_tree(decoder: nn.Module) -> dict:
     """An ``AudioDecoder`` as the JAX ``init_audio_decoder`` tree: nothing is
     stacked, and every up stage has its ``attn`` dict (empty without
     attention blocks)."""
-    tree = _restack(decoder.state_dict(), _leaf_to_numpy, None, ())
-    for stage in tree["up"].values():
-        stage.setdefault("attn", {})
-    return tree
+    return _audio_vae_tree(decoder, "up")
+
+
+def audio_encoder_to_jax_tree(encoder: nn.Module) -> dict:
+    """An ``AudioEncoder`` as the JAX ``init_audio_encoder`` tree, as
+    :func:`audio_decoder_to_jax_tree` for its down stages. The way in is
+    ``load_jax_params(encoder, tree, stacked=())``."""
+    return _audio_vae_tree(encoder, "down")
 
 
 def _vocoder_layout(state: Dict[str, torch.Tensor], transposed: Callable, conv: Callable) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Checkpoint loaders for the video VAE decoder and encoder, the latent
-upsampler, the audio VAE decoder and the vocoder.
+upsampler, the audio VAE decoder and encoder and the vocoder.
 
 Counterpart of the decoder, encoder, upsampler, audio VAE and vocoder loaders of
 mlx_video_tpu/io/vae_weights.py, with the same prefixes, the same key remapping
@@ -17,13 +17,13 @@ not match raises. The audio loaders are strict where the JAX ones are not:
 a file that leaves a parameter of the module unfilled raises (the JAX
 loaders keep the init's values). Audio conv weights keep their checkpoint
 layouts too: Conv2d (O, I, kh, kw), Conv1d (O, I, K) and ConvTranspose1d
-(I, O, K). Not ported yet: the audio VAE encoder's side.
+(I, O, K).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Iterable, Tuple, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -197,27 +197,36 @@ _AUDIO_STATS = {
 }
 
 
-def load_audio_vae_weights(path: Union[str, Path], decoder: nn.Module) -> int:
-    """Fill an ``AudioDecoder`` from a checkpoint, in place: the
-    ``decoder.`` (or a unified bundle's ``audio_vae.decoder.``) tensors and
-    the per-channel statistics under any of their three spellings. Every
-    parameter must be in the file."""
+def load_audio_vae_weights(path: Union[str, Path], decoder: Optional[nn.Module] = None,
+                           encoder: Optional[nn.Module] = None) -> int:
+    """Fill an ``AudioDecoder`` and/or an ``AudioEncoder`` from a checkpoint,
+    in place: the ``decoder.`` / ``encoder.`` tensors (or a unified
+    bundle's ``audio_vae.decoder.`` / ``audio_vae.encoder.``) and the
+    per-channel statistics, which both share, under any of their three
+    spellings. Every parameter of each module given must be in the file.
+    Returns the number of tensors loaded over both."""
     stats = _read_stats(path, ("per_channel_statistics.", "audio_vae.per_channel_statistics."),
                         [n for names in _AUDIO_STATS.values() for n in names])
-    weights = _read_all(path, ("decoder.", "audio_vae.decoder."), _device_of(decoder))
-    state = decoder.state_dict()
-    filled = set()
-    for target, names in _AUDIO_STATS.items():
-        name = next((n for n in names if n in stats), None)
-        if name is not None and _assign(state, ("per_channel_statistics", target), stats[name].float()):
-            filled.add(f"per_channel_statistics.{target}")
-    for key, value in weights.items():
-        # CausalConv2d wrappers nest the conv one level deeper (.conv)
-        cand = next((c for c in _leaf_candidates(key.split(".")) if _assign(state, c, value)), None)
-        if cand is not None:
-            filled.add(".".join(cand))
-    _check_filled("audio VAE decoder", state, filled)
-    return len(filled)
+    loaded = 0
+    for what, module, prefixes in (("audio VAE decoder", decoder, ("decoder.", "audio_vae.decoder.")),
+                                   ("audio VAE encoder", encoder, ("encoder.", "audio_vae.encoder."))):
+        if module is None:
+            continue
+        weights = _read_all(path, prefixes, _device_of(module))
+        state = module.state_dict()
+        filled = set()
+        for target, names in _AUDIO_STATS.items():
+            name = next((n for n in names if n in stats), None)
+            if name is not None and _assign(state, ("per_channel_statistics", target), stats[name].float()):
+                filled.add(f"per_channel_statistics.{target}")
+        for key, value in weights.items():
+            # CausalConv2d wrappers nest the conv one level deeper (.conv)
+            cand = next((c for c in _leaf_candidates(key.split(".")) if _assign(state, c, value)), None)
+            if cand is not None:
+                filled.add(".".join(cand))
+        _check_filled(what, state, filled)
+        loaded += len(filled)
+    return loaded
 
 
 def load_vocoder_weights(path: Union[str, Path], vocoder: nn.Module) -> int:

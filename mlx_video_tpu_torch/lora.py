@@ -220,6 +220,10 @@ def export_lora_state(model: nn.Module, config: LTXModelConfig) -> Dict[str, tor
             key = ".".join(["transformer_blocks"] + parts[1:])
         elif parts[0] == "video":
             key = ".".join(parts[1:])
+        elif parts[0] == "audio":
+            key = "audio_" + ".".join(parts[1:])
+        elif parts[0] == "av":
+            key = ".".join([f"{parts[1]}_single"] + parts[2:])
         else:
             raise ValueError(f"no reference name for the adapter at {module}")
         out[f"diffusion_model.{key}.{which}.weight"] = p.detach().float().cpu()

@@ -1,10 +1,16 @@
-"""Audio VAE decoder: latents (B, 8, T, 16) -> stereo mel spectrograms
-(B, 2, 4T - 3, 64), on NCHW tensors whose height is time and width mel.
+"""Audio VAE: the encoder, stereo log-mel spectrograms (B, 2, T, 64) ->
+normalised latents (B, 8, T', 16), T' = (T + 3) // 4 for the causal
+default, and the decoder, latents (B, 8, T, 16) -> mel spectrograms (B, 2,
+4T - 3, 64), on NCHW tensors whose height is time and width mel.
 
-Counterpart of the decoder side of mlx_video_tpu/models/ltx/audio_vae/
-audio_vae.py: ``AudioVAEConfig``, ``patchify_audio`` / ``unpatchify_audio``
-(here on channels-first tensors), ``init_audio_decoder`` and
-``audio_decoder_apply``. The network is a 2-D conv net, causal in time (each
+Counterpart of mlx_video_tpu/models/ltx/audio_vae/audio_vae.py:
+``AudioVAEConfig``, ``patchify_audio`` / ``unpatchify_audio`` (here on
+channels-first tensors), ``init_audio_encoder`` / ``audio_encoder_apply``
+and ``init_audio_decoder`` / ``audio_decoder_apply``. The encoder runs its
+stages down (residual blocks, a causal stride-2 3x3 downsample between
+levels), the mid blocks and an output conv to 2z channels of which the first
+z are the means (``double_z``); the means are normalised per (channel, mel
+bin) by the statistics. The decoder is a 2-D conv net, causal in time (each
 3x3 conv pads k - 1 rows before the time axis and symmetrically on mel),
 with pixel norm (an RMS norm over channels, fp32) and SiLU in its residual
 blocks and nearest 2x upsampling; the latents are de-normalised per
@@ -12,8 +18,6 @@ blocks and nearest 2x upsampling; the latents are de-normalised per
 padded to 4T - 3 frames of 64 mel bins. Weights use PyTorch's (O, I, kh, kw)
 layout; the JAX package stores (kh, kw, I, O) and io/jax_bridge.py permutes
 between the two. The convolutions are ``F.conv2d`` (cuDNN on the card).
-
-Not ported yet: the encoder (audio precompute only).
 """
 
 from __future__ import annotations
@@ -105,6 +109,19 @@ def attn_block(block: AttnBlock, x: torch.Tensor) -> torch.Tensor:
     return x + _conv(block.proj_out, h)
 
 
+class Downsample(nn.Module):
+    def __init__(self, c: int, device=None, dtype=None):
+        super().__init__()
+        self.conv = Conv2d(c, c, 3, device=device, dtype=dtype)
+
+
+def downsample(down: Downsample, x: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Stride-2 3x3 conv; causal pads 2 rows before the time axis and one
+    column after mel (not causal: one after each)."""
+    x = F.pad(x, (0, 1, 2, 0) if causal else (0, 1, 0, 1))
+    return F.conv2d(x, down.conv.weight.to(x.dtype), down.conv.bias.to(x.dtype), stride=2)
+
+
 class Upsample(nn.Module):
     def __init__(self, c: int, device=None, dtype=None):
         super().__init__()
@@ -134,6 +151,46 @@ class UpStage(nn.Module):
         super().__init__()
         self.block = nn.ModuleDict()
         self.attn = nn.ModuleDict()
+
+
+DownStage = UpStage  # ``block`` and ``attn``; a downsampling level adds ``downsample``
+
+
+class AudioEncoder(nn.Module):
+    """Parameters under the JAX ``init_audio_encoder`` names
+    (``down.{level}.block.{i}.conv1``, ``down.{level}.downsample.conv``,
+    ``mid.block_1``, ...)."""
+
+    def __init__(self, config: AudioVAEConfig = AudioVAEConfig(), device=None, dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n_res = len(config.ch_mult)
+        in_mult = (1,) + tuple(config.ch_mult)
+        self.conv_in = Conv2d(config.in_channels, config.ch, 3, **kw)
+        self.per_channel_statistics = PerChannelStatistics(
+            config.z_channels * (config.mel_bins // config.latent_downsample_factor), device=device)
+        self.down = nn.ModuleDict()
+        curr_res = config.resolution
+        block_in = config.ch
+        for level in range(n_res):
+            stage = DownStage()
+            block_in = config.ch * in_mult[level]
+            block_out = config.ch * config.ch_mult[level]
+            for i in range(config.num_res_blocks):
+                stage.block[str(i)] = ResnetBlock(block_in, block_out, **kw)
+                block_in = block_out
+                if curr_res in config.attn_resolutions:
+                    stage.attn[str(i)] = AttnBlock(block_in, **kw)
+            if level != n_res - 1:
+                stage.downsample = Downsample(block_in, **kw)
+                curr_res //= 2
+            self.down[str(level)] = stage
+        self.mid = nn.ModuleDict({"block_1": ResnetBlock(block_in, block_in, **kw),
+                                  "block_2": ResnetBlock(block_in, block_in, **kw)})
+        if config.mid_block_add_attention:
+            self.mid["attn_1"] = AttnBlock(block_in, **kw)
+        out_c = 2 * config.z_channels if config.double_z else config.z_channels
+        self.conv_out = Conv2d(block_in, out_c, 3, **kw)
 
 
 class AudioDecoder(nn.Module):
@@ -187,6 +244,22 @@ def init_audio_decoder(generator: torch.Generator, config: AudioVAEConfig = Audi
     return decoder
 
 
+@torch.no_grad()
+def init_audio_encoder(generator: torch.Generator, config: AudioVAEConfig = AudioVAEConfig(), device=None,
+                       dtype=torch.bfloat16) -> AudioEncoder:
+    """Build the encoder and draw its convs on ``device`` from ``generator``,
+    as :func:`init_audio_decoder` does."""
+    if device is None:
+        device = generator.device
+    encoder = AudioEncoder(config, device=device, dtype=dtype)
+    for module in encoder.modules():
+        if isinstance(module, Conv2d):
+            init_conv_(module, generator)
+    encoder.per_channel_statistics.std_of_means.fill_(1.0)
+    encoder.per_channel_statistics.mean_of_means.zero_()
+    return encoder
+
+
 def patchify_audio(x: torch.Tensor) -> torch.Tensor:
     """(B, C, T, M) -> (B, T, C*M), channel-major ('b c t f -> b t (c f)')."""
     b, c, t, m = x.shape
@@ -233,3 +306,33 @@ def audio_decoder_apply(decoder: AudioDecoder, config: AudioVAEConfig, sample: t
     if pad_t > 0 or pad_m > 0:
         h = F.pad(h, (0, max(pad_m, 0), 0, max(pad_t, 0)))
     return h
+
+
+def audio_encoder_apply(encoder: AudioEncoder, config: AudioVAEConfig, spectrogram: torch.Tensor) -> torch.Tensor:
+    """Encode (B, C_in, T, M) or (B, T, M, C_in) log-mel spectrograms (read
+    as channels-last unless only axis 1 is C_in, as the JAX function reads
+    them) to normalised latents (B, z, T', M'), in the input's dtype."""
+    if spectrogram.dim() != 4:
+        raise ValueError(f"Expected 4D spectrogram, got {tuple(spectrogram.shape)}")
+    if not (spectrogram.shape[1] == config.in_channels and spectrogram.shape[-1] != config.in_channels):
+        spectrogram = spectrogram.permute(0, 3, 1, 2)
+    causal = config.is_causal
+    h = causal_conv2d(encoder.conv_in, spectrogram, causal)
+    for level in range(len(config.ch_mult)):
+        stage = encoder.down[str(level)]
+        for i in range(config.num_res_blocks):
+            h = resnet_block(stage.block[str(i)], h, causal)
+            if str(i) in stage.attn:
+                h = attn_block(stage.attn[str(i)], h)
+        if hasattr(stage, "downsample"):
+            h = downsample(stage.downsample, h, causal)
+    h = resnet_block(encoder.mid["block_1"], h, causal)
+    if "attn_1" in encoder.mid:
+        h = attn_block(encoder.mid["attn_1"], h)
+    h = resnet_block(encoder.mid["block_2"], h, causal)
+    h = causal_conv2d(encoder.conv_out, F.silu(_pixel_norm(h)), causal)
+
+    means = h[:, : config.z_channels] if config.double_z else h
+    stats = encoder.per_channel_statistics
+    normalized = (patchify_audio(means).float() - stats.mean_of_means) / stats.std_of_means
+    return unpatchify_audio(normalized.to(means.dtype), config.z_channels, means.shape[3])

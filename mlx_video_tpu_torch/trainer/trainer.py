@@ -1,10 +1,14 @@
-"""Trainer: LoRA or full finetuning of the video DiT over precomputed latents,
-on one device.
+"""Trainer: LoRA or full finetuning of the video or audio-video DiT over
+precomputed latents, on one device.
 
 Counterpart of mlx_video_tpu/trainer/trainer.py (``Trainer``, single device):
-dataset -> model (SPLIT RoPE, video-only) -> LoRA injection (lora.py) ->
-AdamW with its schedule (train_step.py) -> a loop with gradient accumulation,
-clip and update -> saves after the step increment, pruning, and a final save.
+dataset -> model (SPLIT RoPE, VideoOnly, or AudioVideo with ``with_audio``)
+-> LoRA injection (lora.py) -> AdamW with its schedule (train_step.py) -> a
+loop with gradient accumulation, clip and update -> saves after the step
+increment, pruning, and a final save. A ``validation_fn(model, step)`` (e.g.
+trainer/validation_sampler.py) runs before the first step (unless
+``validation_skip_initial`` or a resume) and after every
+``validation_interval``-th step's update, as in the JAX package.
 
 - A bf16 or a quantized base: a model with quantized or int8 linears
   (``QuantLinear``, ``Int8Linear``: frozen formats, the int8 product has no
@@ -18,7 +22,7 @@ clip and update -> saves after the step increment, pruning, and a final save.
   (trainer/checkpoints.py); the base comes back from ``model_repo``.
 
 Not ported yet, and refused by name: meshes, sequence parallelism, pipeline
-stages, validation sampling, W&B, hub push and audio.
+stages, W&B and hub push.
 """
 
 from __future__ import annotations
@@ -58,11 +62,10 @@ from mlx_video_tpu_torch.trainer.train_step import (
 
 
 def build_model_config(cfg: TrainingConfig) -> LTXModelConfig:
-    """The 48-layer SPLIT-RoPE video DiT configuration."""
-    if cfg.with_audio:
-        raise NotImplementedError("with_audio: audio-video training is not ported to mlx_video_tpu_torch yet")
-    return LTXModelConfig(model_type=LTXModelType.VideoOnly, rope_type=LTXRopeType.SPLIT,
-                          double_precision_rope=True)
+    """The 48-layer SPLIT-RoPE DiT configuration, AudioVideo with
+    ``with_audio``."""
+    return LTXModelConfig(model_type=LTXModelType.AudioVideo if cfg.with_audio else LTXModelType.VideoOnly,
+                          rope_type=LTXRopeType.SPLIT, double_precision_rope=True)
 
 
 def _unported(cfg: TrainingConfig) -> list:
@@ -71,11 +74,8 @@ def _unported(cfg: TrainingConfig) -> list:
         "mesh_shape": cfg.mesh_shape,
         "sequence_parallel": cfg.sequence_parallel,
         "pipeline_stages": cfg.pipeline_stages,
-        "validation_prompts": cfg.validation_prompts,
-        "validation_interval": cfg.validation_interval,
         "wandb_enabled": cfg.wandb_enabled,
         "hub_push": cfg.hub_push,
-        "with_audio": cfg.with_audio,
     }
     return [name for name, value in asks.items() if value]
 
@@ -108,7 +108,8 @@ class PreemptionGuard:
 class Trainer:
     """``params`` is a built model (an ``LTXModel`` on its device) or None to
     load ``cfg.model_repo``; the model is trained in place. ``device``
-    defaults to the model's device, else ``cuda``."""
+    defaults to the model's device, else ``cuda``. ``validation_fn(model,
+    step)`` gets the model under training (its adapters attached)."""
 
     def __init__(
         self,
@@ -119,7 +120,7 @@ class Trainer:
         validation_fn=None,
         device=None,
     ) -> None:
-        unported = _unported(cfg) + (["validation_fn"] if validation_fn is not None else [])
+        unported = _unported(cfg)
         if unported:
             raise NotImplementedError(f"not ported to mlx_video_tpu_torch yet: {', '.join(unported)}")
         if cfg.training_mode not in ("lora", "full"):
@@ -128,6 +129,7 @@ class Trainer:
             raise ValueError("TF32 is on: the fp32 LoRA products must run in full fp32 (the JAX package's "
                              "Precision.HIGHEST); set torch.backends.cuda.matmul.allow_tf32 = False")
         self.cfg = cfg
+        self.validation_fn = validation_fn
         self.model_config = model_config or build_model_config(cfg)
         if cfg.enable_gradient_checkpointing and not self.model_config.gradient_checkpointing:
             self.model_config = dataclasses.replace(self.model_config, gradient_checkpointing=True)
@@ -186,6 +188,8 @@ class Trainer:
             sources = cfg.data_sources
             if sources is None:
                 sources = {"latents": "latents", "conditions": "conditions"}
+                if cfg.with_audio:
+                    sources[cfg.audio_latents_dir] = "audio_latents"
                 if cfg.strategy == "video_to_video":
                     sources[cfg.reference_latents_dir] = "ref_latents"
             return PrecomputedDataset(cfg.data_root, sources)
@@ -194,6 +198,7 @@ class Trainer:
             height=cfg.dummy_height,
             num_frames=cfg.dummy_num_frames,
             prompt_sequence_length=cfg.dummy_prompt_len,
+            with_audio=cfg.with_audio,
             with_reference=cfg.strategy == "video_to_video",
         )
 
@@ -204,7 +209,9 @@ class Trainer:
         """The DiT from ``model_repo`` (a file, or a directory of
         safetensors shards) on the trainer's device: PyTorch, MLX, MLX
         pre-quantized or native layout (io/weights.py); floating tensors in
-        the training dtype, quantized words, scales and biases as stored."""
+        the training dtype, quantized words, scales and biases as stored.
+        The skeleton reads what it has: an AudioVideo one its whole file, a
+        VideoOnly one the video part of an AudioVideo file."""
         path = Path(self.cfg.model_repo)
         if not path.exists():
             raise FileNotFoundError(
@@ -235,7 +242,7 @@ class Trainer:
     def _prepare(self, batch):
         if self.cfg.strategy == "video_to_video":
             return prepare_video_to_video(batch, device=self.device)
-        return prepare_text_to_video(batch, device=self.device)
+        return prepare_text_to_video(batch, with_audio=self.cfg.with_audio, device=self.device)
 
     def train(self) -> float:
         guard = PreemptionGuard()
@@ -255,6 +262,10 @@ class Trainer:
         last_loss = float("nan")
         self.loss_history = deque(maxlen=4096)
         self.step_seconds = deque(maxlen=4096)  # host clock, ended by reading the loss
+
+        validate = bool(cfg.validation_interval) and self.validation_fn is not None
+        if validate and not cfg.validation_skip_initial and self.start_step == 0:
+            self.validation_fn(self.model, 0)
 
         spe = max(1, num_batches_per_epoch(self.dataset, cfg.batch_size))
         step = self.start_step
@@ -291,6 +302,8 @@ class Trainer:
                     if cfg.debug:
                         msg += f" | step_time={self.step_seconds[-1]:.2f}s"
                     print(msg, flush=True)
+                if validate and step > 0 and step % cfg.validation_interval == 0:
+                    self.validation_fn(self.model, step)
                 step += 1
                 # Saves come after the increment (the label counts completed
                 # steps) and only at accumulation-window boundaries: a save

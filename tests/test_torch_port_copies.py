@@ -5,9 +5,11 @@ The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
 configuration, the sigma schedules, the position grids, the numpy part of the
 VAE tiling, the mp4 writer's frame conversion, the image and video loading, the generate
 and train CLIs' parsers and ``slugify``, the hub's ``get_model_path``, the
-dev pipeline's default negative prompt, and the loader's ``bits_hint_for`` and
-``read_quantization_metadata``. Every comparison
-here is exact: the copies are the same code.
+dev pipeline's default negative prompt, the loader's ``bits_hint_for`` and
+``read_quantization_metadata``, and the trainer's progress line, config
+display and video IO (trainer/aux.py); the precompute helpers and the
+log-mel processor are held in tests/test_torch_port_precompute.py. Every
+comparison here is exact: the copies are the same code.
 """
 
 import argparse
@@ -301,3 +303,32 @@ def test_mux_audio_copy(tmp_path, monkeypatch, branch):
     else:  # the stand-in fails its second pair of runs
         assert results == [[True, True], [False, False]] and ran[0] == ran[1] == ran[2] == ran[3]
         assert ("-af" in ran[0]) == (branch == "command")
+
+
+@pytest.mark.parametrize("part", ["print_config", "progress", "save_and_read_video"])
+def test_trainer_aux_copy(part, tmp_path, capsys):
+    """trainer/aux.py: the config display and the progress line print the
+    same text; save_video then read_video give the same frames."""
+    from mlx_video_tpu.trainer import aux as jaux
+    from mlx_video_tpu_torch.trainer import aux as taux
+
+    outs = []
+    for mod, cfg_mod in ((jaux, jtrain_config), (taux, ttrain_config)):
+        if part == "print_config":
+            mod.print_config(cfg_mod.TrainingConfig(steps=7, with_audio=True, lora_rank=16))
+            outs.append(capsys.readouterr().out)
+        elif part == "progress":
+            with mod.TrainingProgress(4) as progress:
+                progress.update(mod.ProgressStats(step=1, total=4, loss=0.5, step_time=2.0))
+            err = capsys.readouterr().err
+            outs.append(err.split(" eta=")[0])  # the eta reads the wall clock
+        else:
+            frames = np.random.default_rng(2).uniform(0, 1, (9, 32, 48, 3)).astype(np.float32)
+            path = tmp_path / f"{mod.__name__.split('.')[0]}.mp4"
+            mod.save_video(path, frames, fps=24.0)
+            outs.append(mod.read_video(path, frame_cap=5))
+    if part == "save_and_read_video":
+        assert outs[0].shape == (5, 32, 48, 3)
+        np.testing.assert_array_equal(outs[1], outs[0])
+    else:
+        assert outs[0] == outs[1] and outs[0]

@@ -89,6 +89,9 @@ def _check(out, ref):
     # (512x512x33), 34 at B = 2 (the AudioOnly DiT under audio CFG), 68 at
     # B = 2 (768x768x65, batched CFG), and one
     (1, 34, 32, 64), (2, 34, 32, 64), (2, 68, 32, 64), (2, 1, 32, 64),
+    # the AV LoRA step's audio self-attention: 67 audio latent frames of a
+    # 65-frame clip at 24 fps (less than one 128-key tile, ragged)
+    (1, 67, 32, 64),
 ])
 def test_kernel_matches_plain(gen, b, s, h, d):
     q, k, v = (_bf16(gen, b, s, h, d) for _ in range(3))
@@ -152,6 +155,8 @@ def _bwd_inputs(gen, b, s, h, d):
     (1, 63, 3, 64), (1, 65, 3, 64), (2, 700, 4, 64), (1, 3456, 2, 128),
     # S on each side of the 64-row tile and of the 128-row block
     (1, 64, 4, 128), (1, 127, 4, 128), (1, 128, 4, 128), (1, 129, 4, 128), (2, 255, 3, 128),
+    # the AV LoRA step's audio self-attention (67 tokens, under one dkv block)
+    (1, 67, 32, 64),
 ])
 def test_bwd_kernel_matches_plain(gen, b, s, h, d):
     q, k, v, o, lse, do = _bwd_inputs(gen, b, s, h, d)
@@ -442,6 +447,10 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
     # (B = 2, audio CFG) through the FFN, 256 audio caption rows
     (320, 4096, 2048, 4, 64, F32), (320, 2048, 4096, 4, 64, F32), (68, 2048, 8192, 4, 64, F32),
     (68, 8192, 2048, 4, 64, F32), (256, 2048, 2048, 4, 64, F32),
+    # the AV LoRA step's: 67 audio rows, the cross-modal projections of the
+    # 3456 video rows, 1024 audio caption rows
+    (67, 2048, 2048, 4, 64, F32), (67, 2048, 8192, 4, 64, F32), (67, 8192, 2048, 4, 64, F32),
+    (3456, 4096, 2048, 4, 64, F32), (3456, 2048, 4096, 4, 64, F32), (1024, 2048, 2048, 4, 64, F32),
 ])
 def test_quant_kernel_matches_plain(gen, m, k, n, bits, group, scale_dtype):
     x, packed, scales, biases = _quantized(gen, m, k, n, bits, group, scale_dtype)

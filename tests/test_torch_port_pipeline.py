@@ -201,7 +201,10 @@ assert "mlx_video_tpu_torch.trainer.trainer" in sys.modules and "mlx_video_tpu_t
 assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "mlx_video_tpu_torch.models.ltx.text_encoder",
         "mlx_video_tpu_torch.io.text_encoder_weights", "mlx_video_tpu_torch.pipelines.prompts",
         "mlx_video_tpu_torch.lora", "mlx_video_tpu_torch.io.media", "mlx_video_tpu_torch.models.ltx.video_vae.tiling",
-        "mlx_video_tpu_torch.pipelines.conditioning"} <= set(sys.modules)
+        "mlx_video_tpu_torch.pipelines.conditioning", "mlx_video_tpu_torch.trainer.precompute",
+        "mlx_video_tpu_torch.precompute", "mlx_video_tpu_torch.cli.precompute", "mlx_video_tpu_torch.trainer.aux",
+        "mlx_video_tpu_torch.trainer.validation_sampler", "mlx_video_tpu_torch.trainer.model_loader",
+        "mlx_video_tpu_torch.models.ltx.audio_vae.processing"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
