@@ -312,18 +312,50 @@ Phases, in order; any failure exits non-zero before the last line:
    CLI --with-audio over the snapshot's 4-bit AudioVideo file on (a)'s
    files: 2 steps, 192 K1, 96 K3 and 28 x 48 x 2 = 2688 K2 a step, and
    lora_step_2.safetensors written.
-Phases 7-13 print phase times and peak device memory. Every profile records
+14. the resident server, prompt enhancement, runtime LoRA and the dials,
+   in three places. (a) inside phase 9b, on its bf16 12B encoder: from 512
+   seeded ids, cached last-position logits against no-cache ones over the
+   same prefix at 3 positions (bar: max(1e-2, twice a control that reads
+   the bf16 rounding of two no-cache forwards of other lengths)), greedy
+   generate of 256 tokens with no eos (ms a token against the bound of its
+   bytes: the bf16 layers, the fp32 head copy and the KV caches at 3.35
+   TB/s; peak memory), then the prompt and its continuation, left-padded to
+   1024, through encode_tokens: finite (1, 1024, 3840). (b)-(d) and (f)
+   after phase 11, on the dense distilled bundle from seeded embeddings:
+   (b) GenerationService behind serve(service, "127.0.0.1", 0), driven with
+   http.client: /healthz; one 512x512x33 /generate (528 K1, latents bitwise
+   a warm direct generate_video on its seed; seconds against the direct
+   call's); a LoRA request with phase 11's adapter in --lora-dir (528 K1,
+   >= 35 dB per latent frame against a run on a merged copy); (d) one
+   streamed request (11 denoise_step lines, one phase line a phase, >= 1
+   preview that decodes as a 512x512 JPEG, the result line); (c) two
+   concurrent requests at max_batch 2 (one batch, 528 K1, each video >= 35
+   dB per latent frame against its single run; the pair's seconds against
+   one request's); (f) the dials, each in turns with the dial off and its
+   drift in dB: PAB interval 2 (288 K1: full steps 0, 2, 4, 6 and 0, 2),
+   TeaCache 0.05 (48 K1 a full step it reports), the dev path at 768x768x65
+   cut to 8 steps, routes on, cfg_cache_interval 2 (384 K4, 384 K5, 0 K1).
+   (e) in phase 10, over its 4-bit snapshot: the server's main() in this
+   process on port 0 with phase 11's adapter in --lora-dir: a base request,
+   a LoRA request and the same again (528 K1 and 5280 K2 each; one attach,
+   the third hits the LRU; the device memory the LoRA request adds against
+   the adapter's fp32 factors, within 2 % + 1 MiB); then --lora-slot-rank
+   at the adapter's rank on the same bundle: its base request bitwise the
+   unslotted one's, its LoRA request >= 35 dB from the plain attach.
+Phases 7-14 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
-1-7a, 11, 12, 8, 9a, 9b with 13 (a), 13 (b), 9, 10 with 13 (c). Last: the
-kernel summary line (K1-K6: launches on a path of this run, error against
-the plain version, times at the path's shapes, the bound, the library
-yardstick; K1, K2, K3, K4 and K5 also their launches on every path of phases
-7a-13, "path_launches") and {"ok": true, "device": ...}.
+1-7a, 11, 14 (b)-(d) and (f), 12, 8, 9a, 9b with 13 (a) and 14 (a), 13 (b),
+9, 10 with 13 (c) and 14 (e). Last: the kernel summary line (K1-K6:
+launches on a path of this run, error against the plain version, times at
+the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
+also their launches on every path of phases 7a-14, "path_launches") and
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
 import importlib.util
@@ -335,6 +367,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -2955,8 +2988,10 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
         check_launches(k1, k2, 10 * 48 * (8 + 3))
         torch.cuda.empty_cache()
         audio = audio_cli(argv, snap, tmp, fa, qmm)
+        print("phase 14 (e): the server's main() over this snapshot, LoRA hot-swap over the 4-bit base:", flush=True)
+        serve_lora = serve_lora_over_q4(snap, embeddings, cond["adapter"], fa, qmm, tmp)
         q4_file = snap / "ltx-2-19b-distilled-4bit-mlx.safetensors"
-        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio,
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **serve_lora,
                 **train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm),
                 **train_cli_over_q4(q4_file, av_data, tmp / "train_av", fa, qmm, audio=True)}
     finally:
@@ -3044,6 +3079,422 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio:
     check_compared(shapes, f"phase 13 (c), the {what}" if audio else f"phase 10, the {what}")
     tag = "_av_cli" if audio else ""
     return {f"k1{tag}": k1, f"k3{tag}": k3, f"k2{tag}": k2}
+
+
+# Phase 14: the resident server, prompt enhancement and the dials.
+SERVE_SEEDS = (1, 2)
+
+
+@contextlib.contextmanager
+def latents_tap():
+    """Keeps the latents and seeds of every generate_video call that goes
+    through the pipeline module's attribute (the server's calls)."""
+    from mlx_video_tpu_torch.pipelines import generate as gen
+
+    inner, seen = gen.generate_video, []
+
+    def wrapped(*args, **kw):
+        res = inner(*args, **kw)
+        seen.append((kw.get("seeds") or [kw.get("seed")], res.latents))
+        return res
+
+    gen.generate_video = wrapped
+    try:
+        yield seen
+    finally:
+        gen.generate_video = inner
+
+
+def http_call(port: int, method: str, path: str, payload=None, stream: bool = False):
+    """One request to the server on 127.0.0.1:port (http.client); the JSON
+    answer, or the NDJSON lines with ``stream``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=1200)
+    try:
+        conn.request(method, path, body=None if payload is None else json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read().decode()
+    finally:
+        conn.close()
+    return resp.status, ([json.loads(line) for line in data.splitlines()] if stream else json.loads(data))
+
+
+@contextlib.contextmanager
+def running_server(service):
+    """serve(service, "127.0.0.1", 0) on a thread; yields its port; shut down after."""
+    from mlx_video_tpu_torch.cli.serve import serve
+
+    httpd = serve(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+
+def synced_s(fn):
+    """(fn(), its wall seconds between two device synchronises)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def full_width_enhance(te, cfg) -> dict:
+    """Phase 14 (a), on phase 9b's bf16 12B encoder: cached logits against
+    no-cache ones at 3 positions, greedy generation of 256 tokens from 512
+    seeded ids (no eos), ms a token against its bound, then the prompt and
+    its continuation through encode_tokens."""
+    import torch
+
+    from mlx_video_tpu_torch.models import gemma3
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens
+
+    lm, dev = te.language_model, te.language_model.embed_tokens.weight.device
+    g = torch.Generator(device=dev).manual_seed(140)
+    ids = torch.randint(1, cfg.vocab_size, (1, 512), generator=g, device=dev)
+    errs = []
+    with torch.no_grad():
+        table = lm.embed_tokens.weight.float()
+        caches = gemma3.init_kv_caches(cfg, 1, 512 + 33, dtype=lm.embed_tokens.weight.dtype, device=dev)
+        mask = torch.zeros((1, 512 + 33), dtype=torch.int32, device=dev)
+        mask[:, :512] = 1
+        logits, caches = gemma3.gemma3_logits(lm, cfg, ids, mask, caches, 0, last_only=True, fp32_table=table)
+        seq = ids
+        for k in range(33):
+            if k in (0, 16, 32):
+                ref, _ = gemma3.gemma3_logits(lm, cfg, seq, last_only=True, fp32_table=table)
+                errs.append(rel_l2(logits, ref))
+            if k == 32:
+                break
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            mask[:, seq.shape[1]] = 1
+            logits, caches = gemma3.gemma3_logits(lm, cfg, tok, mask, caches, seq.shape[1], last_only=True,
+                                                  fp32_table=table)
+            seq = torch.cat([seq, tok], 1)
+        # the control: position 511's logits inside the 544-token forward against the 512-token one (causal:
+        # the same value, other GEMM shapes), so the bf16 rounding of 48 layers alone
+        within, _ = gemma3.gemma3_logits(lm, cfg, seq[:, :513], fp32_table=table)
+        alone, _ = gemma3.gemma3_logits(lm, cfg, seq[:, :512], last_only=True, fp32_table=table)
+        control = rel_l2(within[:, 511:512], alone)
+        del table, caches, logits, within, alone
+    torch.cuda.empty_cache()
+    bar = max(1e-2, 2 * control)
+    print("  (a) cached last-position logits against no-cache ones over the same prefix (512, 528, 544 tokens): "
+          "rel L2 " + ", ".join(f"{e:.3e}" for e in errs) + f"; the control (the same logits from two no-cache "
+          f"forwards of other lengths, bf16 rounding alone) {control:.3e}; bar max(1e-2, 2 x control) = {bar:.3e}",
+          flush=True)
+    if not max(errs) <= bar:
+        fail(f"(a) cached logits differ from uncached ones: rel L2 {max(errs):.3e} > {bar:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    first, one_s = synced_s(lambda: gemma3.generate(lm, cfg, ids, max_new_tokens=1, temperature=0.0,
+                                                    eos_token_ids=()))
+    tokens, all_s = synced_s(lambda: gemma3.generate(lm, cfg, ids, max_new_tokens=256, temperature=0.0,
+                                                     eos_token_ids=()))
+    peak = torch.cuda.max_memory_allocated()
+    if len(tokens) != 256 or tokens[0] != first[0] or not all(0 <= t < cfg.vocab_size for t in tokens):
+        fail(f"(a) greedy generation gave {len(tokens)} tokens (want 256), first {tokens[:1]} vs {first}")
+    ms = 1e3 * (all_s - one_s) / 255
+    layer_bytes = sum(p.numel() * p.element_size() for n, p in lm.named_parameters() if not n.startswith("embed"))
+    head_bytes = 4 * lm.embed_tokens.weight.numel()  # the fp32 copy of the tied head, read once a token
+    kv_bytes = cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * (512 + 256) * cfg.head_dim * 2
+    bound_ms = 1e3 * (layer_bytes + head_bytes + kv_bytes) / PEAK_BYTES_PER_S
+    bf16_head_ms = 1e3 * (layer_bytes + head_bytes / 2 + kv_bytes) / PEAK_BYTES_PER_S
+    print(f"  (a) greedy generate, 512 prompt ids: 1 token {one_s:.4f} s (prefill and the head's fp32 copy), 256 "
+          f"tokens {all_s:.4f} s: {ms:.3f} ms a token after the first; bound {bound_ms:.3f} ms (bf16 layers "
+          f"{layer_bytes / 1e9:.3f} GB + fp32 head {head_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {bf16_head_ms:.3f} ms with a bf16 head), {bound_ms / ms:.1%} of it; "
+          f"peak device memory {peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB above the resident "
+          f"models)", flush=True)
+    full = torch.cat([ids, torch.tensor([tokens], device=dev)], 1)
+    enc_ids = torch.zeros((1, 1024), dtype=torch.long, device=dev)
+    enc_mask = torch.zeros((1, 1024), dtype=torch.long, device=dev)
+    enc_ids[:, -full.shape[1]:], enc_mask[:, -full.shape[1]:] = full, 1
+    with torch.no_grad():
+        video, audio = encode_tokens(te, cfg, enc_ids, enc_mask)
+    if any(o.shape != (1, 1024, 3840) or not torch.isfinite(o).all() for o in (video, audio)):
+        fail(f"(a) the enhanced ids encode to {tuple(video.shape)}, not finite (1, 1024, 3840)")
+    print(f"  (a) prompt + 256 generated ids, left-padded to 1024 -> encode_tokens: video {tuple(video.shape)}, "
+          f"audio {tuple(audio.shape)}, finite", flush=True)
+    return {"ms_token": ms, "bound_ms": bound_ms, "logits_rel_l2": max(errs), "peak": peak}
+
+
+def dial_turns(run_off, run_on, what: str) -> None:
+    """Off, on, on, off: the seconds of each, and the on run's drift from
+    the off run in dB (the smallest per latent frame)."""
+    (off, t_off1), (on, t_on1) = synced_s(run_off), synced_s(run_on)
+    t_on2, t_off2 = synced_s(run_on)[1], synced_s(run_off)[1]
+    print(f"  (f) {what}: off {t_off1:.4f} s, on {t_on1:.4f} s, on {t_on2:.4f} s, off {t_off2:.4f} s "
+          f"(on/off {(t_on1 + t_on2) / (t_off1 + t_off2):.3f}); drift against off "
+          f"{min_frame_psnr(on.latents, off.latents):.2f} dB", flush=True)
+
+
+def full_width_serve(models, text, fa, ca, work: Path, adapter: Path) -> dict:
+    """Phase 14 (b)-(d) and (f) on the dense 19B distilled bundle from
+    seeded embeddings: (b) GenerationService behind serve(..., port 0),
+    /healthz, one /generate against a direct generate_video on its seed, and
+    a LoRA request (``adapter`` attached at run time) against a merged copy;
+    (c) two concurrent requests coalesced at max_batch 2; (d) one streamed
+    request; (f) the dials: PAB and TeaCache on the distilled path, the CFG
+    cache on the dev path (768x768x65, 8 steps, routes on)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from mlx_video_tpu_torch.cli.serve import GenerationService
+    from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning, generate_video
+
+    t_phase = time.perf_counter()
+    bf16, out = torch.bfloat16, {}
+    layers = models.transformer_config.num_layers
+    device = models.transformer.video.scale_shift_table.device
+    lora_dir = work / "serve_adapters"
+    lora_dir.mkdir(exist_ok=True)
+    shutil.copy(adapter, lora_dir / "style.safetensors")
+    service = GenerationService(models, default_text=text, output_dir=work / "serve", dtype=bf16, lora_dir=lora_dir)
+    with running_server(service) as port:
+        code, health = http_call(port, "GET", "/healthz")
+        if code != 200 or health.get("status") != "ok":
+            fail(f"(b) /healthz answered {code} {health}")
+        for _ in range(2):  # the second is warm
+            direct, direct_s = synced_s(lambda: generate_video(models, text, seed=SERVE_SEEDS[0],
+                                                                output_path=work / "direct.mp4"))
+        fa.launch_count = 0
+        with latents_tap() as seen:
+            (code, resp), served_s = synced_s(lambda: http_call(port, "POST", "/generate", {"seed": SERVE_SEEDS[0]}))
+        k1 = fa.launch_count
+        if code != 200 or k1 != 48 * 11 or not np.array_equal(seen[0][1], direct.latents):
+            fail(f"(b) served request: {code} {resp if code != 200 else ''}, {k1} K1 (want 528), latents "
+                 f"bitwise the direct call's: {bool(seen) and np.array_equal(seen[0][1], direct.latents)}")
+        print(f"  (b) /healthz {health}; served 512x512x33 request {served_s:.4f} s (server phases "
+              f"{resp['phases']}) against the direct generate_video {direct_s:.4f} s: +{served_s - direct_s:.4f} s "
+              f"({served_s / direct_s - 1:+.1%}); {k1} K1; latents bitwise the direct call's", flush=True)
+        out.update(k1_serve=k1, served_s=served_s, direct_s=direct_s)
+
+        fa.launch_count = 0
+        with latents_tap() as seen:
+            (code, resp), lora_s = synced_s(lambda: http_call(port, "POST", "/generate", {
+                "seed": SERVE_SEEDS[0], "lora": "style.safetensors"}))
+        k1 = fa.launch_count
+        merged = merge_lora_into_params(models.transformer, [LoraSpec(adapter, 1.0)])
+        ref = generate_video(dataclasses.replace(models, transformer=merged), text, seed=SERVE_SEEDS[0],
+                             decode_latents_only=True)
+        del merged
+        torch.cuda.empty_cache()
+        db = min_frame_psnr(seen[0][1], ref.latents) if code == 200 else float("nan")
+        print(f"  (b) served LoRA request (the phase 11 adapter attached at run time over the dense base): "
+              f"{lora_s:.4f} s, {k1} K1; against a run on a merged copy at the same seed {db:.2f} dB per latent "
+              "frame (min)", flush=True)
+        if code != 200 or k1 != 48 * 11 or not db >= 35.0:
+            fail(f"(b) served LoRA request: {code}, {k1} K1, {db:.2f} dB against the merged copy (want 528, >= 35)")
+
+        # (d) one streamed request
+        fa.launch_count = 0
+        code, lines = http_call(port, "POST", "/generate", {"seed": 3, "stream": True}, stream=True)
+        kinds = [line.get("kind") for line in lines]
+        steps = [line for line in lines if line.get("kind") == "denoise_step"]
+        phases = [line["phase"] for line in lines if line.get("kind") == "phase"]
+        previews = [line for line in lines if line.get("kind") == "preview"]
+        sizes = [Image.open(io.BytesIO(base64.b64decode(p["jpeg_b64"]))).size for p in previews]
+        print(f"  (d) streamed request: {len(lines)} lines: {len(steps)} denoise_step, phases {phases}, "
+              f"{len(previews)} preview(s) {sizes}, {kinds.count('progress')} progress, then {kinds[-1]!r}; "
+              f"{fa.launch_count} K1", flush=True)
+        if (code != 200 or len(steps) != 11 or sorted(phases) != sorted(set(phases))
+                or {"stage1_denoise", "upsample", "stage2_denoise", "vae_decode"} != set(phases)
+                or not previews or any(s != (512, 512) for s in sizes) or kinds[-1] != "result"):
+            fail(f"(d) streamed request: code {code}, kinds {kinds}")
+    del service
+
+    # (c) two concurrent requests coalesced into one batch of two
+    single2 = generate_video(models, text, seed=SERVE_SEEDS[1], decode_latents_only=True)
+    singles = {SERVE_SEEDS[0]: direct.latents, SERVE_SEEDS[1]: single2.latents}
+    batcher = GenerationService(models, default_text=text, output_dir=work / "serve_batch", dtype=bf16, max_batch=2,
+                                batch_window=2.0)
+    with running_server(batcher) as port:
+        answers = {}
+        threads = [threading.Thread(target=lambda s=s: answers.__setitem__(s, http_call(
+            port, "POST", "/generate", {"seed": s}))) for s in SERVE_SEEDS]
+        fa.launch_count = 0
+        with latents_tap() as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            pair_s = time.perf_counter() - t0
+        k1 = fa.launch_count
+    ok = all(code == 200 and resp["batched"] == 2 for code, resp in answers.values())
+    dbs = []
+    if ok and len(seen) == 1:
+        seeds, lat = seen[0]
+        dbs = [min_frame_psnr(lat[i : i + 1], singles[s]) for i, s in enumerate(seeds)]
+    print(f"  (c) two concurrent requests at max_batch 2: {batcher.batches_run} batch, {k1} K1, pair {pair_s:.4f} s "
+          f"against one request {served_s:.4f} s ({pair_s / served_s:.3f}x); each video against its single run "
+          + ", ".join(f"{d:.2f}" for d in dbs) + " dB per latent frame (min)", flush=True)
+    if not ok or batcher.batches_run != 1 or k1 != 48 * 11 or len(dbs) != 2 or min(dbs) < 35.0:
+        fail(f"(c) coalescing: answers {answers}, batches {batcher.batches_run}, {k1} K1, {dbs} dB")
+    out.update(pair_s=pair_s)
+    del batcher
+
+    # (f) the dials, each in turns with the dial off
+    def distilled(**kw):
+        return generate_video(models, text, seed=SERVE_SEEDS[0], decode_latents_only=True, **kw)
+
+    fa.launch_count = 0
+    pab = distilled(attn_broadcast_interval=2)
+    k1 = fa.launch_count
+    print(f"  (f) PAB interval 2: full steps {pab.full_steps}, {k1} K1", flush=True)
+    if k1 != 288 or pab.full_steps != {"stage1_denoise": [0, 2, 4, 6], "stage2_denoise": [0, 2]}:
+        fail(f"(f) PAB at interval 2: {k1} K1 (want 288), full steps {pab.full_steps}")
+    out["k1_dial_pab"] = k1
+    dial_turns(distilled, lambda: distilled(attn_broadcast_interval=2), "PAB interval 2, distilled 512x512x33")
+    fa.launch_count = 0
+    tc = distilled(teacache_threshold=0.05)
+    k1, full = fa.launch_count, sum(len(v) for v in tc.full_steps.values())
+    print(f"  (f) TeaCache threshold 0.05: full steps {tc.full_steps}, {k1} K1 = 48 x {full}", flush=True)
+    if k1 != layers * full:
+        fail(f"(f) TeaCache: {k1} K1, want 48 x {full} full steps")
+    out.update(k1_teacache=k1, teacache_full=full)
+    dial_turns(distilled, lambda: distilled(teacache_threshold=0.05), "TeaCache 0.05, distilled 512x512x33")
+    g = torch.Generator(device=device).manual_seed(141)
+    dev_text = TextConditioning(text.video_embeddings,
+                                torch.randn(text.video_embeddings.shape, generator=g, device=device).to(bf16))
+
+    def dev_run(**kw):
+        return generate_video(models, dev_text, height=768, width=768, num_frames=65, pipeline="dev",
+                              num_inference_steps=8, cfg_scale=4.5, seed=SERVE_SEEDS[0], decode_latents_only=True, **kw)
+
+    set_routes(True)
+    try:
+        fa.launch_count = fa.rope_launch_count = ca.launch_count = 0
+        cc = dev_run(cfg_cache_interval=2)
+        counts = (fa.launch_count, ca.launch_count, fa.rope_launch_count)
+        print(f"  (f) dev 768x768x65, 8 steps, routes on, cfg_cache_interval 2: full steps {cc.full_steps}; "
+              f"K1, K4, K5 {counts}", flush=True)
+        check_dev_launches(counts, (0, 384, 384), "(f) the dev CFG cache")
+        if cc.full_steps != {"dev_denoise": [0, 2, 4, 6]}:
+            fail(f"(f) the dev CFG cache's full steps {cc.full_steps}")
+        dial_turns(dev_run, lambda: dev_run(cfg_cache_interval=2), "CFG cache interval 2, dev 768x768x65, 8 steps")
+    finally:
+        set_routes(False)
+    out.update(k4_dev_cfg_cache=counts[1], k5_dev_cfg_cache=counts[2])
+    print(f"  phase 14 (b)-(d), (f): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return out
+
+
+def adapter_bytes(path: Path) -> tuple:
+    """(bytes of the file's factors, bytes of them in fp32, linears)."""
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+
+    with SafetensorsReader(path) as r:
+        keys = [k for k in r.keys() if ".lora_" in k]
+        tensors = [r.get(k) for k in keys]
+    return (sum(t.numel() * t.element_size() for t in tensors), sum(4 * t.numel() for t in tensors),
+            sum(k.endswith(".lora_A.weight") for k in keys))
+
+
+def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp: Path, device: str = "cuda") -> dict:
+    """Phase 14 (e): main()'s loader path over the 4-bit snapshot, in this
+    process, on port 0, ``adapter`` in its --lora-dir: a base request, a
+    LoRA request (528 K1, 5280 K2; the device memory it adds against the
+    adapter's fp32 factors) and the same again (the LRU: no second attach);
+    then the same bundle with --lora-slot-rank at the adapter's rank: its
+    base request bitwise the unslotted one's, its LoRA request against the
+    plain attach."""
+    import torch
+
+    from mlx_video_tpu_torch import lora as lora_mod
+    from mlx_video_tpu_torch.cli import serve as srv
+
+    t_phase = time.perf_counter()
+    lora_dir = tmp / "serve_adapters"
+    lora_dir.mkdir(exist_ok=True)
+    shutil.copy(adapter, lora_dir / "style.safetensors")
+    file_bytes, fp32_bytes, linears = adapter_bytes(adapter)
+    rank = int(next(iter(lora_mod.load_lora_state(adapter).values())).shape[0])
+    attach, attaches = lora_mod.attach_runtime_lora, []
+    lora_mod.attach_runtime_lora = lambda *a, **kw: attaches.append(kw.get("slot_rank")) or attach(*a, **kw)
+    got: dict = {}
+
+    def ready(httpd, service):
+        def drive():
+            try:
+                port = httpd.server_address[1]
+                got["service"] = service
+                with latents_tap() as seen:
+                    for name, req in (("base", {"seed": 1}), ("lora", {"seed": 1, "lora": "style.safetensors"}),
+                                      ("again", {"seed": 1, "lora": "style.safetensors"})):
+                        torch.cuda.synchronize()
+                        mem0 = torch.cuda.memory_allocated()
+                        fa.launch_count = qmm.launch_count = 0
+                        (code, resp), secs = synced_s(lambda: http_call(port, "POST", "/generate", req))
+                        got[name] = dict(code=code, resp=resp, s=secs, k1=fa.launch_count, k2=qmm.launch_count,
+                                         added=torch.cuda.memory_allocated() - mem0, latents=seen[-1][1])
+            except BaseException as e:  # noqa: BLE001 — reported by the caller
+                got["error"] = e
+            finally:
+                httpd.shutdown()
+
+        threading.Thread(target=drive, daemon=True).start()
+
+    try:
+        (_, main_s) = synced_s(lambda: srv.main([
+            "--model-repo", str(snap), "--embeddings", str(embeddings), "--port", "0", "--lora-dir", str(lora_dir),
+            "--output-dir", str(tmp / "serve_out"), "--device", device], ready=ready))
+        if "error" in got:
+            raise got["error"]
+        for name in ("base", "lora", "again"):
+            r = got[name]
+            print(f"  (e) {name} request over the 4-bit snapshot: {r['code']}, {r['s']:.4f} s, K1 {r['k1']}, "
+                  f"K2 {r['k2']}, device memory added {r['added'] / 2**20:.2f} MiB", flush=True)
+            if r["code"] != 200 or r["k1"] != 48 * 11 or r["k2"] != 10 * 48 * 11:
+                fail(f"(e) {name} request: {r['code']} {r['resp']}, K1 {r['k1']} (528), K2 {r['k2']} (5280)")
+        added, counts = got["lora"]["added"], (got["lora"]["k1"], got["lora"]["k2"])
+        print(f"  (e) main() over the snapshot (load, 3 requests, shutdown) {main_s:.2f} s; attaches {attaches} "
+              f"(one: the third request hit the LRU); the adapter: {linears} linears at rank {rank}, "
+              f"{file_bytes / 2**20:.2f} MiB in its file, {fp32_bytes / 2**20:.2f} MiB as fp32 factors; memory "
+              f"added by the first LoRA request {added / 2**20:.2f} MiB ({added / fp32_bytes:.4f}x the fp32 "
+              "factors)", flush=True)
+        if attaches != [None] or abs(added - fp32_bytes) > 0.02 * fp32_bytes + 2**20:
+            fail(f"(e) attaches {attaches} (want one), memory added {added} B against {fp32_bytes} B of factors")
+        service = got.pop("service")
+        slot = srv.GenerationService(service.models, default_text=service.default_text, output_dir=tmp / "slot_out",
+                                     dtype=service.dtype, lora_dir=lora_dir, lora_slot_rank=rank)
+        del service
+        with torch.inference_mode(), latents_tap() as seen:
+            base_s = synced_s(lambda: slot.generate({"seed": 1}))[1]
+            fa.launch_count = qmm.launch_count = 0
+            lora_s = synced_s(lambda: slot.generate({"seed": 1, "lora": "style.safetensors"}))[1]
+            k1, k2 = fa.launch_count, qmm.launch_count
+        import numpy as np
+
+        same = np.array_equal(seen[0][1], got["base"]["latents"])
+        db = min_frame_psnr(seen[1][1], got["lora"]["latents"])
+        print(f"  (e) --lora-slot-rank {rank}: base request {base_s:.4f} s, bitwise the unslotted base's: {same}; "
+              f"LoRA request in the slots {lora_s:.4f} s (K1 {k1}, K2 {k2}; attaches {attaches}) against the plain "
+              f"attach {db:.2f} dB per latent frame (min)", flush=True)
+        if not same or k1 != 48 * 11 or k2 != 10 * 48 * 11 or attaches[-1] != rank or not db >= 35.0:
+            fail(f"(e) slots: base bitwise {same}, K1 {k1}, K2 {k2}, attaches {attaches}, {db:.2f} dB")
+        del slot
+    finally:
+        lora_mod.attach_runtime_lora = attach
+        got.clear()
+        torch.cuda.empty_cache()
+    print(f"  phase 14 (e): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"k1_serve_lora": counts[0], "k2_serve_lora": counts[1], "lora_added": added, "lora_fp32": fp32_bytes}
 
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -3159,6 +3610,9 @@ def main() -> int:
         print("full-width conditioned distilled slice (512x512x33, 8 + 3 steps; images, keyframes streamed, IC-LoRA, "
               "a LoRA-merged stage-2 copy, stage-2 CFG, two videos):", flush=True)
         cond = full_width_conditioned(models, text, fa, work)
+        print("phase 14 (b)-(d), (f): the resident server over the dense 19B distilled bundle (a served request, "
+              "a LoRA request, coalescing, streaming) and the dials (PAB, TeaCache, the dev CFG cache):", flush=True)
+        served = full_width_serve(models, text, fa, ca, work, cond["adapter"])
         print("full-width audio slice (the 19B AudioVideo DiT: 32 x 128 video and 32 x 64 audio heads, bf16; the "
               "AudioOnly DiT on its audio tensors; the default audio VAE decoder and vocoder):", flush=True)
         with launch_shapes(fa, qmm) as shapes:
@@ -3172,9 +3626,14 @@ def main() -> int:
         print("full-width text encoder (Gemma-3-12B geometry and the connectors, seeded bf16, then W8A8); phase 13 "
               "(a), full-width precompute (768x512x65 clips: video, caption and audio latents, edge references) on "
               "its bf16 encoder:", flush=True)
-        av_data = []
-        full_width_text_encoder(models, fa, qmm, work, precompute=lambda te, te_cfg: av_data.append(
-            full_width_precompute(models, te, te_cfg, work)))
+        av_data, enhance = [], {}
+
+        def on_bf16_encoder(te, te_cfg):
+            print("phase 14 (a): prompt enhancement on the bf16 12B encoder (Gemma generation):", flush=True)
+            enhance.update(full_width_enhance(te, te_cfg))
+            av_data.append(full_width_precompute(models, te, te_cfg, work))
+
+        full_width_text_encoder(models, fa, qmm, work, precompute=on_bf16_encoder)
         (av_data,) = av_data
         print(f"full-width AV LoRA training (ltx2_av_lora.yaml, 768x512x65: 3456 video and {AV_TRAIN_T} audio tokens, "
               "the 19B AudioVideo DiT, bf16) with a ValidationSampler:", flush=True)
@@ -3208,7 +3667,8 @@ def main() -> int:
                           "audio_joint_cli": cli_train["k1_audio_joint_cli"],
                           "audio_separate_cli": cli_train["k1_audio_separate_cli"],
                           "av_lora_training": av["k1"], "validation": av["k1_validation"],
-                          "av_training_cli": cli_train["k1_av_cli"]},
+                          "av_training_cli": cli_train["k1_av_cli"], "serve": served["k1_serve"],
+                          "serve_lora": cli_train["k1_serve_lora"], "dial_pab": served["k1_dial_pab"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -3223,7 +3683,7 @@ def main() -> int:
         "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"],
                           "audio_joint_cli": cli_train["k2_audio_joint_cli"],
                           "audio_separate_cli": cli_train["k2_audio_separate_cli"],
-                          "av_training_cli": cli_train["k2_av_cli"]},
+                          "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -3248,7 +3708,8 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_cross_attention.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:691",
         "launches": dev["k4"],
-        "path_launches": {"dev": dev["k4"], "audio_joint_dev": audio["k4"]},
+        "path_launches": {"dev": dev["k4"], "audio_joint_dev": audio["k4"],
+                          "dev_cfg_cache": served["k4_dev_cfg_cache"]},
         "max_abs_err": k4["max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
@@ -3260,7 +3721,8 @@ def main() -> int:
         "source": "mlx_video_tpu_torch/csrc/flash_attention_rope.cu",
         "replaces": "mlx_video_tpu/ops/flash_attention.py:547",
         "launches": dev["k5"],
-        "path_launches": {"dev": dev["k5"], "audio_joint_dev": audio["k5"]},
+        "path_launches": {"dev": dev["k5"], "audio_joint_dev": audio["k5"],
+                          "dev_cfg_cache": served["k5_dev_cfg_cache"]},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5_ms,
         "plain_ms": k5_plain_ms,

@@ -19,7 +19,10 @@ CFG), generates, writes the mp4s (``--stream``: as the decode finalises
 frames; ``--num-videos N``: one a video, ``{stem}_{i}.mp4``; ``--save-frames``:
 also PNG frames) and, with ``--profile-json-path``, the phase seconds.
 ``--pipeline dev`` runs the dev pipeline (``--steps``, ``--cfg-scale``,
-``--no-cfg-batch``). Conditionings: ``--image PATH [FRAME_IDX] [STRENGTH]``
+``--no-cfg-batch``). The quality/speed dials ``--attn-broadcast-interval``,
+``--teacache-threshold`` and (dev) ``--cfg-cache-interval`` pass to
+``generate_video``; ``--enhance-prompt`` rewrites the prompt with the
+text encoder's Gemma first (``--temperature``, ``--max-tokens``). Conditionings: ``--image PATH [FRAME_IDX] [STRENGTH]``
 (or ``--condition-image`` with ``--image-frame-idx`` and
 ``--image-strength``), and for the distilled pipelines
 ``--video-conditioning`` (``--reference-video``: one at frame 0, strength
@@ -277,7 +280,8 @@ _PORTED = frozenset({
     "distilled_lora", "stage2_model_repo", "stage2_dev", "video_conditioning", "reference_video",
     "conditioning_mode", "stream", "sigma_subsample", "num_videos", "save_frames",
     "audio", "skip_audio", "audio_mode", "audio_steps", "audio_filter", "audio_bitrate", "audio_model_repo",
-    "output_audio",
+    "output_audio", "enhance_prompt", "temperature", "max_tokens", "attn_broadcast_interval", "cfg_cache_interval",
+    "teacache_threshold",
 })
 
 
@@ -335,8 +339,10 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     negative prompt: the given one or the default) through the Gemma-3 text encoder of
     ``--text-encoder-path`` (else the snapshot), bf16 or with ``--w8a8``
     W8A8, in ``dtype`` on ``device``; the encoder is freed after. Adds the
-    ``text_encoder_load`` and ``text_encode`` phase seconds. The audio
-    contexts come from the same encodes."""
+    ``text_encoder_load`` and ``text_encode`` phase seconds (the latter
+    includes ``--enhance-prompt``'s generation: the I2V system prompt with
+    ``--image``, else the T2V one, at ``--temperature`` for ``--max-tokens``).
+    The audio contexts come from the same encodes."""
     from mlx_video_tpu_torch.models.ltx.text_encoder import LTX2TextEncoder
     from mlx_video_tpu_torch.pipelines.generate import TextConditioning
     from mlx_video_tpu_torch.pipelines.prompts import DEFAULT_NEGATIVE_PROMPT
@@ -345,7 +351,13 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     encoder = LTX2TextEncoder.load(model_path, args.text_encoder_path or model_path, dtype=dtype, w8a8=args.w8a8,
                                    device=device)
     t1 = _synced(device)
-    video, audio = encoder.encode(args.prompt)
+    prompt = args.prompt
+    if args.enhance_prompt:
+        enhance_kwargs = dict(temperature=args.temperature, max_new_tokens=args.max_tokens)
+        prompt = (encoder.enhance_i2v(prompt, **enhance_kwargs) if args.image
+                  else encoder.enhance_t2v(prompt, **enhance_kwargs))
+        print(f"Enhanced prompt: {prompt}", flush=True)
+    video, audio = encoder.encode(prompt)
     neg = args.negative_prompt
     if neg is None and (args.pipeline == "dev" or args.stage2_dev):
         neg = DEFAULT_NEGATIVE_PROMPT
@@ -452,6 +464,9 @@ def main(argv=None) -> None:
         cfg_scale=args.cfg_scale,
         num_inference_steps=args.steps,
         cfg_sequential=args.no_cfg_batch,
+        cfg_cache_interval=args.cfg_cache_interval,
+        attn_broadcast_interval=args.attn_broadcast_interval,
+        teacache_threshold=args.teacache_threshold,
         images=[_cond_arg(v) for v in args.image],
         video_conditionings=[_cond_arg(v) for v in args.video_conditioning],
         output_path=None if args.latents_only else output_path,

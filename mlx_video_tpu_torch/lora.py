@@ -1,10 +1,11 @@
 """LoRA adapters: the offline merge of adapter files into a model's dense
-weights for generation; for training, injection, the trainable mask, export
+weights for generation; runtime adapters over a shared (dense or quantized)
+base, for serving; for training, injection, the trainable mask, export
 in the reference adapter format, and loading an adapter back to continue
 training.
 
-Counterpart of mlx_video_tpu/lora.py (``LoraSpec`` and
-``merge_lora_into_params``; ``inject_lora``, ``lora_mask``,
+Counterpart of mlx_video_tpu/lora.py (``LoraSpec``,
+``merge_lora_into_params`` and ``attach_runtime_lora``; ``inject_lora``, ``lora_mask``,
 ``export_lora_state`` / ``save_lora`` and ``load_lora_into_params``). The JAX package keeps the factors as extra leaves
 of a linear's param dict, stacked (L, ...) over the blocks; here they are
 attributes of each ``Linear`` / ``QuantLinear`` / ``Int8Linear`` module:
@@ -12,7 +13,16 @@ attributes of each ``Linear`` / ``QuantLinear`` / ``Int8Linear`` module:
 ``lora_scale`` fp32 buffer (alpha / rank), which ops/linear.py:linear applies. io/jax_bridge.py stacks
 and unstacks them like every other block leaf.
 
-Runtime adapters and slots over a quantized base are not ported yet.
+Runtime adapters (:func:`attach_runtime_lora`) return a view of the model
+whose module objects are new and whose every base tensor is the model's own:
+only the adapter factors are new device memory. Differences from the JAX
+function, on purpose: a block linear an adapter does not cover in some
+layers gets no factors there (JAX, stacking the layers, gives it zeros: the
+same output); and attaching without slots over a model that already carries
+factors (a slotted base, or a trained adapter) folds their ``lora_scale``
+into their A before concatenating, so both apply at their own strength (the
+JAX function keeps the old scale over the whole concatenation, which scales
+the new adapter by it too).
 """
 
 from __future__ import annotations
@@ -133,8 +143,7 @@ def merge_lora_into_params(model: nn.Module, lora_specs: Sequence[LoraSpec], ver
     Returns a new model and leaves ``model`` unchanged. The new model shares
     every parameter and buffer that the merge does not write, so it costs
     only the merged weights."""
-    shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
-    merged = copy.deepcopy(model, memo=shared)
+    merged = _view(model)
     for spec in lora_specs:
         applied = skipped = 0
         for module_key, a, b in iter_lora_pairs(load_lora_state(spec.path)):
@@ -150,6 +159,91 @@ def merge_lora_into_params(model: nn.Module, lora_specs: Sequence[LoraSpec], ver
         if verbose or applied == 0:
             print(f"[LoRA] {spec.path} applied={applied} skipped={skipped}")
     return merged
+
+
+def _view(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` with new module objects that shares every
+    parameter and buffer with it."""
+    shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    return copy.deepcopy(model, memo=shared)
+
+
+def _set_factors(layer: nn.Module, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.Tensor] = None) -> None:
+    """``layer``'s runtime factors (frozen) and, when given, its scale."""
+    layer.lora_A = nn.Parameter(a, requires_grad=False)
+    layer.lora_B = nn.Parameter(b, requires_grad=False)
+    if scale is not None:
+        layer.register_buffer("lora_scale", scale)
+
+
+@torch.no_grad()
+def attach_runtime_lora(
+    model: nn.Module,
+    lora_specs: Sequence[LoraSpec],
+    config: LTXModelConfig,
+    verbose: bool = False,
+    slot_rank: Optional[int] = None,
+) -> nn.Module:
+    """Adapters as runtime factors over the base weights, which are never
+    touched (required for a quantized base): each named linear gets
+    ``lora_A`` = strength * A and ``lora_B`` = B in fp32 and ``lora_scale``
+    1, and a second adapter on the same linear concatenates by rank (the sum
+    of the two updates). Returns a view of ``model`` (new module objects,
+    every base tensor shared), so attaching costs the factors alone;
+    ``model`` is unchanged. ``[LoRA] runtime attach {path} applied=N`` (N
+    linear paths, layers counted once) is printed when ``verbose`` or when
+    nothing applied.
+
+    ``slot_rank``: ``model`` is a slotted base (:func:`inject_lora` at that
+    rank, B = 0, so the slots add nothing). The file's factors replace a
+    slot, cast to its dtype, with scale 1, and are zero-padded up to the
+    slot rank; a combined rank beyond it, or a linear without a slot, raises
+    ``ValueError`` (the caller then attaches without slots)."""
+    del config  # the JAX signature's; per-layer modules need no layer count
+    view = _view(model)
+    written: set = set()  # ids of the layers written by this call
+    for spec in lora_specs:
+        paths = set()
+        for module_key, a, b in iter_lora_pairs(load_lora_state(spec.path)):
+            layer = _locate_linear(view, module_key)
+            if layer is None:
+                continue
+            device = _device(layer)
+            a_new = a.to(device, torch.float32) * spec.strength
+            b_new = b.to(device, torch.float32)
+            has = getattr(layer, "lora_A", None) is not None
+            one = torch.ones((), dtype=torch.float32, device=device)
+            if slot_rank is not None and has:
+                a_new, b_new = a_new.to(layer.lora_A.dtype), b_new.to(layer.lora_B.dtype)
+            if has and (slot_rank is None or id(layer) in written):
+                a_old, scale = layer.lora_A, None
+                if id(layer) not in written:  # factors from before this call: fold their scale in
+                    a_old, scale = a_old.float() * layer.lora_scale, one
+                dtype = torch.promote_types(a_old.dtype, a_new.dtype)
+                _set_factors(layer, torch.cat([a_old.to(dtype), a_new.to(dtype)], dim=0),
+                             torch.cat([layer.lora_B.to(dtype), b_new.to(dtype)], dim=1), scale)
+            elif slot_rank is not None and not has:
+                raise ValueError(f"{spec.path}: targets {module_key} which has no rank-{slot_rank} adapter slot — "
+                                 "fall back to the recompile attach path")
+            else:
+                _set_factors(layer, a_new, b_new, one)
+            written.add(id(layer))
+            paths.add(".".join(p for p in module_key.split(".") if not p.isdigit()))
+        if verbose or not paths:
+            print(f"[LoRA] runtime attach {spec.path} applied={len(paths)}")
+    if slot_rank is not None:
+        for layer in view.modules():
+            if id(layer) not in written:
+                continue
+            r = layer.lora_A.shape[0]
+            if r > slot_rank:
+                raise ValueError(f"combined adapter rank {r} exceeds the slot rank {slot_rank} — fall back to the "
+                                 "recompile attach path")
+            if r < slot_rank:
+                a, b = layer.lora_A, layer.lora_B
+                _set_factors(layer, torch.cat([a, a.new_zeros((slot_rank - r, a.shape[1]))], dim=0),
+                             torch.cat([b, b.new_zeros((b.shape[0], slot_rank - r))], dim=1))
+    return view
 
 
 def _module_matches(path_parts: Tuple[str, ...], targets: Sequence[str]) -> bool:

@@ -30,7 +30,14 @@ table; then both feed-forwards. The cross-modal attentions use the audio
 head geometry in both directions and rotate q and k by different tables
 (``pe`` and ``k_pe``): the cross-modal RoPE over the shared time axis.
 
-Not ported yet: PAB attention caching and sequence parallelism.
+Pyramid Attention Broadcast (``ltx_apply(..., pab=...)``, video only): a
+"collect" forward also returns every block's pre-gate self-attention output;
+a forward given those outputs reuses them and skips each block's whole
+self-attention (q/k/v/out projections, norms, RoPE and the attention
+kernel), while the adaLN gate, the text attention and the feed-forward run
+fresh.
+
+Not ported yet: sequence parallelism.
 """
 
 from __future__ import annotations
@@ -346,14 +353,19 @@ class _ModalityArgs(NamedTuple):
 
 
 def _self_and_text(attn1: Attention, attn2: Attention, table: torch.Tensor, m: _ModalityArgs, x: torch.Tensor,
-                   heads: int, rope_type: LTXRopeType, norm_eps: float) -> torch.Tensor:
-    """Gated self-attention on the modulated stream, then text attention."""
+                   heads: int, rope_type: LTXRopeType, norm_eps: float, cached: Optional[torch.Tensor] = None):
+    """Gated self-attention on the modulated stream, then text attention;
+    returns the new stream and the pre-gate self-attention output (``cached``
+    when given, in place of computing it)."""
     shift, scale, gate = _ada_values(table, m.timesteps, 0, 3, 6)
-    norm_x = rms_norm(x, eps=norm_eps) * (1 + scale) + shift
-    x = x + attention_apply(attn1, norm_x, heads, rope_type, norm_eps, pe=m.pe) * gate
+    a1 = cached
+    if a1 is None:
+        norm_x = rms_norm(x, eps=norm_eps) * (1 + scale) + shift
+        a1 = attention_apply(attn1, norm_x, heads, rope_type, norm_eps, pe=m.pe)
+    x = x + a1 * gate
     return x + attention_apply(
         attn2, rms_norm(x, eps=norm_eps), heads, rope_type, norm_eps, context=m.context, bias=m.context_bias,
-    )
+    ), a1
 
 
 def _gated_ff(ff: FeedForward, table: torch.Tensor, m: _ModalityArgs, x: torch.Tensor, norm_eps: float):
@@ -369,17 +381,23 @@ def block_apply(
     audio_cfg: Optional[TransformerConfig],
     rope_type: LTXRopeType,
     norm_eps: float,
-) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    attn_cache: Optional[torch.Tensor] = None,
+    collect_attn: bool = False,
+):
     """One transformer block over the modalities given; returns the new
-    (video, audio) hidden states, None for a modality not given."""
+    (video, audio) hidden states, None for a modality not given. PAB (video
+    only): ``attn_cache`` is the block's pre-gate self-attention output of
+    an earlier step, used in place of computing it; ``collect_attn`` adds
+    this step's as a third result."""
     vx = None if video is None else video.x
     ax = None if audio is None else audio.x
+    a1 = None
     if video is not None:
-        vx = _self_and_text(block.attn1, block.attn2, block.scale_shift_table, video, vx,
-                            video_cfg.heads, rope_type, norm_eps)
+        vx, a1 = _self_and_text(block.attn1, block.attn2, block.scale_shift_table, video, vx,
+                                video_cfg.heads, rope_type, norm_eps, attn_cache)
     if audio is not None:
-        ax = _self_and_text(block.audio_attn1, block.audio_attn2, block.audio_scale_shift_table, audio, ax,
-                            audio_cfg.heads, rope_type, norm_eps)
+        ax, _ = _self_and_text(block.audio_attn1, block.audio_attn2, block.audio_scale_shift_table, audio, ax,
+                               audio_cfg.heads, rope_type, norm_eps)
     if video is not None and audio is not None:
         vx_norm3 = rms_norm(vx, eps=norm_eps)
         ax_norm3 = rms_norm(ax, eps=norm_eps)
@@ -402,6 +420,8 @@ def block_apply(
         vx = _gated_ff(block.ff, block.scale_shift_table, video, vx, norm_eps)
     if audio is not None:
         ax = _gated_ff(block.audio_ff, block.audio_scale_shift_table, audio, ax, norm_eps)
+    if collect_attn:
+        return vx, ax, a1
     return vx, ax
 
 
@@ -521,26 +541,43 @@ def _process_output(mp: ModalityParams, x: torch.Tensor, embedded_timestep: torc
 
 def ltx_apply(
     model: LTXModel, config: LTXModelConfig, video: Optional[Modality] = None, audio: Optional[Modality] = None,
-) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    pab=None,
+):
     """Full DiT forward; returns the (video, audio) velocities, (B, S,
-    out_channels) each, None for a modality not given."""
+    out_channels) each, None for a modality not given.
+
+    ``pab`` (Pyramid Attention Broadcast, video only): ``"collect"`` adds a
+    third result, ``{"self": [each block's pre-gate self-attention output]}``;
+    passing such a cache back reuses those outputs and skips every block's
+    self-attention."""
+    collect = isinstance(pab, str) and pab == "collect"
+    cache = None if pab is None or collect else pab["self"]
+    if pab is not None and audio is not None:
+        raise ValueError("pab attention broadcast supports the video-only path")
     video_args, audio_args = prepare_ltx_args(model, config, video, audio)
     video_cfg, audio_cfg = config.get_video_config(), config.get_audio_config()
     vx = None if video_args is None else video_args.x
     ax = None if audio_args is None else audio_args.x
     remat = config.gradient_checkpointing and torch.is_grad_enabled()
-    for block in model.blocks:
+    collected = []
+    for i, block in enumerate(model.blocks):
         block_args = (
             block,
             None if video_args is None else video_args._replace(x=vx),
             None if audio_args is None else audio_args._replace(x=ax),
             video_cfg, audio_cfg, config.rope_type, config.norm_eps,
+            None if cache is None else cache[i], collect,
         )
-        vx, ax = checkpoint(block_apply, *block_args, use_reentrant=False) if remat else block_apply(*block_args)
+        out = checkpoint(block_apply, *block_args, use_reentrant=False) if remat else block_apply(*block_args)
+        vx, ax = out[0], out[1]
+        if collect:
+            collected.append(out[2])
     v_out = None if video_args is None else _process_output(model.video, vx, video_args.embedded_timestep,
                                                              config.norm_eps)
     a_out = None if audio_args is None else _process_output(model.audio, ax, audio_args.embedded_timestep,
                                                              config.norm_eps)
+    if collect:
+        return v_out, a_out, {"self": collected}
     return v_out, a_out
 
 

@@ -19,8 +19,10 @@ is plain XLA there:
 :class:`LTX2TextEncoder` loads the weights (io/text_encoder_weights.py), in
 bf16 or W8A8 (ops/int8.py:quantize_text_encoder_w8a8), tokenizes with the
 snapshot's tokenizer (``transformers``, imported when a snapshot is loaded)
-and encodes a prompt. Prompt enhancement (Gemma generation) is not ported
-yet.
+and encodes a prompt. Prompt enhancement (``enhance_t2v``, ``enhance_i2v``,
+``enhance_negative``) chats with the same Gemma (models/gemma3.py:generate)
+under the system prompts of ``prompts/`` (the port's copies of the JAX
+package's files) and decodes the reply with the tokenizer.
 """
 
 from __future__ import annotations
@@ -35,9 +37,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlx_video_tpu_torch.models.gemma3 import Gemma3Model, Gemma3TextConfig, Weight, gemma3_hidden_states
+from mlx_video_tpu_torch.models.gemma3 import generate as gemma_generate
 from mlx_video_tpu_torch.ops.cross_attention import plain_attention
 from mlx_video_tpu_torch.ops.linear import Linear, init_linear_, linear
 from mlx_video_tpu_torch.ops.norms import rms_norm
+
+PROMPTS_DIR = Path(__file__).parent / "prompts"
+
+
+def load_system_prompt(name: str) -> str:
+    path = PROMPTS_DIR / name
+    if not path.exists():
+        raise FileNotFoundError(f"System prompt not found: {path}")
+    return path.read_text()
+
 
 NUM_HEADS, HEAD_DIM = 30, 128  # the connectors' attention
 
@@ -311,3 +324,43 @@ class LTX2TextEncoder:
                              torch.from_numpy(mask).to(device), True)
 
     __call__ = encode
+
+    # -- prompt enhancement --------------------------------------------------
+
+    def _chat(self, system_prompt: str, user_text: str, max_new_tokens: int, **kw) -> str:
+        """One chat turn: the tokenizer's chat template with a generation
+        prompt, greedy or sampled Gemma generation (``temperature``, default
+        0.7; ``top_p``; ``seed`` for the draws, else seed 0) up to the
+        tokenizer's eos or ``<end_of_turn>``, the reply decoded and stripped."""
+        if self.tokenizer is None:
+            raise RuntimeError("Tokenizer not loaded")
+        messages = [{"role": "system", "content": system_prompt}, {"role": "user", "content": user_text}]
+        ids = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True, return_tensors="np")
+        eos_ids = tuple(
+            t for t in (self.tokenizer.eos_token_id, self.tokenizer.convert_tokens_to_ids("<end_of_turn>"))
+            if isinstance(t, int) and t >= 0
+        ) or (1,)
+        device = self.model.language_model.embed_tokens.weight.device
+        seed = kw.get("seed")
+        tokens = gemma_generate(
+            self.model.language_model, self.gemma_config, np.asarray(ids), max_new_tokens=max_new_tokens,
+            temperature=kw.get("temperature", 0.7), top_p=kw.get("top_p", 1.0), eos_token_ids=eos_ids,
+            generator=None if seed is None else torch.Generator(device=device).manual_seed(int(seed)),
+        )
+        return self.tokenizer.decode(tokens).strip()
+
+    def enhance_t2v(self, prompt: str, max_new_tokens: int = 512, **kw) -> str:
+        system = kw.pop("system_prompt", None) or load_system_prompt("gemma_t2v_system_prompt.txt")
+        return self._chat(system, prompt, max_new_tokens, **kw) or prompt
+
+    def enhance_i2v(self, prompt: str, image=None, max_new_tokens: int = 512, **kw) -> str:
+        """The I2V system prompt; ``image`` is accepted as the JAX function
+        accepts it and not read (the text-only Gemma sees no pixels)."""
+        del image
+        system = kw.pop("system_prompt", None) or load_system_prompt("gemma_i2v_system_prompt.txt")
+        return self._chat(system, prompt, max_new_tokens, **kw) or prompt
+
+    def enhance_negative(self, prompt: str, negative: str = "", max_new_tokens: int = 256, **kw) -> str:
+        system = load_system_prompt("gemma_t2v_negative_system_prompt.txt")
+        user = f"Prompt: {prompt}\nExisting negative prompt: {negative}"
+        return self._chat(system, user, max_new_tokens, **kw) or negative

@@ -18,21 +18,48 @@ share one sigma (a (B, 1) timestep mask: audio has no conditioning); with
 video they are denoised jointly by an AudioVideo model over the same
 schedule, each modality taking its own CFG combine and Euler step.
 
-Not ported yet: the TeaCache, PAB and cfg-cache dials and the parallel
-forwards.
+The three quality/speed dials (video only, one at a time, each refused
+with audio, with sequential CFG and with ``progress_callback``, as in the
+JAX function):
+- ``teacache_threshold`` > 0 (TeaCache): the relative L1 change of block
+  0's adaLN-modulated input (:func:`_tc_signal`) accumulates over the steps;
+  a step whose sum stays under the threshold reuses the previous velocity and
+  runs no forward, and a full step resets the sum. Step 0 of each call is
+  full.
+- ``cfg_cache_interval`` k > 1 (with CFG): every k-th step runs the doubled
+  CFG forward and keeps the guidance delta v_pos - v_neg in fp32; the other
+  steps run one batch-B forward and reuse it.
+- ``attn_broadcast_interval`` k > 1 (PAB): a step with ``step % k == 0``
+  runs fully and keeps every block's self-attention output
+  (models/ltx/model.py), the others reuse them.
+Where the JAX scan chooses with ``lax.cond`` and computes both branches'
+shapes, this loop decides per step in Python and skips the cached work for
+real; it makes the same full/cached decisions (TeaCache reads its sum back
+from the device each step to decide).
+
+Progress: ``progress_callback(step, total)`` after each step; without it,
+when :func:`utils.profiling.progress_echo_enabled` (an event sink, or
+``MLX_VIDEO_UI_JSON``/``MLX_VIDEO_PROGRESS_ECHO``) a ``denoise_step`` event
+after each step, the step ended by a device synchronise so its time is
+true. Without either the loop adds no synchronise.
+
+Not ported yet: the parallel forwards.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mlx_video_tpu_torch.config import LTXModelConfig
 from mlx_video_tpu_torch.models.ltx import rope as rope_lib
-from mlx_video_tpu_torch.models.ltx.model import LTXModel, Modality, ltx_apply, to_denoised
+from mlx_video_tpu_torch.models.ltx.model import LTXModel, Modality, adaln_apply, ltx_apply, to_denoised
+from mlx_video_tpu_torch.ops.linear import linear
+from mlx_video_tpu_torch.ops.norms import rms_norm
 from mlx_video_tpu_torch.pipelines.conditioning import LatentState, apply_denoise_mask
+from mlx_video_tpu_torch.utils import profiling
 
 
 def flatten_video_latents(latents: torch.Tensor) -> torch.Tensor:
@@ -195,6 +222,89 @@ def _split_guided(vel: Optional[torch.Tensor], cfg_scale: float):
     return None if vel is None else _cfg_combine(*vel.chunk(2, dim=0), cfg_scale)
 
 
+def _tc_signal(model: LTXModel, config: LTXModelConfig, v_tokens: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """TeaCache's change signal, (B, S, D) fp32: block 0's adaLN-modulated
+    self-attention input (the patchify projection, the adaLN MLP at the
+    step's timesteps, block 0's scale-shift table, the RMS norm)."""
+    x = linear(model.video.patchify_proj, v_tokens)
+    mod, _ = adaln_apply(model.video.adaln_single, (ts * config.timestep_scale_multiplier).reshape(-1), x.dtype)
+    b, s_t, d = ts.shape[0], ts.shape[1], x.shape[-1]
+    mod = mod.reshape(b, s_t, 6, d).float()
+    tab0 = model.blocks[0].scale_shift_table.float()
+    shift = tab0[0][None, None, :] + mod[:, :, 0, :]
+    scale = tab0[1][None, None, :] + mod[:, :, 1, :]
+    return rms_norm(x, eps=config.norm_eps).float() * (1.0 + scale) + shift
+
+
+class _TeaCache:
+    """TeaCache's state over one denoise call: the previous change signal,
+    the accumulated relative change (fp32 on the device) and the last full
+    step's velocity (fp32)."""
+
+    def __init__(self, threshold: float):
+        self.threshold = torch.tensor(threshold, dtype=torch.float32)
+        self.prev = self.accum = self.velocity = None
+
+    def full(self, signal: torch.Tensor) -> bool:
+        """Whether this step runs the forward: the first step always, then
+        once the accumulated change reaches the threshold (which resets it)."""
+        full = self.prev is None
+        if not full:
+            accum = self.accum + (signal - self.prev).abs().mean() / (self.prev.abs().mean() + 1e-8)
+            full = bool(accum >= self.threshold)  # the step's one read-back
+        self.accum = torch.zeros((), dtype=torch.float32, device=signal.device) if full else accum
+        self.prev = signal
+        return full
+
+
+def _cfg_cached_velocity(model: LTXModel, config: LTXModelConfig, bundle, tokens, ts, cfg_scale: float, full: bool,
+                         delta: Optional[torch.Tensor]):
+    """The CFG cache's guided velocity and its fp32 guidance delta: a full
+    step runs the doubled forward and keeps v_pos - v_neg, a cached one
+    runs the positive half alone and reuses ``delta``."""
+    if full:
+        v_pos, v_neg = ltx_apply(model, config, _step_inputs(bundle, tokens, ts, "", True, False), None)[0].chunk(2)
+        delta = v_pos.float() - v_neg.float()
+    else:
+        v_pos = ltx_apply(model, config, _modality(bundle, tokens, ts, half=0), None)[0]
+    return (v_pos.float() + (cfg_scale - 1.0) * delta).to(v_pos.dtype), delta
+
+
+def _check_dials(use_cfg: bool, cfg_sequential: bool, audio: bool, progress: bool, cfg_cache_interval: int,
+                 attn_broadcast_interval: int, teacache_threshold: float) -> None:
+    """The JAX function's refusals of the dials' combinations."""
+    if cfg_sequential and use_cfg and (cfg_cache_interval > 1 or attn_broadcast_interval > 1
+                                       or teacache_threshold > 0.0):
+        raise ValueError(
+            "cfg_sequential cannot be combined with cfg_cache_interval, attn_broadcast_interval, or "
+            "teacache_threshold (the caching dials assume the batched-CFG forward shape)"
+        )
+    if teacache_threshold > 0.0:
+        if audio:
+            raise ValueError("teacache_threshold supports the video-only path")
+        if cfg_cache_interval > 1 or attn_broadcast_interval > 1:
+            raise ValueError("teacache_threshold cannot be combined with cfg_cache_interval or "
+                             "attn_broadcast_interval (one caching dial at a time)")
+        if progress:
+            raise ValueError("teacache_threshold is a scan-mode feature; per-step progress_callback is "
+                             "unsupported with it")
+    if attn_broadcast_interval > 1:
+        if audio:
+            raise ValueError("attn_broadcast_interval supports the video-only path")
+        if cfg_cache_interval > 1:
+            raise ValueError("attn_broadcast_interval and cfg_cache_interval cannot be combined (their forward "
+                             "batch shapes conflict inside the scan)")
+        if progress:
+            raise ValueError("attn_broadcast_interval is a scan-mode feature; per-step progress_callback is "
+                             "unsupported with it")
+    if cfg_cache_interval > 1:
+        if audio:
+            raise ValueError("cfg_cache_interval requires video-only CFG (no joint audio)")
+        if progress:
+            raise ValueError("cfg_cache_interval is a scan-mode feature; per-step progress_callback is "
+                             "unsupported with it")
+
+
 def denoise(
     model: LTXModel,
     config: LTXModelConfig,
@@ -210,6 +320,11 @@ def denoise(
     audio_positions: Optional[torch.Tensor] = None,
     audio_context: Optional[torch.Tensor] = None,
     audio_neg_context: Optional[torch.Tensor] = None,
+    progress_callback: Optional[Callable[[int, int], None]] = None,
+    cfg_cache_interval: int = 1,
+    attn_broadcast_interval: int = 1,
+    teacache_threshold: float = 0.0,
+    full_steps: Optional[List[int]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run the sigma schedule over (B, C, F, H, W) latents and, with
     ``audio_latents``, (B, C, T, M) audio latents jointly (an AudioVideo
@@ -223,33 +338,65 @@ def denoise(
     frame's timestep (sigma times the denoise mask) and each step's video
     estimate is blended with the clean latent. With no video (``latents``
     and ``state`` None) the loop runs the audio alone.
+
+    The dials (``teacache_threshold``, ``cfg_cache_interval``,
+    ``attn_broadcast_interval``) are described in the module docstring;
+    ``full_steps``, when given, receives the indices of the steps a dial ran
+    fully. ``progress_callback(step, total)`` is called after each step.
     """
     use_cfg = cfg_scale != 1.0 and neg_context is not None
     seq_cfg = use_cfg and cfg_sequential
+    _check_dials(use_cfg, cfg_sequential, audio_latents is not None, progress_callback is not None,
+                 cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
+    teacache = _TeaCache(teacache_threshold) if teacache_threshold > 0.0 else None
+    cfg_caching = use_cfg and cfg_cache_interval > 1
+    pab_k = attn_broadcast_interval
+    interval = cfg_cache_interval if cfg_caching else pab_k
     if state is not None:
         latents = state.latent
     if audio_latents is not None and (audio_positions is None or audio_context is None):
         raise ValueError("audio_positions/audio_context must be provided with audio_latents")
+    events = progress_callback is None and profiling.progress_echo_enabled()
     sig = [float(s) for s in np.asarray(sigmas, dtype=np.float32)]
+    total = len(sig) - 1
     bundle = _make_bundle(config, latents, positions, context, state, use_cfg, neg_context,
                           audio_latents, audio_positions, audio_context, audio_neg_context)
-    for sigma, sigma_next in zip(sig[:-1], sig[1:]):
+    v_delta = pab_cache = None
+    for step, (sigma, sigma_next) in enumerate(zip(sig[:-1], sig[1:])):
         v_tokens = v_ts = a_tokens = a_ts = None
         if latents is not None:
             v_tokens, v_ts = flatten_video_latents(latents), (sigma * bundle["v_mask"]).to(latents.dtype)
         if audio_latents is not None:
             a_tokens = flatten_audio_latents(audio_latents)
             a_ts = (sigma * bundle["a_mask"]).to(audio_latents.dtype)
-        video_in = _step_inputs(bundle, v_tokens, v_ts, "", use_cfg, seq_cfg)
-        audio_in = _step_inputs(bundle, a_tokens, a_ts, "a_", use_cfg, seq_cfg)
-        if seq_cfg:
-            (v_pos, a_pos), (v_neg, a_neg) = (ltx_apply(model, config, video_in[i], audio_in[i]) for i in (0, 1))
-            v_vel, a_vel = _guided(v_pos, v_neg, cfg_scale), _guided(a_pos, a_neg, cfg_scale)
-        elif use_cfg:
-            v_vel, a_vel = ltx_apply(model, config, video_in, audio_in)
-            v_vel, a_vel = _split_guided(v_vel, cfg_scale), _split_guided(a_vel, cfg_scale)
+        full = step % interval == 0
+        if teacache is not None:
+            full = teacache.full(_tc_signal(model, config, v_tokens, v_ts))
+        if full and (teacache is not None or interval > 1) and full_steps is not None:
+            full_steps.append(step)
+        a_vel = None
+        if teacache is not None and not full:
+            v_vel = teacache.velocity
+        elif cfg_caching:
+            v_vel, v_delta = _cfg_cached_velocity(model, config, bundle, v_tokens, v_ts, cfg_scale, full, v_delta)
         else:
-            v_vel, a_vel = ltx_apply(model, config, video_in, audio_in)
+            video_in = _step_inputs(bundle, v_tokens, v_ts, "", use_cfg, seq_cfg)
+            audio_in = _step_inputs(bundle, a_tokens, a_ts, "a_", use_cfg, seq_cfg)
+            if pab_k > 1 and full:
+                v_vel, a_vel, pab_cache = ltx_apply(model, config, video_in, None, pab="collect")
+            elif pab_k > 1:
+                v_vel, a_vel = ltx_apply(model, config, video_in, None, pab=pab_cache)
+            elif seq_cfg:
+                (v_pos, a_pos), (v_neg, a_neg) = (ltx_apply(model, config, video_in[i], audio_in[i])
+                                                  for i in (0, 1))
+            else:
+                v_vel, a_vel = ltx_apply(model, config, video_in, audio_in)
+            if seq_cfg:
+                v_vel, a_vel = _guided(v_pos, v_neg, cfg_scale), _guided(a_pos, a_neg, cfg_scale)
+            elif use_cfg:
+                v_vel, a_vel = _split_guided(v_vel, cfg_scale), _split_guided(a_vel, cfg_scale)
+            if teacache is not None:
+                teacache.velocity = v_vel.float()
         if latents is not None:
             denoised = to_denoised(latents, unflatten_video_latents(v_vel, latents.shape), sigma)
             if state is not None:
@@ -258,6 +405,13 @@ def denoise(
         if audio_latents is not None:
             a_denoised = to_denoised(audio_latents, unflatten_audio_latents(a_vel, audio_latents.shape), sigma)
             audio_latents = _euler_step(audio_latents, a_denoised, sigma, sigma_next)
+        if progress_callback is not None:
+            progress_callback(step + 1, total)
+        elif events:
+            probe = latents if latents is not None else audio_latents
+            if probe.device.type == "cuda":
+                torch.cuda.synchronize(probe.device)
+            profiling.step_event(step + 1, total, sigma=sigma)
     return latents, audio_latents
 
 

@@ -28,8 +28,22 @@ CFG when negative audio embeddings exist). Both then decode them to a
 waveform (audio VAE decoder, HiFi-GAN vocoder), write a 16-bit WAV and mux it
 into the mp4 with ffmpeg; without ffmpeg the silent video is the output, as
 in the JAX function.
-Not ported yet: the TeaCache, PAB and CFG-cache dials, the parallel
-and host-staging options.
+The quality/speed dials (pipelines/denoise.py) pass to every video
+denoise: ``attn_broadcast_interval`` and ``teacache_threshold`` at both
+distilled stages and in the dev pipeline, ``cfg_cache_interval`` in the dev
+pipeline; each is refused with joint audio. ``GenerateResult.full_steps``
+holds, per denoise phase, the steps a dial ran fully.
+
+Events (utils/profiling.py): a ``phase`` event as each phase ends, the
+denoise loop's ``denoise_step`` events, and while the decode hands frames
+on, ``progress`` events and, every ``MLX_VIDEO_PREVIEW_EVERY`` (12) frames,
+a preview: the latest frame as a PIL JPEG (quality 85, at most
+``MLX_VIDEO_PREVIEW_MAX_DIM`` (512) pixels a side), written atomically to
+``MLX_VIDEO_PREVIEW_PATH`` and sent base64 in a ``preview`` event when a
+sink subscribes. A run with no sink, no ``MLX_VIDEO_UI_JSON`` and no
+preview path hands no frames on beyond the writer's.
+
+Not ported yet: the parallel and host-staging options.
 
 Randomness: video i draws all its noise from its own ``torch.Generator``
 (the one given, or one seeded with ``seed + i`` or ``seeds[i]`` on the
@@ -64,6 +78,7 @@ Differences from the JAX function, on purpose:
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -116,6 +131,7 @@ from mlx_video_tpu_torch.pipelines.schedulers import (
     subsample_refinement_sigmas,
     subsample_sigmas,
 )
+from mlx_video_tpu_torch.utils import profiling
 
 SPATIAL_SCALE = 32
 TEMPORAL_SCALE = 8
@@ -182,6 +198,7 @@ class GenerateResult:
     audio_latents: Optional[np.ndarray] = None  # (1, 8, T, 16) fp32
     audio: Optional[np.ndarray] = None  # (2, 240 * (4T - 3)) fp32 waveform in [-1, 1]
     audio_path: Optional[Path] = None  # the WAV
+    full_steps: Dict[str, List[int]] = field(default_factory=dict)  # with a dial: phase -> steps run fully
 
 
 def pad_dimensions(height: int, width: int, divisor: int) -> Tuple[int, int, Optional[Tuple[int, int, int, int]]]:
@@ -353,12 +370,65 @@ def _check_params_dtype(models: ModelBundle, dtype) -> None:
 
 @contextmanager
 def _phase(times: Dict[str, float], name: str, device: torch.device):
-    """Wall time of a phase, ended by a device synchronise on CUDA."""
+    """Wall time of a phase, ended by a device synchronise on CUDA; sends
+    the ``phase`` event."""
     t0 = time.perf_counter()
     yield
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     times[name] = time.perf_counter() - t0
+    profiling.ui_event({"kind": "phase", "phase": name, "seconds": times[name]})
+
+
+class _Previews:
+    """The decode's preview JPEGs (see the module docstring): one encode a
+    preview feeds the file and the sinks."""
+
+    def __init__(self):
+        self.path = os.environ.get("MLX_VIDEO_PREVIEW_PATH")
+        self.every = int(os.environ.get("MLX_VIDEO_PREVIEW_EVERY", "12"))
+        self.max_dim = int(os.environ.get("MLX_VIDEO_PREVIEW_MAX_DIM", "512"))
+        self.reset()
+
+    def reset(self) -> None:
+        """Frame indices restart at 0 with each video."""
+        self.last = -self.every
+
+    def wanted(self) -> bool:
+        return self.path is not None or profiling.has_event_sinks()
+
+    def __call__(self, frame_u8: np.ndarray, idx: int) -> None:
+        stream = profiling.has_event_sinks()
+        if (self.path is None and not stream) or idx - self.last < self.every:
+            return
+        import base64
+        import io
+
+        from PIL import Image
+
+        img = Image.fromarray(frame_u8)
+        if self.max_dim > 0:
+            img.thumbnail((self.max_dim, self.max_dim))
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=85)
+        jpeg = buf.getvalue()
+        if self.path is not None:
+            tmp = self.path + ".tmp"
+            with open(tmp, "wb") as fh:
+                fh.write(jpeg)
+            os.replace(tmp, self.path)
+        if stream:
+            profiling.ui_event({"kind": "preview", "frame": int(idx), "jpeg_b64": base64.b64encode(jpeg).decode()})
+        self.last = idx
+
+
+def _dial_refusal(joint_audio: bool, cfg_cache_interval: int, attn_broadcast_interval: int,
+                  teacache_threshold: float) -> None:
+    if joint_audio and (cfg_cache_interval > 1 or attn_broadcast_interval > 1 or teacache_threshold > 0.0):
+        raise ValueError(
+            "the caching dials (cfg_cache_interval, attn_broadcast_interval, teacache_threshold) support the "
+            "video-only path; drop the dial or generate audio separately (audio_mode=separate)"
+        )
 
 
 def _per_video(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
@@ -391,6 +461,10 @@ def generate_video(
     cfg_scale: float = 4.0,
     num_inference_steps: int = 40,
     cfg_sequential: bool = False,
+    cfg_cache_interval: int = 1,
+    attn_broadcast_interval: int = 1,
+    teacache_threshold: float = 0.0,
+    progress_callback: Optional[Callable[[int, int], None]] = None,
     images: Sequence[Tuple[str, int, float]] = (),
     video_conditionings: Sequence[Tuple[str, int, float]] = (),
     output_path: Optional[Union[str, Path]] = None,
@@ -438,6 +512,11 @@ def generate_video(
     ``output_audio_path`` (default: the output path with ``.wav``) and is
     muxed into the mp4 (``audio_filter``, an ffmpeg -af chain, and
     ``audio_bitrate``) when ffmpeg exists. One video only.
+
+    The dials ``attn_broadcast_interval``, ``teacache_threshold`` and (dev)
+    ``cfg_cache_interval`` trade quality for speed in each video denoise
+    (pipelines/denoise.py; not with joint audio). ``progress_callback(step,
+    total)`` is called after every video denoise step.
     """
     pipeline = PipelineType(pipeline)
     if seeds is not None:
@@ -470,11 +549,19 @@ def generate_video(
             raise ValueError("Joint audio requires an AudioVideo transformer config")
         if num_videos > 1:
             raise ValueError("num_videos > 1 does not compose with audio yet")
+    _dial_refusal(joint_audio, cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
     device = models.transformer.video.scale_shift_table.device
     vid_seeds = [int(s) for s in seeds] if seeds is not None else [seed + i for i in range(num_videos)]
     generators = [generator] if generator is not None else [
         torch.Generator(device=device).manual_seed(s) for s in vid_seeds]
     times: Dict[str, float] = {}
+    full_steps: Dict[str, List[int]] = {}
+    dials = dict(attn_broadcast_interval=attn_broadcast_interval, teacache_threshold=teacache_threshold,
+                 progress_callback=progress_callback)
+
+    def steps_of(phase: str) -> List[int]:
+        return full_steps.setdefault(phase, [])
+
     dev = pipeline == PipelineType.DEV
     conditioning_mode = "guide" if pipeline == PipelineType.KEYFRAME else "replace"
 
@@ -533,6 +620,7 @@ def generate_video(
             latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h, latent_w), context, sigmas,
                 neg_context=neg, cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential, **joint,
+                cfg_cache_interval=cfg_cache_interval, full_steps=steps_of("dev_denoise"), **dials,
             )
     else:
         if not 1 <= stage1_steps <= len(STAGE_1_SIGMAS) - 1:
@@ -560,7 +648,7 @@ def generate_video(
                 joint = joint_audio_args(noise(audio_shape))
             latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
-                state=state1, **joint,
+                state=state1, **joint, full_steps=steps_of("stage1_denoise"), **dials,
             )
 
         with _phase(times, "upsample", device):
@@ -579,7 +667,7 @@ def generate_video(
             latents, audio_latents = dn.denoise(
                 stage2, config, latents, positions(latent_h, latent_w), context, s2_sigmas,
                 neg_context=neg if stage2_cfg else None, cfg_scale=cfg_scale, state=state2,
-                cfg_sequential=cfg_sequential, **joint,
+                cfg_sequential=cfg_sequential, **joint, full_steps=steps_of("stage2_denoise"), **dials,
             )
 
     if separate_audio:
@@ -596,10 +684,13 @@ def generate_video(
                 cfg_scale=cfg_scale if a_neg is not None else 1.0,
             )
 
+    if not (cfg_cache_interval > 1 or attn_broadcast_interval > 1 or teacache_threshold > 0.0):
+        full_steps = {}
     latents_np = latents.float().cpu().numpy()
     audio_np = audio_latents.float().cpu().numpy() if audio else None
     if decode_latents_only:
-        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=times, audio_latents=audio_np)
+        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=times, audio_latents=audio_np,
+                              full_steps=full_steps)
 
     video_paths: List[Optional[Path]] = [None] * num_videos
     if output_path is not None:
@@ -610,28 +701,40 @@ def generate_video(
             video_paths = [output_path.with_suffix(".temp.mp4")]
     out_h, out_w = (height, width) if crop is None else crop[2:]
     decoded = []
+    previews = _Previews()
+    # frames go on beyond the writer only when someone reads the events or previews
+    hand_on = previews.wanted() or os.environ.get("MLX_VIDEO_UI_JSON") == "1"
     with _phase(times, "vae_decode", device):
         for i, path in enumerate(video_paths):
             writer = None if path is None else media.VideoWriter(path, out_w, out_h, fps, encoder=video_encoder)
+            previews.reset()
+            t0, done = time.perf_counter(), [0]
 
             def on_ready(frames: np.ndarray, start: int) -> None:
                 u8 = media.frames_to_uint8(frames)[: num_frames - start]
                 if crop is not None:
                     top, left, h, w = crop
                     u8 = u8[:, top : top + h, left : left + w]
-                writer.write(u8)
+                if writer is not None:
+                    writer.write(u8)
+                previews(u8[-1], start + u8.shape[0] - 1)
+                done[0] += u8.shape[0]
+                profiling.ui_event({
+                    "kind": "progress", "phase": "decode", "current": done[0], "total": num_frames, "video": i,
+                    "eta_seconds": (time.perf_counter() - t0) / max(done[0], 1) * max(num_frames - done[0], 0),
+                })
 
             try:
                 decoded.append(decode_latents(models, latents[i : i + 1], tiling_config, decode_timestep=0.05,
                                               generator=generators[i],
-                                              on_frames_ready=None if writer is None else on_ready))
+                                              on_frames_ready=on_ready if writer is not None or hand_on else None))
             finally:
                 if writer is not None:
                     writer.close()
     video = decoded[0] if num_videos == 1 else np.concatenate(decoded, axis=0)
     result = GenerateResult(video_path=video_paths[0], latents=latents_np, video=video, phase_seconds=times,
                             video_paths=video_paths if num_videos > 1 and output_path is not None else None,
-                            audio_latents=audio_np)
+                            audio_latents=audio_np, full_steps=full_steps)
     if audio and models.audio_decoder is not None:
         _decode_and_mux_audio(models, audio_latents, result, output_path, output_audio_path, audio_filter,
                               audio_bitrate, device)

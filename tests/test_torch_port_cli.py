@@ -159,17 +159,48 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
     (["--temperature", "0.2"], "--temperature"),
     (["--trace-dir", "x"], "--trace-dir"),
 ])
-def test_unported_flags_exit_with_their_names(emb_file, flags, named):
+def test_unported_flags_exit_with_their_names(monkeypatch, tmp_path, emb_file, flags, named):
+    """A flag of a feature the port lacks exits naming it; the dials and the
+    enhancement flags, ported since PR 15, are taken and the run goes on (as
+    in the JAX CLI, --enhance-prompt does nothing on --embeddings)."""
+    if named.lstrip("-").replace("-", "_") in cli._PORTED:
+        assert _run_main(monkeypatch, tmp_path, emb_file, _tiny_bundle(), flags).stat().st_size > 0
+        return
     with pytest.raises(SystemExit, match=named):
         cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", *flags])
 
 
-def test_enhance_prompt_exits_on_the_prompt_path():
-    """A prompt without --embeddings now runs the text encoder, but prompt
-    enhancement (Gemma generation) is not ported: it still exits by name
-    before anything loads."""
-    with pytest.raises(SystemExit, match="--enhance-prompt"):
-        cli.main(["--prompt", "p", "--enhance-prompt", "--device", "cpu"])
+def test_enhance_prompt_exits_on_the_prompt_path(monkeypatch, tmp_path):
+    """On the prompt path --enhance-prompt (ported in PR 15) rewrites the
+    prompt with the text encoder first: the T2V chat, or the I2V one with
+    --image, at --temperature for --max-tokens; the enhanced prompt is what
+    gets encoded."""
+    from mlx_video_tpu_torch.models.ltx import text_encoder as tte
+
+    calls = []
+
+    class Fake:
+        def enhance_t2v(self, prompt, **kw):
+            calls.append(("t2v", prompt, kw))
+            return prompt + ", enhanced"
+
+        def enhance_i2v(self, prompt, **kw):
+            calls.append(("i2v", prompt, kw))
+            return prompt + ", enhanced i2v"
+
+        def encode(self, prompt):
+            calls.append(("encode", prompt))
+            return torch.zeros(1, 8, 48), None
+
+    monkeypatch.setattr(tte.LTX2TextEncoder, "load", lambda *a, **kw: Fake())
+    monkeypatch.setattr(loading, "load_model_bundle", lambda *a, **kw: _tiny_dev_bundle())
+    _, image = _dev_files(tmp_path, with_neg=False)
+    for extra, mode, suffix in (([], "t2v", ", enhanced"), (["--image", str(image), "0", "1.0"], "i2v", ", enhanced i2v")):
+        calls.clear()
+        cli.main(["--prompt", "p", "--enhance-prompt", "--temperature", "0.3", "--max-tokens", "7", "--checkpoint-path",
+                  str(tmp_path), "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "1",
+                  "--stage2-steps", "1", "--latents-only", "--device", "cpu", *extra])
+        assert calls == [(mode, "p", {"temperature": 0.3, "max_new_tokens": 7}), ("encode", "p" + suffix)]
 
 
 @pytest.mark.parametrize("flag, kind", [("--w8a8", Int8Linear), ("--w4a8", QuantLinear)])

@@ -3,8 +3,8 @@ the originals, one parametrised test per copied module, on the same inputs.
 
 The port imports nothing of mlx_video_tpu, so it keeps copies of: the model
 configuration, the sigma schedules, the position grids, the numpy part of the
-VAE tiling, the mp4 writer's frame conversion, the image and video loading, the generate
-and train CLIs' parsers and ``slugify``, the hub's ``get_model_path``, the
+VAE tiling, the mp4 writer's frame conversion, the image and video loading, the generate,
+train, serve and enhance CLIs' parsers and ``slugify``, the enhancement system prompts, the hub's ``get_model_path``, the
 dev pipeline's default negative prompt, the loader's ``bits_hint_for`` and
 ``read_quantization_metadata``, and the trainer's progress line, config
 display and video IO (trainer/aux.py); the precompute helpers and the
@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 
 from mlx_video_tpu import config as jconfig
+from mlx_video_tpu.cli import enhance as jenhance_cli
 from mlx_video_tpu.cli import generate as jgen_cli
+from mlx_video_tpu.cli import serve as jserve_cli
 from mlx_video_tpu.cli import train as jtrain_cli
 from mlx_video_tpu.io import media as jmedia
 from mlx_video_tpu.models.ltx.video_vae import tiling as jtiling
@@ -28,7 +30,9 @@ from mlx_video_tpu.pipelines import schedulers as jsched
 from mlx_video_tpu.trainer import config as jtrain_config
 from mlx_video_tpu.utils import hub as jhub
 from mlx_video_tpu_torch import config as tconfig
+from mlx_video_tpu_torch.cli import enhance as tenhance_cli
 from mlx_video_tpu_torch.cli import generate as tgen_cli
+from mlx_video_tpu_torch.cli import serve as tserve_cli
 from mlx_video_tpu_torch.cli import train as ttrain_cli
 from mlx_video_tpu_torch.io import media as tmedia
 from mlx_video_tpu_torch.models.ltx.video_vae import tiling as ttiling
@@ -130,20 +134,38 @@ def _flags(parser: argparse.ArgumentParser) -> dict:
             for a in parser._actions if a.dest != "help"}
 
 
-@pytest.mark.parametrize("cli", ["generate", "train"])
+@pytest.mark.parametrize("cli", ["generate", "train", "serve", "enhance"])
 def test_parsers_copy(cli):
+    """Each CLI's flags as the JAX parser's, plus --device. The server's
+    output directory defaults to None (the temporary directory's), where the
+    JAX one names /tmp; its refused flags stay, to be refused by name."""
+    tmod, jmod = {"generate": (tgen_cli, jgen_cli), "train": (ttrain_cli, jtrain_cli),
+                  "serve": (tserve_cli, jserve_cli), "enhance": (tenhance_cli, jenhance_cli)}[cli]
     if cli == "generate":
-        tmod, jmod = tgen_cli, jgen_cli
         for text in ("A cat, on a MAT!", "", "  --x--  ", "é" * 100):
             assert tmod.slugify(text) == jmod.slugify(text)
-    else:
-        tmod, jmod = ttrain_cli, jtrain_cli
-    assert _flags(tmod.base_parser()) == _flags(jmod.build_parser())
+    ref = _flags(jmod.build_parser())
+    if cli == "serve":
+        assert ref["output_dir"][1] == "/tmp/mlx_video_tpu_serve"
+        ref["output_dir"] = ref["output_dir"][:1] + (None,) + ref["output_dir"][2:]
+        assert set(tserve_cli._REFUSED) == {"mesh", "pipeline_parallel", "pipeline_tensor", "sequence_parallel",
+                                            "aux_park"} and set(tserve_cli._REFUSED) <= set(ref)
+    assert _flags(tmod.base_parser()) == ref
     ported = _flags(tmod.build_parser())
     assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")
     if cli == "train":  # the YAML-only switch as a flag (no PyYAML needed)
         assert ported.pop("enable_gradient_checkpointing")[0] == ("--enable-gradient-checkpointing",)
-    assert ported == _flags(jmod.build_parser())
+    assert ported == ref
+
+
+def test_enhancement_system_prompts_copy():
+    from mlx_video_tpu.models.ltx import text_encoder as jte
+    from mlx_video_tpu_torch.models.ltx import text_encoder as tte
+
+    names = sorted(p.name for p in jte.PROMPTS_DIR.glob("*.txt"))
+    assert names == sorted(p.name for p in tte.PROMPTS_DIR.glob("*.txt")) and len(names) == 3
+    for name in names:
+        assert (tte.PROMPTS_DIR / name).read_bytes() == (jte.PROMPTS_DIR / name).read_bytes()
 
 
 @pytest.mark.parametrize("case", ["default", "tiny_split", "tiny_audio", "round_trip", "training"])

@@ -204,7 +204,9 @@ assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "ml
         "mlx_video_tpu_torch.pipelines.conditioning", "mlx_video_tpu_torch.trainer.precompute",
         "mlx_video_tpu_torch.precompute", "mlx_video_tpu_torch.cli.precompute", "mlx_video_tpu_torch.trainer.aux",
         "mlx_video_tpu_torch.trainer.validation_sampler", "mlx_video_tpu_torch.trainer.model_loader",
-        "mlx_video_tpu_torch.models.ltx.audio_vae.processing"} <= set(sys.modules)
+        "mlx_video_tpu_torch.models.ltx.audio_vae.processing", "mlx_video_tpu_torch.serve",
+        "mlx_video_tpu_torch.cli.serve", "mlx_video_tpu_torch.enhance", "mlx_video_tpu_torch.cli.enhance",
+        "mlx_video_tpu_torch.utils.profiling"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
