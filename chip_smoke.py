@@ -342,14 +342,44 @@ Phases, in order; any failure exits non-zero before the last line:
    the adapter's fp32 factors, within 2 % + 1 MiB); then --lora-slot-rank
    at the adapter's rank on the same bundle: its base request bitwise the
    unslotted one's, its LoRA request >= 35 dB from the plain attach.
-Phases 7-14 print phase times and peak device memory. Every profile records
+15. checkpoint conversion, then generation from what it converted, with the
+   CLI's instrumentation on; after 13 (b), before phase 9 quantizes the
+   DiT. (a) the dense bf16 VideoOnly DiT of phase 7 written as a PyTorch
+   checkpoint (model.diffusion_model.* keys, as io/weights.py:sanitize_pt_key
+   reads them; every key checked to map back to its name) under a name no
+   loader resolves, beside the seeded VAE (decoder and encoder), the
+   upsampler and an embeddings file, in a .chip_smoke_* directory in
+   RAM-backed /dev/shm, as every file of the phase (the card machine takes
+   at most 45 GiB of disk writes a call, deleted files included, and phase
+   10 writes ~15 GiB); the plan printed, and a failure when there is no
+   room. (b) convert's
+   main() in this process: --model-type video --quantize --report --unified
+   --model-path (seconds, peak device memory): 10 report lines "quantized
+   uint32" (the JAX tree's stacked core linears, 10 x 48 = 480 QuantLinears)
+   and the rest dense; JAX's quantization.json text for 4 bits, group 64,
+   core, bf16; the DiT loaded back through load_model_bundle (which reads
+   the unified bundle) with every QuantLinear's words, scales and biases
+   torch.equal to quantize_linear of the same dense layer on the card, one
+   layer at a time, and every other tensor equal; then the generate CLI's
+   main() on that directory with --profile --profile-json --mem-log
+   --trace-dir: 528 K1, 5280 K2, an mp4, the phase report, the "stage1
+   complete" and "stage2 complete" memory lines, and a torch.profiler
+   trace whose kernel events hold exactly 528 flash_fwd_kernel and 5280
+   quant_matmul_kernel launches; the q4 files deleted. (c) --w8a8 --lora
+   (phase 11's rank-32 adapter) on the same source, no --unified (the CLI
+   then reads ltx-2-19b-distilled.safetensors): "[LoRA] ... applied=384
+   skipped=0", JAX's W8A8 quantization.json text, and the CLI run gives 528
+   K1, 0 K2, 5280 int8 products and an mp4; everything deleted, the source
+   last. (d) phase 8's and 13 (c)'s training runs read their files through
+   io/prefetch.py's native FilePrefetcher (the reads counted).
+Phases 7-15 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
 1-7a, 11, 14 (b)-(d) and (f), 12, 8, 9a, 9b with 13 (a) and 14 (a), 13 (b),
-9, 10 with 13 (c) and 14 (e). Last: the kernel summary line (K1-K6:
+15, 9, 10 with 13 (c) and 14 (e). Last: the kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
-also their launches on every path of phases 7a-14, "path_launches") and
+also their launches on every path of phases 7a-15, "path_launches") and
 {"ok": true, "device": ...}.
 """
 
@@ -1318,9 +1348,11 @@ def full_width_training(models, fa, data_root: Path, out_root: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fa.launch_count = fa.bwd_launch_count = 0
     t0 = time.perf_counter()
-    trainer.train()
+    with counting_fetches() as fetched:
+        trainer.train()
     wall = time.perf_counter() - t0
     k1, k3 = fa.launch_count, fa.bwd_launch_count
+    check_fetches(fetched, "phase 8 (15 (d)), the Trainer")
     peak = torch.cuda.max_memory_allocated()
     losses, secs = list(trainer.loss_history), list(trainer.step_seconds)
     b_norm = sum(p.float().norm().item() for n, p in trainer.params.items() if n.endswith("lora_B"))
@@ -3064,9 +3096,11 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio:
     with launch_shapes(fa, qmm) as shapes:
         fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
         t0 = time.perf_counter()
-        train_cli.main(argv)
+        with counting_fetches() as fetched:
+            train_cli.main(argv)
         wall = time.perf_counter() - t0
         k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
+    check_fetches(fetched, f"the {what}" + (" (15 (d))" if audio else ""))
     print(f"  {what} wall {wall:.4f} s (the 4-bit file's load included); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K3 {k3}, K2 {k2}; files "
           f"{sorted(p.name for p in out.iterdir())}", flush=True)
@@ -3079,6 +3113,300 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio:
     check_compared(shapes, f"phase 13 (c), the {what}" if audio else f"phase 10, the {what}")
     tag = "_av_cli" if audio else ""
     return {f"k1{tag}": k1, f"k3{tag}": k3, f"k2{tag}": k2}
+
+
+@contextlib.contextmanager
+def counting_fetches():
+    """Counts the files io/prefetch.py's FilePrefetcher hands out while the
+    block runs, and whether its pool is the native one."""
+    from mlx_video_tpu_torch.io import prefetch
+
+    seen = {"files": 0, "native": set()}
+    original = prefetch.FilePrefetcher.get
+
+    def get(self, path):
+        seen["files"] += 1
+        seen["native"].add(self.is_native)
+        return original(self, path)
+
+    prefetch.FilePrefetcher.get = get
+    try:
+        yield seen
+    finally:
+        prefetch.FilePrefetcher.get = original
+
+
+def check_fetches(seen: dict, what: str) -> None:
+    from mlx_video_tpu_torch.io import prefetch
+
+    print(f"  {what}: {seen['files']} files read through FilePrefetcher, native pool {seen['native'] == {True}} "
+          f"({prefetch.library_path().name})", flush=True)
+    if seen["files"] == 0 or seen["native"] != {True}:
+        fail(f"{what} did not read its files through the native FilePrefetcher")
+
+
+# Phase 15: checkpoint conversion, then generation from the converted files.
+PT_PREFIX = "model.diffusion_model."
+_DESANITIZE = ((".to_out.", ".to_out.0."), (".ff.proj_in.", ".ff.net.0.proj."), (".ff.proj_out.", ".ff.net.2."),
+               (".linear1.", ".linear_1."), (".linear2.", ".linear_2."))
+
+
+def pt_key(name: str) -> str:
+    """Port DiT state name -> PyTorch checkpoint key (the inverse of
+    io/weights.py:sanitize_pt_key and dit_tree_path)."""
+    key = mlx_key(name)
+    for sanitized, raw in _DESANITIZE:
+        key = key.replace(sanitized, raw)
+    return PT_PREFIX + key
+
+
+def mem_available() -> int:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def trace_kernel_counts(trace_dir: Path) -> dict:
+    """Launches by kernel name (kernel_label) in the one torch.profiler trace
+    under ``trace_dir``."""
+    files = sorted(Path(trace_dir).glob("trace.*.json"))
+    if len(files) != 1:
+        fail(f"{len(files)} traces under {trace_dir}, want 1")
+    counts = {}
+    for event in json.loads(files[0].read_text())["traceEvents"]:
+        if event.get("cat") == "kernel":
+            label = kernel_label(event.get("name", ""))
+            counts[label] = counts.get(label, 0) + 1
+    print(f"  trace {files[0].name}: {files[0].stat().st_size / 2**20:.1f} MiB, {sum(counts.values())} kernel "
+          f"events", flush=True)
+    return counts
+
+
+def trace_launches(counts: dict, kernel: str) -> int:
+    return sum(n for label, n in counts.items() if kernel in label)
+
+
+def run_captured(main, argv: list) -> tuple:
+    """``main(argv)`` with its stdout and stderr captured, then printed
+    indented; returns (seconds, stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main(argv)
+    finally:
+        for text in (out.getvalue(), err.getvalue()):
+            if text.strip():
+                print("    " + text.strip().replace("\n", "\n    "), flush=True)
+    return time.perf_counter() - t0, out.getvalue(), err.getvalue()
+
+
+def convert_run(argv: list, what: str) -> str:
+    """convert's main() on the card: seconds, peak device memory (and above
+    what was resident); returns its stdout."""
+    import torch
+
+    from mlx_video_tpu_torch import convert
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, out, _ = run_captured(convert.main, argv)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {what}: {secs:.2f} s; peak device memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+          f"the {base / 2**30:.3f} GiB resident)", flush=True)
+    return out
+
+
+def check_converted_q4(models, snap: Path, device: str = "cuda") -> None:
+    """The converted DiT through load_model_bundle (the unified bundle)
+    against quantize_linear of the dense layers on the card, one at a time,
+    and the dense tensors."""
+    import torch
+
+    from mlx_video_tpu_torch import loading
+    from mlx_video_tpu_torch.ops.linear import QuantLinear
+    from mlx_video_tpu_torch.ops.quant import quantize_linear
+
+    t0 = time.perf_counter()
+    bundle = loading.load_model_bundle(snap, device=device)
+    torch.cuda.synchronize()
+    print(f"  load_model_bundle on the converted directory: {time.perf_counter() - t0:.2f} s", flush=True)
+    dense = dict(models.transformer.named_modules())
+    quantized = {name: m for name, m in bundle.transformer.named_modules() if isinstance(m, QuantLinear)}
+    bad = []
+    for name, got in quantized.items():
+        ref = quantize_linear(dense[name], 64, 4)
+        for leaf in ("quant_weight", "scales", "biases", "bias"):
+            a, b = getattr(got, leaf), getattr(ref, leaf)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                bad.append(f"{name}.{leaf}")
+        del ref
+    want, got_state = models.transformer.state_dict(), bundle.transformer.state_dict()
+    rest = [k for k in got_state if k.rpartition(".")[0] not in quantized]
+    bad += [k for k in rest if k not in want or want[k].dtype != got_state[k].dtype
+            or not torch.equal(want[k], got_state[k])]
+    missing = [k for k in want if k.rpartition(".")[0] not in quantized and k not in got_state]
+    print(f"  the converted DiT: {len(quantized)} QuantLinears torch.equal to quantize_linear of the dense layers on "
+          f"the card, {len(rest)} other tensors equal to the dense model's", flush=True)
+    if len(quantized) != 10 * 48 or bad or missing:
+        fail(f"converted DiT: {len(quantized)} QuantLinears (want 480); differing {bad[:10]}; missing {missing[:10]}")
+    del bundle
+    torch.cuda.empty_cache()
+
+
+def generate_from_converted(snap: Path, embeddings: Path, tmp: Path, fa, qmm, what: str, extra=(),
+                            device: str = "cuda") -> dict:
+    """The generate CLI's main() on a converted directory, counts set to 0
+    just before: K1, K2 and int8 products, the phase seconds, the mp4."""
+    import torch
+
+    from mlx_video_tpu_torch.cli import generate as cli
+    from mlx_video_tpu_torch.ops import int8 as i8
+
+    stem = what.replace(" ", "_")
+    output, report = tmp / f"{stem}.mp4", tmp / f"{stem}.json"
+    argv = ["--prompt", "synthetic embeddings", "--checkpoint-path", str(snap), "--embeddings", str(embeddings),
+            "--height", "512", "--width", "512", "--num-frames", "33", "--seed", "1", "--output-path", str(output),
+            "--profile-json-path", str(report), *extra, "--device", device]
+    torch.cuda.reset_peak_memory_stats()
+    fa.launch_count = qmm.launch_count = i8.int8_matmul_count = 0
+    wall, out, err = run_captured(cli.main, argv)
+    k1, k2, int8 = fa.launch_count, qmm.launch_count, i8.int8_matmul_count
+    phases = json.loads(report.read_text())["phases"]
+    print(f"  CLI on the {what} files: main wall {wall:.4f} s; phases " + ", ".join(
+        f"{n} {s:.4f} s" for n, s in phases.items()) + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}; int8 products {int8}",
+        flush=True)
+    if not output.is_file() or output.stat().st_size == 0:
+        fail(f"the CLI on the {what} files wrote no video")
+    return {"k1": k1, "k2": k2, "int8": int8, "stdout": out, "stderr": err}
+
+
+def full_width_convert(models, text, fa, qmm, adapter: Path, pairs: int, device: str = "cuda") -> dict:
+    """Phase 15 (a)-(c): the dense DiT as a PyTorch checkpoint, converted to
+    4 bits (unified) and to W8A8 with phase 11's adapter merged, each run
+    through the generate CLI (``device`` "cpu" rehearses it on a tiny
+    bundle)."""
+    import torch
+
+    from mlx_video_tpu_torch import loading
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.io.weights import dit_tree_path, sanitize_pt_key
+    from mlx_video_tpu_torch.ops.linear import Linear
+
+    t_phase = time.perf_counter()
+    state = models.transformer.state_dict()
+    source = {pt_key(k): v for k, v in state.items()}
+    unmapped = [k for k, v in zip(state, source) if dit_tree_path(sanitize_pt_key(v)) != k]
+    if unmapped:
+        fail(f"PyTorch keys that do not map back: {unmapped[:5]}")
+    files = {
+        "vae/diffusion_pytorch_model.safetensors": {
+            **{decoder_key(k): v for k, v in models.vae_decoder.state_dict().items()},
+            **{f"encoder.{k}": v for k, v in models.vae_encoder.state_dict().items()},
+        },
+        loading.UPSAMPLER_FILE: dict(models.upsampler.state_dict()),
+        "embeddings.safetensors": {"video_prompt_embeds": text.video_embeddings[0]},
+    }
+    nbytes = sum(t.numel() * t.element_size() for f in files.values() for t in f.values())
+    vae_bytes = sum(t.numel() * t.element_size() for t in files["vae/diffusion_pytorch_model.safetensors"].values())
+    src_bytes = sum(t.numel() * t.element_size() for t in source.values())
+    core = sum(m.weight.numel() * m.weight.element_size() for name, m in models.transformer.named_modules()
+               if name.startswith("blocks.") and isinstance(m, Linear))
+    # 4-bit words and two fp32 numbers a group of 64 keep 5/16 of a block linear's bf16 bytes
+    q4_bytes = src_bytes - 11 / 16 * core
+    # The card machine takes at most 45 GiB of disk writes a call (deleted files count) and phase 10 writes
+    # ~15 GiB, so every file of this phase lives in RAM-backed /dev/shm; the peak is the source, the snapshot,
+    # and the q4 file with its unified bundle (the W8A8 file, written after those are gone, is smaller).
+    ram_plan = src_bytes + nbytes + 2 * q4_bytes + vae_bytes
+    shm = Path("/dev/shm")
+    ram_free = shutil.disk_usage(shm).free if shm.is_dir() else 0
+    print(f"  the source {src_bytes / 2**30:.2f} GiB, the VAE, upsampler and embeddings {nbytes / 2**30:.2f} GiB, "
+          f"the q4 file and its unified bundle ~{(2 * q4_bytes + vae_bytes) / 2**30:.2f} GiB: a peak of "
+          f"{ram_plan / 2**30:.2f} GiB of {ram_free / 2**30:.1f} GiB free in {shm} ({mem_available() / 2**30:.1f} "
+          "GiB of host memory available)", flush=True)
+    if ram_free < 1.05 * ram_plan + 2**30 or mem_available() < ram_plan + 16 * 2**30:
+        fail(f"phase 15 needs {ram_plan / 2**30:.2f} GiB of RAM-backed files in {shm} and 16 GiB to spare")
+    tmp = Path(tempfile.mkdtemp(prefix=".chip_smoke_convert_", dir=shm if device == "cuda" else None))
+    q4_dir, snap, src = tmp / "q4", tmp / "converted", tmp / "source-pt.safetensors"
+    try:
+        t0 = time.perf_counter()
+        save_safetensors(src, source)
+        del source
+        for name, tensors in files.items():
+            (snap / name).parent.mkdir(parents=True, exist_ok=True)
+            save_safetensors(snap / name, tensors)
+        del files
+        print(f"  (a) wrote the PyTorch checkpoint ({src.stat().st_size / 2**30:.2f} GiB) and the snapshot's VAE, "
+              f"upsampler and embeddings to {tmp} in {time.perf_counter() - t0:.2f} s", flush=True)
+        embeddings, out_file = snap / "embeddings.safetensors", snap / "ltx-2-19b-distilled.safetensors"
+
+        # (b) 4 bits and the unified bundle, into a directory that links the snapshot's VAE and upsampler;
+        # then the CLI with --profile --mem-log --trace-dir
+        q4_dir.mkdir()
+        for name in ("vae", loading.UPSAMPLER_FILE):
+            (q4_dir / name).symlink_to(snap / name)
+        q4_file = q4_dir / "ltx-2-19b-distilled.safetensors"
+        out = convert_run(["-i", str(src), "-o", str(q4_file), "--model-type", "video", "--pipeline", "distilled",
+                           "--quantize", "--report", "--unified", "--model-path", str(snap), "--device", device],
+                          "(b) convert --quantize --report --unified")
+        report = [line.strip() for line in out.splitlines() if line.startswith("  ")]
+        n_quant = sum(line.endswith(": quantized uint32") for line in report)
+        n_dense = sum(": dense bfloat16" in line for line in report)
+        sizes = {p.name: p.stat().st_size for p in (q4_file, q4_dir / "model.safetensors")}
+        print(f"  report: {n_quant} quantized (stacked over 48 layers), {n_dense} dense of {len(report)} lines; "
+              + ", ".join(f"{n} {b / 2**30:.2f} GiB" for n, b in sizes.items()), flush=True)
+        q4_json = json.dumps({"bits": 4, "group_size": 64, "mode": "affine", "predicate": "core", "dtype": "bf16"},
+                             indent=2)
+        if n_quant != 10 or n_dense + n_quant != len(report) or not report:
+            fail(f"convert report: {n_quant} quantized, {n_dense} dense of {len(report)} lines")
+        if (q4_dir / "quantization.json").read_text() != q4_json:
+            fail(f"quantization.json {(q4_dir / 'quantization.json').read_text()!r}")
+        if "Saved unified bundle" not in out or loading.unified_bundle_file(q4_dir) is None:
+            fail("convert wrote no unified bundle")
+        check_converted_q4(models, q4_dir, device)
+        trace_dir = tmp / "trace"
+        q4 = generate_from_converted(q4_dir, embeddings, tmp, fa, qmm, "q4 unified",
+                                     ["--profile", "--mem-log", "--trace-dir", str(trace_dir)], device)
+        check_launches(q4["k1"], q4["k2"], 10 * 48 * (8 + 3))
+        memory = [line for line in q4["stderr"].splitlines() if line.startswith("Memory (")]
+        if "Phase timing:" not in q4["stdout"] or [m.split(")")[0] for m in memory] != [
+                "Memory (stage1 complete", "Memory (stage2 complete"]:
+            fail(f"--profile/--mem-log: report {'Phase timing:' in q4['stdout']}, memory lines {memory}")
+        counts = trace_kernel_counts(trace_dir)
+        traced = (trace_launches(counts, "flash_fwd_kernel"), trace_launches(counts, "quant_matmul_kernel"))
+        print(f"  the trace's kernel events: {traced[0]} flash_fwd_kernel, {traced[1]} quant_matmul_kernel", flush=True)
+        if traced != (q4["k1"], q4["k2"]):
+            fail(f"the trace holds {traced} K1/K2 launches, the counters {q4['k1']}/{q4['k2']}")
+        shutil.rmtree(q4_dir)
+        shutil.rmtree(trace_dir)
+
+        # (c) W8A8 with phase 11's adapter merged first, read through resolve_transformer_file
+        out = convert_run(["-i", str(src), "-o", str(out_file), "--model-type", "video", "--pipeline", "distilled",
+                           "--w8a8", "--lora", str(adapter), "--report", "--device", device],
+                          "(c) convert --w8a8 --lora")
+        w8_json = json.dumps({"mode": "w8a8-int8", "predicate": "core", "dtype": "bf16"}, indent=2)
+        n_int8 = sum(line.strip().endswith(": w8a8 int8") for line in out.splitlines())
+        print(f"  {out_file.name} {out_file.stat().st_size / 2**30:.2f} GiB; report: {n_int8} w8a8 linears "
+              "(stacked over 48 layers)", flush=True)
+        if f"applied={pairs} skipped=0" not in out:
+            fail(f"convert --lora did not apply the adapter's {pairs} pairs")
+        if (snap / "quantization.json").read_text() != w8_json or n_int8 != 10:
+            fail(f"W8A8 quantization.json {(snap / 'quantization.json').read_text()!r}, {n_int8} int8 report lines")
+        if loading.resolve_transformer_file(snap, "distilled") != out_file or loading.unified_bundle_file(snap):
+            fail("the CLI would not read the converted W8A8 file")
+        w8 = generate_from_converted(snap, embeddings, tmp, fa, qmm, "W8A8 merged", device=device)
+        check_launches(w8["k1"], w8["k2"], 0, w8["int8"], 10 * 48 * (8 + 3))
+    finally:
+        shutil.rmtree(q4_dir, ignore_errors=True)
+        shutil.rmtree(snap, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)  # the source last
+    torch.cuda.empty_cache()
+    print(f"  phase 15 (a)-(c): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"k1_q4_cli": q4["k1"], "k2_q4_cli": q4["k2"], "k1_w8a8_cli": w8["k1"], "int8_w8a8_cli": w8["int8"]}
 
 
 # Phase 14: the resident server, prompt enhancement and the dials.
@@ -3638,6 +3966,10 @@ def main() -> int:
         print(f"full-width AV LoRA training (ltx2_av_lora.yaml, 768x512x65: 3456 video and {AV_TRAIN_T} audio tokens, "
               "the 19B AudioVideo DiT, bf16) with a ValidationSampler:", flush=True)
         av = full_width_av_training(models, fa, qmm, av_data, work)
+        print("phase 15: checkpoint conversion at full width (the dense DiT as a PyTorch checkpoint -> 4 bits with the "
+              "unified bundle, and W8A8 with phase 11's adapter merged), each converted directory through the "
+              "generate CLI, the q4 one traced:", flush=True)
+        converted = full_width_convert(models, text, fa, qmm, cond["adapter"], cond["pairs"])
         print("full-width q4 slice (the same DiT, 4 bits, group 64, core scope):", flush=True)
         quantize_full_width(models)
         drive_slice(models, text, fa, qmm, want_k2=10 * 48 * (8 + 3), profile="a warm q4 distilled run")
@@ -3668,7 +4000,8 @@ def main() -> int:
                           "audio_separate_cli": cli_train["k1_audio_separate_cli"],
                           "av_lora_training": av["k1"], "validation": av["k1_validation"],
                           "av_training_cli": cli_train["k1_av_cli"], "serve": served["k1_serve"],
-                          "serve_lora": cli_train["k1_serve_lora"], "dial_pab": served["k1_dial_pab"]},
+                          "serve_lora": cli_train["k1_serve_lora"], "dial_pab": served["k1_dial_pab"],
+                          "convert_q4_cli": converted["k1_q4_cli"], "convert_w8a8_cli": converted["k1_w8a8_cli"]},
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -3683,7 +4016,8 @@ def main() -> int:
         "path_launches": {"training_cli": cli_train["k2"], "keyframe_cli": cli_train["k2_keyframe_cli"],
                           "audio_joint_cli": cli_train["k2_audio_joint_cli"],
                           "audio_separate_cli": cli_train["k2_audio_separate_cli"],
-                          "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"]},
+                          "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"],
+                          "convert_q4_cli": converted["k2_q4_cli"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

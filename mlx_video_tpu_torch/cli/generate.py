@@ -39,8 +39,18 @@ the mp4 by ffmpeg (``--audio-filter``, ``--audio-bitrate``, default
 from the text encoder or from the embeddings file's ``audio`` and
 ``audio_neg`` entries.
 
-Flags of features the port does not have yet exit with a message that names
-them; none is ignored.
+Instrumentation, as in the JAX CLI: ``--profile`` prints the phase report
+and, with ``--mem-log``, device memory lines at the ends of the denoise
+stages; ``--trace-dir`` (or ``--metal-capture-path``; ``--metal-capture``
+alone: ``./trace``) writes a ``torch.profiler`` trace of the generation;
+``--debug`` and ``--verbose`` set ``MLX_VIDEO_DEBUG=1`` (utils/debug.py).
+The JAX CLI's no-op flags are taken as it takes them: five print a note that
+they have no effect, six (``--cfg-batch``, ``--compile``, ``--no-compile``,
+``--compile-shapeless``, ``--fp32-euler``, ``--clear-cache``) are silent, and
+``--metal-capture-phase`` is read by nothing.
+
+The options of :data:`_REFUSED` exit with a message that names them and
+what they wait for; none is ignored.
 """
 
 from __future__ import annotations
@@ -268,21 +278,16 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-# The options main() reads. Any other option of the JAX parser asks for a
-# feature the port does not have yet, and exits when it is given a value other
-# than its default.
-_PORTED = frozenset({
-    "prompt", "height", "width", "num_frames", "seed", "fps", "output_path", "auto_output_name",
-    "model_repo", "checkpoint_path", "embeddings", "stage1_steps", "stage2_steps", "tiling",
-    "video_encoder", "latents_only", "profile_json_path", "verbose", "quantize_bits", "pipeline",
-    "device", "steps", "cfg_scale", "no_cfg_batch", "image", "condition_image", "image_frame_idx",
-    "image_strength", "w8a8", "w4a8", "text_encoder_path", "negative_prompt", "lora", "lora_strength",
-    "distilled_lora", "stage2_model_repo", "stage2_dev", "video_conditioning", "reference_video",
-    "conditioning_mode", "stream", "sigma_subsample", "num_videos", "save_frames",
-    "audio", "skip_audio", "audio_mode", "audio_steps", "audio_filter", "audio_bitrate", "audio_model_repo",
-    "output_audio", "enhance_prompt", "temperature", "max_tokens", "attn_broadcast_interval", "cfg_cache_interval",
-    "teacache_threshold",
-})
+# The JAX parser's options that the port refuses, with what they wait for;
+# each exits when it is given a value other than its default.
+PARALLEL_PATHS = "the parallel paths (ROADMAP §1 queue, 'Parallelism')"
+_LEFT_OUT = "a 16 GB accelerator's memory plan or XLA's layouts, left out of the port (ROADMAP 'Leave out')"
+_REFUSED = {
+    "mesh": PARALLEL_PATHS, "sequence_parallel": PARALLEL_PATHS, "pipeline_parallel": PARALLEL_PATHS,
+    "pipeline_tensor": PARALLEL_PATHS,
+    "low_memory": _LEFT_OUT, "aux_stage_int8": _LEFT_OUT, "aux_park_device": _LEFT_OUT,
+    "no_overlap_staging": _LEFT_OUT, "optimize_layouts": _LEFT_OUT,
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -296,10 +301,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) -> list:
     """Messages for the options in ``args`` that ask for what the port does
-    not have yet."""
-    return [action.option_strings[0] for action in parser._actions
-            if action.dest not in _PORTED and action.option_strings
-            and getattr(args, action.dest, action.default) != action.default]
+    not have."""
+    return [f"{action.option_strings[0]} ({_REFUSED[action.dest]})" for action in parser._actions
+            if action.dest in _REFUSED and getattr(args, action.dest, action.default) != action.default]
+
+
+def note_ignored_flags(args: argparse.Namespace) -> None:
+    """The JAX CLI's note for each flag it takes and ignores."""
+    for flag, val in [
+        ("--enable-fp8", args.enable_fp8),
+        ("--stg-scale/--stg-blocks/--stg-mode",
+         args.stg_scale is not None or args.stg_blocks is not None or args.stg_mode),
+        ("--eval-interval", args.eval_interval is not None),
+        ("--cache-limit-gb/--memory-limit-gb", args.cache_limit_gb is not None or args.memory_limit_gb is not None),
+        ("--include-reference-in-output", args.include_reference_in_output),
+    ]:
+        if val:
+            print(f"note: {flag} has no effect on the GPU (ignored)")
 
 
 def load_embeddings(path, device=None):
@@ -396,8 +414,13 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
+    if args.debug or args.verbose:
+        os.environ["MLX_VIDEO_DEBUG"] = "1"
     if args.skip_audio:
         args.audio = False
+    if args.metal_capture and not args.trace_dir:
+        args.trace_dir = "trace"
+    note_ignored_flags(args)
     if args.condition_image:
         args.image.append([args.condition_image, str(args.image_frame_idx), str(args.image_strength)])
     if args.reference_video:
@@ -407,6 +430,7 @@ def main(argv=None) -> None:
     from mlx_video_tpu_torch.lora import LoraSpec, merge_lora_into_params
     from mlx_video_tpu_torch.pipelines.generate import generate_video
     from mlx_video_tpu_torch.utils.hub import get_model_path
+    from mlx_video_tpu_torch.utils.profiling import device_trace
 
     model_path = get_model_path(args.checkpoint_path or args.model_repo)
     t0 = time.perf_counter()
@@ -447,41 +471,44 @@ def main(argv=None) -> None:
     output_path = Path(args.output_path)
     if args.auto_output_name:
         output_path = output_path.parent / f"{slugify(args.prompt)}.mp4"
-    result = generate_video(
-        models,
-        text,
-        height=args.height,
-        width=args.width,
-        num_frames=args.num_frames,
-        fps=args.fps,
-        seed=args.seed,
-        num_videos=args.num_videos,
-        stage1_steps=args.stage1_steps,
-        stage2_steps=args.stage2_steps,
-        sigma_subsample=args.sigma_subsample,
-        stage2_cfg=args.stage2_dev,
-        pipeline=args.pipeline,
-        cfg_scale=args.cfg_scale,
-        num_inference_steps=args.steps,
-        cfg_sequential=args.no_cfg_batch,
-        cfg_cache_interval=args.cfg_cache_interval,
-        attn_broadcast_interval=args.attn_broadcast_interval,
-        teacache_threshold=args.teacache_threshold,
-        images=[_cond_arg(v) for v in args.image],
-        video_conditionings=[_cond_arg(v) for v in args.video_conditioning],
-        output_path=None if args.latents_only else output_path,
-        tiling=args.tiling,
-        stream=args.stream,
-        decode_latents_only=args.latents_only,
-        video_encoder=args.video_encoder,
-        dtype=models.transformer.video.scale_shift_table.dtype,  # the dtype it was loaded in
-        audio=args.audio,
-        audio_mode=args.audio_mode,
-        audio_steps=args.audio_steps,
-        audio_filter=args.audio_filter,
-        audio_bitrate=args.audio_bitrate or os.getenv("LTX_AUDIO_BITRATE", "256k"),
-        output_audio_path=args.output_audio,
-    )
+    with device_trace(args.trace_dir, device):
+        result = generate_video(
+            models,
+            text,
+            height=args.height,
+            width=args.width,
+            num_frames=args.num_frames,
+            fps=args.fps,
+            seed=args.seed,
+            num_videos=args.num_videos,
+            stage1_steps=args.stage1_steps,
+            stage2_steps=args.stage2_steps,
+            sigma_subsample=args.sigma_subsample,
+            stage2_cfg=args.stage2_dev,
+            pipeline=args.pipeline,
+            cfg_scale=args.cfg_scale,
+            num_inference_steps=args.steps,
+            cfg_sequential=args.no_cfg_batch,
+            cfg_cache_interval=args.cfg_cache_interval,
+            attn_broadcast_interval=args.attn_broadcast_interval,
+            teacache_threshold=args.teacache_threshold,
+            images=[_cond_arg(v) for v in args.image],
+            video_conditionings=[_cond_arg(v) for v in args.video_conditioning],
+            output_path=None if args.latents_only else output_path,
+            tiling=args.tiling,
+            stream=args.stream,
+            decode_latents_only=args.latents_only,
+            video_encoder=args.video_encoder,
+            dtype=models.transformer.video.scale_shift_table.dtype,  # the dtype it was loaded in
+            audio=args.audio,
+            audio_mode=args.audio_mode,
+            audio_steps=args.audio_steps,
+            audio_filter=args.audio_filter,
+            audio_bitrate=args.audio_bitrate or os.getenv("LTX_AUDIO_BITRATE", "256k"),
+            output_audio_path=args.output_audio,
+            profile=args.profile,
+            mem_log=args.mem_log,
+        )
 
     if args.save_frames and result.video is not None:
         save_frames(result.video, output_path)

@@ -35,7 +35,7 @@ it (grad mode is thread-local).
 
 Refused by name, with the ROADMAP item they wait for: ``--mesh``,
 ``--pipeline-parallel``, ``--pipeline-tensor``, ``--sequence-parallel``
-(ROADMAP §1 item 10, the parallel paths) and ``--aux-park`` (a 16 GB
+(the parallel paths, ROADMAP §1 queue) and ``--aux-park`` (a 16 GB
 accelerator's memory plan, left out of the port). Differences from the JAX
 server, on purpose: ``--warmup`` runs one warm request (the port compiles no
 per-shape program, so the JAX server's second, streamed warm request has
@@ -60,14 +60,16 @@ from typing import Optional
 
 import torch
 
+from mlx_video_tpu_torch.cli.generate import PARALLEL_PATHS
+
 _PIPELINES = ("distilled", "dev")
 
 # The JAX server's options that the port refuses, with what they wait for.
 _REFUSED = {
-    "mesh": "ROADMAP §1 item 10 (parallel paths)",
-    "pipeline_parallel": "ROADMAP §1 item 10 (parallel paths)",
-    "pipeline_tensor": "ROADMAP §1 item 10 (parallel paths)",
-    "sequence_parallel": "ROADMAP §1 item 10 (parallel paths)",
+    "mesh": PARALLEL_PATHS,
+    "pipeline_parallel": PARALLEL_PATHS,
+    "pipeline_tensor": PARALLEL_PATHS,
+    "sequence_parallel": PARALLEL_PATHS,
     "aux_park": "a 16 GB accelerator's memory plan, left out of the port (ROADMAP 'Leave out')",
 }
 

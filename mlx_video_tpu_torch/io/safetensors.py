@@ -13,7 +13,8 @@ ways.
 
 The reader maps the file once and copies one tensor at a time out of the map,
 straight to its target device, so a multi-GB checkpoint is never held twice
-in host memory.
+in host memory; on opening it hints the page cache to read the file ahead
+(io/prefetch.py:advise_willneed).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from mlx_video_tpu_torch.io.prefetch import advise_willneed
 
 _DTYPES = {
     "F64": torch.float64,
@@ -67,6 +70,7 @@ class SafetensorsReader:
 
     def __init__(self, path: Union[str, Path]):
         self.path = Path(path)
+        advise_willneed(self.path)
         with open(self.path, "rb") as f:
             header, self._data_base = _read_header(f)
         self.metadata: Dict[str, str] = header.pop("__metadata__", {}) or {}

@@ -209,12 +209,18 @@ def _flatten(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
     return flat
 
 
+def native_tensors(model: LTXModel) -> Dict[str, torch.Tensor]:
+    """The model's tensors in the JAX package's native layout (stacked
+    blocks, ``(in, out)`` linears, stored dtypes, uint32 words) under their
+    flattened tree names, in the JAX writer's order; on the model's device."""
+    return _flatten(state_dict_to_jax_layout(model.state_dict()))
+
+
 def save_dit_params(path: Union[str, Path], model: LTXModel, metadata: Optional[dict] = None) -> None:
-    """Save the model in the JAX package's native layout (stacked blocks,
-    ``(in, out)`` linears, stored dtypes, uint32 words); the file is byte for
-    byte what the JAX ``save_dit_params`` writes for the same parameters."""
-    tensors = _flatten(state_dict_to_jax_layout(model.state_dict()))
-    save_safetensors(path, tensors, metadata={"format": NATIVE_FORMAT, **(metadata or {})})
+    """Save the model in the native layout (:func:`native_tensors`); the file
+    is byte for byte what the JAX ``save_dit_params`` writes for the same
+    parameters."""
+    save_safetensors(path, native_tensors(model), metadata={"format": NATIVE_FORMAT, **(metadata or {})})
 
 
 def load_native_params(

@@ -80,7 +80,6 @@ from __future__ import annotations
 
 import os
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from enum import Enum
 from pathlib import Path
@@ -368,18 +367,6 @@ def _check_params_dtype(models: ModelBundle, dtype) -> None:
             )
 
 
-@contextmanager
-def _phase(times: Dict[str, float], name: str, device: torch.device):
-    """Wall time of a phase, ended by a device synchronise on CUDA; sends
-    the ``phase`` event."""
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = time.perf_counter() - t0
-    profiling.ui_event({"kind": "phase", "phase": name, "seconds": times[name]})
-
-
 class _Previews:
     """The decode's preview JPEGs (see the module docstring): one encode a
     preview feeds the file and the sinks."""
@@ -479,6 +466,8 @@ def generate_video(
     audio_filter: Optional[str] = None,
     audio_bitrate: str = "256k",
     output_audio_path: Optional[Union[str, Path]] = None,
+    profile: bool = False,
+    mem_log: bool = False,
 ) -> GenerateResult:
     """Generate videos with the distilled two-stage pipeline (``distilled``,
     ``keyframe``, ``ic_lora``) or the dev pipeline.
@@ -517,6 +506,11 @@ def generate_video(
     ``cfg_cache_interval`` trade quality for speed in each video denoise
     (pipelines/denoise.py; not with joint audio). ``progress_callback(step,
     total)`` is called after every video denoise step.
+
+    Phase seconds (``GenerateResult.phase_seconds``) end with a device
+    synchronise; ``profile`` prints the phase report before returning, and
+    ``profile`` or ``mem_log`` prints the device memory line at "stage1
+    complete" and "stage2 complete" (distilled) or "denoise complete" (dev).
     """
     pipeline = PipelineType(pipeline)
     if seeds is not None:
@@ -554,7 +548,7 @@ def generate_video(
     vid_seeds = [int(s) for s in seeds] if seeds is not None else [seed + i for i in range(num_videos)]
     generators = [generator] if generator is not None else [
         torch.Generator(device=device).manual_seed(s) for s in vid_seeds]
-    times: Dict[str, float] = {}
+    timer = profiling.PhaseTimer(device)
     full_steps: Dict[str, List[int]] = {}
     dials = dict(attn_broadcast_interval=attn_broadcast_interval, teacache_threshold=teacache_threshold,
                  progress_callback=progress_callback)
@@ -608,7 +602,7 @@ def generate_video(
     if dev:
         conds = []
         if images:
-            with _phase(times, "cond_encode", device):
+            with timer.phase("cond_encode"):
                 conds = _encode_conditionings(models, images, height, width, num_frames, dtype)
         sigmas = ltx2_scheduler(steps=num_inference_steps, num_tokens=latent_frames * latent_h * latent_w)
         shape = (num_videos, latent_channels, latent_frames, latent_h, latent_w)
@@ -616,12 +610,13 @@ def generate_video(
         latents = noise(shape) if state is None else state.latent
         if joint_audio:
             joint = joint_audio_args(noise(audio_shape))
-        with _phase(times, "dev_denoise", device):
+        with timer.phase("dev_denoise"):
             latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h, latent_w), context, sigmas,
                 neg_context=neg, cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential, **joint,
                 cfg_cache_interval=cfg_cache_interval, full_steps=steps_of("dev_denoise"), **dials,
             )
+        profiling.log_memory("denoise complete", profile or mem_log, device=device)
     else:
         if not 1 <= stage1_steps <= len(STAGE_1_SIGMAS) - 1:
             raise ValueError(f"stage1_steps must be between 1 and {len(STAGE_1_SIGMAS) - 1}.")
@@ -634,13 +629,13 @@ def generate_video(
 
         s1_conds = s2_conds = []
         if images or video_conditionings:
-            with _phase(times, "cond_encode", device):
+            with timer.phase("cond_encode"):
                 s1_conds = _encode_conditionings(models, images, height // 2, width // 2, num_frames, dtype,
                                                  videos=video_conditionings, mode=conditioning_mode)
                 s2_conds = _encode_conditionings(models, images, height, width, num_frames, dtype,
                                                  mode=conditioning_mode)
 
-        with _phase(times, "stage1_denoise", device):
+        with timer.phase("stage1_denoise"):
             shape1 = (num_videos, latent_channels, latent_frames, latent_h // 2, latent_w // 2)
             state1 = _conditioned_state(zeros(shape1), s1_conds, noise, s1_sigmas[0]) if s1_conds else None
             latents = noise(shape1) if state1 is None else state1.latent
@@ -650,11 +645,12 @@ def generate_video(
                 models.transformer, config, latents, positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
                 state=state1, **joint, full_steps=steps_of("stage1_denoise"), **dials,
             )
+        profiling.log_memory("stage1 complete", profile or mem_log, device=device)
 
-        with _phase(times, "upsample", device):
+        with timer.phase("upsample"):
             latents = upsample_latents(models.upsampler, latents, models.latents_mean, models.latents_std)
 
-        with _phase(times, "stage2_denoise", device):
+        with timer.phase("stage2_denoise"):
             sigma0 = s2_sigmas[0]
             state2 = _conditioned_state(latents, s2_conds, noise, sigma0) if s2_conds else None
             latents = noise(latents.shape) * sigma0 + latents * (1.0 - sigma0) if state2 is None else state2.latent
@@ -669,6 +665,7 @@ def generate_video(
                 neg_context=neg if stage2_cfg else None, cfg_scale=cfg_scale, state=state2,
                 cfg_sequential=cfg_sequential, **joint, full_steps=steps_of("stage2_denoise"), **dials,
             )
+        profiling.log_memory("stage2 complete", profile or mem_log, device=device)
 
     if separate_audio:
         if models.audio_transformer is None:
@@ -677,7 +674,7 @@ def generate_video(
         if a_context is None:
             raise ValueError("Separate audio requires audio text embeddings")
         a_init = noise(audio_shape)
-        with _phase(times, "audio_denoise", device):
+        with timer.phase("audio_denoise"):
             audio_latents = dn.denoise_audio_only(
                 models.audio_transformer, models.audio_transformer_config or config, a_init, audio_positions,
                 a_context, subsample_sigmas(STAGE_1_SIGMAS, audio_steps, "farthest"), audio_neg_context=a_neg,
@@ -689,8 +686,10 @@ def generate_video(
     latents_np = latents.float().cpu().numpy()
     audio_np = audio_latents.float().cpu().numpy() if audio else None
     if decode_latents_only:
-        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=times, audio_latents=audio_np,
-                              full_steps=full_steps)
+        if profile:
+            timer.report()
+        return GenerateResult(video_path=None, latents=latents_np, phase_seconds=timer.phases,
+                              audio_latents=audio_np, full_steps=full_steps)
 
     video_paths: List[Optional[Path]] = [None] * num_videos
     if output_path is not None:
@@ -704,7 +703,7 @@ def generate_video(
     previews = _Previews()
     # frames go on beyond the writer only when someone reads the events or previews
     hand_on = previews.wanted() or os.environ.get("MLX_VIDEO_UI_JSON") == "1"
-    with _phase(times, "vae_decode", device):
+    with timer.phase("vae_decode"):
         for i, path in enumerate(video_paths):
             writer = None if path is None else media.VideoWriter(path, out_w, out_h, fps, encoder=video_encoder)
             previews.reset()
@@ -732,27 +731,29 @@ def generate_video(
                 if writer is not None:
                     writer.close()
     video = decoded[0] if num_videos == 1 else np.concatenate(decoded, axis=0)
-    result = GenerateResult(video_path=video_paths[0], latents=latents_np, video=video, phase_seconds=times,
+    result = GenerateResult(video_path=video_paths[0], latents=latents_np, video=video, phase_seconds=timer.phases,
                             video_paths=video_paths if num_videos > 1 and output_path is not None else None,
                             audio_latents=audio_np, full_steps=full_steps)
     if audio and models.audio_decoder is not None:
         _decode_and_mux_audio(models, audio_latents, result, output_path, output_audio_path, audio_filter,
-                              audio_bitrate, device)
+                              audio_bitrate, timer)
     elif audio and output_path is not None:
         video_paths[0].rename(output_path)  # audio asked for, none decoded: the video still lands there
         result.video_path = output_path
+    if profile:
+        timer.report()
     return result
 
 
 def _decode_and_mux_audio(models: ModelBundle, audio_latents: torch.Tensor, result: GenerateResult,
                           output_path: Optional[Path], output_audio_path, audio_filter: Optional[str],
-                          audio_bitrate: str, device: torch.device) -> None:
+                          audio_bitrate: str, timer: profiling.PhaseTimer) -> None:
     """The ``audio_decode`` phase (latents -> fp32 waveform, the WAV) and,
     with an mp4, the ``audio_mux`` phase: ffmpeg muxes the WAV into the
     silent video at ``result.video_path``, or without ffmpeg that video
     becomes the output. Fills ``result``'s audio fields."""
     rate = models.vocoder_config.output_sample_rate
-    with _phase(result.phase_seconds, "audio_decode", device):
+    with timer.phase("audio_decode"):
         wav = decode_audio(audio_latents.float(), models.audio_decoder, models.audio_decoder_config,
                            models.vocoder, models.vocoder_config)
         result.audio = wav.cpu().numpy()
@@ -764,7 +765,7 @@ def _decode_and_mux_audio(models: ModelBundle, audio_latents: torch.Tensor, resu
     if output_path is None:
         return
     silent = result.video_path
-    with _phase(result.phase_seconds, "audio_mux", device):
+    with timer.phase("audio_mux"):
         if media.mux_audio(silent, wav_path, output_path, audio_filter=audio_filter, audio_bitrate=audio_bitrate,
                            audio_sample_rate=rate):
             silent.unlink(missing_ok=True)

@@ -4,7 +4,7 @@ quantization metadata and video IO.
 Counterpart of mlx_video_tpu/trainer/aux.py: ``ProgressStats``,
 ``TrainingProgress`` and ``print_config`` are the port's own copies,
 unchanged in behaviour; ``read_video`` and ``save_video`` run on the port's
-io/media.py; ``log_device_memory`` reads the CUDA allocator;
+io/media.py; ``log_device_memory`` prints utils/profiling.py's memory line;
 ``set_seed`` seeds torch and returns a ``torch.Generator``;
 ``read_quantization_metadata`` is loading.py's. Captioning (a BLIP model
 from the hub) and the hub push need the network and are not ported:
@@ -69,13 +69,10 @@ def print_config(cfg, file=None) -> None:
 
 
 def log_device_memory(stage: str = "") -> None:
-    """Print the CUDA allocator's current and peak bytes (nothing without
-    CUDA)."""
-    if not torch.cuda.is_available():
-        return
-    gib = 2**30
-    print(f"[memory] {stage}: {torch.cuda.memory_allocated() / gib:.3f} GiB allocated, "
-          f"peak {torch.cuda.max_memory_allocated() / gib:.3f} GiB", flush=True)
+    """utils/profiling.py's memory line, as the JAX function."""
+    from mlx_video_tpu_torch.utils.profiling import log_memory
+
+    log_memory(stage)
 
 
 def set_seed(seed: int) -> torch.Generator:

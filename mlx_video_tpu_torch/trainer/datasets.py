@@ -7,11 +7,13 @@ legacy ``latent_*`` / ``condition_*`` naming, patchified-latent layout
 normalization, same-shape batching and the shuffled batch iterator, with the
 same batch order for the same seed. Samples are host numpy arrays; the
 strategies move them to the device. Safetensors files are read through the
-port's reader. The JAX package's background file prefetcher is not ported.
+port's reader, or, while ``iter_batches`` prefetches, parsed from the bytes
+that io/prefetch.py's pool read ahead on its threads.
 """
 
 from __future__ import annotations
 
+import io
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
@@ -19,7 +21,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+from mlx_video_tpu_torch.io.safetensors import SafetensorsReader, parse_safetensors_bytes
 
 PRECOMPUTED_DIR_NAME = ".precomputed"
 
@@ -28,11 +30,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _load_any(path: Path) -> Dict[str, Any]:
+def _load_any(path: Path, raw: Optional[bytes] = None) -> Dict[str, Any]:
+    """One sample file's arrays, from the file or from ``raw``, its bytes
+    already read."""
     if path.suffix == ".npz":
-        with np.load(path) as data:  # arrays only: no pickled objects from a data directory
+        with np.load(path if raw is None else io.BytesIO(raw)) as data:  # arrays only: no pickled objects
             return {k: data[k] for k in data.files}
     if path.suffix == ".safetensors":
+        if raw is not None:  # copies: the arrays must not view the fetched buffer
+            return {k: np.array(_to_numpy(t)) for k, t in parse_safetensors_bytes(raw).items()}
         with SafetensorsReader(path) as r:
             return {k: _to_numpy(r.get(k)) for k in r.keys()}
     raise ValueError(f"Unsupported file type: {path}")
@@ -189,6 +195,14 @@ class PrecomputedDataset:
     def __len__(self) -> int:
         return len(next(iter(self.sample_files.values())))
 
+    # the background reader (io/prefetch.py:FilePrefetcher) while iter_batches prefetches
+    _fetcher = None
+
+    def sample_paths(self, index: int) -> List[Path]:
+        """The files of one sample, one a data source."""
+        return [self.source_paths[dir_name] / self.sample_files[out_key][index]
+                for dir_name, out_key in self.data_sources.items()]
+
     def latent_shape(self, index: int) -> Tuple[int, ...]:
         """The (C, F, H, W) latent shape of one sample, from the safetensors
         header where it can; cached (batching asks for every sample's)."""
@@ -218,7 +232,8 @@ class PrecomputedDataset:
     def __getitem__(self, index: int) -> Batch:
         result: Dict[str, Dict[str, Any]] = {}
         for dir_name, out_key in self.data_sources.items():
-            result[out_key] = _load_any(self.source_paths[dir_name] / self.sample_files[out_key][index])
+            path = self.source_paths[dir_name] / self.sample_files[out_key][index]
+            result[out_key] = _load_any(path, raw=None if self._fetcher is None else self._fetcher.get(path))
         latents = result.get("latents")
         if latents is not None:
             latents = normalize_video_latents(latents)
@@ -293,9 +308,31 @@ def iter_batches(
     batch_size: int,
     shuffle: bool = True,
     seed: int = 0,
+    prefetch: int = 2,
+    prefetch_threads: int = 4,
     skip: int = 0,
 ) -> Iterator[Batch]:
     """One epoch of collated batches; ``skip`` drops the first batches by
-    index alone (no file reads), for an exact resume."""
-    for chunk in _batch_index_groups(dataset, batch_size, shuffle, seed)[skip:]:
+    index alone (no file reads), for an exact resume. On a dataset with
+    ``sample_paths`` (PrecomputedDataset) the files of the current batch and
+    the next ``prefetch`` ones are read on ``prefetch_threads`` background
+    threads (io/prefetch.py), so the reads overlap the training step; the
+    batches are the same bytes either way."""
+    batches = _batch_index_groups(dataset, batch_size, shuffle, seed)[skip:]
+    if prefetch > 0 and hasattr(dataset, "sample_paths"):
+        from mlx_video_tpu_torch.io.prefetch import FilePrefetcher
+
+        with FilePrefetcher(prefetch_threads) as fetcher:
+            dataset._fetcher = fetcher
+            try:
+                for bi, chunk in enumerate(batches):
+                    for ahead in batches[bi : bi + 1 + prefetch]:
+                        for idx in ahead:
+                            for path in dataset.sample_paths(idx):
+                                fetcher.submit(path)
+                    yield collate_batches([dataset[j] for j in chunk])
+            finally:
+                dataset._fetcher = None
+        return
+    for chunk in batches:
         yield collate_batches([dataset[j] for j in chunk])

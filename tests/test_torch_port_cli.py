@@ -160,10 +160,12 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
     (["--trace-dir", "x"], "--trace-dir"),
 ])
 def test_unported_flags_exit_with_their_names(monkeypatch, tmp_path, emb_file, flags, named):
-    """A flag of a feature the port lacks exits naming it; the dials and the
-    enhancement flags, ported since PR 15, are taken and the run goes on (as
-    in the JAX CLI, --enhance-prompt does nothing on --embeddings)."""
-    if named.lstrip("-").replace("-", "_") in cli._PORTED:
+    """A flag of a feature the port lacks exits naming it; the dials, the
+    enhancement flags and the instrumentation flags are taken and the run
+    goes on (as in the JAX CLI, --enhance-prompt does nothing on
+    --embeddings; a trace lands under the working directory)."""
+    monkeypatch.chdir(tmp_path)
+    if named.lstrip("-").replace("-", "_") not in cli._REFUSED:
         assert _run_main(monkeypatch, tmp_path, emb_file, _tiny_bundle(), flags).stat().st_size > 0
         return
     with pytest.raises(SystemExit, match=named):
@@ -295,7 +297,7 @@ def test_parser_keeps_the_jax_flag_names():
     ours = {a for action in cli.build_parser()._actions for a in action.option_strings}
     theirs = {a for action in jax_parser()._actions for a in action.option_strings}
     assert ours - theirs == {"--device"} and theirs <= ours
-    assert cli._PORTED - {"device"} <= {action.dest for action in jax_parser()._actions}
+    assert set(cli._REFUSED) <= {action.dest for action in jax_parser()._actions}
 
 
 @pytest.mark.parametrize("key, shape", [("video", (1, 8, 48)), ("video_prompt_embeds", (8, 48))])

@@ -354,3 +354,89 @@ def test_trainer_aux_copy(part, tmp_path, capsys):
         np.testing.assert_array_equal(outs[1], outs[0])
     else:
         assert outs[0] == outs[1] and outs[0]
+
+
+@pytest.mark.parametrize("part", ["psnr", "per_frame_psnr", "compare_tensors", "main"])
+def test_compare_latents_copy(part, tmp_path, capsys):
+    """tools/compare_latents.py: the same numbers and the same printed text
+    (``main`` on two files written by the JAX writer, bf16 among them)."""
+    import ml_dtypes
+
+    from mlx_video_tpu.io.safetensors import save_safetensors
+    from mlx_video_tpu.tools import compare_latents as jcl
+    from mlx_video_tpu_torch.tools import compare_latents as tcl
+
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(1, 4, 3, 5, 6)).astype(np.float32)
+    b = a + rng.normal(size=a.shape).astype(np.float32) * 0.01
+    if part == "psnr":
+        for x, y, rng_ in ((a, b, None), (a, b, 2.0), (a, a, None)):
+            assert tcl.psnr(x, y, rng_) == jcl.psnr(x, y, rng_)
+        return
+    if part == "per_frame_psnr":
+        np.testing.assert_array_equal(tcl.per_frame_psnr(a, b), jcl.per_frame_psnr(a, b))
+        np.testing.assert_array_equal(tcl.per_frame_psnr(a, b, frame_axis=3), jcl.per_frame_psnr(a, b, frame_axis=3))
+        return
+    tensors_a = {"latents": a, "w": rng.normal(size=(4, 4)).astype(np.float32), "only_a": np.ones(2, np.float32),
+                 "shape": np.zeros((2, 3), np.float32), "half": rng.normal(size=(3, 3)).astype(ml_dtypes.bfloat16)}
+    tensors_b = {"latents": b, "w": tensors_a["w"] * 1.001, "only_b": np.ones(2, np.float32),
+                 "shape": np.zeros((3, 2), np.float32), "half": tensors_a["half"]}
+    outs = []
+    for mod in (jcl, tcl):
+        if part == "compare_tensors":
+            worst = mod.compare_tensors({k: np.asarray(v, np.float32) for k, v in tensors_a.items()},
+                                        {k: np.asarray(v, np.float32) for k, v in tensors_b.items()})
+            outs.append((capsys.readouterr().out, worst))
+        else:
+            save_safetensors(tmp_path / "a.safetensors", tensors_a)
+            save_safetensors(tmp_path / "b.safetensors", tensors_b)
+            mod.main([str(tmp_path / "a.safetensors"), str(tmp_path / "b.safetensors"), "--per-frame"])
+            outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "only in A" in str(outs[0]) and "SHAPE MISMATCH" in str(outs[0])
+
+
+@pytest.mark.parametrize("case", [
+    ("bilateral_filter", {}), ("bilateral_filter", {"d": 7, "sigma_color": 30, "sigma_space": 20}),
+    ("gaussian_blur", {}), ("gaussian_blur", {"kernel_size": 5}), ("unsharp_mask", {"amount": 0.5}),
+    ("remove_grid_frequency", {}), ("reduce_grid_artifacts:bilateral", {"strength": 1.0}),
+    ("reduce_grid_artifacts:gaussian", {"strength": 0.6}), ("reduce_grid_artifacts:frequency", {"strength": 0.3}),
+])
+def test_postprocess_copy(case):
+    """postprocess.py: each filter on a seeded uint8 frame (a 3-frame video
+    for reduce_grid_artifacts) gives the same bytes."""
+    from mlx_video_tpu import postprocess as jpost
+    from mlx_video_tpu_torch import postprocess as tpost
+
+    name, kw = case
+    rng = np.random.default_rng(9)
+    frame = rng.integers(0, 256, size=(40, 48, 3), dtype=np.uint8)
+    if name.startswith("reduce_grid_artifacts"):
+        video = rng.integers(0, 256, size=(3, 32, 40, 3), dtype=np.uint8)
+        method = name.split(":")[1]
+        got, ref = (mod.reduce_grid_artifacts(video, method=method, **kw) for mod in (tpost, jpost))
+    else:
+        got, ref = (getattr(mod, name)(frame, **kw) for mod in (tpost, jpost))
+    assert got.dtype == ref.dtype == np.uint8 and got.tobytes() == ref.tobytes()
+    with pytest.raises(ValueError, match="Unknown method"):
+        tpost.reduce_grid_artifacts(frame[None], method="median")
+
+
+def test_convert_parser_copy(monkeypatch):
+    """convert.py's flags as the JAX converter's (whose parser lives inside
+    its main), plus --device."""
+    from mlx_video_tpu import convert as jconvert
+    from mlx_video_tpu_torch import convert as tconvert
+
+    seen = []
+
+    def capture(parser, args=None, namespace=None):
+        seen.append(parser)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(SystemExit):
+        jconvert.main([])
+    monkeypatch.undo()
+    ported = _flags(tconvert.build_parser())
+    assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")
+    assert ported == _flags(seen[0])

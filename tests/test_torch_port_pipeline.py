@@ -206,7 +206,9 @@ assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "ml
         "mlx_video_tpu_torch.trainer.validation_sampler", "mlx_video_tpu_torch.trainer.model_loader",
         "mlx_video_tpu_torch.models.ltx.audio_vae.processing", "mlx_video_tpu_torch.serve",
         "mlx_video_tpu_torch.cli.serve", "mlx_video_tpu_torch.enhance", "mlx_video_tpu_torch.cli.enhance",
-        "mlx_video_tpu_torch.utils.profiling"} <= set(sys.modules)
+        "mlx_video_tpu_torch.utils.profiling", "mlx_video_tpu_torch.convert", "mlx_video_tpu_torch.cli.convert",
+        "mlx_video_tpu_torch.generate_dev", "mlx_video_tpu_torch.io.prefetch", "mlx_video_tpu_torch.utils.debug",
+        "mlx_video_tpu_torch.tools.compare_latents", "mlx_video_tpu_torch.postprocess"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
@@ -295,6 +297,18 @@ with tempfile.TemporaryDirectory() as tmp:
     save_dit_params(f"{tmp}/q4.safetensors", models.transformer)
     models.transformer = load_dit_params(f"{tmp}/q4.safetensors", cfg, dtype=torch.float32, device="cpu")
 assert models.transformer.blocks[0].ff.proj_in.bits == 4
+# convert: the dense tiny DiT as a native source -> a 4-bit file with its report, unified; read through the prefetcher
+import json
+from mlx_video_tpu_torch.convert import main as convert_main
+from mlx_video_tpu_torch.io.prefetch import FilePrefetcher
+with tempfile.TemporaryDirectory() as tmp:
+    save_dit_params(f"{tmp}/src.safetensors", init_ltx_params(cfg, g, device="cpu", dtype=torch.float32))
+    with open(f"{tmp}/cfg.json", "w") as f:
+        json.dump(cfg.to_dict(), f)
+    convert_main(["-i", f"{tmp}/src.safetensors", "-o", f"{tmp}/out/ltx-2-19b-distilled.safetensors", "--model-type",
+                  "video", "--config", f"{tmp}/cfg.json", "--quantize", "--unified", "--report", "--device", "cpu"])
+    with FilePrefetcher(2) as fetcher:
+        assert fetcher.is_native and fetcher.get(f"{tmp}/out/quantization.json").startswith(b"{")
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
                      width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
 assert res.video.shape == (1, 3, 9, 64, 64)

@@ -639,7 +639,7 @@ def test_main_refuses_the_unported_flags_by_name(flag):
     with pytest.raises(SystemExit) as info:
         tserve.main(["--model-repo", "x", *flag])
     msg = str(info.value)
-    assert flag[0] in msg and ("ROADMAP §1 item 10" in msg or "16 GB" in msg)
+    assert flag[0] in msg and ("the parallel paths" in msg or "16 GB" in msg)
 
 
 def test_main_needs_cuda_unless_told_cpu(monkeypatch):
