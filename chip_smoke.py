@@ -368,14 +368,40 @@ Phases, in order; any failure exits non-zero before the last line:
    quant_matmul_kernel launches; the q4 files deleted. (c) --w8a8 --lora
    (phase 11's rank-32 adapter) on the same source, no --unified (the CLI
    then reads ltx-2-19b-distilled.safetensors): "[LoRA] ... applied=384
-   skipped=0", JAX's W8A8 quantization.json text, and the CLI run gives 528
-   K1, 0 K2, 5280 int8 products and an mp4; everything deleted, the source
+   skipped=0", JAX's W8A8 quantization.json text, and the CLI run (with
+   --mesh 1,1,1, no launcher: "Sharded transformer over mesh" printed)
+   gives 528 K1, 0 K2, 5280 int8 products and an mp4; everything deleted, the source
    last. (d) phase 8's and 13 (c)'s training runs read their files through
    io/prefetch.py's native FilePrefetcher (the reads counted).
-Phases 7-15 print phase times and peak device memory. Every profile records
+16. sharded generation (parallel/) on the one card, right after 7a's dense
+   run, on its resident DiT. (a) NCCL at world size 1 in this process
+   (torchrun's variables set here, a free port on 127.0.0.1), a (1, 1, 1)
+   DeviceMesh and two NCCL collectives; generate_video at config 2 with
+   mesh (1, 1, 1), with mesh and sequence_parallel, and with
+   pipeline_parallel=1: each run's latents bitwise 7a's, exactly 528 K1
+   each; then, with the variables unset, the CLI's --mesh 1,1,1 mesh
+   (no launcher: a world-1 NCCL group of this process, an in-memory store)
+   and one collective; phase 15 (c)'s CLI run takes --mesh 1,1,1. (b) the
+   ring's rank-local loop at the config-3 self-attention
+   (2, 5184, 32, 128) bf16 over n = 2, 4, 8 virtual ranks (threads over the
+   collective layer's in-process form): exactly n^2 K1 with lse; rel L2 <=
+   1e-2 against K1 on the whole sequence and against the plain ring on the
+   card; the ring's median CUDA-event time (host-bound: the virtual ranks
+   take turns) and its device time by kernel against K1 on the whole
+   sequence; K1 alone at a rank's tile beside its plain version and SDPA's
+   forward. (c) a one-block model of the resident DiT's first block and
+   modality tensors at stage 2's 1280 tokens, shard_params over tensor =
+   2 and 4 virtual ranks, dense, q4 (K2 on the sharded words: 10T launches)
+   and W8A8 (the all-reduced absmax: 10T int8 products); every rank's output
+   rel L2 <= 1e-2 against the unsharded form on the card; K2 at a tensor
+   rank's feed-forward words beside its plain version and cuBLAS on the
+   dequantized weight. A failed NCCL
+   init, collective or launch ends the phase. ``python3 chip_smoke.py
+   --parallel-only`` runs 1, 2, the full-width models, 7a and 16 alone.
+Phases 7-16 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
-1-7a, 11, 14 (b)-(d) and (f), 12, 8, 9a, 9b with 13 (a) and 14 (a), 13 (b),
+1-7a, 16, 11, 14 (b)-(d) and (f), 12, 8, 9a, 9b with 13 (a) and 14 (a), 13 (b),
 15, 9, 10 with 13 (c) and 14 (e). Last: the kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
@@ -1531,7 +1557,7 @@ def drive_slice(models, text, fa, qmm, want_k2: int, want_int8: int = 0, output_
     if profile:
         with profiled(profile):
             run(None)
-    return {"k1": k1, "k2": k2, "int8": int8, "video_path": res.video_path}
+    return {"k1": k1, "k2": k2, "int8": int8, "video_path": res.video_path, "latents": res.latents}
 
 
 # A narrow VAE encoder: the default's five stages at 128 channels, one res
@@ -3398,8 +3424,12 @@ def full_width_convert(models, text, fa, qmm, adapter: Path, pairs: int, device:
             fail(f"W8A8 quantization.json {(snap / 'quantization.json').read_text()!r}, {n_int8} int8 report lines")
         if loading.resolve_transformer_file(snap, "distilled") != out_file or loading.unified_bundle_file(snap):
             fail("the CLI would not read the converted W8A8 file")
-        w8 = generate_from_converted(snap, embeddings, tmp, fa, qmm, "W8A8 merged", device=device)
+        # with --mesh 1,1,1 and no launcher: the CLI joins a world-1 group of its own (phase 16)
+        w8 = generate_from_converted(snap, embeddings, tmp, fa, qmm, "W8A8 merged", extra=("--mesh", "1,1,1"),
+                                     device=device)
         check_launches(w8["k1"], w8["k2"], 0, w8["int8"], 10 * 48 * (8 + 3))
+        if "Sharded transformer over mesh {'data': 1, 'fsdp': 1, 'tensor': 1}" not in w8["stdout"]:
+            fail("the W8A8 CLI run with --mesh 1,1,1 did not shard its transformer")
     finally:
         shutil.rmtree(q4_dir, ignore_errors=True)
         shutil.rmtree(snap, ignore_errors=True)
@@ -3825,6 +3855,283 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
     return {"k1_serve_lora": counts[0], "k2_serve_lora": counts[1], "lora_added": added, "lora_fp32": fp32_bytes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: sharded generation (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+# (b)'s shape: the config-3 self-attention, split over n virtual ranks
+RING_SHAPE = (2, 5184, 32, 128)
+RING_SIZES = (2, 4, 8)
+RING_BAR = 1e-2  # rel L2 of the ring's output against K1 on the whole sequence (PERF.md section 2)
+TP_BAR = 1e-2  # rel L2 of a sharded block against the unsharded one, each form (PERF.md section 2)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_world_one(models, text, fa, direct_latents) -> dict:
+    """(a) NCCL at world size 1 in this process (torchrun's variables set
+    here, a free port on 127.0.0.1): generate_video at config 2 on the
+    resident dense DiT with mesh (1, 1, 1), with mesh and
+    sequence_parallel, and with pipeline_parallel=1; each run's latents
+    bitwise the direct run's (drive_slice, same seed), 528 K1 each."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mlx_video_tpu_torch.parallel import collectives, distributed, mesh as tmesh
+    from mlx_video_tpu_torch.pipelines.generate import generate_video
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    k1 = {}
+    try:
+        t0 = time.perf_counter()
+        if not distributed.initialize_multihost(device_type="cuda", timeout=120) or dist.get_backend() != "nccl":
+            fail("the world-1 process group is not NCCL")
+        mesh = tmesh.create_mesh((1, 1, 1), "cuda")
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        world = collectives.DistGroup(dist.group.WORLD)
+        if not (torch.equal(world.all_reduce(x), x) and torch.equal(world.all_gather(x), x)):
+            fail("a world-1 NCCL collective changed its input")
+        print(f"  NCCL world 1 on {torch.cuda.get_device_name(0)}: init, mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} and two collectives in {time.perf_counter() - t0:.2f} s", flush=True)
+        for what, kw in (("mesh", dict(mesh=mesh)), ("mesh_sp", dict(mesh=mesh, sequence_parallel=True)),
+                         ("pipeline_1", dict(pipeline_parallel=1))):
+            bundle = dataclasses.replace(models)  # the run replaces the bundle's transformer by its sharded form
+            fa.launch_count = 0
+            t0 = time.perf_counter()
+            res = generate_video(bundle, text, height=512, width=512, num_frames=33, stage1_steps=8, stage2_steps=3,
+                                 tiling="auto", decode_latents_only=True,
+                                 generator=torch.Generator(device="cuda").manual_seed(1), **kw)
+            wall = time.perf_counter() - t0
+            k1[what] = fa.launch_count
+            same = np.array_equal(res.latents, direct_latents)
+            phases = ", ".join(f"{n} {t:.4f} s" for n, t in res.phase_seconds.items())
+            print(f"  (a) {what}: {wall:.4f} s to latents ({phases}); "
+                  f"{k1[what]} K1; latents bitwise the direct run's: {same}", flush=True)
+            if k1[what] != 48 * (8 + 3):
+                fail(f"(a) {what}: {k1[what]} K1 launches, want {48 * (8 + 3)}")
+            if not same:
+                fail(f"(a) {what}: latents differ from the direct run's (max |d| "
+                     f"{float(np.abs(res.latents - direct_latents).max()):.3e})")
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # no launcher: the CLI's --mesh 1,1,1 path joins a world-1 NCCL group of its own (an in-memory store)
+    from mlx_video_tpu_torch import loading
+
+    try:
+        mesh = loading.mesh_from_flag("1,1,1", "cuda")
+        if dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1, 1):
+            fail("the mesh of --mesh 1,1,1 without a launcher is not a world-1 NCCL mesh")
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        if not torch.equal(collectives.DistGroup(dist.group.WORLD).all_reduce(x), x):
+            fail("a world-1 NCCL collective without a launcher changed its input")
+        print("  (a) --mesh 1,1,1 without a launcher: a world-1 NCCL group and mesh of this process alone", flush=True)
+    finally:
+        distributed.shutdown()
+    return k1
+
+
+def virtual_ring(fa) -> dict:
+    """(b) the ring's rank-local loop at full width on n = 2, 4, 8 virtual
+    ranks (threads over the collective layer's virtual form): n^2 K1 with
+    lse each; against K1 on the whole sequence and the plain ring on the
+    card; CUDA-event times of the ring and of K1 on the whole sequence."""
+    import torch
+
+    from mlx_video_tpu_torch.parallel import collectives
+    from mlx_video_tpu_torch.parallel import ring_attention as ra
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    whole = fa.flash_attention(q, k, v)
+    whole_ms = median_ms(lambda: fa.flash_attention(q, k, v), reps=10)
+    b, s, h, d = RING_SHAPE
+    rows, launches = {}, 0
+    for n in RING_SIZES:
+        step = s // n
+
+        def ring(stats=None):
+            def body(mg):
+                i = mg.index("fsdp")
+                blk = lambda t: t[:, i * step:(i + 1) * step].contiguous()  # noqa: E731
+                return ra.ring_attention(blk(q), blk(k), blk(v), mg.group("fsdp"), seq_len=s, local_stats=stats)
+
+            return torch.cat(collectives.run_virtual(collectives.virtual_meshes((1, n, 1), ("data", "fsdp", "tensor"),
+                                                                                "cuda"), body), dim=1)
+
+        fa.launch_count = 0
+        out = ring()
+        torch.cuda.synchronize()
+        n_k1 = fa.launch_count
+        plain = ring(ra._local_attention_stats)
+        err_whole, err_plain = rel_l2(out, whole), rel_l2(out, plain)
+        ring_ms = median_ms(ring, reps=5, warmup=1)
+        by_kernel = device_ms_by_kernel(ring, reps=3)
+        dev_ms = sum(by_kernel.values())
+        dev_k1 = sum(t for name, t in by_kernel.items() if "flash_fwd" in name)
+        rows[n] = dict(k1=n_k1, rel_l2_whole=err_whole, rel_l2_plain=err_plain, ring_ms=ring_ms, device_ms=dev_ms,
+                       device_k1_ms=dev_k1, max_abs_err=float((out.float() - whole.float()).abs().max()))
+        launches += n_k1
+        print(f"  (b) ring over {n} virtual ranks ({step} tokens each): {n_k1} K1 with lse; rel L2 {err_whole:.3e} "
+              f"against K1 on the whole sequence, {err_plain:.3e} against the plain ring (bar {RING_BAR}); "
+              f"{ring_ms:.4f} ms a ring (device {dev_ms:.4f} ms, of it K1 {dev_k1:.4f} ms) against K1 on the whole "
+              f"sequence {whole_ms:.4f} ms", flush=True)
+        ql, kl, vl = (t[:, :step].contiguous() for t in (q, k, v))
+        local_ms = median_ms(lambda: fa.flash_attention(ql, kl, vl, return_lse=True))
+        local_plain_ms = median_ms(lambda: fa.flash_attention_reference(ql, kl, vl, d ** -0.5, True), reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (ql, kl, vl))
+        local_sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+        local_bound = bound(*attention_fwd_work(b, step, h, d))
+        rows[n].update(local_ms=local_ms, local_plain_ms=local_plain_ms, local_sdpa_ms=local_sdpa_ms, **local_bound)
+        print(f"      K1 with lse at a rank's ({b}, {step}, {h}, {d}): {local_ms:.4f} ms "
+              f"({local_bound['bound_ms']:.4f} ms "
+              f"bound, {local_bound['bound_by']}); plain {local_plain_ms:.4f} ms; SDPA forward {local_sdpa_ms:.4f} ms",
+              flush=True)
+        if n_k1 != n * n:
+            fail(f"(b) ring of {n}: {n_k1} K1 launches, want {n * n}")
+        if not (err_whole <= RING_BAR and err_plain <= RING_BAR):
+            fail(f"(b) ring of {n}: rel L2 {err_whole:.3e} / {err_plain:.3e} over the bar {RING_BAR}")
+    return {"rows": rows, "whole_ms": whole_ms, "k1": launches}
+
+
+def virtual_tp_block(models, fa, qmm) -> dict:
+    """(c) one full-width 19B block (with the modality projections and head)
+    at stage 2's 1280 tokens, sharded by shard_params over tensor = 2 and 4
+    virtual ranks, dense, q4 (K2 on the sharded words) and W8A8 (the
+    all-reduced absmax); each rank's output against the unsharded block on
+    the card."""
+    import copy
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from mlx_video_tpu_torch.models.ltx.model import LTXModel, Modality, ltx_apply
+    from mlx_video_tpu_torch.ops import int8 as i8
+    from mlx_video_tpu_torch.ops.int8 import quantize_params_w8a8
+    from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+    from mlx_video_tpu_torch.parallel import collectives
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+    from mlx_video_tpu_torch.pipelines.denoise import precompute_video_pe
+    from mlx_video_tpu_torch.pipelines.positions import create_position_grid
+
+    cfg = dataclasses.replace(models.transformer_config, num_layers=1)
+    dense = LTXModel(cfg, device="meta")
+    dense.video = models.transformer.video
+    dense.blocks = nn.ModuleList([models.transformer.blocks[0]])  # shared with the resident DiT
+    g = torch.Generator(device="cuda").manual_seed(17)
+    pos = torch.from_numpy(create_position_grid(1, 5, 16, 16)).cuda()
+    video = Modality(latent=torch.randn(1, 1280, cfg.in_channels, generator=g, device="cuda").to(torch.bfloat16),
+                     timesteps=torch.full((1, 1), 0.6, device="cuda", dtype=torch.bfloat16),
+                     context=torch.randn(1, 128, cfg.caption_channels, generator=g, device="cuda").to(torch.bfloat16),
+                     positions=pos, pe=precompute_video_pe(cfg, pos))
+    forms = {"dense": dense, "q4": quantize_dit_params(copy.deepcopy(dense), group_size=64, bits=4),
+             "w8a8": quantize_params_w8a8(copy.deepcopy(dense))}
+    out, k1, k2 = {}, 0, 0
+    for form, model in forms.items():
+        ref = ltx_apply(model, cfg, video)[0]
+        for t in (2, 4):
+            meshes = collectives.virtual_meshes((1, 1, t), ("data", "fsdp", "tensor"), "cuda")
+            shards = [shard_params(model, m) for m in meshes]
+            fa.launch_count = qmm.launch_count = i8.int8_matmul_count = 0
+            got = collectives.run_virtual(meshes, lambda m: ltx_apply(shards[m.index("tensor")], cfg, video)[0])
+            torch.cuda.synchronize()
+            counts = (fa.launch_count, qmm.launch_count, i8.int8_matmul_count)
+            k1, k2 = k1 + counts[0], k2 + counts[1]
+            errs = [rel_l2(o, ref) for o in got]
+            out[(form, t)] = dict(rel_l2=max(errs), k1=counts[0], k2=counts[1], int8=counts[2])
+            print(f"  (c) {form}, tensor = {t}: rel L2 {max(errs):.3e} against the unsharded block (bar {TP_BAR}); "
+                  f"K1 {counts[0]}, K2 {counts[1]}, int8 products {counts[2]}", flush=True)
+            want = (t, 10 * t if form == "q4" else 0, 10 * t if form == "w8a8" else 0)
+            if counts != want:
+                fail(f"(c) {form}, tensor = {t}: launches (K1, K2, int8) {counts}, want {want}")
+            if max(errs) > TP_BAR:
+                fail(f"(c) {form}, tensor = {t}: rel L2 {max(errs):.3e} over the bar {TP_BAR}")
+            if form == "q4":
+                out.update(k2_on_sharded_words(qmm, shards[0].blocks[0].ff, t))
+            del shards, got
+    return {"rows": out, "k1": k1, "k2": k2}
+
+
+def k2_on_sharded_words(qmm, ff, t: int) -> dict:
+    """K2 at a tensor rank's feed-forward shapes of (c), 1280 tokens: the
+    column-parallel proj_in and the row-parallel proj_out on their sharded
+    words, after an L2 flush, beside the plain version and cuBLAS on the
+    dequantized weight (another function); the bound."""
+    import torch
+
+    from mlx_video_tpu_torch.ops.quant import dequantize_affine
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for name, lin in (("proj_in", ff.proj_in), ("proj_out", ff.proj_out)):
+        n, k = lin.quant_weight.shape[0], lin.quant_weight.shape[1] * 32 // lin.bits
+        x = torch.randn(1280, k, generator=g, device="cuda").to(torch.bfloat16)
+        args = (x, lin.quant_weight, lin.scales, lin.biases, lin.bits, lin.group_size)
+        ms = median_ms(lambda: qmm.quant_matmul(*args), before=flush.zero_)
+        plain_ms = median_ms(lambda: qmm.quant_matmul_reference(*args), reps=5, before=flush.zero_)
+        w = dequantize_affine(lin.quant_weight, lin.scales, lin.biases, bits=lin.bits, dtype=torch.bfloat16)
+        dense_ms = median_ms(lambda: x @ w.T, before=flush.zero_)
+        b = bound(*quant_matmul_work(1280, k, n, lin.bits, lin.group_size))
+        rows[("k2", t, name)] = dict(m=1280, k=k, n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
+        print(f"      K2 on tensor rank 0's {name} words (M, K, N) = (1280, {k}, {n}): {ms:.4f} ms "
+              f"({b['bound_ms']:.4f} ms bound, {b['bound_by']}); plain {plain_ms:.4f} ms; cuBLAS on the dequantized "
+              f"weight {dense_ms:.4f} ms", flush=True)
+    return rows
+
+
+def full_width_parallel(models, text, fa, qmm, direct_latents) -> dict:
+    """Phase 16: (a), (b) and (c) with their seconds."""
+    t_phase = time.perf_counter()
+    world1 = parallel_world_one(models, text, fa, direct_latents)
+    t_a = time.perf_counter()
+    ring = virtual_ring(fa)
+    t_b = time.perf_counter()
+    tp = virtual_tp_block(models, fa, qmm)
+    t_c = time.perf_counter()
+    print(f"  phase 16: {t_c - t_phase:.2f} s ((a) {t_a - t_phase:.2f}, (b) {t_b - t_a:.2f}, (c) {t_c - t_b:.2f})",
+          flush=True)
+    return {"world1": world1, "ring": ring, "tp": tp}
+
+
+def parallel_only() -> int:
+    """The quick check of phase 16 alone: the build, the full-width models,
+    the dense distilled slice (the direct run) and phase 16."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from mlx_video_tpu_torch.ops import _build
+    from mlx_video_tpu_torch.ops import flash_attention as fa
+    from mlx_video_tpu_torch.ops import quant_matmul as qmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    models, text = full_width_models()
+    direct = drive_slice(models, text, fa, qmm, want_k2=0)
+    full_width_parallel(models, text, fa, qmm, direct["latents"])
+    return 0
+
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -3931,7 +4238,11 @@ def main() -> int:
         lora_slice_check(audio=True)
         models, text = full_width_models()
         print("full-width distilled slice (512x512x33, 19B video DiT geometry, bf16):", flush=True)
-        drive_slice(models, text, fa, qmm, want_k2=0, profile="a warm dense distilled run")
+        direct = drive_slice(models, text, fa, qmm, want_k2=0, profile="a warm dense distilled run")
+        print("phase 16: sharded generation on one card: (a) NCCL at world 1, generate_video with mesh (1, 1, 1), "
+              "with sequence parallelism and with one pipeline stage; (b) the ring at full width over 2, 4, 8 "
+              "virtual ranks; (c) a full-width block over tensor = 2, 4 virtual ranks, dense, q4, W8A8:", flush=True)
+        par = full_width_parallel(models, text, fa, qmm, direct["latents"])
         print("full-width dev slice (768x768x65: 5184 tokens, 40 steps, CFG 4.5, one image; K4 and K5 routes on):",
               flush=True)
         dev = full_width_dev(models, fa, ca, work)
@@ -4001,7 +4312,12 @@ def main() -> int:
                           "av_lora_training": av["k1"], "validation": av["k1_validation"],
                           "av_training_cli": cli_train["k1_av_cli"], "serve": served["k1_serve"],
                           "serve_lora": cli_train["k1_serve_lora"], "dial_pab": served["k1_dial_pab"],
-                          "convert_q4_cli": converted["k1_q4_cli"], "convert_w8a8_cli": converted["k1_w8a8_cli"]},
+                          "convert_q4_cli": converted["k1_q4_cli"], "convert_w8a8_cli": converted["k1_w8a8_cli"],
+                          **{f"world1_{run}": n for run, n in par["world1"].items()},
+                          "ring_virtual": par["ring"]["k1"], "tp_block_virtual": par["tp"]["k1"]},
+        "ring_ms": {n: row["ring_ms"] for n, row in par["ring"]["rows"].items()},
+        "ring_device_ms": {n: row["device_ms"] for n, row in par["ring"]["rows"].items()},
+        "ring_whole_ms": par["ring"]["whole_ms"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
@@ -4017,7 +4333,7 @@ def main() -> int:
                           "audio_joint_cli": cli_train["k2_audio_joint_cli"],
                           "audio_separate_cli": cli_train["k2_audio_separate_cli"],
                           "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"],
-                          "convert_q4_cli": converted["k2_q4_cli"]},
+                          "convert_q4_cli": converted["k2_q4_cli"], "tp_block_virtual": par["tp"]["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -4087,4 +4403,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(parallel_only() if sys.argv[1:] == ["--parallel-only"] else main())

@@ -49,6 +49,18 @@ they have no effect, six (``--cfg-batch``, ``--compile``, ``--no-compile``,
 ``--compile-shapeless``, ``--fp32-euler``, ``--clear-cache``) are silent, and
 ``--metal-capture-phase`` is read by nothing.
 
+Sharded generation (parallel/), under ``torchrun --nproc-per-node N -m
+mlx_video_tpu_torch.generate``: ``--mesh d,f,t`` (or ``auto``) shards the
+transformers over a (data, fsdp, tensor) mesh of the N ranks
+(``--sequence-parallel``: ring self-attention over ``fsdp``);
+``--pipeline-parallel P`` runs GPipe over P stages (``--pipeline-tensor T``
+TP ways inside each; then N = P * T). Each rank runs on ``cuda:LOCAL_RANK``
+(or the CPU with ``--device cpu``, over gloo); only rank 0 prints the run's
+lines and writes files. A mesh or stages of more than one rank without a
+launcher exit naming ``torchrun``; ``--mesh 1,1,1`` runs in one process.
+With a mesh the text encoder runs unsharded on every rank. ``--audio`` with
+a mesh or stages is refused by name.
+
 The options of :data:`_REFUSED` exit with a message that names them and
 what they wait for; none is ignored.
 """
@@ -57,12 +69,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import time
 from pathlib import Path
 
 import torch
+
+from mlx_video_tpu_torch.parallel import SERVER_ITEM, TRAINER_ITEM
+
 
 def _cond_arg(values):
     """PATH [FRAME_IDX] [STRENGTH] repeatable argument."""
@@ -280,14 +296,15 @@ def base_parser() -> argparse.ArgumentParser:
 
 # The JAX parser's options that the port refuses, with what they wait for;
 # each exits when it is given a value other than its default.
-PARALLEL_PATHS = "the parallel paths (ROADMAP §1 queue, 'Parallelism')"
 _LEFT_OUT = "a 16 GB accelerator's memory plan or XLA's layouts, left out of the port (ROADMAP 'Leave out')"
 _REFUSED = {
-    "mesh": PARALLEL_PATHS, "sequence_parallel": PARALLEL_PATHS, "pipeline_parallel": PARALLEL_PATHS,
-    "pipeline_tensor": PARALLEL_PATHS,
     "low_memory": _LEFT_OUT, "aux_stage_int8": _LEFT_OUT, "aux_park_device": _LEFT_OUT,
     "no_overlap_staging": _LEFT_OUT, "optimize_layouts": _LEFT_OUT,
 }
+# What the server's and the trainer's parallel options wait for (their
+# refusals name these ROADMAP items).
+PARALLEL_SERVE = f"the parallel paths of the server ({SERVER_ITEM})"
+PARALLEL_TRAIN = f"the parallel paths of the trainer ({TRAINER_ITEM})"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -405,15 +422,56 @@ def save_frames(video, output_path: Path) -> None:
             Image.fromarray(frame).save(frames_dir / f"frame_{i:05d}.png")
 
 
+def _parallel_start(args, device: torch.device) -> torch.device:
+    """Check the parallel flags and join the launcher's process group;
+    returns this rank's device (``cuda:LOCAL_RANK`` under a launcher)."""
+    from mlx_video_tpu_torch.parallel import distributed
+
+    if not (args.mesh or args.pipeline_parallel):
+        return device
+    if args.audio:
+        raise SystemExit("generate: --audio with --mesh or --pipeline-parallel is not ported yet (the AV DiT's "
+                         f"sharded forward waits for {SERVER_ITEM})")
+    ranks = args.pipeline_parallel * args.pipeline_tensor if args.pipeline_parallel else (
+        1 if args.mesh == "auto" else math.prod(int(x) for x in args.mesh.split(",")))
+    if ranks > 1 and not distributed.launched():
+        given = (f"--mesh {args.mesh}" + (" --sequence-parallel" if args.sequence_parallel else "")
+                 if args.mesh else f"--pipeline-parallel {args.pipeline_parallel} --pipeline-tensor "
+                 f"{args.pipeline_tensor}")
+        raise SystemExit(f"generate: {given} needs {ranks} processes: launch it with torchrun --nproc-per-node "
+                         f"{ranks} -m mlx_video_tpu_torch.generate ...")
+    distributed.initialize_multihost(device_type=device.type)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", distributed.local_rank())
+    return device
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     unported = unported_flags(args, parser)
     if unported:
         raise SystemExit("generate: not ported to mlx_video_tpu_torch yet: " + "; ".join(unported))
+    if args.mesh and args.pipeline_parallel:
+        # fail before minutes of weight loading, not inside generate_video
+        raise SystemExit("generate: --mesh and --pipeline-parallel are mutually exclusive")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("generate: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
+    device = _parallel_start(args, device)
+    try:
+        _run(args, device)
+    finally:
+        if args.mesh or args.pipeline_parallel:
+            from mlx_video_tpu_torch.parallel.distributed import shutdown
+
+            shutdown()
+
+
+def _run(args, device: torch.device) -> None:
+    from mlx_video_tpu_torch.parallel.distributed import is_primary_host
+
+    primary = is_primary_host()
     if args.debug or args.verbose:
         os.environ["MLX_VIDEO_DEBUG"] = "1"
     if args.skip_audio:
@@ -459,13 +517,22 @@ def main(argv=None) -> None:
                                 repo_hint=str(args.checkpoint_path or args.model_repo))
     except ValueError as e:
         raise SystemExit(str(e))
+    mesh = None
+    if args.mesh:
+        mesh = loading.mesh_from_flag(args.mesh, device.type)
+        loading.shard_models(models, mesh)
+        if primary:
+            print(f"Sharded transformer over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
     phases = {"load": _synced(device) - t0 - (merge_s or 0.0)}
     if merge_s is not None:
         phases["lora_merge"] = merge_s
-    print(f"Loaded {model_path} in {phases['load']:.2f} s", flush=True)
+    if primary:
+        print(f"Loaded {model_path} in {phases['load']:.2f} s", flush=True)
     if args.embeddings:
         text = load_embeddings(args.embeddings, device)
     else:
+        if mesh is not None and primary:
+            print("Text encoder: unsharded on every rank (its sharded form is not ported yet)", flush=True)
         text = encode_prompts(args, model_path, device, models.transformer.video.scale_shift_table.dtype, phases)
 
     output_path = Path(args.output_path)
@@ -508,8 +575,14 @@ def main(argv=None) -> None:
             output_audio_path=args.output_audio,
             profile=args.profile,
             mem_log=args.mem_log,
+            mesh=mesh,
+            sequence_parallel=args.sequence_parallel,
+            pipeline_parallel=args.pipeline_parallel,
+            pipeline_tensor=args.pipeline_tensor,
         )
 
+    if not primary:
+        return
     if args.save_frames and result.video is not None:
         save_frames(result.video, output_path)
     phases.update(result.phase_seconds)

@@ -35,7 +35,8 @@ it (grad mode is thread-local).
 
 Refused by name, with the ROADMAP item they wait for: ``--mesh``,
 ``--pipeline-parallel``, ``--pipeline-tensor``, ``--sequence-parallel``
-(the parallel paths, ROADMAP §1 queue) and ``--aux-park`` (a 16 GB
+(the server's parallel paths, ROADMAP §1 queue, "The server's parallel
+flags and the sharded AV DiT") and ``--aux-park`` (a 16 GB
 accelerator's memory plan, left out of the port). Differences from the JAX
 server, on purpose: ``--warmup`` runs one warm request (the port compiles no
 per-shape program, so the JAX server's second, streamed warm request has
@@ -60,16 +61,16 @@ from typing import Optional
 
 import torch
 
-from mlx_video_tpu_torch.cli.generate import PARALLEL_PATHS
+from mlx_video_tpu_torch.cli.generate import PARALLEL_SERVE
 
 _PIPELINES = ("distilled", "dev")
 
 # The JAX server's options that the port refuses, with what they wait for.
 _REFUSED = {
-    "mesh": PARALLEL_PATHS,
-    "pipeline_parallel": PARALLEL_PATHS,
-    "pipeline_tensor": PARALLEL_PATHS,
-    "sequence_parallel": PARALLEL_PATHS,
+    "mesh": PARALLEL_SERVE,
+    "pipeline_parallel": PARALLEL_SERVE,
+    "pipeline_tensor": PARALLEL_SERVE,
+    "sequence_parallel": PARALLEL_SERVE,
     "aux_park": "a 16 GB accelerator's memory plan, left out of the port (ROADMAP 'Leave out')",
 }
 

@@ -280,3 +280,24 @@ def quantize_models(
             if not any(isinstance(m, QuantLinear) for m in model.modules()):
                 quantize_dit_params(model, bits=bits)
             prepare_w4a8(model, bits=bits)
+
+
+def mesh_from_flag(spec: str, device_type: Optional[str] = None):
+    """The (data, fsdp, tensor) mesh of a CLI flag value: "auto"
+    (:func:`parallel.mesh.factor_devices` of the world size) or "d,f,t"."""
+    from mlx_video_tpu_torch.parallel.distributed import ensure_world
+    from mlx_video_tpu_torch.parallel.mesh import create_mesh, factor_devices
+
+    shape = (factor_devices(ensure_world(device_type)) if spec == "auto"
+             else tuple(int(x) for x in spec.split(",")))
+    return create_mesh(shape, device_type)
+
+
+def shard_models(models: ModelBundle, mesh) -> None:
+    """Shard the stage-1 and stage-2 transformers on the mesh, in place
+    (parallel/sharding.py:shard_params: each keeps this rank's slices)."""
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+    models.transformer = shard_params(models.transformer, mesh)
+    if models.stage2_transformer is not None:
+        models.stage2_transformer = shard_params(models.stage2_transformer, mesh)

@@ -37,11 +37,24 @@ self-attention (q/k/v/out projections, norms, RoPE and the attention
 kernel), while the adaLN gate, the text attention and the feed-forward run
 fresh.
 
-Not ported yet: sequence parallelism.
+Sharded forward (parallel/): a model from parallel/sharding.py:shard_params
+carries its mesh (``model.mesh``) and its tensors' specs, and
+:func:`ltx_apply` then runs rank-local (the VideoOnly DiT): the batch cut
+over ``data`` when it divides; the per-modality projections and the output
+head on fully gathered copies of their tensors; each block on its
+``fsdp``-gathered tensors with ``heads / tensor`` local heads (RoPE tables
+cut to them), its row-parallel linears and q/k norms summed over
+``tensor`` (ops/linear.py, ops/norms.py). ``sp=(mesh, "fsdp")`` cuts the
+tokens over ``fsdp`` when they divide, and the self-attention becomes the
+ring (parallel/ring_attention.py) over their blocks; text attention keeps
+the whole caption. The fused-RoPE route (K5) is off whenever ``sp`` is
+given, as in JAX. The last block's tokens and the batch are all-gathered,
+so every rank returns the whole velocity.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -55,6 +68,9 @@ from mlx_video_tpu_torch.models.ltx import rope as rope_lib
 from mlx_video_tpu_torch.ops.attention import fused_split_rope_eligible, sdpa_flat, sdpa_flat_fused_rope
 from mlx_video_tpu_torch.ops.linear import Linear, init_linear_, linear
 from mlx_video_tpu_torch.ops.norms import layer_norm, rms_norm
+from mlx_video_tpu_torch.parallel import SERVER_ITEM
+from mlx_video_tpu_torch.parallel.collectives import SoloGroup, mesh_groups
+from mlx_video_tpu_torch.parallel.ring_attention import ring_attention
 
 
 class Modality(NamedTuple):
@@ -301,21 +317,33 @@ def attention_apply(
     bias: Optional[torch.Tensor] = None,
     pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     k_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    sp=None,
 ) -> torch.Tensor:
     """QKV -> q/k RMSNorm -> RoPE -> SDPA -> out projection. q rotates by
     ``pe`` and k by ``k_pe`` when given (the cross-modal attentions), else by
     ``pe``. A SPLIT-RoPE self-attention with the fused route on skips the
-    rotation here: K5 rotates q and k inside the attention kernel."""
+    rotation here: K5 rotates q and k inside the attention kernel. ``sp``
+    (a group of the collective layer; the fused route is off with it): a
+    self-attention over this rank's block of tokens runs as ring attention
+    over the group when it has more than one rank."""
     ctx = x if context is None else context
-    q = rms_norm(linear(attn.to_q, x), attn.q_norm.weight, eps=norm_eps)
-    k = rms_norm(linear(attn.to_k, ctx), attn.k_norm.weight, eps=norm_eps)
+    q = rms_norm(linear(attn.to_q, x), attn.q_norm.weight, eps=norm_eps,
+                 group=getattr(attn.q_norm, "tp_group", None))
+    k = rms_norm(linear(attn.to_k, ctx), attn.k_norm.weight, eps=norm_eps,
+                 group=getattr(attn.k_norm, "tp_group", None))
     v = linear(attn.to_v, ctx)
     is_self = context is None and k_pe is None and bias is None
-    if is_self and rope_type == LTXRopeType.SPLIT and fused_split_rope_eligible(q, heads, pe):
+    if sp is None and is_self and rope_type == LTXRopeType.SPLIT and fused_split_rope_eligible(q, heads, pe):
         return linear(attn.to_out, sdpa_flat_fused_rope(q, k, v, heads, pe))
     if pe is not None:
         q = rope_lib.apply_rotary_emb(q, pe, rope_type)
         k = rope_lib.apply_rotary_emb(k, pe if k_pe is None else k_pe, rope_type)
+    if sp is not None and is_self and sp.size > 1:
+        b, s, dim = q.shape
+        d_head = dim // heads
+        out = ring_attention(q.reshape(b, s, heads, d_head), k.reshape(b, s, heads, d_head),
+                             v.reshape(b, s, heads, d_head), sp)
+        return linear(attn.to_out, out.reshape(b, s, dim))
     return linear(attn.to_out, sdpa_flat(q, k, v, heads, bias=bias))
 
 
@@ -353,7 +381,8 @@ class _ModalityArgs(NamedTuple):
 
 
 def _self_and_text(attn1: Attention, attn2: Attention, table: torch.Tensor, m: _ModalityArgs, x: torch.Tensor,
-                   heads: int, rope_type: LTXRopeType, norm_eps: float, cached: Optional[torch.Tensor] = None):
+                   heads: int, rope_type: LTXRopeType, norm_eps: float, cached: Optional[torch.Tensor] = None,
+                   sp=None):
     """Gated self-attention on the modulated stream, then text attention;
     returns the new stream and the pre-gate self-attention output (``cached``
     when given, in place of computing it)."""
@@ -361,7 +390,7 @@ def _self_and_text(attn1: Attention, attn2: Attention, table: torch.Tensor, m: _
     a1 = cached
     if a1 is None:
         norm_x = rms_norm(x, eps=norm_eps) * (1 + scale) + shift
-        a1 = attention_apply(attn1, norm_x, heads, rope_type, norm_eps, pe=m.pe)
+        a1 = attention_apply(attn1, norm_x, heads, rope_type, norm_eps, pe=m.pe, sp=sp)
     x = x + a1 * gate
     return x + attention_apply(
         attn2, rms_norm(x, eps=norm_eps), heads, rope_type, norm_eps, context=m.context, bias=m.context_bias,
@@ -383,18 +412,20 @@ def block_apply(
     norm_eps: float,
     attn_cache: Optional[torch.Tensor] = None,
     collect_attn: bool = False,
+    sp=None,
 ):
     """One transformer block over the modalities given; returns the new
     (video, audio) hidden states, None for a modality not given. PAB (video
     only): ``attn_cache`` is the block's pre-gate self-attention output of
     an earlier step, used in place of computing it; ``collect_attn`` adds
-    this step's as a third result."""
+    this step's as a third result. ``sp``: the video self-attention's ring
+    group (:func:`attention_apply`)."""
     vx = None if video is None else video.x
     ax = None if audio is None else audio.x
     a1 = None
     if video is not None:
         vx, a1 = _self_and_text(block.attn1, block.attn2, block.scale_shift_table, video, vx,
-                                video_cfg.heads, rope_type, norm_eps, attn_cache)
+                                video_cfg.heads, rope_type, norm_eps, attn_cache, sp)
     if audio is not None:
         ax, _ = _self_and_text(block.audio_attn1, block.audio_attn2, block.audio_scale_shift_table, audio, ax,
                                audio_cfg.heads, rope_type, norm_eps)
@@ -541,7 +572,7 @@ def _process_output(mp: ModalityParams, x: torch.Tensor, embedded_timestep: torc
 
 def ltx_apply(
     model: LTXModel, config: LTXModelConfig, video: Optional[Modality] = None, audio: Optional[Modality] = None,
-    pab=None,
+    pab=None, sp=None,
 ):
     """Full DiT forward; returns the (video, audio) velocities, (B, S,
     out_channels) each, None for a modality not given.
@@ -549,11 +580,16 @@ def ltx_apply(
     ``pab`` (Pyramid Attention Broadcast, video only): ``"collect"`` adds a
     third result, ``{"self": [each block's pre-gate self-attention output]}``;
     passing such a cache back reuses those outputs and skips every block's
-    self-attention."""
+    self-attention.
+
+    A sharded model (``model.mesh``), or ``sp=(mesh, axis)``: the rank-local
+    forward of the module docstring (:func:`sharded_video_apply`)."""
     collect = isinstance(pab, str) and pab == "collect"
     cache = None if pab is None or collect else pab["self"]
     if pab is not None and audio is not None:
         raise ValueError("pab attention broadcast supports the video-only path")
+    if getattr(model, "mesh", None) is not None or sp is not None:
+        return sharded_video_apply(model, config, video, audio, sp=sp, cache=cache, collect=collect)
     video_args, audio_args = prepare_ltx_args(model, config, video, audio)
     video_cfg, audio_cfg = config.get_video_config(), config.get_audio_config()
     vx = None if video_args is None else video_args.x
@@ -579,6 +615,109 @@ def ltx_apply(
     if collect:
         return v_out, a_out, {"self": collected}
     return v_out, a_out
+
+
+# ---------------------------------------------------------------------------
+# Rank-local forward (parallel/)
+# ---------------------------------------------------------------------------
+
+
+def batch_slice(m, start: int, size: int):
+    """Rows [start, start + size) of every batched tensor of a Modality or
+    _ModalityArgs (tuples of tensors, such as RoPE tables, cut each)."""
+    def cut(v):
+        if isinstance(v, torch.Tensor):
+            return v[start:start + size]
+        if isinstance(v, tuple):
+            return tuple(cut(t) for t in v)
+        return v
+
+    return type(m)(*(cut(v) for v in m))
+
+
+def _cut(t: torch.Tensor, dim: int, parts: int, idx: int) -> torch.Tensor:
+    step = t.shape[dim] // parts
+    return t.narrow(dim, idx * step, step).contiguous()
+
+
+def local_block_args(args: _ModalityArgs, rope_type: LTXRopeType, mesh, tp: int, ring) -> _ModalityArgs:
+    """A block's inputs on this rank: with ``tp`` > 1 the RoPE tables of its
+    ``heads / tp`` local heads (the ``tensor`` index's), and with a ``ring``
+    group its block of the tokens (the stream, per-token modulation and
+    tables)."""
+    cos, sin = args.pe
+    split = rope_type == LTXRopeType.SPLIT  # (B, H, S, D/2) tables, else (B, S, H*D)
+    if tp > 1:
+        t = mesh.index("tensor")
+        cos, sin = (_cut(c, 1 if split else 2, tp, t) for c in (cos, sin))
+    x, ts = args.x, args.timesteps
+    if ring is not None and ring.size > 1:
+        n, r = ring.size, ring.rank
+        cos, sin = (_cut(c, 2 if split else 1, n, r) for c in (cos, sin))
+        x = _cut(x, 1, n, r)
+        if ts.shape[1] == args.x.shape[1]:
+            ts = _cut(ts, 1, n, r)
+    return args._replace(x=x, timesteps=ts, pe=(cos, sin))
+
+
+def run_blocks(model: LTXModel, args: _ModalityArgs, video_cfg: TransformerConfig, config: LTXModelConfig,
+               ring=None, cache=None, collected=None) -> torch.Tensor:
+    """The stream ``args.x`` through ``model.blocks``, each on its
+    ``fsdp``-gathered tensors, dropped after it runs; PAB's per-block cache
+    and collection as in :func:`ltx_apply`."""
+    from mlx_video_tpu_torch.parallel.sharding import gather
+
+    specs = getattr(model, "shard_specs", None)
+    vx = args.x
+    for i, block in enumerate(model.blocks):
+        if specs is not None:
+            block = gather(block, specs, model.mesh, axes=("fsdp",), prefix=f"blocks.{i}.")
+        out = block_apply(block, args._replace(x=vx), None, video_cfg, None, config.rope_type, config.norm_eps,
+                          None if cache is None else cache[i], collected is not None, sp=ring)
+        vx = out[0]
+        if collected is not None:
+            collected.append(out[2])
+    return vx
+
+
+def sharded_video_apply(model: LTXModel, config: LTXModelConfig, video: Optional[Modality],
+                        audio: Optional[Modality] = None, sp=None, cache=None, collect: bool = False):
+    """The rank-local VideoOnly forward of a sharded model (or of a whole one
+    under ``sp``); every rank returns the whole (video, None) velocity."""
+    from mlx_video_tpu_torch.parallel.sharding import gather
+
+    if audio is not None:
+        raise ValueError("the sharded forward runs the video DiT only: audio with a mesh waits for the AV DiT's "
+                         f"sharded forward ({SERVER_ITEM})")
+    specs = getattr(model, "shard_specs", None)
+    mesh = model.mesh if specs is not None else mesh_groups(sp[0])
+    tp = mesh.size("tensor") if specs is not None else 1
+    data = mesh.group("data")
+    b = video.latent.shape[0]
+    by_data = data.size > 1 and b % data.size == 0
+    if by_data:
+        video = batch_slice(video, data.rank * (b // data.size), b // data.size)
+    head = model.video if specs is None else gather(model.video, specs, mesh, prefix="video.")
+    args = _prepare_modality(head, video, config, config.inner_dim, config.positional_embedding_max_pos,
+                             config.num_attention_heads)
+    ring = None
+    if sp is not None:
+        ring = mesh.group(sp[1])
+        if ring.size == 1 or args.x.shape[1] % ring.size:
+            ring = SoloGroup()  # local attention over all the tokens, the fused route still off
+    video_cfg = config.get_video_config()
+    local = local_block_args(args, config.rope_type, mesh, tp, ring)
+    video_cfg = dataclasses.replace(video_cfg, heads=video_cfg.heads // tp)
+    collected = [] if collect else None
+    vx = run_blocks(model, local, video_cfg, config, ring, cache, collected)
+    if ring is not None and ring.size > 1:
+        vx = ring.all_gather(vx, dim=1)
+    v_out = _process_output(head, vx, args.embedded_timestep, config.norm_eps)
+    if by_data:
+        v_out = data.all_gather(v_out, dim=0)
+    if collect:
+        return v_out, None, {"self": collected}
+    return v_out, None
 
 
 def to_denoised(noisy: torch.Tensor, velocity: torch.Tensor, sigma) -> torch.Tensor:

@@ -82,10 +82,16 @@ def quantize_weight_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(codes, dim=-2), torch.cat(scales, dim=-1)
 
 
-def quantize_rows(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(xf: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token (last axis) symmetric int8 codes of fp32 ``xf`` and their
-    (..., 1) fp32 scales: the activation half of W8A8."""
-    x_scale = scale_from_absmax(xf.abs().amax(dim=-1, keepdim=True))
+    (..., 1) fp32 scales: the activation half of W8A8. With ``group`` (a
+    row-parallel input: this rank holds a slice of each token's features)
+    the absmax is the max over the group, so the codes are those of the
+    whole token, as GSPMD computes them in JAX."""
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        absmax = group.all_reduce(absmax, "max")
+    x_scale = scale_from_absmax(absmax)
     return torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8), x_scale
 
 
@@ -95,11 +101,13 @@ class _Int8ActMatmul(torch.autograd.Function):
     frozen int8 weight and its scales get no gradient."""
 
     @staticmethod
-    def forward(ctx, xf, w_q, w_scale, w_in_axis: int):
+    def forward(ctx, xf, w_q, w_scale, w_in_axis: int, group=None):
         global int8_matmul_count
         w_oi = w_q if w_in_axis == 1 else w_q.t()
-        x_q, x_scale = quantize_rows(xf)
+        x_q, x_scale = quantize_rows(xf, group)
         y = int8_mm(x_q.reshape(-1, xf.shape[-1]), w_oi).reshape(*xf.shape[:-1], w_oi.shape[0])
+        if group is not None:
+            y = group.all_reduce(y)  # the int32 partial products: an exact sum
         int8_matmul_count += 1
         ctx.save_for_backward(w_q, w_scale)
         ctx.w_in_axis = w_in_axis
@@ -113,23 +121,28 @@ class _Int8ActMatmul(torch.autograd.Function):
             gx = gf @ (wf * w_scale.float()[None, :]).t()
         else:  # (out, in)
             gx = gf @ (wf * w_scale.float()[:, None])
-        return gx, None, None, None
+        return gx, None, None, None, None
 
 
-def int8_act_matmul(xf: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, w_in_axis: int = 1) -> torch.Tensor:
+def int8_act_matmul(xf: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, w_in_axis: int = 1,
+                    group=None) -> torch.Tensor:
     """fp32 ``dequant(quant(xf) @ w_q)``: per-token activation codes, an exact
     int32 product, then ``y * x_scale * w_scale`` in fp32. ``w_q`` is
-    (out, in) for ``w_in_axis`` 1 and (in, out) for 0; ``w_scale`` (out,)."""
-    return _Int8ActMatmul.apply(xf, w_q, w_scale, w_in_axis)
+    (out, in) for ``w_in_axis`` 1 and (in, out) for 0; ``w_scale`` (out,).
+    With ``group`` (row-parallel: ``xf`` and ``w_q`` hold this rank's slice
+    of the in dimension) the codes take the group's absmax and the int32
+    products are summed over the group before the rescale."""
+    return _Int8ActMatmul.apply(xf, w_q, w_scale, w_in_axis, group)
 
 
 def int8_linear(
-    x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None, group=None
 ) -> torch.Tensor:
     """y = dequant(quant(x) W_q^T) (+ bias) in x's dtype, with ``w_q``
-    (out, in) int8 and ``w_scale`` (out,) fp32; the bias is added in fp32.
+    (out, in) int8 and ``w_scale`` (out,) fp32; the bias is added in fp32,
+    after the sum over ``group`` (row-parallel, :func:`int8_act_matmul`).
     Gradients reach x through the STE of :func:`int8_act_matmul`."""
-    y = int8_act_matmul(x.float(), w_q, w_scale, 1)
+    y = int8_act_matmul(x.float(), w_q, w_scale, 1, group)
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)

@@ -36,6 +36,14 @@ kernel:
   weight is a transient of this one layer, as in JAX.
 Both are differentiable in x by the straight-through estimator; LoRA adds
 its delta on top, as on every other branch.
+
+Tensor parallelism (parallel/sharding.py): a column-parallel layer holds
+its rank's rows of the weight and needs nothing more. A row-parallel one
+(``tp_group`` set: it holds its rank's slice of the in dimension and takes
+that slice of x) computes its partial product without the bias, sums it
+over the group in fp32 (the int8 branches: the int32 products, after codes
+made from the group's absmax) and adds the whole bias once, after the sum.
+K2 runs on the rank's words.
 """
 
 from __future__ import annotations
@@ -116,15 +124,16 @@ class Int8Linear(nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}, int8"
 
 
-def w4a8_linear(layer: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+def w4a8_linear(layer: QuantLinear, x: torch.Tensor, group=None) -> torch.Tensor:
     """The W4A8 branch: dequantize the layer's words to fp32, requantize per
     output channel by its ``int8_scale``, int8 product with per-token
-    activation codes, fp32 bias, cast to x's dtype."""
+    activation codes (summed over ``group`` when row-parallel), fp32 bias,
+    cast to x's dtype."""
     w_scale = layer.int8_scale.float()
     wf = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=torch.float32)
     w_q8 = torch.clamp(torch.round(wf / w_scale[:, None]), -127, 127).to(torch.int8)
     del wf
-    y = int8_act_matmul(x.float(), w_q8, w_scale, 1)
+    y = int8_act_matmul(x.float(), w_q8, w_scale, 1, group)
     if layer.bias is not None:
         y = y + layer.bias.float()
     return y.to(x.dtype)
@@ -151,7 +160,11 @@ def linear(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor) -> to
     one. fp32 operands stay full fp32 (PyTorch's default matmul precision);
     bf16 operands accumulate in fp32 on the card. A quantized layer adds its
     bias after the product, in x's dtype; an int8 one (W8A8, or W4A8 when a
-    quantized layer carries ``int8_scale``) in fp32 before the cast."""
+    quantized layer carries ``int8_scale``) in fp32 before the cast. A
+    row-parallel layer (``tp_group``) sums over its group first."""
+    group = getattr(layer, "tp_group", None)
+    if group is not None:
+        return _row_parallel(layer, x, group)
     if isinstance(layer, Int8Linear):
         y = int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias)
     elif isinstance(layer, QuantLinear) and getattr(layer, "int8_scale", None) is not None:
@@ -170,6 +183,26 @@ def linear(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor) -> to
         delta = (x.float() @ layer.lora_A.float().T) @ layer.lora_B.float().T
         y = y + (delta * layer.lora_scale).to(y.dtype)
     return y
+
+
+def _row_parallel(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel layer's whole output from this rank's slice of x."""
+    if isinstance(layer, Int8Linear):
+        return int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias, group)
+    if isinstance(layer, QuantLinear) and getattr(layer, "int8_scale", None) is not None:
+        return w4a8_linear(layer, x, group)
+    if isinstance(layer, QuantLinear):
+        if layer.bits in KERNEL_BITS:
+            part = quant_matmul(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
+        else:
+            w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
+            part = torch.matmul(x, w.T)
+    else:
+        part = F.linear(x, layer.weight)
+    y = group.all_reduce(part.float())
+    if layer.bias is not None:
+        y = y + layer.bias.float()
+    return y.to(x.dtype)
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> torch.Tensor:

@@ -10,10 +10,17 @@ from typing import Optional
 import torch
 
 
-def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm over the last dim; fp32 accumulation, output in input dtype."""
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float = 1e-6, group=None) -> torch.Tensor:
+    """RMS norm over the last dim; fp32 accumulation, output in input dtype.
+    With ``group`` (parallel/collectives.py) the last dim is this rank's
+    slice of a dimension split over the group (the q/k norms under tensor
+    parallelism): the sum of squares is summed over the group."""
     xf = x.float()
-    out = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if group is None:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ms = group.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) / (xf.shape[-1] * group.size)
+    out = xf * torch.rsqrt(ms + eps)
     if weight is not None:
         out = out * weight.float()
     return out.to(x.dtype)

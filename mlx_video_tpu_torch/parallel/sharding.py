@@ -1,0 +1,287 @@
+"""Megatron TP / FSDP sharding of the LTX DiT's tensors over a mesh.
+
+Counterpart of mlx_video_tpu/parallel/sharding.py, with its rules
+(``_RULES``, a copy) and its ``spec_for_path`` on the JAX tree's paths:
+column-parallel (out on ``tensor``) q/k/v, ``ff.proj_in`` and the adaLN
+linears; row-parallel (in on ``tensor``) ``to_out`` and ``ff.proj_out``;
+the other matrix axis on ``fsdp``; the stacked layer axis never sharded.
+
+Where JAX places whole arrays with a ``NamedSharding`` and XLA inserts the
+collectives, each rank here keeps its own slice of every tensor
+(:func:`shard_params`) and the forward runs on the slices with explicit
+collectives (parallel/collectives.py):
+
+- the port's layouts: an ``nn.Linear`` weight and an ``Int8Linear``
+  ``int8_weight`` are (out, in) where JAX's are (in, out), so their specs
+  swap; the quantized leaves are MLX (out, in·bits/32) in both packages and
+  keep JAX's (already swapped) spec; a block tensor is one layer of a JAX
+  stack, so the stack's leading None goes;
+- a slice is a new contiguous tensor (K2 refuses views); a tensor no axis
+  of size > 1 cuts is kept as it is, shared with the source model;
+- a block's row-parallel linears and its q/k RMSNorm weights get the
+  ``tensor`` group (``tp_group``): ops/linear.py sums their outputs over it
+  and ops/norms.py their sums of squares;
+- the forward all-gathers a block's ``fsdp``-sharded tensors before it runs
+  and drops them after (:func:`gather`), and runs the per-modality
+  projections and heads on fully gathered copies.
+
+Quantize first, then shard (the JAX CLI's order): W8A8 per-row scales and
+q4 group scales then come from whole rows.
+"""
+
+from __future__ import annotations
+
+import copy
+import re
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+from torch import nn
+
+from mlx_video_tpu_torch.parallel.collectives import MeshGroups, mesh_groups
+
+Spec = Tuple[Optional[str], ...]
+
+# Ordered (pattern, spec-for-matrix) rules matched against "/"-joined JAX tree
+# paths. Specs are written for the *unstacked* (in, out) / vector layout; a
+# leading layer axis (blocks) gets None prepended automatically.
+_RULES = [
+    # attention projections
+    (r"(audio_)?attn\d/to_(q|k|v)/weight$", ("fsdp", "tensor")),
+    (r"(audio_to_video|video_to_audio)_attn/to_(q|k|v)/weight$", ("fsdp", "tensor")),
+    (r"(audio_)?attn\d/to_(q|k|v)/bias$", ("tensor",)),
+    (r"(audio_to_video|video_to_audio)_attn/to_(q|k|v)/bias$", ("tensor",)),
+    (r"attn\d?/to_out/weight$", ("tensor", "fsdp")),
+    (r"_attn/to_out/weight$", ("tensor", "fsdp")),
+    (r"to_out/bias$", (None,)),
+    (r"(q|k)_norm/weight$", ("tensor",)),
+    # feed-forward
+    (r"ff/proj_in/weight$", ("fsdp", "tensor")),
+    (r"ff/proj_in/bias$", ("tensor",)),
+    (r"ff/proj_out/weight$", ("tensor", "fsdp")),
+    (r"ff/proj_out/bias$", (None,)),
+    # block adaLN tables: (6|5, dim)
+    (r"scale_shift_table(_a2v_ca_(audio|video))?$", (None, "fsdp")),
+    # top-level projections
+    (r"patchify_proj/weight$", (None, "tensor")),
+    (r"patchify_proj/bias$", ("tensor",)),
+    (r"caption_projection/linear1/weight$", ("fsdp", "tensor")),
+    (r"caption_projection/linear1/bias$", ("tensor",)),
+    (r"caption_projection/linear2/weight$", ("tensor", "fsdp")),
+    (r"caption_projection/linear2/bias$", (None,)),
+    (r"proj_out/weight$", ("tensor", None)),
+    (r"proj_out/bias$", (None,)),
+    # adaLN MLPs
+    (r"adaln[a-z_]*/emb/timestep_embedder/linear1/weight$", (None, "tensor")),
+    (r"adaln[a-z_]*/emb/timestep_embedder/linear1/bias$", ("tensor",)),
+    (r"adaln[a-z_]*/emb/timestep_embedder/linear2/weight$", ("tensor", "fsdp")),
+    (r"adaln[a-z_]*/emb/timestep_embedder/linear2/bias$", (None,)),
+    (r"adaln[a-z_]*/linear/weight$", ("fsdp", "tensor")),
+    (r"adaln[a-z_]*/linear/bias$", ("tensor",)),
+    # Gemma-3 text encoder (layer stack under "layers/")
+    (r"self_attn/(q|k|v)_proj/weight$", ("fsdp", "tensor")),
+    (r"self_attn/(q|k|v)_proj/bias$", ("tensor",)),
+    (r"self_attn/o_proj/weight$", ("tensor", "fsdp")),
+    (r"self_attn/o_proj/bias$", (None,)),
+    (r"mlp/(gate|up)_proj/weight$", ("fsdp", "tensor")),
+    (r"mlp/(gate|up)_proj/bias$", ("tensor",)),
+    (r"mlp/down_proj/weight$", ("tensor", "fsdp")),
+    (r"mlp/down_proj/bias$", (None,)),
+    (r"embed_tokens/weight$", ("fsdp", None)),
+    (r"feature_extractor/aggregate_embed/weight$", ("fsdp", "tensor")),
+]
+
+
+def spec_for_path(path_str: str, ndim: int) -> Spec:
+    """Partition spec (a tuple of axis names or None, one a dimension) of one
+    JAX param leaf; stacked block leaves get a leading None for the layer
+    axis. JAX's function, returning a tuple where it returns a
+    ``PartitionSpec``."""
+    # W8A8 leaves: int8_weight has the weight's (in, out) layout; int8_scale
+    # is (out,) like a bias.
+    transpose = False
+    if path_str.endswith("int8_weight"):
+        path_str = path_str[: -len("int8_weight")] + "weight"
+    elif path_str.endswith("int8_scale"):
+        path_str = path_str[: -len("int8_scale")] + "bias"
+    else:
+        # Affine-quantized leaves (MLX layout): quant_weight is (out,
+        # in*bits/32) and scales/biases are (out, in/group): the dense
+        # (in, out) spec with its matrix axes swapped.
+        for leaf in ("quant_weight", "scales", "biases"):
+            if path_str.endswith("/" + leaf):
+                path_str = path_str[: -len(leaf)] + "weight"
+                transpose = True
+                break
+    stacked = (path_str.startswith("blocks/") or "/blocks/" in path_str
+               or path_str.startswith("layers/") or "/layers/" in path_str)
+    for pattern, spec in _RULES:
+        if re.search(pattern, path_str):
+            base = tuple(spec)
+            if transpose and len(base) == 2:
+                base = (base[1], base[0])
+            if stacked:
+                base = (None,) + base
+            return (base + (None,) * ndim)[:ndim]
+    return (None,) * ndim
+
+
+def jax_path(name: str) -> Tuple[str, bool]:
+    """The JAX tree path of a port tensor name (``blocks.3.attn1.to_q.weight``
+    -> ``blocks/attn1/to_q/weight``) and whether the leaf is stacked."""
+    parts = name.split(".")
+    stacked = len(parts) > 1 and parts[0] == "blocks" and parts[1].isdigit()
+    if stacked:
+        parts = parts[:1] + parts[2:]
+    return "/".join(parts), stacked
+
+
+def port_spec(name: str, ndim: int) -> Spec:
+    """The spec of a port tensor in the port's layout: JAX's spec of the same
+    leaf, without the stack's axis, with the matrix axes swapped where the
+    port's layout is (out, in) and JAX's (in, out)."""
+    path, stacked = jax_path(name)
+    spec = spec_for_path(path, ndim + stacked)[int(stacked):]
+    leaf = path.rsplit("/", 1)[-1]
+    if ndim == 2 and leaf in ("weight", "int8_weight"):
+        spec = (spec[1], spec[0])
+    return spec
+
+
+def _tensors(model: nn.Module) -> Iterable[Tuple[str, torch.Tensor]]:
+    yield from model.named_parameters()
+    yield from model.named_buffers()
+
+
+def param_specs(model: nn.Module) -> Dict[str, Spec]:
+    """Spec of every parameter and buffer of a port DiT, by name."""
+    return {name: port_spec(name, t.dim()) for name, t in _tensors(model)}
+
+
+def data_spec(ndim: int, batch_axes=("data",)) -> Spec:
+    """Batch-sharded spec for activations and inputs: axis 0 on ``data`` (a
+    one-axis tuple is that axis, as ``PartitionSpec`` writes it)."""
+    axes = tuple(batch_axes)
+    return (axes[0] if len(axes) == 1 else axes,) + (None,) * (ndim - 1)
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_slice(t: torch.Tensor, spec: Spec, mesh: MeshGroups, name: str = "tensor") -> torch.Tensor:
+    """This rank's slice of ``t`` under ``spec``: each dimension cut into
+    equal parts over its axes (row-major over several), a new contiguous
+    tensor; ``t`` itself when no axis of size > 1 cuts it."""
+    out = t
+    for d, entry in enumerate(spec):
+        axes = [a for a in _axes_of(entry) if mesh.size(a) > 1]
+        if not axes:
+            continue
+        parts, idx = 1, 0
+        for a in axes:
+            parts, idx = parts * mesh.size(a), idx * mesh.size(a) + mesh.index(a)
+        if out.shape[d] % parts:
+            raise ValueError(f"{name}: dimension {d} of size {out.shape[d]} does not divide over "
+                             f"{'x'.join(axes)}={parts}")
+        step = out.shape[d] // parts
+        out = out.narrow(d, idx * step, step)
+    return out if out is t else out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_batch(tree, mesh):
+    """This rank's ``data`` slice of every tensor's batch axis in a pytree of
+    tensors (dicts, lists, tuples, NamedTuples)."""
+    mg = mesh_groups(mesh)
+
+    def put(x):
+        if isinstance(x, torch.Tensor):
+            return local_slice(x, data_spec(x.dim()), mg, "batch")
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(put(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        return x
+
+    return put(tree)
+
+
+def _clone_tree(module: nn.Module, fn, prefix: str = "", recurse: bool = True) -> nn.Module:
+    """A structural copy of ``module``: new module objects (their plain
+    attributes shared), each parameter and buffer replaced by
+    ``fn(name, tensor, owner)``."""
+    new = copy.copy(module)
+    new._parameters = {}
+    for k, p in module._parameters.items():
+        if p is None:
+            new._parameters[k] = None
+            continue
+        t = fn(prefix + k, p, module)
+        new._parameters[k] = t if t is p else nn.Parameter(t, requires_grad=False)
+    new._buffers = {k: (None if b is None else fn(prefix + k, b, module)) for k, b in module._buffers.items()}
+    new._modules = {k: (m if (m is None or not recurse) else _clone_tree(m, fn, f"{prefix}{k}.", recurse))
+                    for k, m in module._modules.items()}
+    return new
+
+
+def _mark_tensor_parallel(module: nn.Module, specs: Dict[str, Spec], tp) -> None:
+    """Give the row-parallel linears (in-dimension on ``tensor``) and the
+    q/k RMSNorm weights of ``module`` (a sharded block) the ``tensor`` group."""
+    for name, sub in module.named_modules():
+        w = next((n for n in ("weight", "quant_weight", "int8_weight") if n in sub._parameters or n in sub._buffers),
+                 None)
+        if w is None:
+            continue
+        spec = specs[f"{name}.{w}" if name else w]
+        if (len(spec) == 2 and spec[1] == "tensor") or (len(spec) == 1 and spec[0] == "tensor"):
+            sub.tp_group = tp
+
+
+def _shard(model: nn.Module, mesh: MeshGroups) -> nn.Module:
+    if any("lora_A" in name for name, _ in _tensors(model)):
+        raise ValueError("a model with runtime LoRA adapters does not shard: merge them into the weights first "
+                         "(lora.py:merge_lora_into_params)")
+    specs = param_specs(model)
+    new = _clone_tree(model, lambda name, t, _: local_slice(t, specs[name], mesh, name))
+    new.shard_specs = specs
+    new.mesh = mesh
+    if mesh.size("tensor") > 1:
+        for i, block in enumerate(new.blocks):
+            _mark_tensor_parallel(block, {k[len(f"blocks.{i}."):]: v for k, v in specs.items()
+                                          if k.startswith(f"blocks.{i}.")}, mesh.group("tensor"))
+    return new
+
+
+def shard_params(model: nn.Module, mesh) -> nn.Module:
+    """This rank's share of a port DiT on ``mesh`` (a ``DeviceMesh`` or a
+    :class:`MeshGroups`): a model of the same modules whose tensors are the
+    rank's slices (:func:`local_slice`), carrying ``mesh`` and the specs, with
+    the tensor-parallel groups set. A model already sharded on this mesh is
+    returned as it is."""
+    mg = mesh_groups(mesh)
+    if getattr(model, "mesh", None) is not None:
+        if model.mesh is mg:
+            return model
+        raise ValueError(f"the model is already sharded on {model.mesh}")
+    return _shard(model, mg)
+
+
+def gather(module: nn.Module, specs: Dict[str, Spec], mesh: MeshGroups, axes=("data", "fsdp", "tensor"),
+           prefix: str = "", recurse: bool = True) -> nn.Module:
+    """A copy of ``module`` (a submodule of a sharded model at ``prefix``)
+    whose tensors cut over ``axes`` are all-gathered whole along them; the
+    others, and ``module`` itself when nothing is cut, are shared."""
+    if not any(mesh.size(a) > 1 for a in axes):
+        return module
+
+    def full(name, t, _):
+        for d, entry in enumerate(specs[prefix + name]):
+            for a in reversed([a for a in _axes_of(entry) if a in axes and mesh.size(a) > 1]):
+                t = mesh.group(a).all_gather(t, dim=d)
+        return t
+
+    return _clone_tree(module, full, recurse=recurse)

@@ -43,7 +43,13 @@ when :func:`utils.profiling.progress_echo_enabled` (an event sink, or
 after each step, the step ended by a device synchronise so its time is
 true. Without either the loop adds no synchronise.
 
-Not ported yet: the parallel forwards.
+The parallel forwards (parallel/): ``sequence_parallel=(mesh, "fsdp")``
+runs every DiT forward with its tokens cut over ``fsdp`` and ring
+self-attention; ``pipeline_parallel=(mesh, "pipe", num_microbatches[,
+data_axis])`` runs it GPipe over a staged model
+(parallel/pipeline.py:apply_from_tuple). A model sharded by
+parallel/sharding.py runs its rank-local forward on its own. Every rank
+gets the whole velocity, so every rank takes the same steps.
 """
 
 from __future__ import annotations
@@ -222,15 +228,36 @@ def _split_guided(vel: Optional[torch.Tensor], cfg_scale: float):
     return None if vel is None else _cfg_combine(*vel.chunk(2, dim=0), cfg_scale)
 
 
+def _make_apply(pp, sp):
+    """``ltx_apply``, or the GPipe forward for ``pp``; either with ``sp``."""
+    if pp is None:
+        def apply(model, config, video, audio, pab=None):
+            kw = {k: v for k, v in (("pab", pab), ("sp", sp)) if v is not None}
+            return ltx_apply(model, config, video, audio, **kw)
+
+        return apply
+    from mlx_video_tpu_torch.parallel.pipeline import apply_from_tuple
+
+    return apply_from_tuple(pp)
+
+
 def _tc_signal(model: LTXModel, config: LTXModelConfig, v_tokens: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     """TeaCache's change signal, (B, S, D) fp32: block 0's adaLN-modulated
     self-attention input (the patchify projection, the adaLN MLP at the
-    step's timesteps, block 0's scale-shift table, the RMS norm)."""
-    x = linear(model.video.patchify_proj, v_tokens)
-    mod, _ = adaln_apply(model.video.adaln_single, (ts * config.timestep_scale_multiplier).reshape(-1), x.dtype)
+    step's timesteps, block 0's scale-shift table, the RMS norm); a sharded
+    model's tensors gathered whole for it."""
+    video, block0 = model.video, model.blocks[0]
+    specs = getattr(model, "shard_specs", None)
+    if specs is not None:
+        from mlx_video_tpu_torch.parallel.sharding import gather
+
+        video = gather(video, specs, model.mesh, prefix="video.")
+        block0 = gather(block0, specs, model.mesh, prefix="blocks.0.", recurse=False)
+    x = linear(video.patchify_proj, v_tokens)
+    mod, _ = adaln_apply(video.adaln_single, (ts * config.timestep_scale_multiplier).reshape(-1), x.dtype)
     b, s_t, d = ts.shape[0], ts.shape[1], x.shape[-1]
     mod = mod.reshape(b, s_t, 6, d).float()
-    tab0 = model.blocks[0].scale_shift_table.float()
+    tab0 = block0.scale_shift_table.float()
     shift = tab0[0][None, None, :] + mod[:, :, 0, :]
     scale = tab0[1][None, None, :] + mod[:, :, 1, :]
     return rms_norm(x, eps=config.norm_eps).float() * (1.0 + scale) + shift
@@ -257,22 +284,23 @@ class _TeaCache:
         return full
 
 
-def _cfg_cached_velocity(model: LTXModel, config: LTXModelConfig, bundle, tokens, ts, cfg_scale: float, full: bool,
-                         delta: Optional[torch.Tensor]):
+def _cfg_cached_velocity(apply, model: LTXModel, config: LTXModelConfig, bundle, tokens, ts, cfg_scale: float,
+                         full: bool, delta: Optional[torch.Tensor]):
     """The CFG cache's guided velocity and its fp32 guidance delta: a full
     step runs the doubled forward and keeps v_pos - v_neg, a cached one
     runs the positive half alone and reuses ``delta``."""
     if full:
-        v_pos, v_neg = ltx_apply(model, config, _step_inputs(bundle, tokens, ts, "", True, False), None)[0].chunk(2)
+        v_pos, v_neg = apply(model, config, _step_inputs(bundle, tokens, ts, "", True, False), None)[0].chunk(2)
         delta = v_pos.float() - v_neg.float()
     else:
-        v_pos = ltx_apply(model, config, _modality(bundle, tokens, ts, half=0), None)[0]
+        v_pos = apply(model, config, _modality(bundle, tokens, ts, half=0), None)[0]
     return (v_pos.float() + (cfg_scale - 1.0) * delta).to(v_pos.dtype), delta
 
 
 def _check_dials(use_cfg: bool, cfg_sequential: bool, audio: bool, progress: bool, cfg_cache_interval: int,
-                 attn_broadcast_interval: int, teacache_threshold: float) -> None:
-    """The JAX function's refusals of the dials' combinations."""
+                 attn_broadcast_interval: int, teacache_threshold: float, parallel: bool = False) -> None:
+    """The JAX function's refusals of the dials' combinations (``parallel``:
+    sequence or pipeline parallelism asked for)."""
     if cfg_sequential and use_cfg and (cfg_cache_interval > 1 or attn_broadcast_interval > 1
                                        or teacache_threshold > 0.0):
         raise ValueError(
@@ -285,6 +313,9 @@ def _check_dials(use_cfg: bool, cfg_sequential: bool, audio: bool, progress: boo
         if cfg_cache_interval > 1 or attn_broadcast_interval > 1:
             raise ValueError("teacache_threshold cannot be combined with cfg_cache_interval or "
                              "attn_broadcast_interval (one caching dial at a time)")
+        if parallel:
+            raise ValueError("teacache_threshold does not compose with pipeline/sequence parallelism "
+                             "(data-dependent lax.cond around shard_map bodies)")
         if progress:
             raise ValueError("teacache_threshold is a scan-mode feature; per-step progress_callback is "
                              "unsupported with it")
@@ -294,6 +325,9 @@ def _check_dials(use_cfg: bool, cfg_sequential: bool, audio: bool, progress: boo
         if cfg_cache_interval > 1:
             raise ValueError("attn_broadcast_interval and cfg_cache_interval cannot be combined (their forward "
                              "batch shapes conflict inside the scan)")
+        if parallel:
+            raise ValueError("attn_broadcast_interval does not compose with pipeline/sequence parallelism "
+                             "(data-dependent lax.cond around shard_map bodies)")
         if progress:
             raise ValueError("attn_broadcast_interval is a scan-mode feature; per-step progress_callback is "
                              "unsupported with it")
@@ -325,6 +359,8 @@ def denoise(
     attn_broadcast_interval: int = 1,
     teacache_threshold: float = 0.0,
     full_steps: Optional[List[int]] = None,
+    sequence_parallel=None,
+    pipeline_parallel=None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Run the sigma schedule over (B, C, F, H, W) latents and, with
     ``audio_latents``, (B, C, T, M) audio latents jointly (an AudioVideo
@@ -343,11 +379,21 @@ def denoise(
     ``attn_broadcast_interval``) are described in the module docstring;
     ``full_steps``, when given, receives the indices of the steps a dial ran
     fully. ``progress_callback(step, total)`` is called after each step.
+    ``sequence_parallel`` and ``pipeline_parallel`` are described in the
+    module docstring; they exclude each other.
     """
     use_cfg = cfg_scale != 1.0 and neg_context is not None
     seq_cfg = use_cfg and cfg_sequential
     _check_dials(use_cfg, cfg_sequential, audio_latents is not None, progress_callback is not None,
-                 cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
+                 cfg_cache_interval, attn_broadcast_interval, teacache_threshold,
+                 sequence_parallel is not None or pipeline_parallel is not None)
+    if pipeline_parallel is not None:
+        if sequence_parallel is not None:
+            raise ValueError("pipeline_parallel and sequence_parallel are mutually exclusive")
+        b_ref = latents.shape[0] if latents is not None else audio_latents.shape[0]
+        if b_ref % int(pipeline_parallel[2]) != 0:
+            raise ValueError(f"batch={b_ref} not divisible by pipeline num_microbatches={pipeline_parallel[2]}")
+    apply = _make_apply(pipeline_parallel, sequence_parallel)
     teacache = _TeaCache(teacache_threshold) if teacache_threshold > 0.0 else None
     cfg_caching = use_cfg and cfg_cache_interval > 1
     pab_k = attn_broadcast_interval
@@ -378,19 +424,19 @@ def denoise(
         if teacache is not None and not full:
             v_vel = teacache.velocity
         elif cfg_caching:
-            v_vel, v_delta = _cfg_cached_velocity(model, config, bundle, v_tokens, v_ts, cfg_scale, full, v_delta)
+            v_vel, v_delta = _cfg_cached_velocity(apply, model, config, bundle, v_tokens, v_ts, cfg_scale, full,
+                                                  v_delta)
         else:
             video_in = _step_inputs(bundle, v_tokens, v_ts, "", use_cfg, seq_cfg)
             audio_in = _step_inputs(bundle, a_tokens, a_ts, "a_", use_cfg, seq_cfg)
             if pab_k > 1 and full:
-                v_vel, a_vel, pab_cache = ltx_apply(model, config, video_in, None, pab="collect")
+                v_vel, a_vel, pab_cache = apply(model, config, video_in, None, pab="collect")
             elif pab_k > 1:
-                v_vel, a_vel = ltx_apply(model, config, video_in, None, pab=pab_cache)
+                v_vel, a_vel = apply(model, config, video_in, None, pab=pab_cache)
             elif seq_cfg:
-                (v_pos, a_pos), (v_neg, a_neg) = (ltx_apply(model, config, video_in[i], audio_in[i])
-                                                  for i in (0, 1))
+                (v_pos, a_pos), (v_neg, a_neg) = (apply(model, config, video_in[i], audio_in[i]) for i in (0, 1))
             else:
-                v_vel, a_vel = ltx_apply(model, config, video_in, audio_in)
+                v_vel, a_vel = apply(model, config, video_in, audio_in)
             if seq_cfg:
                 v_vel, a_vel = _guided(v_pos, v_neg, cfg_scale), _guided(a_pos, a_neg, cfg_scale)
             elif use_cfg:

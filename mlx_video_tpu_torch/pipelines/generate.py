@@ -43,7 +43,20 @@ a preview: the latest frame as a PIL JPEG (quality 85, at most
 sink subscribes. A run with no sink, no ``MLX_VIDEO_UI_JSON`` and no
 preview path hands no frames on beyond the writer's.
 
-Not ported yet: the parallel and host-staging options.
+Sharded generation (parallel/): ``mesh`` (a (data, fsdp, tensor)
+``DeviceMesh``) runs every DiT forward rank-local on the bundle's
+transformers sharded over it (parallel/sharding.py:shard_params; done here
+for a transformer not sharded yet, replacing it in the bundle), with
+``sequence_parallel`` its tokens cut over ``fsdp`` and ring self-attention;
+``pipeline_parallel`` P > 0 runs it GPipe over P stages of a (data, pipe[,
+fsdp, tensor]) mesh built here (``pipeline_tensor`` TP ways inside each
+stage), the bundle's transformers replaced by this rank's stage. Every rank
+draws the same noise from the same seeds and gets the whole velocity of
+every step, so every rank holds the same latents; the upsample and decode
+run on them on every rank, and only the primary rank (rank 0) writes files.
+The video DiT only: audio with a mesh or stages is refused.
+
+Not ported yet: the host-staging options.
 
 Randomness: video i draws all its noise from its own ``torch.Generator``
 (the one given, or one seeded with ``seed + i`` or ``seeds[i]`` on the
@@ -107,6 +120,8 @@ from mlx_video_tpu_torch.models.ltx.video_vae.tiling import (
     decode_with_tiling,
     decode_with_tiling_device,
 )
+from mlx_video_tpu_torch.parallel import SERVER_ITEM
+from mlx_video_tpu_torch.parallel.distributed import is_primary_host
 from mlx_video_tpu_torch.pipelines import denoise as dn
 from mlx_video_tpu_torch.pipelines.conditioning import (
     LatentState,
@@ -418,6 +433,46 @@ def _dial_refusal(joint_audio: bool, cfg_cache_interval: int, attn_broadcast_int
         )
 
 
+def _parallel_setup(models: ModelBundle, audio: bool, mesh, sequence_parallel: bool, pipeline_parallel: int,
+                    pipeline_microbatches: int, pipeline_data: int, pipeline_tensor: int,
+                    attn_broadcast_interval: int):
+    """The JAX function's checks of the parallel options; shards (or stages)
+    the bundle's transformers in place; returns denoise's (sp, pp)."""
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+    if audio and (mesh is not None or pipeline_parallel):
+        raise ValueError("audio with a mesh or pipeline stages is not ported yet: the AV DiT's sharded forward "
+                         f"waits for {SERVER_ITEM}")
+    sp = (mesh, "fsdp") if (sequence_parallel and mesh is not None) else None
+    if not pipeline_parallel:
+        if mesh is not None:
+            models.transformer = shard_params(models.transformer, mesh)
+            if models.stage2_transformer is not None:
+                models.stage2_transformer = shard_params(models.stage2_transformer, mesh)
+        return sp, None
+    if mesh is not None or sequence_parallel:
+        raise ValueError("pipeline_parallel is mutually exclusive with mesh/sequence_parallel")
+    if attn_broadcast_interval > 1:
+        raise ValueError("attn_broadcast_interval does not compose with pipeline_parallel")
+    if pipeline_microbatches > 1 or pipeline_data > 1:
+        raise ValueError(
+            "generate_video runs a latent batch of 1; pipeline_microbatches/pipeline_data have nothing to split "
+            "— use pipeline_parallel stages (+ pipeline_tensor) for inference, and the trainer config for "
+            "microbatched pipelines"
+        )
+    from mlx_video_tpu_torch.parallel.pipeline import pipeline_mesh, shard_params_pipeline
+
+    device_type = models.transformer.video.scale_shift_table.device.type
+    pp_mesh = getattr(models.transformer, "mesh", None)
+    if pp_mesh is None:
+        pp_mesh = pipeline_mesh(pipeline_parallel, data=pipeline_data, tensor=pipeline_tensor,
+                                device_type=device_type)
+    models.transformer = shard_params_pipeline(models.transformer, pp_mesh)
+    if models.stage2_transformer is not None:
+        models.stage2_transformer = shard_params_pipeline(models.stage2_transformer, pp_mesh)
+    return None, (pp_mesh, "pipe", pipeline_microbatches, "data" if pipeline_data > 1 else None)
+
+
 def _per_video(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
     """Text embeddings of batch 1 broadcast to ``n`` videos (or already n)."""
     if x is None or x.shape[0] == n:
@@ -468,6 +523,12 @@ def generate_video(
     output_audio_path: Optional[Union[str, Path]] = None,
     profile: bool = False,
     mem_log: bool = False,
+    mesh=None,
+    sequence_parallel: bool = False,
+    pipeline_parallel: int = 0,
+    pipeline_microbatches: int = 1,
+    pipeline_data: int = 1,
+    pipeline_tensor: int = 1,
 ) -> GenerateResult:
     """Generate videos with the distilled two-stage pipeline (``distilled``,
     ``keyframe``, ``ic_lora``) or the dev pipeline.
@@ -511,6 +572,10 @@ def generate_video(
     synchronise; ``profile`` prints the phase report before returning, and
     ``profile`` or ``mem_log`` prints the device memory line at "stage1
     complete" and "stage2 complete" (distilled) or "denoise complete" (dev).
+
+    ``mesh``, ``sequence_parallel``, ``pipeline_parallel`` (with
+    ``pipeline_microbatches``, ``pipeline_data`` and ``pipeline_tensor``):
+    sharded generation, in the module docstring.
     """
     pipeline = PipelineType(pipeline)
     if seeds is not None:
@@ -544,6 +609,11 @@ def generate_video(
         if num_videos > 1:
             raise ValueError("num_videos > 1 does not compose with audio yet")
     _dial_refusal(joint_audio, cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
+    sp, pp = _parallel_setup(models, audio, mesh, sequence_parallel, pipeline_parallel, pipeline_microbatches,
+                             pipeline_data, pipeline_tensor, attn_broadcast_interval)
+    parallel = dict(sequence_parallel=sp, pipeline_parallel=pp)
+    if not is_primary_host():
+        output_path = output_audio_path = None  # the primary rank writes the files
     device = models.transformer.video.scale_shift_table.device
     vid_seeds = [int(s) for s in seeds] if seeds is not None else [seed + i for i in range(num_videos)]
     generators = [generator] if generator is not None else [
@@ -614,7 +684,7 @@ def generate_video(
             latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h, latent_w), context, sigmas,
                 neg_context=neg, cfg_scale=cfg_scale, state=state, cfg_sequential=cfg_sequential, **joint,
-                cfg_cache_interval=cfg_cache_interval, full_steps=steps_of("dev_denoise"), **dials,
+                cfg_cache_interval=cfg_cache_interval, full_steps=steps_of("dev_denoise"), **dials, **parallel,
             )
         profiling.log_memory("denoise complete", profile or mem_log, device=device)
     else:
@@ -643,7 +713,7 @@ def generate_video(
                 joint = joint_audio_args(noise(audio_shape))
             latents, audio_latents = dn.denoise(
                 models.transformer, config, latents, positions(latent_h // 2, latent_w // 2), context, s1_sigmas,
-                state=state1, **joint, full_steps=steps_of("stage1_denoise"), **dials,
+                state=state1, **joint, full_steps=steps_of("stage1_denoise"), **dials, **parallel,
             )
         profiling.log_memory("stage1 complete", profile or mem_log, device=device)
 
@@ -664,6 +734,7 @@ def generate_video(
                 stage2, config, latents, positions(latent_h, latent_w), context, s2_sigmas,
                 neg_context=neg if stage2_cfg else None, cfg_scale=cfg_scale, state=state2,
                 cfg_sequential=cfg_sequential, **joint, full_steps=steps_of("stage2_denoise"), **dials,
+                **parallel,
             )
         profiling.log_memory("stage2 complete", profile or mem_log, device=device)
 

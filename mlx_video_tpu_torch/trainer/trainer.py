@@ -21,8 +21,8 @@ trainer/validation_sampler.py) runs before the first step (unless
 - The state file holds the trainable tensors and the optimizer state only
   (trainer/checkpoints.py); the base comes back from ``model_repo``.
 
-Not ported yet, and refused by name: meshes, sequence parallelism, pipeline
-stages, W&B and hub push.
+Not ported yet, and refused by name: meshes, sequence parallelism and
+pipeline stages (the sharded trainer, ROADMAP §1 queue), W&B and hub push.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from mlx_video_tpu_torch.cli.generate import PARALLEL_TRAIN
 from mlx_video_tpu_torch.config import LTXModelConfig, LTXModelType, LTXRopeType
 from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
 from mlx_video_tpu_torch.io.weights import load_dit_params, load_native_params, save_dit_params
@@ -69,11 +70,12 @@ def build_model_config(cfg: TrainingConfig) -> LTXModelConfig:
 
 
 def _unported(cfg: TrainingConfig) -> list:
-    """The config fields that ask for what the port does not have yet."""
+    """The config fields that ask for what the port does not have yet, the
+    parallel ones with the ROADMAP item they wait for."""
     asks = {
-        "mesh_shape": cfg.mesh_shape,
-        "sequence_parallel": cfg.sequence_parallel,
-        "pipeline_stages": cfg.pipeline_stages,
+        f"mesh_shape ({PARALLEL_TRAIN})": cfg.mesh_shape,
+        f"sequence_parallel ({PARALLEL_TRAIN})": cfg.sequence_parallel,
+        f"pipeline_stages ({PARALLEL_TRAIN})": cfg.pipeline_stages,
         "wandb_enabled": cfg.wandb_enabled,
         "hub_push": cfg.hub_push,
     }

@@ -146,7 +146,7 @@ def test_main_latents_only_writes_no_video(monkeypatch, tmp_path, emb_file):
 
 
 @pytest.mark.parametrize("flags, named", [
-    (["--pipeline-parallel", "2"], "--pipeline-parallel"),
+    (["--pipeline-parallel", "1"], "--pipeline-parallel"),
     (["--cfg-cache-interval", "2"], "--cfg-cache-interval"),
     (["--attn-broadcast-interval", "2"], "--attn-broadcast-interval"),
     (["--mesh", "auto"], "--mesh"),

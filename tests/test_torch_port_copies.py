@@ -8,7 +8,8 @@ train, serve and enhance CLIs' parsers and ``slugify``, the enhancement system p
 dev pipeline's default negative prompt, the loader's ``bits_hint_for`` and
 ``read_quantization_metadata``, and the trainer's progress line, config
 display and video IO (trainer/aux.py); the precompute helpers and the
-log-mel processor are held in tests/test_torch_port_precompute.py. Every
+log-mel processor are held in tests/test_torch_port_precompute.py; the
+sharding rules and ``factor_devices`` of parallel/. Every
 comparison here is exact: the copies are the same code.
 """
 
@@ -440,3 +441,20 @@ def test_convert_parser_copy(monkeypatch):
     ported = _flags(tconvert.build_parser())
     assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")
     assert ported == _flags(seen[0])
+
+
+@pytest.mark.parametrize("part", ["rules", "factor_devices"])
+def test_parallel_copy(part):
+    """parallel/sharding.py's ``_RULES`` (a spec a tuple where JAX's is a
+    ``PartitionSpec``, the same entries) and parallel/mesh.py's
+    ``factor_devices``."""
+    from mlx_video_tpu.parallel import mesh as jmesh
+    from mlx_video_tpu.parallel import sharding as jsharding
+    from mlx_video_tpu_torch.parallel import mesh as tmesh
+    from mlx_video_tpu_torch.parallel import sharding as tsharding
+
+    if part == "rules":
+        assert [(pattern, tuple(spec)) for pattern, spec in jsharding._RULES] == tsharding._RULES
+    else:
+        for n in range(1, 65):
+            assert tmesh.factor_devices(n) == jmesh.factor_devices(n)

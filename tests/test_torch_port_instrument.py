@@ -44,8 +44,7 @@ from mlx_video_tpu_torch.utils import profiling as tprof
 from test_torch_port_cli import _run_main, _tiny_bundle, emb_file  # noqa: F401  (emb_file is a fixture)
 from test_torch_port_train import TCFG, _tiny_model, _train_cfg, _write_dataset
 
-REFUSED = {"mesh", "sequence_parallel", "pipeline_parallel", "pipeline_tensor", "low_memory", "aux_stage_int8",
-           "aux_park_device", "no_overlap_staging", "optimize_layouts"}
+REFUSED = {"low_memory", "aux_stage_int8", "aux_park_device", "no_overlap_staging", "optimize_layouts"}
 # each noted flag group and the name its note gives it
 NOTED = {"--enable-fp8": ["--enable-fp8"],
          "--stg-scale/--stg-blocks/--stg-mode": ["--stg-scale", "1.5", "--stg-blocks", "3", "--stg-mode", "x"],
@@ -240,14 +239,18 @@ def test_refused_set_is_exactly_the_nine_options():
     assert REFUSED <= jax_dests
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "1,1,8"], ["--sequence-parallel"], ["--pipeline-parallel", "2"],
-                                   ["--pipeline-tensor", "2"], ["--low-memory"], ["--aux-stage-int8"],
+@pytest.mark.parametrize("flags", [["--mesh", "1,1,8"], ["--sequence-parallel", "--mesh", "1,2,1"],
+                                   ["--pipeline-parallel", "2"], ["--pipeline-tensor", "2", "--pipeline-parallel", "2"],
+                                   ["--low-memory"], ["--aux-stage-int8"],
                                    ["--aux-park-device"], ["--no-overlap-staging"], ["--optimize-layouts"]])
 def test_refused_options_exit_naming_what_they_wait_for(emb_file, flags):
+    """The five left-out options exit naming what they wait for; the four
+    parallel ones are ported and, asking for more than one rank with no
+    launcher, exit naming torchrun before any weight is loaded."""
     with pytest.raises(SystemExit) as info:
         cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", *flags])
     msg = str(info.value)
-    assert flags[0] in msg and ("the parallel paths" in msg or "Leave out" in msg)
+    assert flags[0] in msg and ("Leave out" in msg or "torchrun" in msg)
 
 
 @pytest.mark.parametrize("flags", [*NOTED.values(), *SILENT], ids=lambda f: f[0])

@@ -208,7 +208,10 @@ assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "ml
         "mlx_video_tpu_torch.cli.serve", "mlx_video_tpu_torch.enhance", "mlx_video_tpu_torch.cli.enhance",
         "mlx_video_tpu_torch.utils.profiling", "mlx_video_tpu_torch.convert", "mlx_video_tpu_torch.cli.convert",
         "mlx_video_tpu_torch.generate_dev", "mlx_video_tpu_torch.io.prefetch", "mlx_video_tpu_torch.utils.debug",
-        "mlx_video_tpu_torch.tools.compare_latents", "mlx_video_tpu_torch.postprocess"} <= set(sys.modules)
+        "mlx_video_tpu_torch.tools.compare_latents", "mlx_video_tpu_torch.postprocess",
+        "mlx_video_tpu_torch.parallel.distributed", "mlx_video_tpu_torch.parallel.mesh",
+        "mlx_video_tpu_torch.parallel.collectives", "mlx_video_tpu_torch.parallel.sharding",
+        "mlx_video_tpu_torch.parallel.ring_attention", "mlx_video_tpu_torch.parallel.pipeline"} <= set(sys.modules)
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
