@@ -317,7 +317,7 @@ Phases, in order; any failure exits non-zero before the last line:
    seeded ids, cached last-position logits against no-cache ones over the
    same prefix at 3 positions (bar: max(1e-2, twice a control that reads
    the bf16 rounding of two no-cache forwards of other lengths)), greedy
-   generate of 256 tokens with no eos (ms a token against the bound of its
+   generate of 128 tokens with no eos (ms a token against the bound of its
    bytes: the bf16 layers, the fp32 head copy and the KV caches at 3.35
    TB/s; peak memory), then the prompt and its continuation, left-padded to
    1024, through encode_tokens: finite (1, 1024, 3840). (b)-(d) and (f)
@@ -396,13 +396,36 @@ Phases, in order; any failure exits non-zero before the last line:
    rel L2 <= 1e-2 against the unsharded form on the card; K2 at a tensor
    rank's feed-forward words beside its plain version and cuBLAS on the
    dequantized weight. A failed NCCL
-   init, collective or launch ends the phase. ``python3 chip_smoke.py
-   --parallel-only`` runs 1, 2, the full-width models, 7a and 16 alone.
-Phases 7-16 print phase times and peak device memory. Every profile records
+   init, collective or launch ends the phase.
+17. the sharded audio DiTs, the server's mesh and the sharded encoder. (a)
+   right after phase 12, on its resident AudioVideo and AudioOnly DiTs and
+   decoders: NCCL at world 1, phase 12 (a)'s joint distilled run with mesh
+   (1, 1, 1), with mesh and sequence_parallel and with one pipeline stage,
+   and 12 (b)'s separate run with mesh (1, 1, 1): latents and audio latents
+   bitwise phase 12's, 1056 / 912 K1. (b) a one-block model of the resident
+   AV DiT's first block at 1280 video and 34 audio tokens: shard_params
+   over tensor = 2 and 4 virtual ranks, dense and q4 (2T K1, 28T K2 on the
+   sharded words); the SP ring over fsdp = 2 and 4 (n^2 K1 with lse and one
+   audio K1 a rank); phase 11's adapter attached over each tensor = 2
+   shard; every stream rel L2 <= 1e-2 against the unsharded block; a
+   seeded adapter on all 28 linears of the block, scaled to move each
+   stream by about 0.2, over tensor = 2: each stream within min(1e-2, 0.1 x
+   its movement), and with the shards' row-parallel deltas dropped it must
+   miss that bar. (c) in
+   phase 14 (e), serve's main runs with --mesh 1,1,1 (sharded once at
+   load): its base request bitwise a direct generate_video call on the
+   loaded DiT. (d) in phase 9b, on the resident 12B: its first Gemma layer
+   over tensor = 2 and 4 virtual ranks (rel L2 <= 1e-2) and encode_tokens
+   with the encoder sharded on (1, 1, 1), bitwise the unsharded embeddings.
+   ``python3 chip_smoke.py --parallel-only`` runs 1, 2, the full-width
+   models, 7a, 16, then phase 12's resident audio models with their direct
+   joint and separate runs, 17 (a), (b), and (d) on a two-layer encoder of
+   the 12B geometry.
+Phases 7-17 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
-1-7a, 16, 11, 14 (b)-(d) and (f), 12, 8, 9a, 9b with 13 (a) and 14 (a), 13 (b),
-15, 9, 10 with 13 (c) and 14 (e). Last: the kernel summary line (K1-K6:
+1-7a, 16, 11, 14 (b)-(d) and (f), 12, 17 (a), (b), 8, 9a, 9b with 13 (a), 14 (a) and
+17 (d), 13 (b), 15, 9, 10 with 13 (c) and 14 (e) with 17 (c). Last: the kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
 also their launches on every path of phases 7a-15, "path_launches") and
@@ -2245,15 +2268,39 @@ def check_compared(shapes: dict, what: str) -> None:
         fail(f"{what}: launches at shapes phases 3-5 never compared with the plain version: {missed}")
 
 
+def audio_bundles(models, text) -> dict:
+    """Phase 12's resident audio models on the card: the AudioVideo DiT on
+    the video DiT's modules, the AudioOnly DiT on its audio modules, the
+    default audio decoder and vocoder; the joint and separate bundles, the
+    distilled run's text (seeded audio contexts) and the dev run's negative
+    video context."""
+    import dataclasses
+
+    import torch
+
+    from mlx_video_tpu_torch.pipelines.generate import TextConditioning
+
+    device = models.transformer.video.scale_shift_table.device
+    av, av_cfg = audio_video_model(models.transformer)
+    ao, ao_cfg = audio_only_model(av)
+    decoders = audio_decoders(device)
+    g = torch.Generator(device=device).manual_seed(44)
+    video_neg, audio, audio_neg = (torch.randn(1, 128, 3840, generator=g, device=device).to(torch.bfloat16)
+                                   for _ in range(3))
+    return dict(joint=dataclasses.replace(models, transformer=av, transformer_config=av_cfg, **decoders),
+                separate=dataclasses.replace(models, audio_transformer=ao, audio_transformer_config=ao_cfg, **decoders),
+                text=TextConditioning(text.video_embeddings, None, audio, audio_neg), video_neg=video_neg,
+                decoders=decoders)
+
+
 def full_width_audio(models, text, fa, ca, work: Path) -> dict:
     """Phase 12: the AudioVideo model (the video DiT's modules plus seeded
     audio and cross-modal tensors), the AudioOnly one on its audio modules,
     the default audio VAE decoder and vocoder; (a) joint distilled, with a
     warm profiled run; (b) separate distilled; (c) joint dev with an image,
     CFG and both routes on, then routes on/off and sequential/batched CFG
-    A/Bs. The audio tensors are freed at the end."""
-    import dataclasses
-
+    A/Bs. The bundles, the text and (a)'s and (b)'s latents are handed on
+    under "resident" for phase 17; the rest is freed at the end."""
     import numpy as np
     import torch
 
@@ -2264,9 +2311,9 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
 
     device, bf16 = models.transformer.video.scale_shift_table.device, torch.bfloat16
     t_phase = time.perf_counter()
-    av, av_cfg = audio_video_model(models.transformer)
-    ao, ao_cfg = audio_only_model(av)
-    decoders = audio_decoders(device)
+    built = audio_bundles(models, text)
+    joint, separate, distilled_text, decoders = built["joint"], built["separate"], built["text"], built["decoders"]
+    av, ao = joint.transformer, separate.audio_transformer
     video_ids = {id(p) for p in models.transformer.parameters()}
     n_av = sum(p.numel() for p in av.parameters())
     n_audio = sum(p.numel() for p in av.parameters() if id(p) not in video_ids)
@@ -2277,11 +2324,7 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
           f" M, vocoder {sum(p.numel() for p in decoders['vocoder'].parameters()) / 1e6:.1f} M, in "
           f"{time.perf_counter() - t_phase:.2f} s; ffmpeg on this machine: {shutil.which('ffmpeg') is not None}",
           flush=True)
-    g = torch.Generator(device=device).manual_seed(44)
-    video_neg, audio, audio_neg = (torch.randn(1, 128, 3840, generator=g, device=device).to(bf16) for _ in range(3))
-    joint = dataclasses.replace(models, transformer=av, transformer_config=av_cfg, **decoders)
-    separate = dataclasses.replace(models, audio_transformer=ao, audio_transformer_config=ao_cfg, **decoders)
-    distilled_text = TextConditioning(text.video_embeddings, None, audio, audio_neg)
+    video_neg, audio, audio_neg = built["video_neg"], distilled_text.audio_embeddings, distilled_text.audio_neg_embeddings
     steps = PHASE11_RUN["stage1_steps"] + PHASE11_RUN["stage2_steps"]
 
     def gen():
@@ -2306,6 +2349,7 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
     res_b, counts_b = audio_run(separate, distilled_text, fa, ca, "(b) separate audio distilled", {"k1": want_b},
                          **PHASE11_RUN, audio_steps=8, output_path=work / "b.mp4", generator=gen())
     print(f"  (b) audio_denoise {res_b.phase_seconds['audio_denoise']:.4f} s for 8 steps at B = 2 (CFG)", flush=True)
+    direct = {"joint": (res_a.latents, res_a.audio_latents), "separate": (res_b.latents, res_b.audio_latents)}
 
     # (c) joint AV, dev: BASELINE config 3 with audio, both routes on
     dev_text = TextConditioning(text.video_embeddings, video_neg, audio, audio_neg)
@@ -2349,11 +2393,13 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
                        **short, num_inference_steps=1, cfg_sequential=True, generator=gen())
     ab(seq, batched, "(c) sequential vs batched CFG at 1 step")
     set_routes(False)
-    del av, ao, joint, separate, decoders, on, off, batched, seq
+    out = {"k1": {"audio_joint_distilled": counts_a["k1"], "audio_separate_distilled": counts_b["k1"]},
+           "k4": counts_c["k4"], "k5": counts_c["k5"],
+           "resident": dict(joint=joint, separate=separate, text=distilled_text, direct=direct)}
+    del av, ao, joint, separate, decoders, built, on, off, batched, seq
     torch.cuda.empty_cache()
     print(f"  phase 12 (a)-(c): {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return {"k1": {"audio_joint_distilled": counts_a["k1"], "audio_separate_distilled": counts_b["k1"]},
-            "k4": counts_c["k4"], "k5": counts_c["k5"]}
+    return out
 
 
 def full_width_w8a8(models, text, fa, qmm) -> dict:
@@ -2475,7 +2521,9 @@ def full_width_text_encoder(models, fa, qmm, work: Path, precompute=None) -> dic
             encode_tokens(te, cfg, ids, mask)
         return out, secs, peak
 
-    (video, _), secs, peak = encode("bf16")
+    (video, audio), secs, peak = encode("bf16")
+    print("phase 17 (d): the 12B sharded (parallel/sharding.py on the text encoder):", flush=True)
+    sharded = sharded_text_encoder(te, cfg, ids, mask, (video, audio))
     mp4 = work / "from_token_ids.mp4"
     run = drive_slice(models, TextConditioning(video), fa, qmm, want_k2=0, output_path=mp4)
     if run["video_path"] is None or not Path(run["video_path"]).is_file() or Path(run["video_path"]).stat().st_size == 0:
@@ -2494,9 +2542,9 @@ def full_width_text_encoder(models, fa, qmm, work: Path, precompute=None) -> dic
     print(f"  W8A8 video embeddings against bf16: rel L2 {l2:.3e}", flush=True)
     if not np.isfinite(l2):
         fail("W8A8 embeddings are not finite")
-    del te, video, video8, audio8
+    del te, video, audio, video8, audio8
     torch.cuda.empty_cache()
-    return {"bf16_s": secs, "w8a8_s": secs8, "bf16_peak": peak, "w8a8_peak": peak8, "l2": l2}
+    return {"bf16_s": secs, "w8a8_s": secs8, "bf16_peak": peak, "w8a8_peak": peak8, "l2": l2, **sharded}
 
 
 # Phase 13: training data and audio-video training.
@@ -3213,6 +3261,20 @@ def trace_launches(counts: dict, kernel: str) -> int:
     return sum(n for label, n in counts.items() if kernel in label)
 
 
+def collected(device) -> None:
+    """Unreachable objects collected now (not when the garbage collector
+    next runs: a cycle can hold a whole bundle's device memory), the cache
+    emptied."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
 def run_captured(main, argv: list) -> tuple:
     """``main(argv)`` with its stdout and stderr captured, then printed
     indented; returns (seconds, stdout, stderr)."""
@@ -3235,8 +3297,7 @@ def convert_run(argv: list, what: str) -> str:
 
     from mlx_video_tpu_torch import convert
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    collected("cuda")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     secs, out, _ = run_captured(convert.main, argv)
@@ -3302,10 +3363,13 @@ def generate_from_converted(snap: Path, embeddings: Path, tmp: Path, fa, qmm, wh
     wall, out, err = run_captured(cli.main, argv)
     k1, k2, int8 = fa.launch_count, qmm.launch_count, i8.int8_matmul_count
     phases = json.loads(report.read_text())["phases"]
+    left = torch.cuda.memory_allocated()
+    collected(device)  # a traced run can leave its bundle in a reference cycle
     print(f"  CLI on the {what} files: main wall {wall:.4f} s; phases " + ", ".join(
         f"{n} {s:.4f} s" for n, s in phases.items()) + f"; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}; int8 products {int8}",
-        flush=True)
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}; int8 products {int8}; "
+        f"device memory after main {left / 2**30:.3f} GiB, after a collection "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
     if not output.is_file() or output.stat().st_size == 0:
         fail(f"the CLI on the {what} files wrote no video")
     return {"k1": k1, "k2": k2, "int8": int8, "stdout": out, "stderr": err}
@@ -3506,11 +3570,15 @@ def synced_s(fn):
     return out, time.perf_counter() - t0
 
 
+ENHANCE_TOKENS = 128  # phase 14 (a)'s greedy generation
+
+
 def full_width_enhance(te, cfg) -> dict:
     """Phase 14 (a), on phase 9b's bf16 12B encoder: cached logits against
-    no-cache ones at 3 positions, greedy generation of 256 tokens from 512
-    seeded ids (no eos), ms a token against its bound, then the prompt and
-    its continuation through encode_tokens."""
+    no-cache ones at 3 positions, greedy generation of 128 tokens from 512
+    seeded ids (no eos; a host-bound loop reads the same ms a token over
+    fewer tokens), ms a token against its bound, then the prompt and its
+    continuation through encode_tokens."""
     import torch
 
     from mlx_video_tpu_torch.models import gemma3
@@ -3556,19 +3624,19 @@ def full_width_enhance(te, cfg) -> dict:
     base_mem = torch.cuda.memory_allocated()
     first, one_s = synced_s(lambda: gemma3.generate(lm, cfg, ids, max_new_tokens=1, temperature=0.0,
                                                     eos_token_ids=()))
-    tokens, all_s = synced_s(lambda: gemma3.generate(lm, cfg, ids, max_new_tokens=256, temperature=0.0,
+    tokens, all_s = synced_s(lambda: gemma3.generate(lm, cfg, ids, max_new_tokens=ENHANCE_TOKENS, temperature=0.0,
                                                      eos_token_ids=()))
     peak = torch.cuda.max_memory_allocated()
-    if len(tokens) != 256 or tokens[0] != first[0] or not all(0 <= t < cfg.vocab_size for t in tokens):
-        fail(f"(a) greedy generation gave {len(tokens)} tokens (want 256), first {tokens[:1]} vs {first}")
-    ms = 1e3 * (all_s - one_s) / 255
+    if len(tokens) != ENHANCE_TOKENS or tokens[0] != first[0] or not all(0 <= t < cfg.vocab_size for t in tokens):
+        fail(f"(a) greedy generation gave {len(tokens)} tokens (want {ENHANCE_TOKENS}), first {tokens[:1]} vs {first}")
+    ms = 1e3 * (all_s - one_s) / (ENHANCE_TOKENS - 1)
     layer_bytes = sum(p.numel() * p.element_size() for n, p in lm.named_parameters() if not n.startswith("embed"))
     head_bytes = 4 * lm.embed_tokens.weight.numel()  # the fp32 copy of the tied head, read once a token
-    kv_bytes = cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * (512 + 256) * cfg.head_dim * 2
+    kv_bytes = cfg.num_hidden_layers * 2 * cfg.num_key_value_heads * (512 + ENHANCE_TOKENS) * cfg.head_dim * 2
     bound_ms = 1e3 * (layer_bytes + head_bytes + kv_bytes) / PEAK_BYTES_PER_S
     bf16_head_ms = 1e3 * (layer_bytes + head_bytes / 2 + kv_bytes) / PEAK_BYTES_PER_S
-    print(f"  (a) greedy generate, 512 prompt ids: 1 token {one_s:.4f} s (prefill and the head's fp32 copy), 256 "
-          f"tokens {all_s:.4f} s: {ms:.3f} ms a token after the first; bound {bound_ms:.3f} ms (bf16 layers "
+    print(f"  (a) greedy generate, 512 prompt ids: 1 token {one_s:.4f} s (prefill and the head's fp32 copy), "
+          f"{ENHANCE_TOKENS} tokens {all_s:.4f} s: {ms:.3f} ms a token after the first; bound {bound_ms:.3f} ms (bf16 layers "
           f"{layer_bytes / 1e9:.3f} GB + fp32 head {head_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB at "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {bf16_head_ms:.3f} ms with a bf16 head), {bound_ms / ms:.1%} of it; "
           f"peak device memory {peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB above the resident "
@@ -3581,7 +3649,7 @@ def full_width_enhance(te, cfg) -> dict:
         video, audio = encode_tokens(te, cfg, enc_ids, enc_mask)
     if any(o.shape != (1, 1024, 3840) or not torch.isfinite(o).all() for o in (video, audio)):
         fail(f"(a) the enhanced ids encode to {tuple(video.shape)}, not finite (1, 1024, 3840)")
-    print(f"  (a) prompt + 256 generated ids, left-padded to 1024 -> encode_tokens: video {tuple(video.shape)}, "
+    print(f"  (a) prompt + {ENHANCE_TOKENS} generated ids, left-padded to 1024 -> encode_tokens: video {tuple(video.shape)}, "
           f"audio {tuple(audio.shape)}, finite", flush=True)
     return {"ms_token": ms, "bound_ms": bound_ms, "logits_rel_l2": max(errs), "peak": peak}
 
@@ -3771,11 +3839,20 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
     adapter's fp32 factors) and the same again (the LRU: no second attach);
     then the same bundle with --lora-slot-rank at the adapter's rank: its
     base request bitwise the unslotted one's, its LoRA request against the
-    plain attach."""
+    plain attach. Then (phase 17 (c)) main() again with --mesh 1,1,1 (no
+    launcher: a world-1 NCCL group; the models sharded once at load): its
+    base request bitwise a direct generate_video call on the loaded,
+    unsharded DiT, and its base and LoRA requests bitwise the unsharded
+    server's."""
+    import dataclasses
+
+    import numpy as np
     import torch
 
+    from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch import lora as lora_mod
     from mlx_video_tpu_torch.cli import serve as srv
+    from mlx_video_tpu_torch.pipelines.generate import generate_video
 
     t_phase = time.perf_counter()
     lora_dir = tmp / "serve_adapters"
@@ -3785,41 +3862,49 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
     rank = int(next(iter(lora_mod.load_lora_state(adapter).values())).shape[0])
     attach, attaches = lora_mod.attach_runtime_lora, []
     lora_mod.attach_runtime_lora = lambda *a, **kw: attaches.append(kw.get("slot_rank")) or attach(*a, **kw)
+    load, loaded = loading.load_model_bundle, []  # the DiT as loaded, before a server shards it
+    loading.load_model_bundle = lambda *a, **kw: loaded.append(load(*a, **kw)) or dataclasses.replace(loaded[-1])
     got: dict = {}
 
-    def ready(httpd, service):
-        def drive():
-            try:
-                port = httpd.server_address[1]
-                got["service"] = service
-                with latents_tap() as seen:
-                    for name, req in (("base", {"seed": 1}), ("lora", {"seed": 1, "lora": "style.safetensors"}),
-                                      ("again", {"seed": 1, "lora": "style.safetensors"})):
-                        torch.cuda.synchronize()
-                        mem0 = torch.cuda.memory_allocated()
-                        fa.launch_count = qmm.launch_count = 0
-                        (code, resp), secs = synced_s(lambda: http_call(port, "POST", "/generate", req))
-                        got[name] = dict(code=code, resp=resp, s=secs, k1=fa.launch_count, k2=qmm.launch_count,
-                                         added=torch.cuda.memory_allocated() - mem0, latents=seen[-1][1])
-            except BaseException as e:  # noqa: BLE001 — reported by the caller
-                got["error"] = e
-            finally:
-                httpd.shutdown()
+    def serve_main(flags, requests):
+        """main() over the snapshot with ``flags``, driving ``requests`` from
+        ``ready``; returns its seconds (load, requests, shutdown)."""
+        def ready(httpd, service):
+            def drive():
+                try:
+                    port = httpd.server_address[1]
+                    got["service"] = service
+                    with latents_tap() as seen:
+                        for name, req in requests:
+                            torch.cuda.synchronize()
+                            mem0 = torch.cuda.memory_allocated()
+                            fa.launch_count = qmm.launch_count = 0
+                            (code, resp), secs = synced_s(lambda: http_call(port, "POST", "/generate", req))
+                            got[name] = dict(code=code, resp=resp, s=secs, k1=fa.launch_count, k2=qmm.launch_count,
+                                             added=torch.cuda.memory_allocated() - mem0, latents=seen[-1][1])
+                except BaseException as e:  # noqa: BLE001 — reported by the caller
+                    got["error"] = e
+                finally:
+                    httpd.shutdown()
 
-        threading.Thread(target=drive, daemon=True).start()
+            threading.Thread(target=drive, daemon=True).start()
 
-    try:
-        (_, main_s) = synced_s(lambda: srv.main([
+        main_s = synced_s(lambda: srv.main([
             "--model-repo", str(snap), "--embeddings", str(embeddings), "--port", "0", "--lora-dir", str(lora_dir),
-            "--output-dir", str(tmp / "serve_out"), "--device", device], ready=ready))
+            "--output-dir", str(tmp / "serve_out"), "--device", device, *flags], ready=ready))[1]
         if "error" in got:
             raise got["error"]
-        for name in ("base", "lora", "again"):
+        for name, _ in requests:
             r = got[name]
             print(f"  (e) {name} request over the 4-bit snapshot: {r['code']}, {r['s']:.4f} s, K1 {r['k1']}, "
                   f"K2 {r['k2']}, device memory added {r['added'] / 2**20:.2f} MiB", flush=True)
             if r["code"] != 200 or r["k1"] != 48 * 11 or r["k2"] != 10 * 48 * 11:
                 fail(f"(e) {name} request: {r['code']} {r['resp']}, K1 {r['k1']} (528), K2 {r['k2']} (5280)")
+        return main_s
+
+    base, lora = {"seed": 1}, {"seed": 1, "lora": "style.safetensors"}
+    try:
+        main_s = serve_main([], [("base", base), ("lora", lora), ("again", lora)])
         added, counts = got["lora"]["added"], (got["lora"]["k1"], got["lora"]["k2"])
         print(f"  (e) main() over the snapshot (load, 3 requests, shutdown) {main_s:.2f} s; attaches {attaches} "
               f"(one: the third request hit the LRU); the adapter: {linears} linears at rank {rank}, "
@@ -3833,12 +3918,10 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
                                      dtype=service.dtype, lora_dir=lora_dir, lora_slot_rank=rank)
         del service
         with torch.inference_mode(), latents_tap() as seen:
-            base_s = synced_s(lambda: slot.generate({"seed": 1}))[1]
+            base_s = synced_s(lambda: slot.generate(dict(base)))[1]
             fa.launch_count = qmm.launch_count = 0
-            lora_s = synced_s(lambda: slot.generate({"seed": 1, "lora": "style.safetensors"}))[1]
+            lora_s = synced_s(lambda: slot.generate(dict(lora)))[1]
             k1, k2 = fa.launch_count, qmm.launch_count
-        import numpy as np
-
         same = np.array_equal(seen[0][1], got["base"]["latents"])
         db = min_frame_psnr(seen[1][1], got["lora"]["latents"])
         print(f"  (e) --lora-slot-rank {rank}: base request {base_s:.4f} s, bitwise the unslotted base's: {same}; "
@@ -3847,9 +3930,28 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
         if not same or k1 != 48 * 11 or k2 != 10 * 48 * 11 or attaches[-1] != rank or not db >= 35.0:
             fail(f"(e) slots: base bitwise {same}, K1 {k1}, K2 {k2}, attaches {attaches}, {db:.2f} dB")
         del slot
+        loaded.clear()
+        torch.cuda.empty_cache()
+        unsharded = {name: got.pop(name)["latents"] for name in ("base", "lora")}
+        mesh_s = serve_main(["--mesh", "1,1,1"], [("base", base), ("lora", lora)])
+        service = got.pop("service")
+        sharded = getattr(service.models.transformer, "mesh", None) is not None
+        with torch.inference_mode():
+            direct = generate_video(loaded[0], service.default_text, decode_latents_only=True,
+                                    **service._kwargs_for(dict(base)))
+        del service
+        same = {"direct": np.array_equal(direct.latents, got["base"]["latents"]),
+                **{name: np.array_equal(unsharded[name], got[name]["latents"]) for name in unsharded}}
+        print(f"  (e) --mesh 1,1,1 (load, 2 requests, shutdown) {mesh_s:.2f} s: the served DiT sharded at load: "
+              f"{sharded}; the base request bitwise a direct generate_video call on the loaded DiT: {same['direct']}; "
+              f"the base and LoRA requests bitwise the unsharded server's: {same['base']}, {same['lora']}", flush=True)
+        if not (sharded and all(same.values())):
+            fail(f"(e) --mesh 1,1,1: sharded {sharded}, bitwise {same}")
+        del direct
     finally:
-        lora_mod.attach_runtime_lora = attach
+        lora_mod.attach_runtime_lora, loading.load_model_bundle = attach, load
         got.clear()
+        loaded.clear()
         torch.cuda.empty_cache()
     print(f"  phase 14 (e): {time.perf_counter() - t_phase:.2f} s", flush=True)
     return {"k1_serve_lora": counts[0], "k2_serve_lora": counts[1], "lora_added": added, "lora_fp32": fp32_bytes}
@@ -3874,6 +3976,33 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def nccl_world_one():
+    """An NCCL process group of world size 1 in this process, joined as
+    under torchrun (its variables set here, a free port on 127.0.0.1); left,
+    and the variables restored, after."""
+    import os
+
+    import torch.distributed as dist
+
+    from mlx_video_tpu_torch.parallel import distributed
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not distributed.initialize_multihost(device_type="cuda", timeout=120) or dist.get_backend() != "nccl":
+            fail("the world-1 process group is not NCCL")
+        yield
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def parallel_world_one(models, text, fa, direct_latents) -> dict:
     """(a) NCCL at world size 1 in this process (torchrun's variables set
     here, a free port on 127.0.0.1): generate_video at config 2 on the
@@ -3881,7 +4010,6 @@ def parallel_world_one(models, text, fa, direct_latents) -> dict:
     sequence_parallel, and with pipeline_parallel=1; each run's latents
     bitwise the direct run's (drive_slice, same seed), 528 K1 each."""
     import dataclasses
-    import os
 
     import numpy as np
     import torch
@@ -3890,14 +4018,9 @@ def parallel_world_one(models, text, fa, direct_latents) -> dict:
     from mlx_video_tpu_torch.parallel import collectives, distributed, mesh as tmesh
     from mlx_video_tpu_torch.pipelines.generate import generate_video
 
-    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     k1 = {}
-    try:
-        t0 = time.perf_counter()
-        if not distributed.initialize_multihost(device_type="cuda", timeout=120) or dist.get_backend() != "nccl":
-            fail("the world-1 process group is not NCCL")
+    t0 = time.perf_counter()
+    with nccl_world_one():
         mesh = tmesh.create_mesh((1, 1, 1), "cuda")
         x = torch.arange(8, dtype=torch.float32, device="cuda")
         world = collectives.DistGroup(dist.group.WORLD)
@@ -3924,13 +4047,6 @@ def parallel_world_one(models, text, fa, direct_latents) -> dict:
             if not same:
                 fail(f"(a) {what}: latents differ from the direct run's (max |d| "
                      f"{float(np.abs(res.latents - direct_latents).max()):.3e})")
-    finally:
-        distributed.shutdown()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     # no launcher: the CLI's --mesh 1,1,1 path joins a world-1 NCCL group of its own (an in-memory store)
     from mlx_video_tpu_torch import loading
 
@@ -4069,11 +4185,12 @@ def virtual_tp_block(models, fa, qmm) -> dict:
     return {"rows": out, "k1": k1, "k2": k2}
 
 
-def k2_on_sharded_words(qmm, ff, t: int) -> dict:
-    """K2 at a tensor rank's feed-forward shapes of (c), 1280 tokens: the
-    column-parallel proj_in and the row-parallel proj_out on their sharded
-    words, after an L2 flush, beside the plain version and cuBLAS on the
-    dequantized weight (another function); the bound."""
+def k2_on_sharded_words(qmm, ff, t: int, m: int = 1280, label: str = "feed-forward") -> dict:
+    """K2 at a tensor rank's feed-forward shapes (phase 16 (c): the video's
+    at 1280 tokens; phase 17 (b): the audio's at 34): the column-parallel
+    proj_in and the row-parallel proj_out on their sharded words, after an
+    L2 flush, beside the plain version and cuBLAS on the dequantized weight
+    (another function); the bound."""
     import torch
 
     from mlx_video_tpu_torch.ops.quant import dequantize_affine
@@ -4083,15 +4200,15 @@ def k2_on_sharded_words(qmm, ff, t: int) -> dict:
     rows = {}
     for name, lin in (("proj_in", ff.proj_in), ("proj_out", ff.proj_out)):
         n, k = lin.quant_weight.shape[0], lin.quant_weight.shape[1] * 32 // lin.bits
-        x = torch.randn(1280, k, generator=g, device="cuda").to(torch.bfloat16)
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
         args = (x, lin.quant_weight, lin.scales, lin.biases, lin.bits, lin.group_size)
         ms = median_ms(lambda: qmm.quant_matmul(*args), before=flush.zero_)
         plain_ms = median_ms(lambda: qmm.quant_matmul_reference(*args), reps=5, before=flush.zero_)
         w = dequantize_affine(lin.quant_weight, lin.scales, lin.biases, bits=lin.bits, dtype=torch.bfloat16)
         dense_ms = median_ms(lambda: x @ w.T, before=flush.zero_)
-        b = bound(*quant_matmul_work(1280, k, n, lin.bits, lin.group_size))
-        rows[("k2", t, name)] = dict(m=1280, k=k, n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
-        print(f"      K2 on tensor rank 0's {name} words (M, K, N) = (1280, {k}, {n}): {ms:.4f} ms "
+        b = bound(*quant_matmul_work(m, k, n, lin.bits, lin.group_size))
+        rows[("k2", t, name)] = dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, **b)
+        print(f"      K2 on tensor rank 0's {label} {name} words (M, K, N) = ({m}, {k}, {n}): {ms:.4f} ms "
               f"({b['bound_ms']:.4f} ms bound, {b['bound_by']}); plain {plain_ms:.4f} ms; cuBLAS on the dequantized "
               f"weight {dense_ms:.4f} ms", flush=True)
     return rows
@@ -4111,9 +4228,323 @@ def full_width_parallel(models, text, fa, qmm, direct_latents) -> dict:
     return {"world1": world1, "ring": ring, "tp": tp}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded audio DiTs, the server's mesh and the sharded encoder
+# ---------------------------------------------------------------------------
+
+AV_BLOCK_TOKENS = (1280, 34)  # stage 2's video tokens and the audio tokens of 33 frames
+
+
+def sharded_audio_world_one(resident, fa, ca) -> dict:
+    """(a) NCCL at world size 1: phase 12's joint distilled run on the
+    resident AV DiT with mesh (1, 1, 1), with mesh and sequence_parallel and
+    with one pipeline stage, and its separate run with mesh (1, 1, 1); each
+    run's latents and audio latents bitwise phase 12's, with its launches
+    (1056 K1 joint, 912 separate)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.parallel import mesh as tmesh
+
+    steps = PHASE11_RUN["stage1_steps"] + PHASE11_RUN["stage2_steps"]
+    k1 = {}
+    with nccl_world_one():
+        mesh = tmesh.create_mesh((1, 1, 1), "cuda")
+        for what, kind, kw in (("joint_mesh", "joint", dict(mesh=mesh)),
+                               ("joint_mesh_sp", "joint", dict(mesh=mesh, sequence_parallel=True)),
+                               ("joint_stage_1", "joint", dict(pipeline_parallel=1)),
+                               ("separate_mesh", "separate", dict(mesh=mesh, audio_steps=8))):
+            want = 2 * 48 * steps if kind == "joint" else 48 * steps + 48 * 8
+            bundle = dataclasses.replace(resident[kind])  # the run replaces its transformers by their sharded forms
+            res, counts = audio_run(bundle, resident["text"], fa, ca, f"(a) {what}", {"k1": want}, **PHASE11_RUN,
+                                    audio_mode=kind, decode_latents_only=True,
+                                    generator=torch.Generator(device="cuda").manual_seed(45), **kw)
+            k1[what] = counts["k1"]
+            v, a = resident["direct"][kind]
+            same = np.array_equal(res.latents, v) and np.array_equal(res.audio_latents, a)
+            print(f"  (a) {what}: latents and audio latents bitwise phase 12's {kind} run's: {same}", flush=True)
+            if not same:
+                fail(f"(a) {what}: latents differ from phase 12's (max |d| video "
+                     f"{float(np.abs(res.latents - v).max()):.3e}, audio {float(np.abs(res.audio_latents - a).max()):.3e})")
+    return k1
+
+
+def av_block_inputs(cfg):
+    """The first block's inputs at stage 2's 1280 video and 33 frames' 34
+    audio tokens (seeded bf16; RoPE from the positions)."""
+    import torch
+
+    from mlx_video_tpu_torch.models.ltx.model import Modality
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid, create_position_grid
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    sv, sa = AV_BLOCK_TOKENS
+
+    def modality(tokens, channels, pos):
+        return Modality(latent=torch.randn(1, tokens, channels, generator=g, device="cuda").to(torch.bfloat16),
+                        timesteps=torch.full((1, 1), 0.6, device="cuda", dtype=torch.bfloat16),
+                        context=torch.randn(1, 128, cfg.caption_channels, generator=g, device="cuda").to(torch.bfloat16),
+                        positions=torch.from_numpy(pos).cuda())
+
+    return (modality(sv, cfg.in_channels, create_position_grid(1, 5, 16, 16)),
+            modality(sa, cfg.audio_in_channels, create_audio_position_grid(1, sa)))
+
+
+def av_k1_tiles(fa) -> dict:
+    """K1 at a tensor rank's AV tiles, the video's (1, 1280) at D = 128 and
+    the audio's (1, 34) at D = 64, with 16 and 8 local heads (T = 2, 4),
+    beside its plain version and SDPA's forward; the bound."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    rows = {}
+    for s, d in ((1280, 128), (AV_BLOCK_TOKENS[1], 64)):
+        for h in (16, 8):
+            q, k, v = (torch.randn(1, s, h, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+            ms = median_ms(lambda: fa.flash_attention(q, k, v))
+            plain_ms = median_ms(lambda: fa.flash_attention_reference(q, k, v, d ** -0.5, False), reps=5)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+            b = bound(*attention_fwd_work(1, s, h, d))
+            rows[("k1", s, h, d)] = dict(ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms, **b)
+            print(f"      K1 at a tensor rank's (1, {s}, {h}, {d}): {ms:.4f} ms ({b['bound_ms']:.4f} ms bound, "
+                  f"{b['bound_by']}); plain {plain_ms:.4f} ms; SDPA forward {sdpa_ms:.4f} ms", flush=True)
+    return rows
+
+
+AV_BLOCK_MOVE = 0.2  # about how far (rel L2) the 28-linear adapter is scaled to move the block's streams
+
+
+def block_adapter(path: Path, block) -> int:
+    """A seeded rank-32 adapter in the reference format on every linear of
+    ``block`` (an AV block's 28: both streams' self, text and cross-modal
+    attentions and feed-forwards, the 8 row-parallel ones among them), drawn
+    as phase 11's (N(0, 0.02^2) factors, bf16); returns its linear count."""
+    import torch
+
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.ops.linear import Linear
+
+    device = block.scale_shift_table.device
+    g = torch.Generator(device=device).manual_seed(37)
+    state = {}
+    for name, mod in block.named_modules():
+        if isinstance(mod, Linear):
+            out_f, in_f = mod.weight.shape
+            key = f"diffusion_model.transformer_blocks.0.{name}"
+            state[f"{key}.lora_A.weight"] = (torch.randn(32, in_f, generator=g, device=device) * 0.02).bfloat16()
+            state[f"{key}.lora_B.weight"] = (torch.randn(out_f, 32, generator=g, device=device) * 0.02).bfloat16()
+    save_safetensors(path, state)
+    return len(state) // 2
+
+
+def block_adapter_check(dense, cfg, video, audio, meshes, work: Path, measure, check) -> dict:
+    """(b) a runtime adapter on all 28 linears of the block over tensor = 2,
+    at a strength that moves each stream by about ``AV_BLOCK_MOVE``: each
+    stream of the sharded adapted block within min(1e-2, 0.1 x its own
+    movement) of the unsharded adapted block; then the control, the same
+    shards with their row-parallel linears' deltas dropped, must miss that
+    bar on both streams (the check sees a lost row-parallel delta)."""
+    from mlx_video_tpu_torch.lora import LoraSpec, attach_runtime_lora
+    from mlx_video_tpu_torch.models.ltx.model import ltx_apply
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+    path = work / "av_block_adapter.safetensors"
+    linears = block_adapter(path, dense.blocks[0])
+    base = ltx_apply(dense, cfg, video, audio)
+    first = ltx_apply(attach_runtime_lora(dense, [LoraSpec(path, 1.0)], cfg), cfg, video, audio)
+    strength = AV_BLOCK_MOVE / min(rel_l2(first[i], base[i]) for i in (0, 1))
+    spec = [LoraSpec(path, strength)]
+    whole = attach_runtime_lora(dense, spec, cfg)
+    adapted = ltx_apply(whole, cfg, video, audio)
+    moved = [rel_l2(adapted[i], base[i]) for i in (0, 1)]
+    bars = tuple(min(TP_BAR, 0.1 * m) for m in moved)
+    print(f"  (b) a seeded adapter on all {linears} linears of the block at strength {strength:.2f} moves the video "
+          f"by rel L2 {moved[0]:.3e}, the audio by {moved[1]:.3e}", flush=True)
+    shards = [attach_runtime_lora(shard_params(dense, m), spec, cfg) for m in meshes]
+    run = lambda m: ltx_apply(shards[m.index("tensor")], cfg, video, audio)  # noqa: E731
+    check(f"the {linears}-linear adapter attached, tensor = 2", whole, meshes, run, (4, 0, 0, 0), bars)
+    row = [mod for sh in shards for mod in sh.modules()
+           if getattr(mod, "tp_group", None) is not None and getattr(mod, "lora_A", None) is not None]
+    for mod in row:
+        mod.lora_A = None
+    err, _ = measure(whole, meshes, run)
+    print(f"  (b) control, the {len(row)} row-parallel deltas of the shards dropped: rel L2 video {err[0]:.3e}, audio "
+          f"{err[1]:.3e} (must miss the bars)", flush=True)
+    if len(row) != 8 * len(shards) or not (err[0] > bars[0] and err[1] > bars[1]):
+        fail(f"(b) control: {len(row)} row-parallel deltas dropped (want {8 * len(shards)}), rel L2 {err} within "
+             f"the bars {bars}")
+    return {"block_adapter": dict(strength=strength, moved=moved, control=err)}
+
+
+def virtual_av_block(resident, fa, ca, qmm, adapter: Path) -> dict:
+    """(b) a one-block model of the resident AV DiT's first block (its
+    modality and cross-modal tensors shared) at 1280 video and 34 audio
+    tokens: shard_params over tensor = 2 and 4 virtual ranks, dense and q4
+    (K2 on the sharded words: 28T launches), 2T K1; dense over tensor = 2
+    with both routes on (4T K4: text, audio text and both cross-modal
+    attentions, 2T K5, no K1); the SP ring (video tokens over fsdp = 2 and
+    4 virtual ranks, the audio whole): n^2 K1 with lse and one audio K1 a
+    rank; phase 11's adapter attached over each tensor = 2 shard, then
+    :func:`block_adapter_check`. Each
+    rank's streams rel L2 <= 1e-2 against the unsharded block on the card.
+    K1 at a rank's tiles and K2 on a rank's audio feed-forward words are
+    timed beside their plain versions."""
+    import copy
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from mlx_video_tpu_torch.lora import LoraSpec, attach_runtime_lora
+    from mlx_video_tpu_torch.models.ltx.model import LTXModel, ltx_apply
+    from mlx_video_tpu_torch.ops.quant import quantize_dit_params
+    from mlx_video_tpu_torch.parallel import collectives
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+    av = resident["joint"].transformer
+    cfg = dataclasses.replace(resident["joint"].transformer_config, num_layers=1)
+    dense = LTXModel(cfg, device="meta")
+    dense.video, dense.audio, dense.av = av.video, av.audio, av.av
+    dense.blocks = nn.ModuleList([av.blocks[0]])  # shared with the resident AV DiT
+    video, audio = av_block_inputs(cfg)
+    axes = ("data", "fsdp", "tensor")
+    rows, launches = {}, dict(k1=0, k2=0, k4=0, k5=0)
+
+    def measure(model, meshes, run):
+        """``run`` on the virtual ranks of ``meshes`` against ``model`` whole:
+        each stream's largest rel L2 over the ranks, and the (K1, K2, K4,
+        K5) launches."""
+        ref = ltx_apply(model, cfg, video, audio)
+        fa.launch_count = qmm.launch_count = ca.launch_count = fa.rope_launch_count = 0
+        got = collectives.run_virtual(meshes, run)
+        torch.cuda.synchronize()
+        counts = (fa.launch_count, qmm.launch_count, ca.launch_count, fa.rope_launch_count)
+        return [max(rel_l2(o[i], ref[i]) for o in got) for i in (0, 1)], counts
+
+    def check(what, model, meshes, run, want, bars=(TP_BAR, TP_BAR)):
+        """:func:`measure`, each stream within its bar; ``want``: the (K1,
+        K2, K4, K5) launches."""
+        err, counts = measure(model, meshes, run)
+        for name, n in zip(("k1", "k2", "k4", "k5"), counts):
+            launches[name] += n
+        rows[what] = dict(rel_l2_video=err[0], rel_l2_audio=err[1], launches=counts)
+        print(f"  (b) {what}: rel L2 video {err[0]:.3e} (bar {bars[0]:.3e}), audio {err[1]:.3e} (bar {bars[1]:.3e}) "
+              f"against the unsharded block; K1 {counts[0]}, K2 {counts[1]}, K4 {counts[2]}, K5 {counts[3]}",
+              flush=True)
+        if counts != want:
+            fail(f"(b) {what}: launches (K1, K2, K4, K5) {counts}, want {want}")
+        if err[0] > bars[0] or err[1] > bars[1]:
+            fail(f"(b) {what}: rel L2 {err} over the bars {bars}")
+
+    forms = {"dense": dense, "q4": quantize_dit_params(copy.deepcopy(dense), group_size=64, bits=4)}
+    for form, model in forms.items():
+        for t in (2, 4):
+            meshes = collectives.virtual_meshes((1, 1, t), axes, "cuda")
+            shards = [shard_params(model, m) for m in meshes]
+            check(f"{form}, tensor = {t}", model, meshes, lambda m: ltx_apply(shards[m.index("tensor")], cfg, video, audio),
+                  (2 * t, 28 * t if form == "q4" else 0, 0, 0))
+            if form == "q4" and t == 2:
+                rows.update(k2_on_sharded_words(qmm, shards[0].blocks[0].audio_ff, t, m=AV_BLOCK_TOKENS[1],
+                                                label="audio feed-forward"))
+            del shards
+    del forms
+    set_routes(True)
+    try:
+        meshes = collectives.virtual_meshes((1, 1, 2), axes, "cuda")
+        shards = [shard_params(dense, m) for m in meshes]
+        check("dense, tensor = 2, K4 and K5 routes on", dense, meshes,
+              lambda m: ltx_apply(shards[m.index("tensor")], cfg, video, audio), (0, 0, 8, 4))
+        del shards
+    finally:
+        set_routes(False)
+    for n in (2, 4):
+        check(f"SP ring of {n} (video tokens over fsdp, the audio whole)", dense,
+              collectives.virtual_meshes((1, n, 1), axes, "cuda"),
+              lambda m: ltx_apply(dense, cfg, video, audio, sp=(m, "fsdp")), (n * n + n, 0, 0, 0))
+    spec = [LoraSpec(adapter, 1.0)]
+    adapted = attach_runtime_lora(dense, spec, cfg)
+    meshes = collectives.virtual_meshes((1, 1, 2), axes, "cuda")
+    shards = [attach_runtime_lora(shard_params(dense, m), spec, cfg) for m in meshes]
+    moved = rel_l2(ltx_apply(adapted, cfg, video, audio)[0], ltx_apply(dense, cfg, video, audio)[0])
+    print(f"  (b) phase 11's adapter on the block moves its video output by rel L2 {moved:.3e}", flush=True)
+    check("phase 11's adapter attached, tensor = 2", adapted, meshes,
+          lambda m: ltx_apply(shards[m.index("tensor")], cfg, video, audio), (4, 0, 0, 0))
+    rows.update(block_adapter_check(dense, cfg, video, audio, meshes, adapter.parent, measure, check))
+    rows.update(av_k1_tiles(fa))
+    return {"rows": rows, **launches}
+
+
+def sharded_text_encoder(te, cfg, ids, mask, whole) -> dict:
+    """(d) the resident 12B's first Gemma layer (with its embedding table
+    and final norm) over tensor = 2 and 4 virtual ranks: rel L2 <= 1e-2
+    against the unsharded layer; encode_tokens with the encoder sharded on
+    (1, 1, 1): bitwise the unsharded embeddings ``whole``."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3Model, gemma3_hidden_states
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens
+    from mlx_video_tpu_torch.parallel import collectives
+    from mlx_video_tpu_torch.parallel.mesh import single_device_mesh
+    from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+    t0 = time.perf_counter()
+    one = dataclasses.replace(cfg, num_hidden_layers=1)
+    lm = Gemma3Model(one, device="meta")
+    lm.embed_tokens, lm.norm = te.language_model.embed_tokens, te.language_model.norm
+    lm.layers = nn.ModuleList([te.language_model.layers[0]])  # shared with the resident encoder
+    rows = {}
+    with torch.no_grad():
+        ref = gemma3_hidden_states(lm, one, ids, mask)[-1]
+        for t in (2, 4):
+            meshes = collectives.virtual_meshes((1, 1, t), ("data", "fsdp", "tensor"), "cuda")
+            shards = [shard_params(lm, m) for m in meshes]
+            got = collectives.run_virtual(meshes, lambda m: gemma3_hidden_states(shards[m.index("tensor")], one,
+                                                                                   ids, mask)[-1])
+            rows[t] = max(rel_l2(o, ref) for o in got)
+            print(f"  (d) a full-width Gemma layer over tensor = {t} virtual ranks ({16 // t} query and {8 // t} "
+                  f"key/value heads a rank): rel L2 {rows[t]:.3e} against the unsharded layer (bar {TP_BAR})",
+                  flush=True)
+            if rows[t] > TP_BAR:
+                fail(f"(d) Gemma layer over tensor = {t}: rel L2 {rows[t]:.3e} over the bar {TP_BAR}")
+            del shards, got
+        sharded = shard_params(te, single_device_mesh("cuda"))
+        v, a = encode_tokens(sharded, cfg, ids, mask)
+    same = torch.equal(v, whole[0]) and torch.equal(a, whole[1])
+    print(f"  (d) encode_tokens with the encoder sharded on (1, 1, 1): bitwise the unsharded embeddings: {same}; "
+          f"(d) took {time.perf_counter() - t0:.2f} s", flush=True)
+    if not same:
+        fail("(d) the (1, 1, 1)-sharded encoder's embeddings differ from the unsharded ones")
+    return {"gemma_layer_rel_l2": rows}
+
+
+def full_width_sharded_audio(resident, fa, ca, qmm, adapter: Path) -> dict:
+    """Phase 17 (a) and (b) on phase 12's resident AV models, with their
+    seconds; the models are freed after."""
+    import torch
+
+    t_phase = time.perf_counter()
+    world1 = sharded_audio_world_one(resident, fa, ca)
+    t_a = time.perf_counter()
+    block = virtual_av_block(resident, fa, ca, qmm, adapter)
+    resident.clear()
+    torch.cuda.empty_cache()
+    print(f"  phase 17 (a), (b): {time.perf_counter() - t_phase:.2f} s ((a) {t_a - t_phase:.2f}, (b) "
+          f"{time.perf_counter() - t_a:.2f})", flush=True)
+    return {"world1": world1, "block": block}
+
+
 def parallel_only() -> int:
-    """The quick check of phase 16 alone: the build, the full-width models,
-    the dense distilled slice (the direct run) and phase 16."""
+    """The quick check of the sharded paths: the build, the full-width
+    models, the dense distilled slice (the direct run), phase 16, then phase
+    17 (a) and (b) on phase 12's resident audio models (their direct joint
+    and separate runs to latents first) and (d) on a two-layer encoder of
+    the Gemma-3-12B geometry."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4126,9 +4557,36 @@ def parallel_only() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
+    from mlx_video_tpu_torch.models.gemma3 import Gemma3TextConfig, init_gemma3_params
+    from mlx_video_tpu_torch.models.ltx.text_encoder import encode_tokens, init_text_encoder_params
+    from mlx_video_tpu_torch.ops import cross_attention as ca
+
     models, text = full_width_models()
     direct = drive_slice(models, text, fa, qmm, want_k2=0)
     full_width_parallel(models, text, fa, qmm, direct["latents"])
+    resident = audio_bundles(models, text)
+    resident["direct"] = {}
+    for kind, kw in (("joint", dict(audio_mode="joint")), ("separate", dict(audio_steps=8))):
+        res, _ = audio_run(resident[kind], resident["text"], fa, ca, f"direct {kind} run", {}, **PHASE11_RUN,
+                           decode_latents_only=True, generator=torch.Generator(device="cuda").manual_seed(45), **kw)
+        resident["direct"][kind] = (res.latents, res.audio_latents)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        adapter = work / "adapter.safetensors"
+        ic_lora_adapter(adapter, models.transformer_config, "cuda")
+        full_width_sharded_audio(resident, fa, ca, qmm, adapter)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cfg = Gemma3TextConfig(num_hidden_layers=2)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    te = init_text_encoder_params(cfg, g, cfg.hidden_size, device="cuda", dtype=torch.bfloat16,
+                                  language_model=init_gemma3_params(cfg, g, device="cuda", dtype=torch.bfloat16))
+    mask = torch.zeros(1, 1024, dtype=torch.long, device="cuda")
+    mask[:, -128:] = 1
+    ids = torch.randint(1, cfg.vocab_size, (1, 1024), generator=g, device="cuda") * mask
+    with torch.no_grad():
+        whole = encode_tokens(te, cfg, ids, mask)
+    sharded_text_encoder(te, cfg, ids, mask, whole)
     return 0
 
 
@@ -4257,6 +4715,11 @@ def main() -> int:
         with launch_shapes(fa, qmm) as shapes:
             audio = full_width_audio(models, text, fa, ca, work)
         check_compared(shapes, "phase 12 (a)-(c)")
+        print("phase 17 (a), (b): the sharded AV DiTs on phase 12's resident models: (a) NCCL at world 1, joint "
+              "with mesh (1, 1, 1), with SP and with one stage, separate with mesh (1, 1, 1); (b) the first AV block "
+              "over tensor = 2, 4 virtual ranks (dense, q4), the SP ring over 2, 4, and a runtime adapter over "
+              "tensor = 2:", flush=True)
+        sharded_av = full_width_sharded_audio(audio.pop("resident"), fa, ca, qmm, cond["adapter"])
         write_training_dataset(work / "data")
         print("full-width dense LoRA training (768x512x65: 3456 tokens, 19B video DiT geometry, bf16):", flush=True)
         train = full_width_training(models, fa, work / "data", work)
@@ -4314,7 +4777,9 @@ def main() -> int:
                           "serve_lora": cli_train["k1_serve_lora"], "dial_pab": served["k1_dial_pab"],
                           "convert_q4_cli": converted["k1_q4_cli"], "convert_w8a8_cli": converted["k1_w8a8_cli"],
                           **{f"world1_{run}": n for run, n in par["world1"].items()},
-                          "ring_virtual": par["ring"]["k1"], "tp_block_virtual": par["tp"]["k1"]},
+                          "ring_virtual": par["ring"]["k1"], "tp_block_virtual": par["tp"]["k1"],
+                          **{f"world1_audio_{run}": n for run, n in sharded_av["world1"].items()},
+                          "av_block_virtual": sharded_av["block"]["k1"]},
         "ring_ms": {n: row["ring_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_device_ms": {n: row["device_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_whole_ms": par["ring"]["whole_ms"],
@@ -4333,7 +4798,8 @@ def main() -> int:
                           "audio_joint_cli": cli_train["k2_audio_joint_cli"],
                           "audio_separate_cli": cli_train["k2_audio_separate_cli"],
                           "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"],
-                          "convert_q4_cli": converted["k2_q4_cli"], "tp_block_virtual": par["tp"]["k2"]},
+                          "convert_q4_cli": converted["k2_q4_cli"], "tp_block_virtual": par["tp"]["k2"],
+                          "av_block_virtual": sharded_av["block"]["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -4359,7 +4825,7 @@ def main() -> int:
         "replaces": "mlx_video_tpu/ops/flash_attention.py:691",
         "launches": dev["k4"],
         "path_launches": {"dev": dev["k4"], "audio_joint_dev": audio["k4"],
-                          "dev_cfg_cache": served["k4_dev_cfg_cache"]},
+                          "dev_cfg_cache": served["k4_dev_cfg_cache"], "av_block_virtual": sharded_av["block"]["k4"]},
         "max_abs_err": k4["max_abs_err"],
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
@@ -4372,7 +4838,7 @@ def main() -> int:
         "replaces": "mlx_video_tpu/ops/flash_attention.py:547",
         "launches": dev["k5"],
         "path_launches": {"dev": dev["k5"], "audio_joint_dev": audio["k5"],
-                          "dev_cfg_cache": served["k5_dev_cfg_cache"]},
+                          "dev_cfg_cache": served["k5_dev_cfg_cache"], "av_block_virtual": sharded_av["block"]["k5"]},
         "max_abs_err": k5["max_abs_err"],
         "ms": k5_ms,
         "plain_ms": k5_plain_ms,

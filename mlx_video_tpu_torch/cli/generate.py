@@ -51,15 +51,16 @@ they have no effect, six (``--cfg-batch``, ``--compile``, ``--no-compile``,
 
 Sharded generation (parallel/), under ``torchrun --nproc-per-node N -m
 mlx_video_tpu_torch.generate``: ``--mesh d,f,t`` (or ``auto``) shards the
-transformers over a (data, fsdp, tensor) mesh of the N ranks
-(``--sequence-parallel``: ring self-attention over ``fsdp``);
-``--pipeline-parallel P`` runs GPipe over P stages (``--pipeline-tensor T``
-TP ways inside each; then N = P * T). Each rank runs on ``cuda:LOCAL_RANK``
-(or the CPU with ``--device cpu``, over gloo); only rank 0 prints the run's
-lines and writes files. A mesh or stages of more than one rank without a
-launcher exit naming ``torchrun``; ``--mesh 1,1,1`` runs in one process.
-With a mesh the text encoder runs unsharded on every rank. ``--audio`` with
-a mesh or stages is refused by name.
+transformers (the AudioVideo and AudioOnly ones with ``--audio`` too) over
+a (data, fsdp, tensor) mesh of the N ranks (``--sequence-parallel``: ring
+self-attention over ``fsdp``), and the Gemma text encoder of a prompt run
+by the same rules; ``--pipeline-parallel P`` runs GPipe over P stages
+(``--pipeline-tensor T`` TP ways inside each; then N = P * T). Each rank
+runs on ``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``, over gloo)
+and decodes the video and the audio; only rank 0 prints the run's lines and
+writes files (the mp4 and the WAV). A mesh or stages of more than one rank
+without a launcher exit naming ``torchrun``; ``--mesh 1,1,1`` runs in one
+process.
 
 The options of :data:`_REFUSED` exit with a message that names them and
 what they wait for; none is ignored.
@@ -68,6 +69,7 @@ what they wait for; none is ignored.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -77,7 +79,7 @@ from pathlib import Path
 
 import torch
 
-from mlx_video_tpu_torch.parallel import SERVER_ITEM, TRAINER_ITEM
+from mlx_video_tpu_torch.parallel import TRAINER_ITEM
 
 
 def _cond_arg(values):
@@ -301,9 +303,8 @@ _REFUSED = {
     "low_memory": _LEFT_OUT, "aux_stage_int8": _LEFT_OUT, "aux_park_device": _LEFT_OUT,
     "no_overlap_staging": _LEFT_OUT, "optimize_layouts": _LEFT_OUT,
 }
-# What the server's and the trainer's parallel options wait for (their
-# refusals name these ROADMAP items).
-PARALLEL_SERVE = f"the parallel paths of the server ({SERVER_ITEM})"
+# What the trainer's parallel options wait for (their refusals name this
+# ROADMAP item).
 PARALLEL_TRAIN = f"the parallel paths of the trainer ({TRAINER_ITEM})"
 
 
@@ -369,11 +370,12 @@ def _synced(device: torch.device) -> float:
     return time.perf_counter()
 
 
-def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: dict):
+def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: dict, mesh=None):
     """The prompt (and, for the dev pipeline and ``--stage2-dev``, the
     negative prompt: the given one or the default) through the Gemma-3 text encoder of
     ``--text-encoder-path`` (else the snapshot), bf16 or with ``--w8a8``
-    W8A8, in ``dtype`` on ``device``; the encoder is freed after. Adds the
+    W8A8, in ``dtype`` on ``device``, sharded over ``mesh`` when given (as
+    the JAX CLI holds it beside the sharded DiT); the encoder is freed after. Adds the
     ``text_encoder_load`` and ``text_encode`` phase seconds (the latter
     includes ``--enhance-prompt``'s generation: the I2V system prompt with
     ``--image``, else the T2V one, at ``--temperature`` for ``--max-tokens``).
@@ -385,6 +387,8 @@ def encode_prompts(args, model_path: Path, device: torch.device, dtype, phases: 
     t0 = _synced(device)
     encoder = LTX2TextEncoder.load(model_path, args.text_encoder_path or model_path, dtype=dtype, w8a8=args.w8a8,
                                    device=device)
+    if mesh is not None:
+        encoder.shard(mesh)
     t1 = _synced(device)
     prompt = args.prompt
     if args.enhance_prompt:
@@ -422,24 +426,22 @@ def save_frames(video, output_path: Path) -> None:
             Image.fromarray(frame).save(frames_dir / f"frame_{i:05d}.png")
 
 
-def _parallel_start(args, device: torch.device) -> torch.device:
+def _parallel_start(args, device: torch.device, prog: str = "generate") -> torch.device:
     """Check the parallel flags and join the launcher's process group;
-    returns this rank's device (``cuda:LOCAL_RANK`` under a launcher)."""
+    returns this rank's device (``cuda:LOCAL_RANK`` under a launcher).
+    ``prog`` names the command in the messages."""
     from mlx_video_tpu_torch.parallel import distributed
 
     if not (args.mesh or args.pipeline_parallel):
         return device
-    if args.audio:
-        raise SystemExit("generate: --audio with --mesh or --pipeline-parallel is not ported yet (the AV DiT's "
-                         f"sharded forward waits for {SERVER_ITEM})")
     ranks = args.pipeline_parallel * args.pipeline_tensor if args.pipeline_parallel else (
         1 if args.mesh == "auto" else math.prod(int(x) for x in args.mesh.split(",")))
     if ranks > 1 and not distributed.launched():
         given = (f"--mesh {args.mesh}" + (" --sequence-parallel" if args.sequence_parallel else "")
                  if args.mesh else f"--pipeline-parallel {args.pipeline_parallel} --pipeline-tensor "
                  f"{args.pipeline_tensor}")
-        raise SystemExit(f"generate: {given} needs {ranks} processes: launch it with torchrun --nproc-per-node "
-                         f"{ranks} -m mlx_video_tpu_torch.generate ...")
+        raise SystemExit(f"{prog}: {given} needs {ranks} processes: launch it with torchrun --nproc-per-node "
+                         f"{ranks} -m mlx_video_tpu_torch.{prog} ...")
     distributed.initialize_multihost(device_type=device.type)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", distributed.local_rank())
@@ -462,6 +464,8 @@ def main(argv=None) -> None:
     try:
         _run(args, device)
     finally:
+        if args.trace_dir:  # torch.profiler can leave the run's frame, models and all, in a reference cycle
+            gc.collect()
         if args.mesh or args.pipeline_parallel:
             from mlx_video_tpu_torch.parallel.distributed import shutdown
 
@@ -531,9 +535,8 @@ def _run(args, device: torch.device) -> None:
     if args.embeddings:
         text = load_embeddings(args.embeddings, device)
     else:
-        if mesh is not None and primary:
-            print("Text encoder: unsharded on every rank (its sharded form is not ported yet)", flush=True)
-        text = encode_prompts(args, model_path, device, models.transformer.video.scale_shift_table.dtype, phases)
+        text = encode_prompts(args, model_path, device, models.transformer.video.scale_shift_table.dtype, phases,
+                              mesh=mesh)
 
     output_path = Path(args.output_path)
     if args.auto_output_name:

@@ -33,15 +33,38 @@ zero-effect slots of ``--lora-slot-rank`` on the base. Every generation and
 enhancement runs under ``torch.inference_mode()`` in the thread that serves
 it (grad mode is thread-local).
 
-Refused by name, with the ROADMAP item they wait for: ``--mesh``,
-``--pipeline-parallel``, ``--pipeline-tensor``, ``--sequence-parallel``
-(the server's parallel paths, ROADMAP §1 queue, "The server's parallel
-flags and the sharded AV DiT") and ``--aux-park`` (a 16 GB
-accelerator's memory plan, left out of the port). Differences from the JAX
-server, on purpose: ``--warmup`` runs one warm request (the port compiles no
-per-shape program, so the JAX server's second, streamed warm request has
-nothing to warm); the default output directory is under the temporary
-directory (``$TMPDIR``).
+Sharded serving, under ``torchrun --nproc-per-node N -m
+mlx_video_tpu_torch.serve``: ``--mesh d,f,t`` (``--sequence-parallel``) or
+``--pipeline-parallel P`` (``--pipeline-tensor T``), as the generate CLI
+takes them. The models are sharded (or staged) once, at load, and so is the
+text encoder under ``--mesh``; a request never re-slices them, and adapters
+attach over the sharded base (each rank keeps its slices of the factors).
+JAX's server is one controller over all devices; here every rank is a
+process, so:
+
+- rank 0 alone serves HTTP, validates (a 400 is rank 0's alone), coalesces
+  and keeps the adapter LRU;
+- for each unit of work it runs (one request, a coalesced group, an
+  enhancement) it first publishes one message to the other ranks
+  (parallel/distributed.py:WorkChannel: the requests' JSON fields, from
+  which every rank derives the same adapter key and seeds; the text comes
+  from each rank's own encoder or ``--embeddings``), then runs the unit;
+- every other rank runs the same unit (the same ``generate_video``, the
+  same encoder calls); every rank reports its outcome and waits for all
+  the reports (bounded) before the next unit; rank 0 answers 500 if any
+  rank failed; only rank 0 writes files, streams events and answers;
+- a rank that fails inside a unit leaves the others at a collective: a
+  failure report cancels their collectives (each rank watches the reports
+  while it runs its part), and after a failed unit every rank renews the
+  mesh's process groups, so the server goes on serving;
+- when rank 0 stops serving it publishes a stop message, and the others
+  leave their loop and the process group.
+
+Refused by name: ``--aux-park`` (a 16 GB accelerator's memory plan, left out
+of the port). Differences from the JAX server, on purpose: ``--warmup`` runs
+one warm request (the port compiles no per-shape program, so the JAX
+server's second, streamed warm request has nothing to warm); the default
+output directory is under the temporary directory (``$TMPDIR``).
 
     python -m mlx_video_tpu_torch.serve --model-repo SNAPSHOT --embeddings emb.safetensors \\
         --port 8787 --warmup 512x512x33
@@ -55,22 +78,17 @@ import json
 import tempfile
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from mlx_video_tpu_torch.cli.generate import PARALLEL_SERVE
-
 _PIPELINES = ("distilled", "dev")
 
-# The JAX server's options that the port refuses, with what they wait for.
+# The JAX server's options that the port refuses, with why.
 _REFUSED = {
-    "mesh": PARALLEL_SERVE,
-    "pipeline_parallel": PARALLEL_SERVE,
-    "pipeline_tensor": PARALLEL_SERVE,
-    "sequence_parallel": PARALLEL_SERVE,
     "aux_park": "a 16 GB accelerator's memory plan, left out of the port (ROADMAP 'Leave out')",
 }
 
@@ -95,8 +113,18 @@ class GenerationService:
         lora_dir: Optional[Path] = None,
         lora_cache: int = 4,
         lora_slot_rank: int = 0,
+        mesh=None,
+        sequence_parallel: bool = False,
+        pipeline_parallel: int = 0,
+        pipeline_tensor: int = 1,
+        channel=None,
     ) -> None:
         self.models = models
+        # sharded serving: the options every generate_video takes, and rank
+        # 0's channel to the other ranks (None in one process)
+        self.mesh, self.sequence_parallel = mesh, bool(sequence_parallel)
+        self.pipeline_parallel, self.pipeline_tensor = int(pipeline_parallel), int(pipeline_tensor)
+        self.channel = channel
         self.lora_dir = Path(lora_dir).resolve() if lora_dir else None
         self.lora_cache_size = max(1, int(lora_cache))
         self._lora_cache: dict = {}  # key -> adapted transformer view (LRU by insertion)
@@ -184,6 +212,9 @@ class GenerationService:
         if kw["audio"] and audio_mode == "joint" and (tc or pab or cc):
             raise RequestError("the caching dials (teacache_threshold, cfg_cache_interval, attn_broadcast_interval) "
                                "support the video-only denoise; use audio_mode=separate to combine them with audio")
+        if (tc or pab) and (self.sequence_parallel or self.pipeline_parallel):
+            raise RequestError("teacache_threshold/attn_broadcast_interval do not compose with this server's "
+                               "sequence/pipeline parallelism")
         self._lora_key(req)
 
     def _lora_key(self, req: dict):
@@ -276,16 +307,67 @@ class GenerationService:
         mode = str(req.get("mode", "t2v")).lower()
         if mode not in ("t2v", "i2v", "negative"):
             raise RequestError("mode must be one of t2v, i2v, negative")
-        kw = dict(max_new_tokens=int(req.get("max_tokens", 512)), temperature=float(req.get("temperature", 0.7)))
         with self.lock, torch.inference_mode():  # the 12B forward is serialised with generation
             t0 = time.time()
-            if mode == "t2v":
-                enhanced = self.text_encoder.enhance_t2v(prompt, **kw)
-            elif mode == "i2v":
-                enhanced = self.text_encoder.enhance_i2v(prompt, **kw)
-            else:
-                enhanced = self.text_encoder.enhance_negative(prompt, str(req.get("negative_prompt", "")), **kw)
+            enhanced = self._on_every_rank("enhance", {"req": _public(req)}, lambda: self._enhance(req))
         return {"prompt": prompt, "enhanced": enhanced, "mode": mode, "wall_seconds": round(time.time() - t0, 3)}
+
+    def _enhance(self, req: dict) -> str:
+        """The enhanced text of a validated /enhance request."""
+        prompt, mode = str(req.get("prompt", "")), str(req.get("mode", "t2v")).lower()
+        kw = dict(max_new_tokens=int(req.get("max_tokens", 512)), temperature=float(req.get("temperature", 0.7)))
+        if mode == "t2v":
+            return self.text_encoder.enhance_t2v(prompt, **kw)
+        if mode == "i2v":
+            return self.text_encoder.enhance_i2v(prompt, **kw)
+        return self.text_encoder.enhance_negative(prompt, str(req.get("negative_prompt", "")), **kw)
+
+    def _on_every_rank(self, op: str, payload: dict, run):
+        """``run()`` here and, under a launcher, the same unit on every other
+        rank: the message goes out first, and the unit ends when every rank
+        has reported (parallel/distributed.py:WorkChannel.run); a failure on
+        any rank is a server fault here. Called under the lock."""
+        if self.channel is None:
+            return run()
+        from mlx_video_tpu_torch.parallel.collectives import Cancelled
+
+        out, error, others = self.channel.run(self.channel.publish(dict(payload, op=op)), run)
+        if error is not None and not isinstance(error, Cancelled):
+            raise error
+        if error is not None or others:
+            raise RuntimeError(f"the unit failed on another rank ({'; '.join(others)})")
+        return out
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0: every unit rank 0 publishes, run
+        as rank 0 runs it and reported; returns at the stop message."""
+        while True:
+            seq, msg = self.channel.receive()
+            if msg["op"] == "stop":
+                self.channel.run(seq, lambda: None)
+                return
+            with torch.inference_mode():
+                _, error, _ = self.channel.run(seq, lambda: self._run_unit(msg))
+            if error is not None:  # reported to rank 0, which answers 500
+                traceback.print_exception(error)
+
+    def _run_unit(self, msg: dict) -> None:
+        op = msg["op"]
+        if op == "one":
+            self._generate_locked(msg["req"], self._kwargs_for(msg["req"]))
+        elif op == "group":
+            self._run_group(msg["reqs"])
+        elif op == "enhance":
+            self._enhance(msg["req"])
+        else:
+            raise ValueError(f"unknown unit {op!r}")
+
+    def close(self) -> None:
+        """Rank 0 under a launcher: the stop message, and wait (bounded)
+        until the other ranks have taken it."""
+        if self.channel is not None and self.channel.rank == 0:
+            with self.lock:
+                self.channel.run(self.channel.publish({"op": "stop"}), lambda: None)
 
     def validate_streaming(self, req: dict) -> None:
         """Everything that must 400 before a streamed 200 header goes out."""
@@ -366,34 +448,44 @@ class GenerationService:
         """One batched generate_video for N coalesced requests: each prompt
         encoded (serialised) and stacked, each seed through ``seeds``, one
         result path a request."""
-        from mlx_video_tpu_torch.pipelines import generate as gen
-
-        req0 = group[0]["req"]
-        kwargs = self._kwargs_for(req0)
-        kwargs["num_videos"] = len(group)
-        kwargs.pop("seed", None)
+        reqs = [it["req"] for it in group]
         with self.lock, torch.inference_mode():
             t0 = time.time()
-            texts = [self._text_for(it["req"]) for it in group]
-            if all(t is texts[0] for t in texts):
-                text = texts[0]  # the shared --embeddings default: broadcast
-            else:
-                def cat(field):
-                    vals = [getattr(t, field) for t in texts]
-                    return None if any(v is None for v in vals) else torch.cat(list(vals), dim=0)
-
-                text = gen.TextConditioning(video_embeddings=cat("video_embeddings"),
-                                            video_neg_embeddings=cat("video_neg_embeddings"))
-            out = self.output_dir / f"gen_{int(time.time() * 1000)}_{self.requests_served}_batch.mp4"
-            result = gen.generate_video(self._models_for(req0), text, output_path=out,
-                                        seeds=[int(it["req"].get("seed", 0)) for it in group], **kwargs)
+            result = self._on_every_rank("group", {"reqs": [_public(r) for r in reqs]}, lambda: self._run_group(reqs))
             wall = time.time() - t0
-            self.requests_served += len(group)
-            self.batches_run += 1
         for i, it in enumerate(group):
             it["result"] = self._response(result.video_paths[i], result, wall, batched=len(group))
             if "_enhanced_prompt" in it["req"]:  # the prompt that conditioned this video
                 it["result"]["enhanced_prompt"] = it["req"]["_enhanced_prompt"]
+
+    def _run_group(self, reqs: list):
+        """The batched generate_video of :meth:`_generate_group`; returns
+        its result."""
+        from mlx_video_tpu_torch.pipelines import generate as gen
+
+        kwargs = self._kwargs_for(reqs[0])
+        kwargs["num_videos"] = len(reqs)
+        kwargs.pop("seed", None)
+        texts = [self._text_for(r) for r in reqs]
+        if all(t is texts[0] for t in texts):
+            text = texts[0]  # the shared --embeddings default: broadcast
+        else:
+            def cat(field):
+                vals = [getattr(t, field) for t in texts]
+                return None if any(v is None for v in vals) else torch.cat(list(vals), dim=0)
+
+            text = gen.TextConditioning(video_embeddings=cat("video_embeddings"),
+                                        video_neg_embeddings=cat("video_neg_embeddings"))
+        out = self.output_dir / f"gen_{int(time.time() * 1000)}_{self.requests_served}_batch.mp4"
+        result = gen.generate_video(self._models_for(reqs[0]), text, output_path=out,
+                                    seeds=[int(r.get("seed", 0)) for r in reqs], **kwargs, **self._parallel_kwargs())
+        self.requests_served += len(reqs)
+        self.batches_run += 1
+        return result
+
+    def _parallel_kwargs(self) -> dict:
+        return dict(mesh=self.mesh, sequence_parallel=self.sequence_parallel,
+                    pipeline_parallel=self.pipeline_parallel, pipeline_tensor=self.pipeline_tensor)
 
     def _kwargs_for(self, req: dict) -> dict:
         pipeline = str(req.get("pipeline", self.loaded_pipeline)).lower()
@@ -428,7 +520,7 @@ class GenerationService:
                 add_event_sink(sink)
             try:
                 with torch.inference_mode():
-                    return self._generate_locked(req, kwargs)
+                    return self._on_every_rank("one", {"req": _public(req)}, lambda: self._generate_locked(req, kwargs))
             finally:
                 if sink is not None:
                     remove_event_sink(sink)
@@ -440,7 +532,7 @@ class GenerationService:
         text = self._text_for(req)  # a 12B forward with a text encoder: under the lock too
         # the served counter keeps names apart where the clock's ms collide
         out = self.output_dir / f"gen_{int(time.time() * 1000)}_{self.requests_served}_{kwargs['seed']}.mp4"
-        result = gen.generate_video(self._models_for(req), text, output_path=out, **kwargs)
+        result = gen.generate_video(self._models_for(req), text, output_path=out, **kwargs, **self._parallel_kwargs())
         wall = time.time() - t0
         self.requests_served += 1
         resp = self._response(result.video_path or out, result, wall, batched=1,
@@ -467,6 +559,12 @@ class GenerationService:
             "max_batch": self.max_batch,
             "uptime_seconds": round(time.time() - self.started, 1),
         }
+
+
+def _public(req: dict) -> dict:
+    """A request's client fields (those a rank derives its state from),
+    without the server's own bookkeeping (``_lora_key``, ...)."""
+    return {k: v for k, v in req.items() if not k.startswith("_")}
 
 
 def make_handler(service: GenerationService):
@@ -642,11 +740,15 @@ def refused_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) -> 
 
 def load_service(args) -> GenerationService:
     """Models, text (an encoder or the embeddings) and the service, as the
-    flags say."""
+    flags say. With ``--mesh`` or ``--pipeline-parallel`` this rank joins
+    the launcher's group first (cli/generate.py:_parallel_start) and the
+    models (and the encoder, under a mesh) are sharded here, once."""
     from mlx_video_tpu_torch import loading
-    from mlx_video_tpu_torch.cli.generate import load_embeddings
+    from mlx_video_tpu_torch.cli.generate import _parallel_start, load_embeddings
+    from mlx_video_tpu_torch.parallel import distributed
+    from mlx_video_tpu_torch.parallel.collectives import mesh_groups
 
-    device = torch.device(args.device)
+    device = _parallel_start(args, torch.device(args.device), prog="serve")
     model_path = Path(args.model_repo)
     models = loading.load_model_bundle(model_path, pipeline=args.pipeline, audio=args.audio, dtype=torch.bfloat16,
                                        bits_hint=loading.bits_hint_for(args.model_repo), device=device)
@@ -654,6 +756,14 @@ def load_service(args) -> GenerationService:
         loading.quantize_models(models, model_path, w8a8=args.w8a8, w4a8=args.w4a8, repo_hint=str(args.model_repo))
     except ValueError as e:
         raise SystemExit(f"serve: {e}")
+    mesh, meshes = None, []  # meshes: what the units' collectives run on
+    if args.mesh:
+        mesh = loading.mesh_from_flag(args.mesh, device.type)
+        loading.shard_models(models, mesh)
+        meshes.append(mesh_groups(mesh))
+    elif args.pipeline_parallel:
+        meshes.append(mesh_groups(loading.stage_models(models, args.pipeline_parallel, tensor=args.pipeline_tensor,
+                                                       device_type=device.type)))
     text_encoder = default_text = None
     if args.embeddings:
         default_text = load_embeddings(args.embeddings, device)
@@ -662,6 +772,9 @@ def load_service(args) -> GenerationService:
 
         text_encoder = LTX2TextEncoder.load(args.model_repo, args.text_encoder_path or args.model_repo,
                                             dtype=torch.bfloat16, w8a8=args.w8a8, device=device)
+        if mesh is not None:
+            text_encoder.shard(mesh)
+    channel = distributed.WorkChannel(meshes) if distributed.world_size() > 1 else None
     return GenerationService(
         models, text_encoder=text_encoder, default_text=default_text,
         output_dir=Path(args.output_dir) if args.output_dir else None,
@@ -669,21 +782,42 @@ def load_service(args) -> GenerationService:
         loaded_pipeline=args.pipeline,
         max_batch=args.max_batch, batch_window=args.batch_window,
         lora_dir=Path(args.lora_dir) if args.lora_dir else None, lora_cache=args.lora_cache,
-        lora_slot_rank=args.lora_slot_rank,
+        lora_slot_rank=args.lora_slot_rank, mesh=mesh, sequence_parallel=args.sequence_parallel,
+        pipeline_parallel=args.pipeline_parallel, pipeline_tensor=args.pipeline_tensor, channel=channel,
     )
 
 
 def main(argv=None, ready=None) -> None:
-    """Parse, load, warm up, serve forever. ``ready(httpd, service)``, when
-    given, is called once the server listens (before serving)."""
+    """Parse, load, warm up, serve until the HTTP server is shut down.
+    ``ready(httpd, service)``, when given, is called once the server listens
+    (before serving). Under a launcher, ranks other than 0 follow rank 0's
+    units instead, and every rank leaves the process group at the end."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.mesh and args.pipeline_parallel:  # known at parse time: fail before any weight loads
+        raise SystemExit("serve: --mesh and --pipeline-parallel are mutually exclusive")
     refused = refused_flags(args, parser)
     if refused:
         raise SystemExit("serve: not ported to mlx_video_tpu_torch: " + "; ".join(refused))
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
-    service = load_service(args)
+    try:
+        service = load_service(args)
+        try:
+            _serve(args, service, ready)
+        finally:
+            service.close()
+    finally:
+        if args.mesh or args.pipeline_parallel:
+            from mlx_video_tpu_torch.parallel.distributed import shutdown
+
+            shutdown()
+
+
+def _serve(args, service: GenerationService, ready) -> None:
+    if service.channel is not None and service.channel.rank != 0:
+        service.follow()
+        return
     if args.warmup:
         w, h, f = (int(x) for x in args.warmup.lower().split("x"))
         print(f"[serve] warmup {w}x{h}x{f}...", flush=True)
@@ -695,7 +829,10 @@ def main(argv=None, ready=None) -> None:
           "GET /healthz)", flush=True)
     if ready is not None:
         ready(httpd, service)
-    httpd.serve_forever()
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
 
 
 if __name__ == "__main__":

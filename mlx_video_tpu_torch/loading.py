@@ -293,11 +293,31 @@ def mesh_from_flag(spec: str, device_type: Optional[str] = None):
     return create_mesh(shape, device_type)
 
 
+def _transformer_fields(models: ModelBundle):
+    return [f for f in ("transformer", "stage2_transformer", "audio_transformer") if getattr(models, f) is not None]
+
+
 def shard_models(models: ModelBundle, mesh) -> None:
-    """Shard the stage-1 and stage-2 transformers on the mesh, in place
-    (parallel/sharding.py:shard_params: each keeps this rank's slices)."""
+    """Shard the stage-1, stage-2 and audio transformers on the mesh, in
+    place (parallel/sharding.py:shard_params: each keeps this rank's slices;
+    a transformer already sharded on it stays as it is)."""
     from mlx_video_tpu_torch.parallel.sharding import shard_params
 
-    models.transformer = shard_params(models.transformer, mesh)
-    if models.stage2_transformer is not None:
-        models.stage2_transformer = shard_params(models.stage2_transformer, mesh)
+    for field in _transformer_fields(models):
+        setattr(models, field, shard_params(getattr(models, field), mesh))
+
+
+def stage_models(models: ModelBundle, num_stages: int, data: int = 1, tensor: int = 1, device_type=None):
+    """Stage the stage-1, stage-2 and audio transformers over a pipeline
+    mesh of ``num_stages`` stages, in place (parallel/pipeline.py:
+    shard_params_pipeline; the mesh is the one the transformer is already
+    staged on, else a new one over the world); returns the mesh."""
+    from mlx_video_tpu_torch.parallel.pipeline import pipeline_mesh, shard_params_pipeline
+
+    mesh = getattr(models.transformer, "mesh", None)
+    if mesh is None:
+        mesh = pipeline_mesh(num_stages, data=data, tensor=tensor,
+                             device_type=device_type or models.transformer.video.scale_shift_table.device.type)
+    for field in _transformer_fields(models):
+        setattr(models, field, shard_params_pipeline(getattr(models, field), mesh))
+    return mesh

@@ -103,17 +103,34 @@ def iter_lora_pairs(
         yield base[: -len(".weight")], lora_sd[key], lora_sd[key_b]
 
 
-def _locate_linear(model: nn.Module, sanitized_module: str) -> Optional[nn.Module]:
-    """The linear of ``model`` that a sanitized module key names, or None
-    where the model has none there."""
+def _linear_name(model: nn.Module, sanitized_module: str) -> Optional[str]:
+    """The module name in ``model`` of the linear a sanitized module key
+    names, or None where the model has none there. A pipeline stage
+    (parallel/pipeline.py) holds the whole stack's blocks from
+    ``stage * per`` on as its ``blocks.0...``."""
     mapped = dit_tree_path(sanitized_module + ".weight")
     if mapped is None:
         return None
+    name = mapped[: -len(".weight")]
+    if getattr(model, "pipe_axis", None) is not None and name.startswith("blocks."):
+        _, index, rest = name.split(".", 2)
+        per = model.pipe_layers // model.mesh.size(model.pipe_axis)
+        local = int(index) - model.mesh.index(model.pipe_axis) * per
+        if not 0 <= local < per:
+            return None
+        name = f"blocks.{local}.{rest}"
     try:
-        layer = model.get_submodule(mapped[: -len(".weight")])
+        layer = model.get_submodule(name)
     except AttributeError:
         return None
-    return layer if isinstance(layer, (Linear, QuantLinear, Int8Linear)) else None
+    return name if isinstance(layer, (Linear, QuantLinear, Int8Linear)) else None
+
+
+def _locate_linear(model: nn.Module, sanitized_module: str) -> Optional[nn.Module]:
+    """The linear of ``model`` that a sanitized module key names, or None
+    where the model has none there."""
+    name = _linear_name(model, sanitized_module)
+    return None if name is None else model.get_submodule(name)
 
 
 @contextmanager
@@ -163,8 +180,14 @@ def merge_lora_into_params(model: nn.Module, lora_specs: Sequence[LoraSpec], ver
 
 def _view(model: nn.Module) -> nn.Module:
     """A copy of ``model`` with new module objects that shares every
-    parameter and buffer with it."""
+    parameter and buffer with it, and a sharded model's mesh, groups and
+    specs."""
     shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    for m in model.modules():
+        for attr in ("mesh", "tp_group", "shard_specs"):
+            v = m.__dict__.get(attr)
+            if v is not None:
+                shared[id(v)] = v
     return copy.deepcopy(model, memo=shared)
 
 
@@ -198,19 +221,26 @@ def attach_runtime_lora(
     rank, B = 0, so the slots add nothing). The file's factors replace a
     slot, cast to its dtype, with scale 1, and are zero-padded up to the
     slot rank; a combined rank beyond it, or a linear without a slot, raises
-    ``ValueError`` (the caller then attaches without slots)."""
+    ``ValueError`` (the caller then attaches without slots).
+
+    A sharded model (parallel/sharding.py, or a pipeline stage) keeps each
+    pair's slices for this rank (:func:`parallel.sharding.local_factors`:
+    the ``tensor`` cut of its linear), of the layers it holds."""
+    from mlx_video_tpu_torch.parallel.sharding import local_factors
+
     del config  # the JAX signature's; per-layer modules need no layer count
     view = _view(model)
     written: set = set()  # ids of the layers written by this call
     for spec in lora_specs:
         paths = set()
         for module_key, a, b in iter_lora_pairs(load_lora_state(spec.path)):
-            layer = _locate_linear(view, module_key)
-            if layer is None:
+            name = _linear_name(view, module_key)
+            if name is None:
                 continue
+            layer = view.get_submodule(name)
             device = _device(layer)
-            a_new = a.to(device, torch.float32) * spec.strength
-            b_new = b.to(device, torch.float32)
+            a_new, b_new = local_factors(view, name, a.to(device, torch.float32) * spec.strength,
+                                         b.to(device, torch.float32))
             has = getattr(layer, "lora_A", None) is not None
             one = torch.ones((), dtype=torch.float32, device=device)
             if slot_rank is not None and has:
@@ -277,7 +307,11 @@ def inject_lora(
     ``dtype``, and ``lora_scale`` = alpha / rank. A module path matches as in
     the JAX package, on its JAX pytree path (the layer index left out:
     ``blocks.3.attn1.to_q`` matches as ``blocks.attn1.to_q``). A layer that
-    already carries factors gets fresh ones. Returns ``model``."""
+    already carries factors gets fresh ones. A sharded model's linears get
+    this rank's slices of the whole factors (parallel/sharding.py:
+    local_factors). Returns ``model``."""
+    from mlx_video_tpu_torch.parallel.sharding import local_factors
+
     targets = lora_config.target_modules or DEFAULT_TARGET_MODULES
     rank = lora_config.rank
     scale = lora_config.alpha / rank if rank > 0 else 1.0
@@ -289,8 +323,9 @@ def inject_lora(
         out_dim, in_dim = layer.out_features, layer.in_features
         device = _device(layer)
         a = torch.randn((rank, in_dim), generator=generator, device=generator.device, dtype=torch.float32) * 0.01
-        add_lora_(layer, a.to(device=device, dtype=dtype), torch.zeros((out_dim, rank), device=device, dtype=dtype),
-                  scale)
+        a, b = local_factors(model, name, a.to(device=device, dtype=dtype),
+                             torch.zeros((out_dim, rank), device=device, dtype=dtype))
+        add_lora_(layer, a, b, scale)
     return model
 
 

@@ -31,11 +31,19 @@ so only greedy decoding is held token for token against JAX; the fp32 head
 is one fp32 copy of the embedding table a ``generate`` call (4 GB at the
 12B's 262,208 x 3840), and vocabulary chunks of it elsewhere, never a fresh
 copy a token.
+
+Sharded (parallel/sharding.py:shard_params of the text encoder gives the
+model ``mesh`` and ``shard_specs``): each layer runs on its ``fsdp``-gathered
+tensors with this rank's ``heads / tensor`` query and key/value heads
+(q/k/v and gate/up column-cut, ``o_proj`` and ``down_proj`` row-parallel
+over ``tensor``; the per-head q/k norms whole), and the KV caches hold this
+rank's key/value heads; the embedding table is gathered whole for the
+lookup and the head (once a ``generate`` call).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -148,6 +156,37 @@ def init_gemma3_params(config: Gemma3TextConfig, generator: torch.Generator, dev
     return model
 
 
+def _local_config(model: Gemma3Model, config: Gemma3TextConfig) -> Gemma3TextConfig:
+    """``config`` with a sharded model's local query and key/value heads."""
+    mesh = getattr(model, "mesh", None)
+    tp = 1 if mesh is None else mesh.size("tensor")
+    if tp == 1:
+        return config
+    return replace(config, num_attention_heads=config.num_attention_heads // tp,
+                   num_key_value_heads=config.num_key_value_heads // tp)
+
+
+def _table(model: Gemma3Model) -> torch.Tensor:
+    """The embedding table, gathered whole on a sharded model."""
+    if getattr(model, "shard_specs", None) is None:
+        return model.embed_tokens.weight
+    from mlx_video_tpu_torch.parallel.sharding import gather
+
+    return gather(model.embed_tokens, model.shard_specs, model.mesh, prefix="embed_tokens.").weight
+
+
+def _layers(model: Gemma3Model):
+    """The layers, each ``fsdp``-gathered on a sharded model (one at a time)."""
+    specs = getattr(model, "shard_specs", None)
+    if specs is None:
+        yield from model.layers
+        return
+    from mlx_video_tpu_torch.parallel.sharding import gather
+
+    for i, layer in enumerate(model.layers):
+        yield gather(layer, specs, model.mesh, axes=("fsdp",), prefix=f"layers.{i}.")
+
+
 def gemma_rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     """Gemma RMSNorm: fp32, scale by (1 + weight), output in x's dtype."""
     xf = x.float()
@@ -252,14 +291,15 @@ def gemma3_hidden_states(
     norm of layer n-1's output. Positions are absolute (0..T-1); padding is
     handled by the mask."""
     b, t = input_ids.shape
-    h = model.embed_tokens.weight[input_ids]
+    h = _table(model)[input_ids]
     h = h * torch.tensor(config.hidden_size**0.5, dtype=h.dtype)
     positions = torch.arange(t, device=h.device)[None].expand(b, t)
     full_bias = causal_mask_bias(t, attention_mask, None, device=h.device)
     local_bias = causal_mask_bias(t, attention_mask, config.sliding_window, device=h.device)
     states = [h]
-    for layer, is_global, base in zip(model.layers, *_layer_schedule(config)):
-        h = _layer(layer, h, full_bias if is_global else local_bias, positions, config, base)
+    local = _local_config(model, config)
+    for layer, is_global, base in zip(_layers(model), *_layer_schedule(config)):
+        h = _layer(layer, h, full_bias if is_global else local_bias, positions, local, base)
         states.append(h)
     states[-1] = gemma_rms_norm(model.norm.weight, h, config.rms_norm_eps)
     return states
@@ -298,7 +338,10 @@ def gemma3_logits(
     logits alone. ``fp32_table``: the embedding table already in fp32 (else
     the head casts it a vocabulary chunk at a time)."""
     b, t = input_ids.shape
-    h = model.embed_tokens.weight[input_ids]
+    dtype = model.embed_tokens.weight.dtype
+    table = _table(model) if fp32_table is None else None
+    # the fp32 copy's rows cast back are the table's rows exactly
+    h = table[input_ids] if fp32_table is None else fp32_table[input_ids].to(dtype)
     h = h * torch.tensor(config.hidden_size**0.5, dtype=h.dtype)
     positions = position_offset + torch.arange(t, device=h.device)[None].expand(b, t)
     if kv_caches is None:
@@ -315,20 +358,23 @@ def gemma3_logits(
             pad = torch.where(attention_mask.bool(), 0.0, -1e9).float()[:, None, None, :]
             full_bias, local_bias = full_bias + pad, local_bias + pad
     caches = kv_caches if kv_caches is not None else [None] * config.num_hidden_layers
-    for layer, is_global, base, cache in zip(model.layers, *_layer_schedule(config), caches):
-        h = _layer(layer, h, full_bias if is_global else local_bias, positions, config, base, cache)
+    local = _local_config(model, config)
+    for layer, is_global, base, cache in zip(_layers(model), *_layer_schedule(config), caches):
+        h = _layer(layer, h, full_bias if is_global else local_bias, positions, local, base, cache)
     if kv_caches is not None:
         for cache in kv_caches:
             cache.offset += t
     h = gemma_rms_norm(model.norm.weight, h, config.rms_norm_eps)
     if last_only:
         h = h[:, -1:]
-    return _head(h, model.embed_tokens.weight, fp32_table), kv_caches
+    return _head(h, table, fp32_table), kv_caches
 
 
 def init_kv_caches(config: Gemma3TextConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> List[KVCache]:
-    """Zeroed full ``max_len`` key and value buffers for every layer."""
+    """Zeroed full ``max_len`` key and value buffers for every layer (of
+    ``config``'s key/value heads: a sharded model's local ones in
+    :func:`generate`)."""
     shape = (batch, config.num_key_value_heads, max_len, config.head_dim)
     return [KVCache(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(config.num_hidden_layers)]
@@ -369,10 +415,10 @@ def generate(
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     max_len = prompt_len + max_new_tokens
-    caches = init_kv_caches(config, b, max_len, dtype=table.dtype, device=device)
+    caches = init_kv_caches(_local_config(model, config), b, max_len, dtype=table.dtype, device=device)
     mask = torch.zeros((b, max_len), dtype=torch.int32, device=device)
     mask[:, :prompt_len] = 1
-    fp32_table = table.float()  # one fp32 copy of the head a call
+    fp32_table = _table(model).float()  # one fp32 copy of the (whole) head a call
     logits, caches = gemma3_logits(model, config, ids, mask, caches, 0, last_only=True, fp32_table=fp32_table)
     out: List[int] = []
     pos = prompt_len

@@ -39,23 +39,30 @@ fresh.
 
 Sharded forward (parallel/): a model from parallel/sharding.py:shard_params
 carries its mesh (``model.mesh``) and its tensors' specs, and
-:func:`ltx_apply` then runs rank-local (the VideoOnly DiT): the batch cut
-over ``data`` when it divides; the per-modality projections and the output
-head on fully gathered copies of their tensors; each block on its
-``fsdp``-gathered tensors with ``heads / tensor`` local heads (RoPE tables
-cut to them), its row-parallel linears and q/k norms summed over
-``tensor`` (ops/linear.py, ops/norms.py). ``sp=(mesh, "fsdp")`` cuts the
-tokens over ``fsdp`` when they divide, and the self-attention becomes the
-ring (parallel/ring_attention.py) over their blocks; text attention keeps
-the whole caption. The fused-RoPE route (K5) is off whenever ``sp`` is
-given, as in JAX. The last block's tokens and the batch are all-gathered,
-so every rank returns the whole velocity.
+:func:`ltx_apply` then runs rank-local (:func:`sharded_apply`, every model
+type): the batch cut over ``data`` when it divides; the per-modality
+projections, the cross-modal adaLNs and the output heads on fully gathered
+copies of their tensors; each block on its ``fsdp``-gathered tensors with
+``heads / tensor`` local heads in every attention (video, audio and both
+cross-modal ones; the RoPE and cross-modal RoPE tables cut to them), its
+row-parallel linears and q/k norms summed over ``tensor`` (ops/linear.py,
+ops/norms.py). ``sp=(mesh, "fsdp")`` cuts the video tokens over ``fsdp``
+when they divide, and the video self-attention becomes the ring
+(parallel/ring_attention.py) over their blocks; text attention keeps the
+whole caption. The audio stream stays whole on every rank (JAX rings its
+self-attention too when its token count divides the axis: the same
+function): audio-to-video attention takes this rank's video block as
+queries over all the audio, and video-to-audio attention all-gathers the
+modulated video context over the ring first. The fused-RoPE route (K5) is
+off whenever ``sp`` is given, as in JAX. The last block's video tokens and
+the batch are all-gathered, so every rank returns the whole velocities.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -68,7 +75,6 @@ from mlx_video_tpu_torch.models.ltx import rope as rope_lib
 from mlx_video_tpu_torch.ops.attention import fused_split_rope_eligible, sdpa_flat, sdpa_flat_fused_rope
 from mlx_video_tpu_torch.ops.linear import Linear, init_linear_, linear
 from mlx_video_tpu_torch.ops.norms import layer_norm, rms_norm
-from mlx_video_tpu_torch.parallel import SERVER_ITEM
 from mlx_video_tpu_torch.parallel.collectives import SoloGroup, mesh_groups
 from mlx_video_tpu_torch.parallel.ring_attention import ring_attention
 
@@ -378,6 +384,9 @@ class _ModalityArgs(NamedTuple):
     cross_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     cross_scale_shift_timestep: Optional[torch.Tensor] = None  # (B, S_t, 4*dim)
     cross_gate_timestep: Optional[torch.Tensor] = None  # (B, S_t, dim)
+    # the cross-modal tables over all the stream's tokens, where the stream is
+    # cut over an SP ring (the other stream's cross-modal keys see them all)
+    cross_k_pe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _self_and_text(attn1: Attention, attn2: Attention, table: torch.Tensor, m: _ModalityArgs, x: torch.Tensor,
@@ -419,7 +428,9 @@ def block_apply(
     only): ``attn_cache`` is the block's pre-gate self-attention output of
     an earlier step, used in place of computing it; ``collect_attn`` adds
     this step's as a third result. ``sp``: the video self-attention's ring
-    group (:func:`attention_apply`)."""
+    group (:func:`attention_apply`); the audio, whole on every rank, then
+    attends locally (the fused route off, as JAX's ``sp`` turns it off) and
+    video-to-audio attention gathers the video context over the ring."""
     vx = None if video is None else video.x
     ax = None if audio is None else audio.x
     a1 = None
@@ -428,7 +439,7 @@ def block_apply(
                                 video_cfg.heads, rope_type, norm_eps, attn_cache, sp)
     if audio is not None:
         ax, _ = _self_and_text(block.audio_attn1, block.audio_attn2, block.audio_scale_shift_table, audio, ax,
-                               audio_cfg.heads, rope_type, norm_eps)
+                               audio_cfg.heads, rope_type, norm_eps, sp=None if sp is None else SoloGroup())
     if video is not None and audio is not None:
         vx_norm3 = rms_norm(vx, eps=norm_eps)
         ax_norm3 = rms_norm(ax, eps=norm_eps)
@@ -443,9 +454,12 @@ def block_apply(
             block.audio_to_video_attn, vx_norm3 * (1 + scale_v_a2v) + shift_v_a2v, audio_cfg.heads, rope_type,
             norm_eps, context=ax_norm3 * (1 + scale_a_a2v) + shift_a_a2v, pe=video.cross_pe, k_pe=audio.cross_pe,
         ) * gate_a2v
+        v_ctx, v_kpe = vx_norm3 * (1 + scale_v_v2a) + shift_v_v2a, video.cross_pe
+        if sp is not None and sp.size > 1:  # this rank holds a block of the video: v2a's keys need all of it
+            v_ctx, v_kpe = sp.all_gather(v_ctx, dim=1), video.cross_k_pe
         ax = ax + attention_apply(
             block.video_to_audio_attn, ax_norm3 * (1 + scale_a_v2a) + shift_a_v2a, audio_cfg.heads, rope_type,
-            norm_eps, context=vx_norm3 * (1 + scale_v_v2a) + shift_v_v2a, pe=audio.cross_pe, k_pe=video.cross_pe,
+            norm_eps, context=v_ctx, pe=audio.cross_pe, k_pe=v_kpe,
         ) * gate_v2a
     if video is not None:
         vx = _gated_ff(block.ff, block.scale_shift_table, video, vx, norm_eps)
@@ -583,13 +597,16 @@ def ltx_apply(
     self-attention.
 
     A sharded model (``model.mesh``), or ``sp=(mesh, axis)``: the rank-local
-    forward of the module docstring (:func:`sharded_video_apply`)."""
+    forward of the module docstring (:func:`sharded_apply`)."""
     collect = isinstance(pab, str) and pab == "collect"
     cache = None if pab is None or collect else pab["self"]
     if pab is not None and audio is not None:
         raise ValueError("pab attention broadcast supports the video-only path")
+    if getattr(model, "pipe_axis", None) is not None:
+        raise ValueError("a pipeline stage holds only its own blocks: run it through "
+                         "parallel/pipeline.py:pipeline_ltx_apply (denoise's pipeline_parallel)")
     if getattr(model, "mesh", None) is not None or sp is not None:
-        return sharded_video_apply(model, config, video, audio, sp=sp, cache=cache, collect=collect)
+        return sharded_apply(model, config, video, audio, sp=sp, cache=cache, collect=collect)
     video_args, audio_args = prepare_ltx_args(model, config, video, audio)
     video_cfg, audio_cfg = config.get_video_config(), config.get_audio_config()
     vx = None if video_args is None else video_args.x
@@ -641,83 +658,123 @@ def _cut(t: torch.Tensor, dim: int, parts: int, idx: int) -> torch.Tensor:
 
 
 def local_block_args(args: _ModalityArgs, rope_type: LTXRopeType, mesh, tp: int, ring) -> _ModalityArgs:
-    """A block's inputs on this rank: with ``tp`` > 1 the RoPE tables of its
-    ``heads / tp`` local heads (the ``tensor`` index's), and with a ``ring``
-    group its block of the tokens (the stream, per-token modulation and
-    tables)."""
-    cos, sin = args.pe
+    """A block's inputs on this rank: with ``tp`` > 1 the RoPE and
+    cross-modal RoPE tables of its ``heads / tp`` local heads (the
+    ``tensor`` index's), and with a ``ring`` group its block of the tokens
+    (the stream, the per-token modulations and tables; the whole cross-modal
+    tables kept as ``cross_k_pe``)."""
     split = rope_type == LTXRopeType.SPLIT  # (B, H, S, D/2) tables, else (B, S, H*D)
+    head_dim, token_dim = (1, 2) if split else (2, 1)
+
+    def tables(pair, dim: int, parts: int, idx: int):
+        return None if pair is None else tuple(_cut(c, dim, parts, idx) for c in pair)
+
+    pe, cross_pe = args.pe, args.cross_pe
     if tp > 1:
         t = mesh.index("tensor")
-        cos, sin = (_cut(c, 1 if split else 2, tp, t) for c in (cos, sin))
-    x, ts = args.x, args.timesteps
-    if ring is not None and ring.size > 1:
-        n, r = ring.size, ring.rank
-        cos, sin = (_cut(c, 2 if split else 1, n, r) for c in (cos, sin))
-        x = _cut(x, 1, n, r)
-        if ts.shape[1] == args.x.shape[1]:
-            ts = _cut(ts, 1, n, r)
-    return args._replace(x=x, timesteps=ts, pe=(cos, sin))
+        pe, cross_pe = tables(pe, head_dim, tp, t), tables(cross_pe, head_dim, tp, t)
+    args = args._replace(pe=pe, cross_pe=cross_pe)
+    if ring is None or ring.size == 1:
+        return args
+    n, r, s = ring.size, ring.rank, args.x.shape[1]
+
+    def per_token(t):
+        return _cut(t, 1, n, r) if t is not None and t.shape[1] == s else t
+
+    return args._replace(
+        x=_cut(args.x, 1, n, r), timesteps=per_token(args.timesteps), pe=tables(pe, token_dim, n, r),
+        cross_pe=tables(cross_pe, token_dim, n, r), cross_k_pe=cross_pe,
+        cross_scale_shift_timestep=per_token(args.cross_scale_shift_timestep),
+        cross_gate_timestep=per_token(args.cross_gate_timestep),
+    )
 
 
-def run_blocks(model: LTXModel, args: _ModalityArgs, video_cfg: TransformerConfig, config: LTXModelConfig,
-               ring=None, cache=None, collected=None) -> torch.Tensor:
-    """The stream ``args.x`` through ``model.blocks``, each on its
-    ``fsdp``-gathered tensors, dropped after it runs; PAB's per-block cache
+def run_blocks(model: LTXModel, video: Optional[_ModalityArgs], audio: Optional[_ModalityArgs],
+               video_cfg: Optional[TransformerConfig], audio_cfg: Optional[TransformerConfig], config: LTXModelConfig,
+               ring=None, cache=None, collected=None):
+    """The streams ``video.x`` and ``audio.x`` (either may be None) through
+    ``model.blocks``, each block on its ``fsdp``-gathered tensors, dropped
+    after it runs; returns the (video, audio) streams. PAB's per-block cache
     and collection as in :func:`ltx_apply`."""
     from mlx_video_tpu_torch.parallel.sharding import gather
 
     specs = getattr(model, "shard_specs", None)
-    vx = args.x
+    vx = None if video is None else video.x
+    ax = None if audio is None else audio.x
     for i, block in enumerate(model.blocks):
         if specs is not None:
             block = gather(block, specs, model.mesh, axes=("fsdp",), prefix=f"blocks.{i}.")
-        out = block_apply(block, args._replace(x=vx), None, video_cfg, None, config.rope_type, config.norm_eps,
-                          None if cache is None else cache[i], collected is not None, sp=ring)
-        vx = out[0]
+        out = block_apply(block, None if video is None else video._replace(x=vx),
+                          None if audio is None else audio._replace(x=ax), video_cfg, audio_cfg, config.rope_type,
+                          config.norm_eps, None if cache is None else cache[i], collected is not None, sp=ring)
+        vx, ax = out[0], out[1]
         if collected is not None:
             collected.append(out[2])
-    return vx
+    return vx, ax
 
 
-def sharded_video_apply(model: LTXModel, config: LTXModelConfig, video: Optional[Modality],
-                        audio: Optional[Modality] = None, sp=None, cache=None, collect: bool = False):
-    """The rank-local VideoOnly forward of a sharded model (or of a whole one
-    under ``sp``); every rank returns the whole (video, None) velocity."""
+def gathered_heads(model: LTXModel):
+    """The per-modality projections and heads and the cross-modal adaLNs
+    (``video``, ``audio``, ``av``, those the model has), fully gathered on a
+    sharded model."""
     from mlx_video_tpu_torch.parallel.sharding import gather
 
-    if audio is not None:
-        raise ValueError("the sharded forward runs the video DiT only: audio with a mesh waits for the AV DiT's "
-                         f"sharded forward ({SERVER_ITEM})")
+    specs = getattr(model, "shard_specs", None)
+    parts = {name: getattr(model, name) for name in ("video", "audio", "av") if hasattr(model, name)}
+    if specs is not None:
+        parts = {name: gather(m, specs, model.mesh, prefix=f"{name}.") for name, m in parts.items()}
+    return SimpleNamespace(**parts)
+
+
+def local_configs(config: LTXModelConfig, video, audio, tp: int):
+    """The (video, audio) block configs of the modalities given, with the
+    ``heads / tp`` local heads of a rank."""
+    def local(cfg):
+        return dataclasses.replace(cfg, heads=cfg.heads // tp)
+
+    return (None if video is None else local(config.get_video_config()),
+            None if audio is None else local(config.get_audio_config()))
+
+
+def sharded_apply(model: LTXModel, config: LTXModelConfig, video: Optional[Modality],
+                  audio: Optional[Modality] = None, sp=None, cache=None, collect: bool = False):
+    """The rank-local forward of a sharded model of any type (or of a whole
+    one under ``sp``); every rank returns the whole (video, audio)
+    velocities."""
     specs = getattr(model, "shard_specs", None)
     mesh = model.mesh if specs is not None else mesh_groups(sp[0])
     tp = mesh.size("tensor") if specs is not None else 1
     data = mesh.group("data")
-    b = video.latent.shape[0]
+    b = (video if video is not None else audio).latent.shape[0]
     by_data = data.size > 1 and b % data.size == 0
     if by_data:
-        video = batch_slice(video, data.rank * (b // data.size), b // data.size)
-    head = model.video if specs is None else gather(model.video, specs, mesh, prefix="video.")
-    args = _prepare_modality(head, video, config, config.inner_dim, config.positional_embedding_max_pos,
-                             config.num_attention_heads)
+        lo, n = data.rank * (b // data.size), b // data.size
+        video = None if video is None else batch_slice(video, lo, n)
+        audio = None if audio is None else batch_slice(audio, lo, n)
+    heads = gathered_heads(model)
+    video_args, audio_args = prepare_ltx_args(heads, config, video, audio)
     ring = None
     if sp is not None:
         ring = mesh.group(sp[1])
-        if ring.size == 1 or args.x.shape[1] % ring.size:
+        if video_args is None or ring.size == 1 or video_args.x.shape[1] % ring.size:
             ring = SoloGroup()  # local attention over all the tokens, the fused route still off
-    video_cfg = config.get_video_config()
-    local = local_block_args(args, config.rope_type, mesh, tp, ring)
-    video_cfg = dataclasses.replace(video_cfg, heads=video_cfg.heads // tp)
+    v_local = None if video_args is None else local_block_args(video_args, config.rope_type, mesh, tp, ring)
+    a_local = None if audio_args is None else local_block_args(audio_args, config.rope_type, mesh, tp, None)
+    video_cfg, audio_cfg = local_configs(config, video, audio, tp)
     collected = [] if collect else None
-    vx = run_blocks(model, local, video_cfg, config, ring, cache, collected)
+    vx, ax = run_blocks(model, v_local, a_local, video_cfg, audio_cfg, config, ring, cache, collected)
     if ring is not None and ring.size > 1:
         vx = ring.all_gather(vx, dim=1)
-    v_out = _process_output(head, vx, args.embedded_timestep, config.norm_eps)
+    v_out = None if video_args is None else _process_output(heads.video, vx, video_args.embedded_timestep,
+                                                             config.norm_eps)
+    a_out = None if audio_args is None else _process_output(heads.audio, ax, audio_args.embedded_timestep,
+                                                             config.norm_eps)
     if by_data:
-        v_out = data.all_gather(v_out, dim=0)
+        v_out = None if v_out is None else data.all_gather(v_out, dim=0)
+        a_out = None if a_out is None else data.all_gather(a_out, dim=0)
     if collect:
-        return v_out, None, {"self": collected}
-    return v_out, None
+        return v_out, a_out, {"self": collected}
+    return v_out, a_out
 
 
 def to_denoised(noisy: torch.Tensor, velocity: torch.Tensor, sigma) -> torch.Tensor:

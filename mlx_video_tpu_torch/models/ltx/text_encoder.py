@@ -19,7 +19,8 @@ is plain XLA there:
 :class:`LTX2TextEncoder` loads the weights (io/text_encoder_weights.py), in
 bf16 or W8A8 (ops/int8.py:quantize_text_encoder_w8a8), tokenizes with the
 snapshot's tokenizer (``transformers``, imported when a snapshot is loaded)
-and encodes a prompt. Prompt enhancement (``enhance_t2v``, ``enhance_i2v``,
+and encodes a prompt; :meth:`LTX2TextEncoder.shard` holds it sharded over a
+mesh (parallel/sharding.py). Prompt enhancement (``enhance_t2v``, ``enhance_i2v``,
 ``enhance_negative``) chats with the same Gemma (models/gemma3.py:generate)
 under the system prompts of ``prompts/`` (the port's copies of the JAX
 package's files) and decodes the reply with the tokenizer.
@@ -248,16 +249,30 @@ def encode_tokens(
     head_dim: int = HEAD_DIM,
 ):
     """Token ids (B, T) and their left-padding mask -> (video embeddings,
-    audio embeddings), each (B, T, hidden), or (video, mask) without audio."""
+    audio embeddings), each (B, T, hidden), or (video, mask) without audio.
+    A sharded ``model`` (parallel/sharding.py:shard_params) runs its Gemma
+    tensor-parallel and its feature extractor and connectors gathered
+    whole; every rank returns the whole embeddings."""
     states = gemma3_hidden_states(model.language_model, gemma_config, input_ids, attention_mask)
     concat = norm_and_concat_hidden_states(states, attention_mask, padding_side="left")
-    features = feature_extractor_apply(model.feature_extractor, concat.to(states[0].dtype))
+    features = feature_extractor_apply(_whole(model, "feature_extractor"), concat.to(states[0].dtype))
     del states, concat
-    video = connector_apply(model.video_embeddings_connector, features, attention_mask, num_heads, head_dim)
+    video = connector_apply(_whole(model, "video_embeddings_connector"), features, attention_mask, num_heads, head_dim)
     if not return_audio_embeddings:
         return video, attention_mask
-    audio = connector_apply(model.audio_embeddings_connector, features, attention_mask, num_heads, head_dim)
+    audio = connector_apply(_whole(model, "audio_embeddings_connector"), features, attention_mask, num_heads, head_dim)
     return video, audio
+
+
+def _whole(model: TextEncoderModel, name: str) -> nn.Module:
+    """Submodule ``name``, gathered whole at use when the model is sharded
+    (the connectors' 30 heads do not divide every ``tensor`` size)."""
+    part = getattr(model, name)
+    if getattr(model, "shard_specs", None) is None:
+        return part
+    from mlx_video_tpu_torch.parallel.sharding import gather
+
+    return gather(part, model.shard_specs, model.mesh, prefix=f"{name}.")
 
 
 class LTX2TextEncoder:
@@ -308,6 +323,14 @@ class LTX2TextEncoder:
         tokenizer = AutoTokenizer.from_pretrained(str(found), trust_remote_code=True)
         tokenizer.padding_side = "left"
         return cls(model, gemma_config, tokenizer, max_length)
+
+    def shard(self, mesh) -> "LTX2TextEncoder":
+        """Hold the model as this rank's share on ``mesh``
+        (parallel/sharding.py:shard_params, JAX's rules); returns self."""
+        from mlx_video_tpu_torch.parallel.sharding import shard_params
+
+        self.model = shard_params(self.model, mesh)
+        return self
 
     def tokenize(self, prompt: str) -> Tuple[np.ndarray, np.ndarray]:
         if self.tokenizer is None:

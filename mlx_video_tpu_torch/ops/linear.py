@@ -43,7 +43,10 @@ its rank's rows of the weight and needs nothing more. A row-parallel one
 that slice of x) computes its partial product without the bias, sums it
 over the group in fp32 (the int8 branches: the int32 products, after codes
 made from the group's absmax) and adds the whole bias once, after the sum.
-K2 runs on the rank's words.
+K2 runs on the rank's words. Its LoRA factors are A's columns of its in
+slice and B whole: this rank's (x A^T) B^T is added into the partial before
+the sum, exact as the product is linear in x (the int8 branches sum it on
+its own and add it after, as on one device).
 """
 
 from __future__ import annotations
@@ -179,18 +182,24 @@ def linear(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor) -> to
             y = torch.matmul(x, w.T)
         if layer.bias is not None:
             y = y + layer.bias.to(x.dtype)
-    if getattr(layer, "lora_A", None) is not None:
-        delta = (x.float() @ layer.lora_A.float().T) @ layer.lora_B.float().T
-        y = y + (delta * layer.lora_scale).to(y.dtype)
-    return y
+    delta = _lora_delta(layer, x)
+    return y if delta is None else y + delta.to(y.dtype)
+
+
+def _lora_delta(layer, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The layer's fp32 LoRA update ``lora_scale * (x A^T) B^T``, or None."""
+    if getattr(layer, "lora_A", None) is None:
+        return None
+    return ((x.float() @ layer.lora_A.float().T) @ layer.lora_B.float().T) * layer.lora_scale
 
 
 def _row_parallel(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor, group) -> torch.Tensor:
     """A row-parallel layer's whole output from this rank's slice of x."""
-    if isinstance(layer, Int8Linear):
-        return int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias, group)
-    if isinstance(layer, QuantLinear) and getattr(layer, "int8_scale", None) is not None:
-        return w4a8_linear(layer, x, group)
+    delta = _lora_delta(layer, x)
+    if isinstance(layer, Int8Linear) or getattr(layer, "int8_scale", None) is not None:
+        y = (int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias, group) if isinstance(layer, Int8Linear)
+             else w4a8_linear(layer, x, group))
+        return y if delta is None else y + group.all_reduce(delta).to(y.dtype)
     if isinstance(layer, QuantLinear):
         if layer.bits in KERNEL_BITS:
             part = quant_matmul(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
@@ -199,7 +208,8 @@ def _row_parallel(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor
             part = torch.matmul(x, w.T)
     else:
         part = F.linear(x, layer.weight)
-    y = group.all_reduce(part.float())
+    part = part.float() if delta is None else part.float() + delta
+    y = group.all_reduce(part)
     if layer.bias is not None:
         y = y + layer.bias.float()
     return y.to(x.dtype)

@@ -3,6 +3,5 @@ mlx_video_tpu/parallel/ (``distributed``, ``mesh``, ``sharding``,
 ``ring_attention``, ``pipeline``), with the collective layer the rank-local
 code runs on (``collectives``)."""
 
-# The ROADMAP items that what is not sharded yet waits for, by title.
-SERVER_ITEM = "ROADMAP §1 queue, 'The server's parallel flags and the sharded AV DiT'"
+# The ROADMAP item that what is not sharded yet waits for, by title.
 TRAINER_ITEM = "ROADMAP §1 queue, 'The sharded trainer'"

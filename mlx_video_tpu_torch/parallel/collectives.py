@@ -8,7 +8,10 @@ index along it and the axis's :class:`Group`. Three forms of a group:
 
 - :class:`DistGroup`, the production form: ``torch.distributed`` on a
   ``DeviceMesh`` dimension's process group (NCCL on the card, gloo on the
-  CPU). A failed collective raises; nothing falls back.
+  CPU). A failed collective raises; nothing falls back. A server whose
+  ranks run one unit of work together (cli/serve.py) gives up a unit that
+  failed on another rank with :func:`cancel` and :func:`renew`, so no rank
+  stays waiting for a peer that has left the unit.
 - :class:`SoloGroup`, an axis of size 1: every collective is the identity.
 - :class:`VirtualGroup`: several virtual ranks in one process, one thread
   each (:func:`virtual_meshes`, :func:`run_virtual`), exchanging tensors by
@@ -29,6 +32,51 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+_POLL_S = 0.05  # how often a blocking (gloo) wait looks for a cancel
+_cancelled = threading.Event()
+
+
+class Cancelled(RuntimeError):
+    """A collective given up: the unit of work it belongs to failed on
+    another rank (:func:`cancel`)."""
+
+
+def cancel(meshes: Sequence["MeshGroups"]) -> None:
+    """Give up this rank's collectives on ``meshes`` (from another thread,
+    while a unit of work runs): their process groups are aborted, so NCCL
+    kernels waiting for a peer end; a gloo wait raises :class:`Cancelled`
+    within ``_POLL_S``; and every later collective raises it until
+    :func:`renew`."""
+    _cancelled.set()
+    for mesh in meshes:
+        for g in mesh.groups.values():
+            if isinstance(g, DistGroup):
+                g.pg.abort()
+
+
+def renew(meshes: Sequence["MeshGroups"]) -> None:
+    """New process groups over the same ranks for every axis of ``meshes``,
+    in place of the ones a cancelled unit left in an unknown state, and the
+    cancel cleared. Every rank of the world calls it at the same point: each
+    mesh covers the world row-major, and every rank creates every axis's
+    subgroups in the same order, as ``init_device_mesh`` did."""
+    rank = dist.get_rank()
+    for mesh in meshes:
+        shape = [mesh.size(a) for a in mesh.axes]
+        layout = np.arange(int(np.prod(shape))).reshape(shape)
+        for i, axis in enumerate(mesh.axes):
+            if shape[i] == 1:
+                continue
+            for ranks in np.moveaxis(layout, i, -1).reshape(-1, shape[i]).tolist():
+                pg = dist.new_group(ranks)
+                if rank in ranks:
+                    g = mesh.groups[axis]
+                    if g.ranks != ranks:
+                        raise RuntimeError(f"axis {axis}: group ranks {g.ranks} are not the mesh's {ranks}")
+                    g.pg = pg
+    _cancelled.clear()
+
 
 class SoloGroup:
     """An axis of size 1."""
@@ -57,16 +105,49 @@ class DistGroup:
         self.ranks = dist.get_process_group_ranks(pg)  # global ranks, in axis order
         self.size = len(self.ranks)
         self.rank = dist.get_rank(pg)
+        self.blocking = dist.get_backend(pg) == "gloo"  # a gloo wait holds the host; NCCL's orders streams
+
+    def _run(self, start: Callable[[], object]) -> None:
+        """Start a collective (``start()`` returns its work, or a list of
+        them) and wait for it. A gloo wait holds its thread until the peers
+        come (a timed wait would abandon a send), so it runs in a thread of
+        its own while this one looks for a :func:`cancel`."""
+        if _cancelled.is_set():
+            raise Cancelled("a collective of a cancelled unit of work")
+        works = start()
+        works = works if isinstance(works, list) else [works]
+        if not self.blocking:
+            for work in works:
+                work.wait()
+            return
+        done, failed = threading.Event(), []
+
+        def wait_all() -> None:
+            try:
+                for work in works:
+                    work.wait()
+            except BaseException as e:  # noqa: BLE001 — raised in the caller's thread
+                failed.append(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=wait_all, daemon=True).start()
+        while not done.wait(_POLL_S):
+            if _cancelled.is_set():
+                raise Cancelled("another rank failed this collective's unit of work")
+        if failed:
+            raise failed[0]
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=self.pg)
+        reduce_op = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        self._run(lambda: dist.all_reduce(y, op=reduce_op, group=self.pg, async_op=True))
         return y
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.pg)
+        self._run(lambda: dist.all_gather(parts, x, group=self.pg, async_op=True))
         return torch.cat(parts, dim=dim)
 
     def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,15 +156,14 @@ class DistGroup:
         out = torch.empty_like(x)
         ops = [dist.P2POp(dist.isend, x, self.ranks[(self.rank + 1) % self.size], group=self.pg),
                dist.P2POp(dist.irecv, out, self.ranks[(self.rank - 1) % self.size], group=self.pg)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        self._run(lambda: dist.batch_isend_irecv(ops))
         return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``x`` of the rank at index ``src`` on the axis; the others pass a
         tensor of the same shape and dtype."""
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.broadcast(y, src=self.ranks[src], group=self.pg)
+        self._run(lambda: dist.broadcast(y, src=self.ranks[src], group=self.pg, async_op=True))
         return y
 
 

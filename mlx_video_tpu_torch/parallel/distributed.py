@@ -14,6 +14,10 @@ its variables) and joined here:
 2. :class:`PreemptionGuard` turns SIGTERM into a flag read at step
    boundaries, OR-reduced over the world so every rank stops at one step.
 3. Restart is resume: the trainer's exact-resume checkpoints.
+4. :class:`WorkChannel` hands rank 0's units of work (the server's
+   requests) to the other ranks through the group's key-value store, so a
+   rank waiting for work waits at no collective; every rank reports each
+   unit, and a failure report cancels the other ranks' collectives.
 
 Nothing here falls back: a failed init or collective raises.
 """
@@ -21,9 +25,12 @@ Nothing here falls back: a failed init or collective raises.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import signal
-from typing import Optional, Sequence
+import threading
+import time
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -213,3 +220,97 @@ def all_hosts_agree(value: int) -> bool:
         return True
     hi, neg_lo = _world_max([value, -int(value)]).tolist()
     return hi == -neg_lo
+
+
+# The server's channel: its keys in the store, how often a waiting rank looks
+# at the store, and how long a rank whose part of a unit is done waits for
+# the others' reports before it counts the server as broken.
+_CHANNEL_KEYS = "mvt/serve/"
+_CHANNEL_POLL_S = 0.02
+_REPORT_TIMEOUT_S = 3600.0
+
+
+class WorkChannel:
+    """Numbered messages from rank 0 to the other ranks, and every rank's
+    report of the unit of work a message starts, through the default group's
+    key-value store (JSON values under ``_CHANNEL_KEYS``).
+
+    Rank 0 :meth:`publish`-es a message; every other rank :meth:`receive`-s
+    the messages in order. Each rank, rank 0 too, runs its part of the unit
+    through :meth:`run`, which returns once every rank has reported, so one
+    unit never overlaps the next. While a rank runs its part, a watcher
+    thread reads the others' reports: when one reports a failure, the
+    rank's collectives on ``meshes`` are cancelled (parallel/collectives.py:
+    :func:`cancel`), so no rank waits at a collective for a peer that has
+    left the unit; after a failed unit every rank renews the groups
+    (:func:`renew`) and the next unit starts on fresh ones. A rank waiting
+    for its next message polls the store and sits at no collective, so an
+    idle server has no collective timeout to meet."""
+
+    def __init__(self, meshes: Sequence = ()) -> None:
+        from torch.distributed.distributed_c10d import _get_default_store
+
+        self.store = _get_default_store()
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.meshes = list(meshes)  # the MeshGroups whose collectives a unit runs
+        self.seq = 0
+
+    def _key(self, seq: int, rank: Optional[int] = None) -> str:
+        return f"{_CHANNEL_KEYS}{seq}" + ("" if rank is None else f"/rank{rank}")
+
+    def publish(self, message: dict) -> int:
+        """Rank 0: post the next message; returns its number."""
+        seq, self.seq = self.seq, self.seq + 1
+        self.store.set(self._key(seq), json.dumps(message))
+        return seq
+
+    def receive(self) -> Tuple[int, dict]:
+        """Another rank: the next message (waits for it) and its number."""
+        seq, self.seq = self.seq, self.seq + 1
+        while not self.store.check([self._key(seq)]):
+            time.sleep(_CHANNEL_POLL_S)
+        return seq, json.loads(self.store.get(self._key(seq)))
+
+    def run(self, seq: int, fn) -> Tuple[object, Optional[BaseException], list]:
+        """This rank's part of unit ``seq``: ``fn()`` under the watcher, this
+        rank's report, then every rank's (waited for up to
+        ``_REPORT_TIMEOUT_S``; a rank that reports nothing raises, and the
+        server is broken). Returns ``fn``'s value, its exception here (or
+        None) and the other ranks' failures as "rank r: ..." texts."""
+        from mlx_video_tpu_torch.parallel import collectives
+
+        done = threading.Event()
+        watcher = threading.Thread(target=self._watch, args=(seq, done), daemon=True)
+        watcher.start()
+        value, error = None, None
+        try:
+            value = fn()
+        except Exception as e:  # noqa: BLE001 — reported to every rank
+            error = e
+        finally:
+            done.set()
+            watcher.join()
+        self.store.set(self._key(seq, self.rank), "" if error is None else f"{type(error).__name__}: {error}")
+        deadline = time.monotonic() + _REPORT_TIMEOUT_S
+        reports = {}
+        for r in range(self.world):
+            while not self.store.check([self._key(seq, r)]):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"rank {r} reported nothing on unit {seq} in {_REPORT_TIMEOUT_S} s")
+                time.sleep(_CHANNEL_POLL_S)
+            reports[r] = self.store.get(self._key(seq, r)).decode()
+        if any(reports.values()):  # every rank read the same reports: all renew, or none
+            collectives.renew(self.meshes)
+        if self.rank == 0 and seq > 0:  # every rank is done with the unit before this one
+            for key in [self._key(seq - 1)] + [self._key(seq - 1, r) for r in range(self.world)]:
+                self.store.delete_key(key)
+        return value, error, [f"rank {r}: {t}" for r, t in reports.items() if t and r != self.rank]
+
+    def _watch(self, seq: int, done: threading.Event) -> None:
+        from mlx_video_tpu_torch.parallel import collectives
+
+        keys = [self._key(seq, r) for r in range(self.world) if r != self.rank]
+        while not done.wait(_CHANNEL_POLL_S):
+            if any(self.store.check([k]) and self.store.get(k) for k in keys):
+                collectives.cancel(self.meshes)
+                return

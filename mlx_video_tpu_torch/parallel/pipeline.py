@@ -12,13 +12,15 @@ every rank returns the whole velocity.
 
 ``tensor`` (and ``fsdp``) > 1 on the mesh compose Megatron TP / FSDP inside
 each stage by parallel/sharding.py's rules; ``data_axis`` additionally cuts
-each microbatch's batch over ``data``. The VideoOnly DiT, inference only
-(the GPipe backward comes with the sharded trainer).
+each microbatch's batch over ``data``. Every model type: the video and audio
+streams of an AudioVideo DiT hop from stage to stage together (one ring
+shift each a tick, as JAX's ``state_v`` and ``state_a``), and an AudioOnly
+DiT's audio alone. Inference only (the GPipe backward comes with the
+sharded trainer).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -29,16 +31,17 @@ from mlx_video_tpu_torch.config import LTXModelConfig
 from mlx_video_tpu_torch.models.ltx.model import (
     LTXModel,
     Modality,
-    _prepare_modality,
     _process_output,
     batch_slice,
+    gathered_heads,
     local_block_args,
+    local_configs,
+    prepare_ltx_args,
     run_blocks,
 )
-from mlx_video_tpu_torch.parallel import SERVER_ITEM
 from mlx_video_tpu_torch.parallel.collectives import mesh_groups
 from mlx_video_tpu_torch.parallel.distributed import default_device_type, ensure_world
-from mlx_video_tpu_torch.parallel.sharding import _clone_tree, _shard, gather
+from mlx_video_tpu_torch.parallel.sharding import _clone_tree, _shard
 
 
 def pipeline_mesh(num_stages: int, data: int = 1, tensor: int = 1, fsdp: int = 1,
@@ -85,17 +88,16 @@ def pipeline_ltx_apply(model: LTXModel, config: LTXModelConfig, video: Optional[
                        data_axis: Optional[str] = None):
     """DiT forward with the block stack pipeline-parallel over the staged
     model's ``pipe`` axis (:func:`shard_params_pipeline`); returns the whole
-    (video, None) velocity on every rank."""
-    if audio is not None or video is None:
-        raise ValueError(f"the pipelined forward runs the video DiT only: audio waits for the AV DiT's sharded "
-                         f"forward ({SERVER_ITEM})")
+    (video, audio) velocities on every rank, None for a modality not given."""
+    if video is None and audio is None:
+        raise ValueError("the pipelined forward needs a video or an audio modality")
     mesh, axis = model.mesh, model.pipe_axis
     pipe = mesh.group(axis)
     p_size, stage = mesh.size(axis), mesh.index(axis)
     m = int(num_microbatches) if num_microbatches else p_size
     if model.pipe_layers % p_size:
         raise ValueError(f"num_layers={model.pipe_layers} not divisible by pipe={p_size}")
-    b = video.latent.shape[0]
+    b = (video if video is not None else audio).latent.shape[0]
     if b % m:
         raise ValueError(f"batch={b} not divisible by num_microbatches={m}")
     mb = b // m
@@ -103,40 +105,45 @@ def pipeline_ltx_apply(model: LTXModel, config: LTXModelConfig, video: Optional[
     if data is not None and mb % data.size:
         raise ValueError(f"microbatch size {mb} not divisible by {data_axis}={data.size}")
     local_mb = mb if data is None else mb // data.size
-    specs = model.shard_specs
     tp = mesh.size("tensor")
-    head = gather(model.video, specs, mesh, prefix="video.")
-    args = _prepare_modality(head, video, config, config.inner_dim, config.positional_embedding_max_pos,
-                             config.num_attention_heads)
-    video_cfg = config.get_video_config()
-    local = local_block_args(args, config.rope_type, mesh, tp, None)
-    video_cfg = dataclasses.replace(video_cfg, heads=video_cfg.heads // tp)
+    heads = gathered_heads(model)
+    args = prepare_ltx_args(heads, config, video, audio)
+    local = [None if a is None else local_block_args(a, config.rope_type, mesh, tp, None) for a in args]
+    video_cfg, audio_cfg = local_configs(config, video, audio, tp)
 
-    def micro(j: int):
-        start = j * mb + (0 if data is None else data.rank * local_mb)
-        return batch_slice(local, start, local_mb)
+    def micro(a, j: int):
+        return None if a is None else batch_slice(a, j * mb + (0 if data is None else data.rank * local_mb), local_mb)
 
-    outs = [None] * m
-    state = None
+    outs = [[None] * m, [None] * m]  # the last stage's (video, audio) tokens, by microbatch
+    state = [None, None]
     for t in range(m + p_size - 1):
         j = t - stage
         if 0 <= j < m:
-            mb_args = micro(j)
-            x_in = mb_args.x if stage == 0 else state
-            y = run_blocks(model, mb_args._replace(x=x_in), video_cfg, config)
+            inputs = [None if a is None else a._replace(x=a.x if stage == 0 else s)
+                      for a, s in zip((micro(a, j) for a in local), state)]
+            ys = run_blocks(model, *inputs, video_cfg, audio_cfg, config)
             if stage == p_size - 1:
-                outs[j] = y
-        else:  # the GPipe bubble: nothing to compute, the shift still runs
-            y = state if state is not None else torch.zeros_like(micro(0).x)
+                for k in (0, 1):
+                    outs[k][j] = ys[k]
+        else:  # the GPipe bubble: nothing to compute, the shifts still run
+            ys = [None if a is None else (s if s is not None else torch.zeros_like(micro(a, 0).x))
+                  for a, s in zip(local, state)]
         if p_size > 1:
-            state = pipe.ring_shift(y)
-    last = torch.cat(outs) if stage == p_size - 1 else torch.zeros(
-        (m * local_mb,) + tuple(local.x.shape[1:]), dtype=local.x.dtype, device=local.x.device)
-    tokens = pipe.broadcast(last, src=p_size - 1)
-    if data is not None:  # (m, local_mb) -> (m, mb): each microbatch's data slices, in order
-        parts = data.all_gather(tokens.reshape((m, local_mb) + tokens.shape[1:]), dim=1)
-        tokens = parts.reshape((b,) + tokens.shape[1:])
-    return _process_output(head, tokens, args.embedded_timestep, config.norm_eps), None
+            state = [None if y is None else pipe.ring_shift(y) for y in ys]
+
+    def tokens(k: int) -> torch.Tensor:
+        x = local[k].x
+        last = torch.cat(outs[k]) if stage == p_size - 1 else torch.zeros(
+            (m * local_mb,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        out = pipe.broadcast(last, src=p_size - 1)
+        if data is not None:  # (m, local_mb) -> (m, mb): each microbatch's data slices, in order
+            parts = data.all_gather(out.reshape((m, local_mb) + out.shape[1:]), dim=1)
+            out = parts.reshape((b,) + out.shape[1:])
+        return out
+
+    heads_out = (getattr(heads, "video", None), getattr(heads, "audio", None))
+    return tuple(None if a is None else _process_output(h, tokens(k), a.embedded_timestep, config.norm_eps)
+                 for k, (a, h) in enumerate(zip(args, heads_out)))
 
 
 def apply_from_tuple(pp):

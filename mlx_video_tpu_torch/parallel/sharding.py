@@ -23,7 +23,20 @@ collectives (parallel/collectives.py):
   and ops/norms.py their sums of squares;
 - the forward all-gathers a block's ``fsdp``-sharded tensors before it runs
   and drops them after (:func:`gather`), and runs the per-modality
-  projections and heads on fully gathered copies.
+  projections and heads on fully gathered copies;
+- LoRA factors (``lora_A`` (r, in), ``lora_B`` (out, r)) follow their
+  linear's ``tensor`` cut alone (:func:`factor_specs`): a column-parallel
+  linear keeps B's rows of its out slice and A whole, a row-parallel one A's
+  columns of its in slice and B whole; no factor is ``fsdp``-cut (JAX
+  replicates them, no rule naming them).
+
+The same rules shard the LTX-2 text encoder (models/ltx/text_encoder.py):
+its Gemma-3 layers (``language_model.layers.N``, a JAX stack) run
+tensor-parallel with their ``o_proj``/``down_proj`` marked row-parallel;
+Gemma's q/k norms scale each head's features, so every rank keeps them whole
+(JAX cuts them by the ``(q|k)_norm`` rule, where GSPMD keeps the function
+whole); the embedding table, the feature extractor and the connectors are
+held cut and gathered whole at use.
 
 Quantize first, then shard (the JAX CLI's order): W8A8 per-row scales and
 q4 group scales then come from whole rows.
@@ -126,14 +139,19 @@ def spec_for_path(path_str: str, ndim: int) -> Spec:
     return (None,) * ndim
 
 
+_STACKS = ("blocks", "layers")  # the module lists JAX stacks along a leading layer axis
+_FACTORS = ("lora_A", "lora_B")
+
+
 def jax_path(name: str) -> Tuple[str, bool]:
     """The JAX tree path of a port tensor name (``blocks.3.attn1.to_q.weight``
-    -> ``blocks/attn1/to_q/weight``) and whether the leaf is stacked."""
+    -> ``blocks/attn1/to_q/weight``; ``language_model.layers.3.mlp...`` ->
+    ``language_model/layers/mlp...``) and whether the leaf is stacked."""
     parts = name.split(".")
-    stacked = len(parts) > 1 and parts[0] == "blocks" and parts[1].isdigit()
-    if stacked:
-        parts = parts[:1] + parts[2:]
-    return "/".join(parts), stacked
+    at = next((i for i in range(1, len(parts)) if parts[i].isdigit() and parts[i - 1] in _STACKS), None)
+    if at is not None:
+        parts = parts[:at] + parts[at + 1:]
+    return "/".join(parts), at is not None
 
 
 def port_spec(name: str, ndim: int) -> Spec:
@@ -141,11 +159,37 @@ def port_spec(name: str, ndim: int) -> Spec:
     leaf, without the stack's axis, with the matrix axes swapped where the
     port's layout is (out, in) and JAX's (in, out)."""
     path, stacked = jax_path(name)
+    if re.search(r"self_attn/(q|k)_norm/weight$", path):  # Gemma's per-head norms: whole on every rank
+        return (None,) * ndim
     spec = spec_for_path(path, ndim + stacked)[int(stacked):]
     leaf = path.rsplit("/", 1)[-1]
     if ndim == 2 and leaf in ("weight", "int8_weight"):
         spec = (spec[1], spec[0])
     return spec
+
+
+def factor_specs(weight_spec: Spec) -> Tuple[Spec, Spec]:
+    """The specs of a linear's LoRA factors (A (r, in), B (out, r)) from its
+    (out, in) weight spec: the ``tensor`` cut of each dimension alone."""
+    out_ax, in_ax = (("tensor" if "tensor" in _axes_of(e) else None) for e in weight_spec)
+    return (None, in_ax), (out_ax, None)
+
+
+def spec_of(specs: Dict[str, Spec], name: str) -> Spec:
+    """The spec of tensor ``name`` of a sharded model: its entry in
+    ``specs``, or for LoRA leaves attached after sharding, the one
+    :func:`factor_specs` derives from their linear's weight (a scale: none)."""
+    if name in specs:
+        return specs[name]
+    owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    if leaf == "lora_scale":
+        return ()
+    if leaf in _FACTORS:
+        for w in ("weight", "quant_weight", "int8_weight"):
+            key = f"{owner}.{w}" if owner else w
+            if key in specs:
+                return factor_specs(specs[key])[_FACTORS.index(leaf)]
+    raise KeyError(name)
 
 
 def _tensors(model: nn.Module) -> Iterable[Tuple[str, torch.Tensor]]:
@@ -154,8 +198,12 @@ def _tensors(model: nn.Module) -> Iterable[Tuple[str, torch.Tensor]]:
 
 
 def param_specs(model: nn.Module) -> Dict[str, Spec]:
-    """Spec of every parameter and buffer of a port DiT, by name."""
-    return {name: port_spec(name, t.dim()) for name, t in _tensors(model)}
+    """Spec of every parameter and buffer of a port DiT or text encoder, by
+    name (a LoRA factor's from its linear's, :func:`factor_specs`)."""
+    tensors = list(_tensors(model))
+    specs = {name: port_spec(name, t.dim()) for name, t in tensors if name.rsplit(".", 1)[-1] not in _FACTORS}
+    specs.update({name: spec_of(specs, name) for name, _ in tensors if name not in specs})
+    return specs
 
 
 def data_spec(ndim: int, batch_axes=("data",)) -> Spec:
@@ -241,23 +289,33 @@ def _mark_tensor_parallel(module: nn.Module, specs: Dict[str, Spec], tp) -> None
             sub.tp_group = tp
 
 
+def _sub_specs(specs: Dict[str, Spec], prefix: str) -> Dict[str, Spec]:
+    return {k[len(prefix):]: v for k, v in specs.items() if k.startswith(prefix)}
+
+
 def _shard(model: nn.Module, mesh: MeshGroups) -> nn.Module:
-    if any("lora_A" in name for name, _ in _tensors(model)):
-        raise ValueError("a model with runtime LoRA adapters does not shard: merge them into the weights first "
-                         "(lora.py:merge_lora_into_params)")
+    # a text encoder's Gemma, or a Gemma model of its own
+    lm = getattr(model, "language_model", model if hasattr(model, "embed_tokens") else None)
+    tp = mesh.size("tensor")
+    if lm is not None and lm.config.num_key_value_heads % tp:
+        raise ValueError(f"tensor={tp} does not divide the Gemma's {lm.config.num_key_value_heads} key/value heads")
     specs = param_specs(model)
     new = _clone_tree(model, lambda name, t, _: local_slice(t, specs[name], mesh, name))
     new.shard_specs = specs
     new.mesh = mesh
-    if mesh.size("tensor") > 1:
-        for i, block in enumerate(new.blocks):
-            _mark_tensor_parallel(block, {k[len(f"blocks.{i}."):]: v for k, v in specs.items()
-                                          if k.startswith(f"blocks.{i}.")}, mesh.group("tensor"))
+    # the layers that run tensor-parallel
+    stack = "blocks" if lm is None else "layers" if lm is model else "language_model.layers"
+    if tp > 1:
+        for i, layer in enumerate(new.get_submodule(stack)):
+            _mark_tensor_parallel(layer, _sub_specs(specs, f"{stack}.{i}."), mesh.group("tensor"))
+    if lm is not None and lm is not model:  # the Gemma forward reads its own mesh and specs
+        new.language_model.mesh, new.language_model.shard_specs = mesh, _sub_specs(specs, "language_model.")
     return new
 
 
 def shard_params(model: nn.Module, mesh) -> nn.Module:
-    """This rank's share of a port DiT on ``mesh`` (a ``DeviceMesh`` or a
+    """This rank's share of a port DiT, of a text encoder's
+    ``TextEncoderModel`` or of a ``Gemma3Model`` on ``mesh`` (a ``DeviceMesh`` or a
     :class:`MeshGroups`): a model of the same modules whose tensors are the
     rank's slices (:func:`local_slice`), carrying ``mesh`` and the specs, with
     the tensor-parallel groups set. A model already sharded on this mesh is
@@ -279,9 +337,20 @@ def gather(module: nn.Module, specs: Dict[str, Spec], mesh: MeshGroups, axes=("d
         return module
 
     def full(name, t, _):
-        for d, entry in enumerate(specs[prefix + name]):
+        for d, entry in enumerate(spec_of(specs, prefix + name)):
             for a in reversed([a for a in _axes_of(entry) if a in axes and mesh.size(a) > 1]):
                 t = mesh.group(a).all_gather(t, dim=d)
         return t
 
     return _clone_tree(module, full, recurse=recurse)
+
+
+def local_factors(model: nn.Module, name: str, a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's slices of a LoRA pair (A (r, in), B (out, r)) for the
+    linear ``name`` of ``model``; the pair itself when the model is not
+    sharded."""
+    specs = getattr(model, "shard_specs", None)
+    if specs is None:
+        return a, b
+    a_spec, b_spec = spec_of(specs, f"{name}.lora_A"), spec_of(specs, f"{name}.lora_B")
+    return local_slice(a, a_spec, model.mesh, f"{name}.lora_A"), local_slice(b, b_spec, model.mesh, f"{name}.lora_B")

@@ -47,9 +47,10 @@ The parallel forwards (parallel/): ``sequence_parallel=(mesh, "fsdp")``
 runs every DiT forward with its tokens cut over ``fsdp`` and ring
 self-attention; ``pipeline_parallel=(mesh, "pipe", num_microbatches[,
 data_axis])`` runs it GPipe over a staged model
-(parallel/pipeline.py:apply_from_tuple). A model sharded by
-parallel/sharding.py runs its rank-local forward on its own. Every rank
-gets the whole velocity, so every rank takes the same steps.
+(parallel/pipeline.py:apply_from_tuple), audio and video streams alike. A
+model sharded by parallel/sharding.py runs its rank-local forward on its
+own. Every rank gets the whole velocities, so every rank takes the same
+steps.
 """
 
 from __future__ import annotations
@@ -470,13 +471,17 @@ def denoise_audio_only(
     sigmas: Sequence[float],
     audio_neg_context: Optional[torch.Tensor] = None,
     cfg_scale: float = 1.0,
+    sequence_parallel=None,
+    pipeline_parallel=None,
 ) -> torch.Tensor:
     """The audio alone through an AudioOnly (or AudioVideo) model; CFG when
     ``audio_neg_context`` is given and ``cfg_scale != 1``. Returns the audio
-    latents."""
+    latents. A sharded model runs its rank-local forward; a staged one
+    needs ``pipeline_parallel`` (as :func:`denoise`)."""
     use_cfg = cfg_scale != 1.0 and audio_neg_context is not None
     return denoise(
         model, config, None, None, None, sigmas, neg_context=audio_neg_context if use_cfg else None,
         cfg_scale=cfg_scale, audio_latents=audio_latents,
         audio_positions=audio_positions, audio_context=audio_context, audio_neg_context=audio_neg_context,
+        sequence_parallel=sequence_parallel, pipeline_parallel=pipeline_parallel,
     )[1]

@@ -45,16 +45,17 @@ preview path hands no frames on beyond the writer's.
 
 Sharded generation (parallel/): ``mesh`` (a (data, fsdp, tensor)
 ``DeviceMesh``) runs every DiT forward rank-local on the bundle's
-transformers sharded over it (parallel/sharding.py:shard_params; done here
-for a transformer not sharded yet, replacing it in the bundle), with
-``sequence_parallel`` its tokens cut over ``fsdp`` and ring self-attention;
-``pipeline_parallel`` P > 0 runs it GPipe over P stages of a (data, pipe[,
-fsdp, tensor]) mesh built here (``pipeline_tensor`` TP ways inside each
-stage), the bundle's transformers replaced by this rank's stage. Every rank
-draws the same noise from the same seeds and gets the whole velocity of
-every step, so every rank holds the same latents; the upsample and decode
-run on them on every rank, and only the primary rank (rank 0) writes files.
-The video DiT only: audio with a mesh or stages is refused.
+transformers (stage 1, stage 2 and the AudioOnly one) sharded over it
+(loading.py:shard_models; done here for a transformer not sharded yet,
+replacing it in the bundle), with ``sequence_parallel`` the video tokens
+cut over ``fsdp`` and ring self-attention (the separate audio denoise takes
+no ring, as in JAX); ``pipeline_parallel`` P > 0 runs it GPipe over P
+stages of a (data, pipe[, fsdp, tensor]) mesh built here
+(``pipeline_tensor`` TP ways inside each stage), the bundle's transformers
+replaced by this rank's stage. Every rank draws the same noise from the
+same seeds and gets the whole velocities of every step, so every rank holds
+the same latents; the upsample and the video and audio decodes run on them
+on every rank, and only the primary rank (rank 0) writes files.
 
 Not ported yet: the host-staging options.
 
@@ -120,7 +121,6 @@ from mlx_video_tpu_torch.models.ltx.video_vae.tiling import (
     decode_with_tiling,
     decode_with_tiling_device,
 )
-from mlx_video_tpu_torch.parallel import SERVER_ITEM
 from mlx_video_tpu_torch.parallel.distributed import is_primary_host
 from mlx_video_tpu_torch.pipelines import denoise as dn
 from mlx_video_tpu_torch.pipelines.conditioning import (
@@ -433,22 +433,18 @@ def _dial_refusal(joint_audio: bool, cfg_cache_interval: int, attn_broadcast_int
         )
 
 
-def _parallel_setup(models: ModelBundle, audio: bool, mesh, sequence_parallel: bool, pipeline_parallel: int,
+def _parallel_setup(models: ModelBundle, mesh, sequence_parallel: bool, pipeline_parallel: int,
                     pipeline_microbatches: int, pipeline_data: int, pipeline_tensor: int,
                     attn_broadcast_interval: int):
     """The JAX function's checks of the parallel options; shards (or stages)
-    the bundle's transformers in place; returns denoise's (sp, pp)."""
-    from mlx_video_tpu_torch.parallel.sharding import shard_params
+    the bundle's transformers, the audio one too, in place (loading.py);
+    returns denoise's (sp, pp)."""
+    from mlx_video_tpu_torch.loading import shard_models, stage_models
 
-    if audio and (mesh is not None or pipeline_parallel):
-        raise ValueError("audio with a mesh or pipeline stages is not ported yet: the AV DiT's sharded forward "
-                         f"waits for {SERVER_ITEM}")
     sp = (mesh, "fsdp") if (sequence_parallel and mesh is not None) else None
     if not pipeline_parallel:
         if mesh is not None:
-            models.transformer = shard_params(models.transformer, mesh)
-            if models.stage2_transformer is not None:
-                models.stage2_transformer = shard_params(models.stage2_transformer, mesh)
+            shard_models(models, mesh)
         return sp, None
     if mesh is not None or sequence_parallel:
         raise ValueError("pipeline_parallel is mutually exclusive with mesh/sequence_parallel")
@@ -460,16 +456,7 @@ def _parallel_setup(models: ModelBundle, audio: bool, mesh, sequence_parallel: b
             "— use pipeline_parallel stages (+ pipeline_tensor) for inference, and the trainer config for "
             "microbatched pipelines"
         )
-    from mlx_video_tpu_torch.parallel.pipeline import pipeline_mesh, shard_params_pipeline
-
-    device_type = models.transformer.video.scale_shift_table.device.type
-    pp_mesh = getattr(models.transformer, "mesh", None)
-    if pp_mesh is None:
-        pp_mesh = pipeline_mesh(pipeline_parallel, data=pipeline_data, tensor=pipeline_tensor,
-                                device_type=device_type)
-    models.transformer = shard_params_pipeline(models.transformer, pp_mesh)
-    if models.stage2_transformer is not None:
-        models.stage2_transformer = shard_params_pipeline(models.stage2_transformer, pp_mesh)
+    pp_mesh = stage_models(models, pipeline_parallel, data=pipeline_data, tensor=pipeline_tensor)
     return None, (pp_mesh, "pipe", pipeline_microbatches, "data" if pipeline_data > 1 else None)
 
 
@@ -609,7 +596,7 @@ def generate_video(
         if num_videos > 1:
             raise ValueError("num_videos > 1 does not compose with audio yet")
     _dial_refusal(joint_audio, cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
-    sp, pp = _parallel_setup(models, audio, mesh, sequence_parallel, pipeline_parallel, pipeline_microbatches,
+    sp, pp = _parallel_setup(models, mesh, sequence_parallel, pipeline_parallel, pipeline_microbatches,
                              pipeline_data, pipeline_tensor, attn_broadcast_interval)
     parallel = dict(sequence_parallel=sp, pipeline_parallel=pp)
     if not is_primary_host():
@@ -749,7 +736,7 @@ def generate_video(
             audio_latents = dn.denoise_audio_only(
                 models.audio_transformer, models.audio_transformer_config or config, a_init, audio_positions,
                 a_context, subsample_sigmas(STAGE_1_SIGMAS, audio_steps, "farthest"), audio_neg_context=a_neg,
-                cfg_scale=cfg_scale if a_neg is not None else 1.0,
+                cfg_scale=cfg_scale if a_neg is not None else 1.0, pipeline_parallel=pp,
             )
 
     if not (cfg_cache_interval > 1 or attn_broadcast_interval > 1 or teacache_threshold > 0.0):

@@ -139,7 +139,7 @@ def _flags(parser: argparse.ArgumentParser) -> dict:
 def test_parsers_copy(cli):
     """Each CLI's flags as the JAX parser's, plus --device. The server's
     output directory defaults to None (the temporary directory's), where the
-    JAX one names /tmp; its refused flags stay, to be refused by name."""
+    JAX one names /tmp; its refused flag stays, to be refused by name."""
     tmod, jmod = {"generate": (tgen_cli, jgen_cli), "train": (ttrain_cli, jtrain_cli),
                   "serve": (tserve_cli, jserve_cli), "enhance": (tenhance_cli, jenhance_cli)}[cli]
     if cli == "generate":
@@ -149,8 +149,7 @@ def test_parsers_copy(cli):
     if cli == "serve":
         assert ref["output_dir"][1] == "/tmp/mlx_video_tpu_serve"
         ref["output_dir"] = ref["output_dir"][:1] + (None,) + ref["output_dir"][2:]
-        assert set(tserve_cli._REFUSED) == {"mesh", "pipeline_parallel", "pipeline_tensor", "sequence_parallel",
-                                            "aux_park"} and set(tserve_cli._REFUSED) <= set(ref)
+        assert set(tserve_cli._REFUSED) == {"aux_park"} and set(tserve_cli._REFUSED) <= set(ref)
     assert _flags(tmod.base_parser()) == ref
     ported = _flags(tmod.build_parser())
     assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")

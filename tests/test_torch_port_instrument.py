@@ -223,6 +223,34 @@ def test_trace_flags_write_a_profiler_trace(monkeypatch, tmp_path, emb_file, fla
     assert any(n.startswith("aten::") for n in names)
 
 
+def test_a_traced_run_frees_its_models_when_main_returns(monkeypatch, tmp_path, emb_file):
+    """torch.profiler can leave the traced run's frame in a reference cycle
+    (on the card after every trace, on the CPU after a process's first):
+    main collects it, so an in-process caller gets the bundle back at once,
+    with the garbage collector off."""
+    import gc
+    import weakref
+
+    refs = []
+
+    def load(*args, **kwargs):
+        bundle = _tiny_bundle()
+        refs.append(weakref.ref(bundle.transformer))
+        return bundle
+
+    monkeypatch.setattr(loading, "load_model_bundle", load)
+    gc.collect()
+    gc.disable()
+    try:
+        cli.main(["--prompt", "a tiny cat", "--checkpoint-path", str(tmp_path), "--embeddings", str(emb_file),
+                  "--height", "64", "--width", "64", "--num-frames", "9", "--stage1-steps", "1", "--stage2-steps",
+                  "1", "--tiling", "none", "--output-path", str(tmp_path / "out.mp4"), "--trace-dir",
+                  str(tmp_path / "traces"), "--device", "cpu"])
+        assert len(refs) == 1 and refs[0]() is None
+    finally:
+        gc.enable()
+
+
 def test_device_trace_without_a_directory_records_nothing(tmp_path):
     with tprof.device_trace(None, "cpu"):
         torch.ones(3).sum()

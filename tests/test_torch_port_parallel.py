@@ -244,11 +244,19 @@ def test_shard_params_refuses_indivisible_and_lora_and_resharding(trees):
     assert blk.attn1.to_out.tp_group is mg.group("tensor") and blk.ff.proj_out.tp_group is mg.group("tensor")
     assert blk.attn1.q_norm.tp_group is mg.group("tensor")
     assert not hasattr(blk.attn1.to_q, "tp_group") and not hasattr(sharded.video.proj_out, "tp_group")
+    # a model that carries LoRA factors shards them by their linear's tensor cut alone (A's in slice of a
+    # row-parallel linear, B's out slice of a column-parallel one), never over fsdp
     from mlx_video_tpu_torch.lora import LoRAConfig, inject_lora
 
     inject_lora(model, port_config(cfg), LoRAConfig(rank=2), torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="merge them into the weights first"):
-        tsh.shard_params(model, mg)
+    mg = tcol.virtual_meshes((1, 2, 2), AXES, "cpu")[3]
+    adapted = tsh.shard_params(model, mg)
+    whole, cut = model.blocks[1], adapted.blocks[1]
+    assert torch.equal(cut.attn1.to_q.lora_A, whole.attn1.to_q.lora_A)
+    assert torch.equal(cut.attn1.to_q.lora_B, whole.attn1.to_q.lora_B.chunk(2, dim=0)[1])
+    assert torch.equal(cut.attn1.to_out.lora_A, whole.attn1.to_out.lora_A.chunk(2, dim=1)[1])
+    assert torch.equal(cut.attn1.to_out.lora_B, whole.attn1.to_out.lora_B)
+    assert adapted.shard_specs["blocks.1.ff.proj_out.lora_A"] == (None, "tensor")
 
 
 def test_data_spec_and_shard_batch_cut_the_batch_axis():

@@ -370,8 +370,9 @@ def test_generate_video_refuses_audio_and_mixed_parallel_options(monkeypatch):
     bundle = _tiny_bundle()
     text = tgen.TextConditioning(torch.zeros(1, 4, 48))
     kw = dict(height=64, width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
-    with pytest.raises(ValueError, match="audio with a mesh or pipeline stages is not ported yet"):
-        tgen.generate_video(bundle, text, audio=True, pipeline_parallel=2, **kw)
+    # audio with stages is no longer refused as such: it meets generate_video's own audio checks
+    with pytest.raises(ValueError, match="Joint audio requires an AudioVideo transformer config"):
+        tgen.generate_video(bundle, text, audio=True, audio_mode="joint", pipeline_parallel=2, **kw)
     with pytest.raises(ValueError, match="pipeline_parallel is mutually exclusive with mesh/sequence_parallel"):
         tgen.generate_video(bundle, text, pipeline_parallel=2, sequence_parallel=True, **kw)
     with pytest.raises(ValueError, match="attn_broadcast_interval does not compose with pipeline_parallel"):
@@ -415,13 +416,14 @@ def test_cli_under_four_ranks_writes_one_video_like_the_unsharded_cli(ranks, mon
 
 def test_cli_takes_the_parallel_flags_and_refuses_audio_with_them(emb_file):
     """The four flags no longer exit as unported; a mesh or stages of more
-    than one rank with no launcher exit naming torchrun; --audio with --mesh
-    is refused by name; --mesh with --pipeline-parallel exits as in JAX."""
+    than one rank with no launcher exit naming torchrun, with --audio too
+    (the AV DiT's sharded forward is ported, so nothing refuses --audio with
+    them); --mesh with --pipeline-parallel exits as in JAX."""
     base = ["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu"]
-    assert not {"mesh", "sequence_parallel", "pipeline_parallel", "pipeline_tensor"} & set(tcli._REFUSED)
+    assert not {"mesh", "sequence_parallel", "pipeline_parallel", "pipeline_tensor", "audio"} & set(tcli._REFUSED)
     for flags, msg in ((["--mesh", "1,2,2"], "needs 4 processes: launch it with torchrun --nproc-per-node 4"),
                        (["--pipeline-parallel", "2", "--pipeline-tensor", "2"], "torchrun --nproc-per-node 4"),
-                       (["--mesh", "1,1,1", "--audio"], "--audio with --mesh or --pipeline-parallel is not ported"),
+                       (["--mesh", "1,1,2", "--audio"], "needs 2 processes: launch it with torchrun"),
                        (["--mesh", "1,1,2", "--pipeline-parallel", "2"], "mutually exclusive")):
         with pytest.raises(SystemExit, match=msg):
             tcli.main(base + flags)
