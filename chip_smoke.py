@@ -205,8 +205,9 @@ Phases, in order; any failure exits non-zero before the last line:
    (T = 34), 8 + 3 steps: 1056 K1, then a warm run under torch.profiler and
    a profile of decode_audio alone on its latents; (b) separate, the
    AudioOnly DiT 8 steps at B = 2 (audio CFG): 912 K1, audio_denoise seconds;
-   (c) joint dev 768x768x65 (T = 68), 40 steps, CFG 4.5, one image, both
-   routes on: 3840 K5, 7680 K4, 0 K1, latent frame 0 equal to the encoded
+   (c) joint dev 768x768x65 (T = 68), 8 of config 3's 40 steps (the
+   smoke's time limit), CFG 4.5, one image, both routes on: 768 K5, 1536
+   K4, 0 K1, latent frame 0 equal to the encoded
    image; then 2 steps with the routes on against off and 1 step of
    sequential against batched CFG: >= 35 dB per video latent frame and over
    the audio latents. The audio tensors are freed at the end. Every K1 and
@@ -229,9 +230,8 @@ Phases, in order; any failure exits non-zero before the last line:
    device time. The adapters are then taken off the model.
 9a. full-width W8A8 slice: a W8A8 copy of the same bf16 DiT (the block
    linears as Int8Linears, the rest shared), the distilled run of phase 7:
-   528 K1, 0 K2 and 10 x 48 x 11 = 5280 int8 products, a finite video; then
-   one warm run under torch.profiler (idle share, time by kernel class). The
-   q, k and v of the 48 attn1 calls of the first stage-2 step (1280 tokens)
+   528 K1, 0 K2 and 10 x 48 x 11 = 5280 int8 products, a finite video (no
+   warm profiled run: the smoke's time limit). The q, k and v of the 48 attn1 calls of the first stage-2 step (1280 tokens)
    are recorded, and K6 and K1 run on each: K6's launches and its CUDA
    prologue's on the path (48 each) and their relative L2; K6 against its
    plain version, and its CUDA prologue bitwise against the plain one, on
@@ -250,8 +250,8 @@ Phases, in order; any failure exits non-zero before the last line:
    warm run of it under torch.profiler (idle share, K2's device time and
    share of busy time, the GEMM and elementwise classes). Then W4A8
    (quantize_models --w4a8 on it: prepare_w4a8, no K2): 528 K1, 0 K2 and
-   5280 int8 products, then a warm run under torch.profiler; the int8 scales
-   are then taken off.
+   5280 int8 products (no warm profiled run: the smoke's time limit); the
+   int8 scales are then taken off.
 10. loaders and CLIs: the q4 DiT written as an MLX pre-quantized snapshot
    (ltx-2-19b-distilled-4bit-mlx.safetensors: sanitized keys, uint32
    words under .weight, .scales, .biases), with the decoder, the upsampler
@@ -317,7 +317,7 @@ Phases, in order; any failure exits non-zero before the last line:
    seeded ids, cached last-position logits against no-cache ones over the
    same prefix at 3 positions (bar: max(1e-2, twice a control that reads
    the bf16 rounding of two no-cache forwards of other lengths)), greedy
-   generate of 128 tokens with no eos (ms a token against the bound of its
+   generate of 64 tokens with no eos (ms a token against the bound of its
    bytes: the bf16 layers, the fp32 head copy and the KV caches at 3.35
    TB/s; peak memory), then the prompt and its continuation, left-padded to
    1024, through encode_tokens: finite (1, 1024, 3840). (b)-(d) and (f)
@@ -400,8 +400,9 @@ Phases, in order; any failure exits non-zero before the last line:
 17. the sharded audio DiTs, the server's mesh and the sharded encoder. (a)
    right after phase 12, on its resident AudioVideo and AudioOnly DiTs and
    decoders: NCCL at world 1, phase 12 (a)'s joint distilled run with mesh
-   (1, 1, 1), with mesh and sequence_parallel and with one pipeline stage,
-   and 12 (b)'s separate run with mesh (1, 1, 1): latents and audio latents
+   (1, 1, 1) and sequence_parallel (which covers a run with the mesh
+   alone) and with one pipeline stage, and 12 (b)'s separate
+   run with mesh (1, 1, 1): latents and audio latents
    bitwise phase 12's, 1056 / 912 K1. (b) a one-block model of the resident
    AV DiT's first block at 1280 video and 34 audio tokens: shard_params
    over tensor = 2 and 4 virtual ranks, dense and q4 (2T K1, 28T K2 on the
@@ -417,15 +418,37 @@ Phases, in order; any failure exits non-zero before the last line:
    loaded DiT. (d) in phase 9b, on the resident 12B: its first Gemma layer
    over tensor = 2 and 4 virtual ranks (rel L2 <= 1e-2) and encode_tokens
    with the encoder sharded on (1, 1, 1), bitwise the unsharded embeddings.
+18. the rest of the (data, fsdp, tensor) mesh: the row-split upsample and
+   decode and the sharded trainer. (a) phase 16 (a)'s mesh run upsamples
+   and decodes on the mesh (rows at one rank): its video bitwise 7a's; and
+   in phase 10, after the training CLI, the same CLI with --mesh 1,1,1 (no
+   launcher: a world-1 NCCL group, the sharded trainer): printed losses,
+   adapter and resume state bitwise the unsharded CLI's, 192 K1, 96 K3,
+   1920 K2 in its 2 steps. (b) right after phase 16: config 2's
+   upsampler (seeded (1, 128, 5, 16, 16) latents) and decoder (7a's
+   stage-2 latents, with decode noise) over spatial groups of 2 and 4
+   virtual ranks (meshes (1, 2, 1) and (1, 2, 2)), gathered whole, against
+   the whole stage: in fp32 copies (TF32 off) rel L2 <= 1e-4, the gate;
+   in bf16, the pipeline's dtype, >= 35 dB a decoded frame, and the rel L2
+   printed beside the bf16 control (the whole bf16 stage against fp32);
+   with zero halos the fp32 decode must miss 1e-4 and 35 dB; seconds and
+   peak memory printed, no bar. (c) the
+   trainer's step (train_step.grad_step, gradient checkpointing) on a
+   one-block copy of the resident DiT's first block and modality tensors
+   with a seeded rank-32 adapter, at 3456 tokens (768x512x65): over tensor
+   = 2 virtual ranks (4 K1, 2 K3) and an SP ring of 2 (8 K1, and n^2 = 4 K3
+   in the ring backward), each shard's gradients gathered whole: the loss
+   and every LoRA gradient rel L2 <= 1e-2 against the unsharded block; with
+   copy_to's backward sum dropped (tensor = 2) the gradients must miss.
    ``python3 chip_smoke.py --parallel-only`` runs 1, 2, the full-width
-   models, 7a, 16, then phase 12's resident audio models with their direct
-   joint and separate runs, 17 (a), (b), and (d) on a two-layer encoder of
-   the 12B geometry.
-Phases 7-17 print phase times and peak device memory. Every profile records
+   models, 7a, 16, 18 (b), (c), then phase 12's resident audio models with
+   their direct joint and separate runs, 17 (a), (b), and (d) on a
+   two-layer encoder of the 12B geometry.
+Phases 7-18 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
-1-7a, 16, 11, 14 (b)-(d) and (f), 12, 17 (a), (b), 8, 9a, 9b with 13 (a), 14 (a) and
-17 (d), 13 (b), 15, 9, 10 with 13 (c) and 14 (e) with 17 (c). Last: the kernel summary line (K1-K6:
+1-7a, 16 with 18 (a), 18 (b), (c), 11, 14 (b)-(d) and (f), 12, 17 (a), (b), 8, 9a, 9b with
+13 (a), 14 (a) and 17 (d), 13 (b), 15, 9, 10 with 13 (c), 14 (e) with 17 (c) and 18 (a)'s CLI. Last: the kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
 also their launches on every path of phases 7a-15, "path_launches") and
@@ -1580,7 +1603,8 @@ def drive_slice(models, text, fa, qmm, want_k2: int, want_int8: int = 0, output_
     if profile:
         with profiled(profile):
             run(None)
-    return {"k1": k1, "k2": k2, "int8": int8, "video_path": res.video_path, "latents": res.latents}
+    return {"k1": k1, "k2": k2, "int8": int8, "video_path": res.video_path, "latents": res.latents,
+            "video": res.video}
 
 
 # A narrow VAE encoder: the default's five stages at 128 channels, one res
@@ -2088,6 +2112,11 @@ def full_width_conditioned(models, text, fa, work: Path) -> dict:
     return {"k1": runs, "adapter": adapter, "keyframes": keyframes, "pairs": pairs}
 
 
+# Phase 12 (c)'s joint AV dev run: config 3's recipe cut to 8 of its 40 steps
+# to keep the smoke inside its time limit (the 40 steps took 28-42 s; phase
+# 7a runs the 40-step dev path, and the checks here are per step and of frame 0)
+AV_DEV_STEPS = 8
+
 # Phase 12: audio. The seed of the audio and cross-modal tensors; phase 10
 # (d) draws the same tensors again from it on the q4 video modules.
 AUDIO_SEED = 41
@@ -2357,9 +2386,9 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
     write_image(image, 768, 46)
     dev_run = dict(height=768, width=768, num_frames=65, pipeline="dev", cfg_scale=4.5, images=[(str(image), 0, 1.0)])
     set_routes(True)
-    res_c, counts_c = audio_run(joint, dev_text, fa, ca, "(c) joint AV dev (routes on)",
-                                {"k1": 0, "k4": 40 * 4 * 48, "k5": 40 * 2 * 48}, **dev_run, num_inference_steps=40,
-                                output_path=work / "c.mp4", generator=gen())
+    res_c, counts_c = audio_run(joint, dev_text, fa, ca, f"(c) joint AV dev (routes on, {AV_DEV_STEPS} steps)",
+                                {"k1": 0, "k4": AV_DEV_STEPS * 4 * 48, "k5": AV_DEV_STEPS * 2 * 48}, **dev_run,
+                                num_inference_steps=AV_DEV_STEPS, output_path=work / "c.mp4", generator=gen())
     with torch.no_grad():
         pixels = media.prepare_image_for_encoding(media.load_image(image, 768, 768), 768, 768)
         encoded = video_encoder_apply(models.vae_encoder, models.vae_encoder_config,
@@ -2437,8 +2466,7 @@ def full_width_w8a8(models, text, fa, qmm) -> dict:
 
     attention.flash_attention = recording
     try:
-        drive_slice(dataclasses.replace(models, transformer=w8), text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11,
-                    profile="a warm W8A8 distilled run")
+        drive_slice(dataclasses.replace(models, transformer=w8), text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11)
     finally:
         attention.flash_attention = flash
     del w8
@@ -2887,7 +2915,7 @@ def full_width_w4a8(models, text, fa, qmm) -> None:
     layers = [m for m in models.transformer.modules() if isinstance(m, QuantLinear)]
     print(f"  prepare_w4a8 in {time.perf_counter() - t0:.3f} s: {len(layers)} quantized linears with int8 scales",
           flush=True)
-    drive_slice(models, text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11, profile="a warm W4A8 distilled run")
+    drive_slice(models, text, fa, qmm, want_k2=0, want_int8=10 * 48 * 11)
     for m in layers:
         del m._buffers["int8_scale"]
 
@@ -3097,8 +3125,9 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
         print("phase 14 (e): the server's main() over this snapshot, LoRA hot-swap over the 4-bit base:", flush=True)
         serve_lora = serve_lora_over_q4(snap, embeddings, cond["adapter"], fa, qmm, tmp)
         q4_file = snap / "ltx-2-19b-distilled-4bit-mlx.safetensors"
-        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **serve_lora,
-                **train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm),
+        train = train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm)
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **serve_lora, **train,
+                **train_cli_mesh_one(train, tmp / "train_mesh", fa, qmm),
                 **train_cli_over_q4(q4_file, av_data, tmp / "train_av", fa, qmm, audio=True)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3169,10 +3198,8 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio:
     torch.cuda.reset_peak_memory_stats()
     with launch_shapes(fa, qmm) as shapes:
         fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
-        t0 = time.perf_counter()
         with counting_fetches() as fetched:
-            train_cli.main(argv)
-        wall = time.perf_counter() - t0
+            wall, printed, _ = run_captured(train_cli.main, argv)
         k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
     check_fetches(fetched, f"the {what}" + (" (15 (d))" if audio else ""))
     print(f"  {what} wall {wall:.4f} s (the 4-bit file's load included); peak device memory "
@@ -3186,7 +3213,47 @@ def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio:
         fail(f"the {what} wrote no lora_step_2.safetensors")
     check_compared(shapes, f"phase 13 (c), the {what}" if audio else f"phase 10, the {what}")
     tag = "_av_cli" if audio else ""
-    return {f"k1{tag}": k1, f"k3{tag}": k3, f"k2{tag}": k2}
+    return {f"k1{tag}": k1, f"k3{tag}": k3, f"k2{tag}": k2, f"argv{tag}": argv, f"losses{tag}": printed_losses(printed)}
+
+
+def printed_losses(printed: str) -> list:
+    """The trainer's "step N: loss=..." lines, as printed."""
+    return [line for line in printed.splitlines() if line.startswith("step ")]
+
+
+def train_cli_mesh_one(ref: dict, out: Path, fa, qmm) -> dict:
+    """Phase 18 (a): the training CLI of phase 10 again with --mesh 1,1,1 (no
+    launcher: a world-1 NCCL group of this process and the sharded trainer
+    on it): its printed losses, adapter and resume state bitwise the
+    unsharded CLI's, 96 K1 and 48 K3 a step (and its 2 x 10 x 48 K2 over the
+    4-bit base)."""
+    import torch
+
+    from mlx_video_tpu_torch.cli import train as train_cli
+    from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
+
+    argv = list(ref["argv"])
+    ref_out = Path(argv[argv.index("--output-dir") + 1])
+    argv[argv.index("--output-dir") + 1] = str(out)
+    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+    wall, printed, _ = run_captured(train_cli.main, argv + ["--mesh", "1,1,1"])
+    k1, k3, k2 = fa.launch_count, fa.bwd_launch_count, qmm.launch_count
+    losses = printed_losses(printed)
+    same = {}
+    for name in ("lora_step_2.safetensors", "state_step_2.safetensors"):
+        with SafetensorsReader(out / name) as a, SafetensorsReader(ref_out / name) as b:
+            same[name] = sorted(a.keys()) == sorted(b.keys()) and all(torch.equal(a.get(k), b.get(k))
+                                                                      for k in a.keys())
+    print(f"  phase 18 (a): training CLI --mesh 1,1,1 wall {wall:.4f} s; losses {losses} vs the unsharded CLI's "
+          f"{ref['losses']}; files bitwise the unsharded CLI's: {same}; launches K1 {k1}, K3 {k3}, K2 {k2}",
+          flush=True)
+    if "mesh={'data': 1, 'fsdp': 1, 'tensor': 1}" not in printed:
+        fail("phase 18 (a): the training CLI did not train on a (1, 1, 1) mesh")
+    if (k1, k3, k2) != (2 * 96, 2 * 48, 2 * 2 * 10 * 48):
+        fail(f"phase 18 (a): training CLI --mesh 1,1,1 launches K1 {k1}, K3 {k3}, K2 {k2}")
+    if losses != ref["losses"] or len(losses) != 2 or not all(same.values()):
+        fail("phase 18 (a): the --mesh 1,1,1 training CLI differs from the unsharded CLI")
+    return {"k1_train_mesh_cli": k1, "k3_train_mesh_cli": k3, "k2_train_mesh_cli": k2}
 
 
 @contextlib.contextmanager
@@ -3570,12 +3637,12 @@ def synced_s(fn):
     return out, time.perf_counter() - t0
 
 
-ENHANCE_TOKENS = 128  # phase 14 (a)'s greedy generation
+ENHANCE_TOKENS = 64  # phase 14 (a)'s greedy generation
 
 
 def full_width_enhance(te, cfg) -> dict:
     """Phase 14 (a), on phase 9b's bf16 12B encoder: cached logits against
-    no-cache ones at 3 positions, greedy generation of 128 tokens from 512
+    no-cache ones at 3 positions, greedy generation of 64 tokens from 512
     seeded ids (no eos; a host-bound loop reads the same ms a token over
     fewer tokens), ms a token against its bound, then the prompt and its
     continuation through encode_tokens."""
@@ -4003,12 +4070,14 @@ def nccl_world_one():
                 os.environ[k] = v
 
 
-def parallel_world_one(models, text, fa, direct_latents) -> dict:
+def parallel_world_one(models, text, fa, direct) -> dict:
     """(a) NCCL at world size 1 in this process (torchrun's variables set
     here, a free port on 127.0.0.1): generate_video at config 2 on the
     resident dense DiT with mesh (1, 1, 1), with mesh and
     sequence_parallel, and with pipeline_parallel=1; each run's latents
-    bitwise the direct run's (drive_slice, same seed), 528 K1 each."""
+    bitwise the direct run's (drive_slice, same seed), 528 K1 each. Phase
+    18 (a): the mesh run also upsamples and decodes on the mesh (its row
+    split at one rank), and its video is bitwise the direct run's."""
     import dataclasses
 
     import numpy as np
@@ -4034,19 +4103,26 @@ def parallel_world_one(models, text, fa, direct_latents) -> dict:
             fa.launch_count = 0
             t0 = time.perf_counter()
             res = generate_video(bundle, text, height=512, width=512, num_frames=33, stage1_steps=8, stage2_steps=3,
-                                 tiling="auto", decode_latents_only=True,
+                                 tiling="auto", decode_latents_only=what != "mesh",
                                  generator=torch.Generator(device="cuda").manual_seed(1), **kw)
             wall = time.perf_counter() - t0
             k1[what] = fa.launch_count
-            same = np.array_equal(res.latents, direct_latents)
+            same = np.array_equal(res.latents, direct["latents"])
             phases = ", ".join(f"{n} {t:.4f} s" for n, t in res.phase_seconds.items())
-            print(f"  (a) {what}: {wall:.4f} s to latents ({phases}); "
+            print(f"  (a) {what}: {wall:.4f} s to {'the video' if what == 'mesh' else 'latents'} ({phases}); "
                   f"{k1[what]} K1; latents bitwise the direct run's: {same}", flush=True)
             if k1[what] != 48 * (8 + 3):
                 fail(f"(a) {what}: {k1[what]} K1 launches, want {48 * (8 + 3)}")
             if not same:
                 fail(f"(a) {what}: latents differ from the direct run's (max |d| "
-                     f"{float(np.abs(res.latents - direct_latents).max()):.3e})")
+                     f"{float(np.abs(res.latents - direct['latents']).max()):.3e})")
+            if what == "mesh":
+                same = np.array_equal(res.video, direct["video"])
+                print(f"  phase 18 (a): the mesh run's upsample and decode on the mesh (rows at one rank): video "
+                      f"bitwise the direct run's: {same}", flush=True)
+                if not same:
+                    fail(f"phase 18 (a): the mesh run's video differs from the direct run's (max |d| "
+                         f"{float(np.abs(res.video - direct['video']).max()):.3e})")
     # no launcher: the CLI's --mesh 1,1,1 path joins a world-1 NCCL group of its own (an in-memory store)
     from mlx_video_tpu_torch import loading
 
@@ -4214,10 +4290,10 @@ def k2_on_sharded_words(qmm, ff, t: int, m: int = 1280, label: str = "feed-forwa
     return rows
 
 
-def full_width_parallel(models, text, fa, qmm, direct_latents) -> dict:
+def full_width_parallel(models, text, fa, qmm, direct) -> dict:
     """Phase 16: (a), (b) and (c) with their seconds."""
     t_phase = time.perf_counter()
-    world1 = parallel_world_one(models, text, fa, direct_latents)
+    world1 = parallel_world_one(models, text, fa, direct)
     t_a = time.perf_counter()
     ring = virtual_ring(fa)
     t_b = time.perf_counter()
@@ -4237,10 +4313,11 @@ AV_BLOCK_TOKENS = (1280, 34)  # stage 2's video tokens and the audio tokens of 3
 
 def sharded_audio_world_one(resident, fa, ca) -> dict:
     """(a) NCCL at world size 1: phase 12's joint distilled run on the
-    resident AV DiT with mesh (1, 1, 1), with mesh and sequence_parallel and
-    with one pipeline stage, and its separate run with mesh (1, 1, 1); each
-    run's latents and audio latents bitwise phase 12's, with its launches
-    (1056 K1 joint, 912 separate)."""
+    resident AV DiT with mesh (1, 1, 1) and sequence_parallel and with one
+    pipeline stage, and its separate run with mesh (1, 1, 1); each run's
+    latents and audio latents bitwise phase 12's, with its launches (1056
+    K1 joint, 912 separate). (The mesh-and-SP run covers the mesh's code
+    of the AV DiT that a mesh-alone run would drive.)"""
     import dataclasses
 
     import numpy as np
@@ -4252,8 +4329,7 @@ def sharded_audio_world_one(resident, fa, ca) -> dict:
     k1 = {}
     with nccl_world_one():
         mesh = tmesh.create_mesh((1, 1, 1), "cuda")
-        for what, kind, kw in (("joint_mesh", "joint", dict(mesh=mesh)),
-                               ("joint_mesh_sp", "joint", dict(mesh=mesh, sequence_parallel=True)),
+        for what, kind, kw in (("joint_mesh_sp", "joint", dict(mesh=mesh, sequence_parallel=True)),
                                ("joint_stage_1", "joint", dict(pipeline_parallel=1)),
                                ("separate_mesh", "separate", dict(mesh=mesh, audio_steps=8))):
             want = 2 * 48 * steps if kind == "joint" else 48 * steps + 48 * 8
@@ -4539,6 +4615,260 @@ def full_width_sharded_audio(resident, fa, ca, qmm, adapter: Path) -> dict:
     return {"world1": world1, "block": block}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the rest of the mesh: the row-split upsample and decode, and the
+# sharded trainer's step
+# ---------------------------------------------------------------------------
+
+ROWS_BAR = 1e-4  # rel L2 of an fp32 row-split stage against the whole one (JAX's bar for its mesh decode)
+ROWS_PSNR = 35.0  # dB a decoded frame, the pipeline gate, in bf16 and fp32
+TRAIN_BLOCK_BAR = 1e-2  # rel L2 of the loss and of every LoRA gradient against the unsharded block (bf16)
+
+
+def zero_halos():
+    """The control's patch: every virtual halo row replaced by zeros."""
+    from mlx_video_tpu_torch.parallel import collectives
+
+    real = collectives.VirtualGroup.halo_exchange
+
+    def zeros(self, x, rows_up, rows_down, dim):
+        up, down = real(self, x, rows_up, rows_down, dim)
+        return (None if up is None else up.zero_()), (None if down is None else down.zero_())
+
+    return patched(collectives.VirtualGroup, "halo_exchange", zeros)
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def virtual_rows(models, direct) -> dict:
+    """(b) config 2's full-width upsampler (on seeded stage-1 latents, (1,
+    128, 5, 16, 16)) and decoder (on the direct run's stage-2 latents, with
+    its decode noise) over spatial groups of 2 and 4 virtual ranks (meshes
+    (1, 2, 1) and (1, 2, 2): rows of H over fsdp x tensor, halo rows at
+    every conv, GroupNorm's statistics summed over the rows), gathered
+    whole, against the whole stage on the card. The gate: in fp32 copies
+    (TF32 off) rel L2 <= 1e-4, JAX's own bar for its mesh decode, and >= 35
+    dB a decoded frame; with zero halos the fp32 decode must miss both. In
+    bf16, the pipeline's dtype: >= 35 dB a decoded frame, and the rel L2
+    printed beside the bf16 control (the whole bf16 stage against the same
+    stage in fp32: two bf16 runs on other extents differ by the stage's
+    bf16 noise). Seconds and peak device memory of each run printed (the
+    virtual ranks share the card)."""
+    import dataclasses
+
+    import torch
+
+    from mlx_video_tpu_torch.models.ltx.upsampler import upsample_latents
+    from mlx_video_tpu_torch.parallel import collectives, sharding
+    from mlx_video_tpu_torch.pipelines.generate import decode_latents
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    lat1 = torch.randn(1, models.vae_decoder_config.in_channels, 5, 16, 16, generator=g, device="cuda")
+    lat2 = torch.from_numpy(direct["latents"]).cuda()
+    fp32 = dataclasses.replace(models, upsampler=copy.deepcopy(models.upsampler).float(),
+                               vae_decoder=copy.deepcopy(models.vae_decoder).float())
+    forms = {"bf16": (models, torch.bfloat16), "fp32": (fp32, torch.float32)}
+
+    def upsample(bundle, dtype, mesh=None):
+        x = lat1.to(dtype)
+        mean, std = bundle.latents_mean, bundle.latents_std
+        if mesh is None:
+            return upsample_latents(bundle.upsampler, x, mean, std)
+        spec = sharding.spatial_spec(mesh, x.shape)
+        part = upsample_latents(bundle.upsampler, sharding.shard_spatial(x, mesh), mean, std,
+                                rows=sharding.spatial_group(mesh, spec))
+        return sharding.gather_spatial(part, mesh, spec).float()
+
+    def decode(bundle, dtype, mesh=None):
+        return torch.from_numpy(decode_latents(bundle, lat2.to(dtype), None, decode_timestep=0.05,
+                                               generator=torch.Generator(device="cuda").manual_seed(19), mesh=mesh))
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out.float(), time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    rows, whole = {}, {}
+    with torch.no_grad():
+        for form, (bundle, dtype) in forms.items():
+            up, up_s, up_gib = measured(lambda: upsample(bundle, dtype))
+            dec, dec_s, dec_gib = measured(lambda: decode(bundle, dtype))
+            whole[form] = (up, dec)
+            print(f"  (b) whole stages, {form}: upsample {up_s:.4f} s, peak {up_gib:.3f} GiB; decode {dec_s:.4f} s, "
+                  f"peak {dec_gib:.3f} GiB", flush=True)
+        control = (rel_l2(whole["bf16"][0], whole["fp32"][0]), rel_l2(whole["bf16"][1], whole["fp32"][1]))
+        rows["bf16_control"] = dict(upsample_rel_l2=control[0], decode_rel_l2=control[1])
+        gates = {"fp32": f"rel L2 {ROWS_BAR:.0e}, {ROWS_PSNR} dB", "bf16": f"{ROWS_PSNR} dB"}
+        print(f"  (b) bf16 control, the whole stage in bf16 against fp32: upsample rel L2 {control[0]:.3e}, decode "
+              f"{control[1]:.3e}", flush=True)
+        for form, (bundle, dtype) in forms.items():
+            for n, shape in ((2, (1, 2, 1)), (4, (1, 2, 2))):
+                meshes = collectives.virtual_meshes(shape, ("data", "fsdp", "tensor"), "cuda")
+                up, up_s, up_gib = measured(lambda: collectives.run_virtual(meshes, lambda m: upsample(
+                    bundle, dtype, m))[0])
+                dec, dec_s, dec_gib = measured(lambda: collectives.run_virtual(meshes, lambda m: decode(
+                    bundle, dtype, m))[0])
+                err_up, err_dec = rel_l2(up, whole[form][0]), rel_l2(dec, whole[form][1])
+                db = min_frame_psnr(dec.numpy(), whole[form][1].numpy())
+                to_fp32 = (rel_l2(up, whole["fp32"][0]), rel_l2(dec, whole["fp32"][1]))
+                rows[(form, n)] = dict(upsample_rel_l2=err_up, decode_rel_l2=err_dec, decode_min_db=db,
+                                       upsample_s=up_s, decode_s=dec_s, upsample_peak_gib=up_gib,
+                                       decode_peak_gib=dec_gib, rel_l2_to_fp32=to_fp32)
+                print(f"  (b) {form}, {n} virtual ranks {shape} ({16 // n} and {32 // n} latent rows a rank): upsample "
+                      f"rel L2 {err_up:.3e}, {up_s:.4f} s, peak {up_gib:.3f} GiB; decode rel L2 {err_dec:.3e}, min "
+                      f"{db:.2f} dB a frame, {dec_s:.4f} s, peak {dec_gib:.3f} GiB (bars: {gates[form]}); against "
+                      f"the fp32 whole stage {to_fp32[0]:.3e}, {to_fp32[1]:.3e}", flush=True)
+                if db < ROWS_PSNR or (form == "fp32" and not (err_up <= ROWS_BAR and err_dec <= ROWS_BAR)):
+                    fail(f"(b) {form} rows over {n} ranks miss the bars")
+        with zero_halos():
+            bad = collectives.run_virtual(collectives.virtual_meshes((1, 2, 2), ("data", "fsdp", "tensor"), "cuda"),
+                                          lambda m: decode(fp32, torch.float32, m))[0]
+        err, db = rel_l2(bad, whole["fp32"][1]), min_frame_psnr(bad.numpy(), whole["fp32"][1].numpy())
+        rows["zero_halos"] = dict(decode_rel_l2=err, decode_min_db=db)
+        print(f"  (b) control, zero halos over 4 ranks (fp32): decode rel L2 {err:.3e}, min {db:.2f} dB a frame "
+              f"(must miss {ROWS_BAR:.0e} and {ROWS_PSNR} dB)", flush=True)
+        if err <= ROWS_BAR or db >= ROWS_PSNR:
+            fail("(b) the zero-halo control met a bar")
+    del fp32, whole
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_block_inputs(cfg):
+    """A strategy batch at 768x512x65 (3456 video tokens, phase 8's shape:
+    latents (128, 9, 16, 24), 1024 caption tokens of which 128 are real) and
+    its draws, seeded."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.trainer.datasets import Batch, collate_batches
+    from mlx_video_tpu_torch.trainer.strategies import draw_inputs, prepare_text_to_video
+
+    rng = np.random.default_rng(18)
+    mask = np.zeros(1024, dtype=bool)
+    mask[:128] = True
+    item = Batch(latents={"latents": rng.normal(size=(cfg.in_channels, 9, 16, 24)).astype(np.float32),
+                          "num_frames": np.array([9], np.int32), "height": np.array([16], np.int32),
+                          "width": np.array([24], np.int32), "fps": np.array([24.0], np.float32)},
+                 conditions={"video_prompt_embeds": rng.normal(size=(1024, cfg.caption_channels)).astype(np.float32),
+                             "prompt_attention_mask": mask})
+    sb = prepare_text_to_video(collate_batches([item]), device="cuda")
+    return sb, draw_inputs(sb, torch.Generator(device="cuda").manual_seed(18), first_frame_conditioning_p=0.5)
+
+
+def virtual_train_block(models, fa) -> dict:
+    """(c) the trainer's step (train_step.grad_step: the loss, checkpointed
+    forward and backward, the gradients' sums) on a one-block model of the
+    resident DiT's first block and modality tensors (copies) with a seeded
+    rank-32 adapter on its 10 linears (B non-zero), at 3456 tokens: over
+    tensor = 2 virtual ranks (Megatron's pair, 2 K1 and 1 K3 a rank) and
+    over an SP ring of 2 (the ring forward n^2 K1 twice, the ring backward
+    n^2 K3), each shard's gradients gathered whole: the loss and every LoRA
+    gradient rel L2 <= 1e-2 against the unsharded block on the card. The
+    control drops the column-parallel entry's gradient sum (copy_to's
+    backward all-reduce) over tensor = 2 and must miss the bar."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from mlx_video_tpu_torch.lora import LoRAConfig, inject_lora, lora_mask
+    from mlx_video_tpu_torch.models.ltx.model import LTXModel
+    from mlx_video_tpu_torch.parallel import collectives
+    from mlx_video_tpu_torch.parallel.sharding import shard_params, spec_of, unshard
+    from mlx_video_tpu_torch.trainer.train_step import grad_step
+
+    cfg = dataclasses.replace(models.transformer_config, num_layers=1, gradient_checkpointing=True)
+    block = LTXModel(cfg, device="meta")
+    block.video = copy.deepcopy(models.transformer.video)
+    block.blocks = nn.ModuleList([copy.deepcopy(models.transformer.blocks[0])])
+    g = torch.Generator(device="cuda").manual_seed(18)
+    inject_lora(block, cfg, LoRAConfig(rank=32, alpha=32.0), g)
+    mask = lora_mask(block)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("lora_B"):  # zero at injection: seeded so that A has a gradient too
+                p.copy_(1e-2 * torch.randn(p.shape, generator=g, device="cuda"))
+    for name, p in block.named_parameters():
+        p.requires_grad_(mask[name])
+    sb, draws = train_block_inputs(cfg)
+
+    def step(model, sp=None):
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        loss, grads = grad_step(model, params, sb, draws, cfg, sp=sp)
+        if getattr(model, "mesh", None) is not None:
+            grads = {n: unshard(t, spec_of(model.shard_specs, n), model.mesh) for n, t in grads.items()}
+        return float(loss), grads
+
+    fa.launch_count = fa.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    ref_loss, ref = step(block)
+    torch.cuda.synchronize()
+    ref_s, counts = time.perf_counter() - t0, (fa.launch_count, fa.bwd_launch_count)
+    print(f"  (c) unsharded block: loss {ref_loss:.6f}; {len(ref)} LoRA gradients; {ref_s:.4f} s; K1 {counts[0]}, "
+          f"K3 {counts[1]}", flush=True)
+    rows, launches = {}, {"k1": 0, "k3": 0}
+
+    def sharded(what, shape, sp, want, control=False):
+        meshes = collectives.virtual_meshes(shape, ("data", "fsdp", "tensor"), "cuda")
+        shards = [shard_params(block, m) for m in meshes]
+        for shard in shards:
+            for name, p in shard.named_parameters():
+                p.requires_grad_(name in ref)
+        fa.launch_count = fa.bwd_launch_count = 0
+        t0 = time.perf_counter()
+        outs = collectives.run_virtual(meshes, lambda m: step(shards[meshes.index(m)], sp=(m, "fsdp") if sp else None))
+        torch.cuda.synchronize()
+        secs, got = time.perf_counter() - t0, (fa.launch_count, fa.bwd_launch_count)
+        loss_err = max(abs(o[0] - ref_loss) / abs(ref_loss) for o in outs)
+        grad_err = max(rel_l2(o[1][n], ref[n]) for o in outs for n in ref)
+        rows[what] = dict(loss_rel=loss_err, grad_rel_l2=grad_err, seconds=secs, k1=got[0], k3=got[1])
+        print(f"  (c) {what}: loss rel {loss_err:.3e}, worst LoRA gradient rel L2 {grad_err:.3e} (bar "
+              f"{TRAIN_BLOCK_BAR}); {secs:.4f} s; K1 {got[0]}, K3 {got[1]}", flush=True)
+        del shards, outs
+        if control:
+            if grad_err <= TRAIN_BLOCK_BAR:
+                fail(f"(c) {what}: the control met the bar")
+            return
+        launches["k1"] += got[0]
+        launches["k3"] += got[1]
+        if got != want:
+            fail(f"(c) {what}: launches (K1, K3) {got}, want {want}")
+        if loss_err > TRAIN_BLOCK_BAR or grad_err > TRAIN_BLOCK_BAR:
+            fail(f"(c) {what}: over the bar {TRAIN_BLOCK_BAR}")
+
+    sharded("tensor = 2", (1, 1, 2), False, (4, 2))
+    sharded("SP ring of 2", (1, 2, 1), True, (8, 4))
+    with patched(collectives._CopyTo, "backward", staticmethod(lambda ctx, dy: (dy, None))):
+        sharded("control: tensor = 2 without copy_to's gradient sum", (1, 1, 2), False, None, control=True)
+    del block
+    torch.cuda.empty_cache()
+    return {"rows": rows, **launches}
+
+
+def full_width_mesh_rest(models, fa, direct) -> dict:
+    """Phase 18 (b) and (c) with their seconds ((a) runs in phase 16 (a) and
+    in phase 10)."""
+    t_phase = time.perf_counter()
+    rows = virtual_rows(models, direct)
+    t_b = time.perf_counter()
+    train = virtual_train_block(models, fa)
+    print(f"  phase 18 (b), (c): {time.perf_counter() - t_phase:.2f} s ((b) {t_b - t_phase:.2f}, (c) "
+          f"{time.perf_counter() - t_b:.2f})", flush=True)
+    return {"rows": rows, "train": train}
+
+
 def parallel_only() -> int:
     """The quick check of the sharded paths: the build, the full-width
     models, the dense distilled slice (the direct run), phase 16, then phase
@@ -4563,7 +4893,8 @@ def parallel_only() -> int:
 
     models, text = full_width_models()
     direct = drive_slice(models, text, fa, qmm, want_k2=0)
-    full_width_parallel(models, text, fa, qmm, direct["latents"])
+    full_width_parallel(models, text, fa, qmm, direct)
+    full_width_mesh_rest(models, fa, direct)
     resident = audio_bundles(models, text)
     resident["direct"] = {}
     for kind, kw in (("joint", dict(audio_mode="joint")), ("separate", dict(audio_steps=8))):
@@ -4700,7 +5031,12 @@ def main() -> int:
         print("phase 16: sharded generation on one card: (a) NCCL at world 1, generate_video with mesh (1, 1, 1), "
               "with sequence parallelism and with one pipeline stage; (b) the ring at full width over 2, 4, 8 "
               "virtual ranks; (c) a full-width block over tensor = 2, 4 virtual ranks, dense, q4, W8A8:", flush=True)
-        par = full_width_parallel(models, text, fa, qmm, direct["latents"])
+        par = full_width_parallel(models, text, fa, qmm, direct)
+        print("phase 18 (b), (c): the rest of the mesh on one card: (b) config 2's upsampler and decoder by rows "
+              "over 2 and 4 virtual ranks, and a zero-halo control; (c) the trainer's step on the first 19B block "
+              "at 3456 tokens with a rank-32 adapter over tensor = 2 and an SP ring of 2, and a control:",
+              flush=True)
+        rest = full_width_mesh_rest(models, fa, direct)
         print("full-width dev slice (768x768x65: 5184 tokens, 40 steps, CFG 4.5, one image; K4 and K5 routes on):",
               flush=True)
         dev = full_width_dev(models, fa, ca, work)
@@ -4716,7 +5052,7 @@ def main() -> int:
             audio = full_width_audio(models, text, fa, ca, work)
         check_compared(shapes, "phase 12 (a)-(c)")
         print("phase 17 (a), (b): the sharded AV DiTs on phase 12's resident models: (a) NCCL at world 1, joint "
-              "with mesh (1, 1, 1), with SP and with one stage, separate with mesh (1, 1, 1); (b) the first AV block "
+              "with mesh (1, 1, 1) and SP, separate with mesh (1, 1, 1); (b) the first AV block "
               "over tensor = 2, 4 virtual ranks (dense, q4), the SP ring over 2, 4, and a runtime adapter over "
               "tensor = 2:", flush=True)
         sharded_av = full_width_sharded_audio(audio.pop("resident"), fa, ca, qmm, cond["adapter"])
@@ -4778,6 +5114,8 @@ def main() -> int:
                           "convert_q4_cli": converted["k1_q4_cli"], "convert_w8a8_cli": converted["k1_w8a8_cli"],
                           **{f"world1_{run}": n for run, n in par["world1"].items()},
                           "ring_virtual": par["ring"]["k1"], "tp_block_virtual": par["tp"]["k1"],
+                          "train_block_virtual": rest["train"]["k1"],
+                          "training_mesh_cli": cli_train["k1_train_mesh_cli"],
                           **{f"world1_audio_{run}": n for run, n in sharded_av["world1"].items()},
                           "av_block_virtual": sharded_av["block"]["k1"]},
         "ring_ms": {n: row["ring_ms"] for n, row in par["ring"]["rows"].items()},
@@ -4799,6 +5137,7 @@ def main() -> int:
                           "audio_separate_cli": cli_train["k2_audio_separate_cli"],
                           "av_training_cli": cli_train["k2_av_cli"], "serve_lora": cli_train["k2_serve_lora"],
                           "convert_q4_cli": converted["k2_q4_cli"], "tp_block_virtual": par["tp"]["k2"],
+                          "training_mesh_cli": cli_train["k2_train_mesh_cli"],
                           "av_block_virtual": sharded_av["block"]["k2"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
@@ -4812,7 +5151,10 @@ def main() -> int:
         "replaces": "mlx_video_tpu/ops/flash_attention.py:301",
         "launches": train["k3"],
         "path_launches": {"lora_training": train["k3"], "training_cli": cli_train["k3"],
-                          "av_lora_training": av["k3"], "av_training_cli": cli_train["k3_av_cli"]},
+                          "av_lora_training": av["k3"], "av_training_cli": cli_train["k3_av_cli"],
+                          "training_mesh_cli": cli_train["k3_train_mesh_cli"],
+                          "train_block_virtual": rest["train"]["k3"],
+                          "ring_backward_virtual": rest["train"]["rows"]["SP ring of 2"]["k3"]},
         "max_abs_err": k3["max_abs_err"],
         "ms": k3_ms,
         "plain_ms": k3_plain_ms,

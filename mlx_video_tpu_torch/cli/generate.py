@@ -305,7 +305,7 @@ _REFUSED = {
 }
 # What the trainer's parallel options wait for (their refusals name this
 # ROADMAP item).
-PARALLEL_TRAIN = f"the parallel paths of the trainer ({TRAINER_ITEM})"
+PARALLEL_TRAIN = f"the GPipe stages of the trainer ({TRAINER_ITEM})"
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -11,8 +11,15 @@ imported only then). ``--with-audio`` trains the AudioVideo DiT over the
 and, as in the JAX CLI (which builds no validation function), do nothing
 here: the CLI prints one line saying so; validation runs through
 ``Trainer(validation_fn=ValidationSampler(...))``. Options of features the
-port does not have yet (meshes, sequence parallelism, W&B, hub push) exit
-with a message that names them.
+port does not have yet (W&B, hub push) exit with a message that names them.
+
+Sharded training: ``torchrun --nproc-per-node N -m mlx_video_tpu_torch.train
+--mesh d,f,t [--sequence-parallel] ...`` with d*f*t = N runs the trainer on
+a (data, fsdp, tensor) mesh of the N ranks (trainer/trainer.py): NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``; rank 0 writes the files.
+``--mesh 1,1,1`` runs in one process without a launcher; a mesh of more
+ranks without one exits naming ``torchrun``, and ``--sequence-parallel``
+without ``--mesh`` exits.
 """
 
 from __future__ import annotations
@@ -113,6 +120,14 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
+    if args.sequence_parallel and not args.mesh:
+        raise SystemExit("train: --sequence-parallel (sequence_parallel) needs --mesh: its ring runs over the "
+                         "mesh's fsdp axis")
+    _train(args, device)
+
+
+def _train(args, device: torch.device) -> None:
+    from mlx_video_tpu_torch.parallel import distributed
 
     from mlx_video_tpu_torch.trainer.config import TrainingConfig, load_training_config
     from mlx_video_tpu_torch.trainer.trainer import Trainer
@@ -185,16 +200,25 @@ def main(argv=None) -> None:
             enable_gradient_checkpointing=args.enable_gradient_checkpointing,
         )
 
+    if cfg.mesh_shape and distributed.launched():  # join the launcher's ranks, each on its own card
+        distributed.initialize_multihost(device_type=device.type)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", distributed.local_rank())
     if cfg.validation_prompts or cfg.validation_interval:
         print("train: the --validation-* options are accepted but, as in the JAX CLI, run no validation "
               "(the CLI builds no validation function; pass Trainer(validation_fn=ValidationSampler(...)) "
               "from Python)", flush=True)
     try:
-        trainer = Trainer(cfg, device=device)
-    except NotImplementedError as e:
-        raise SystemExit(f"train: {e}")
-    final_loss = trainer.train()
-    print(f"Training complete. final loss={final_loss:.6f}")
+        try:
+            trainer = Trainer(cfg, device=device)
+        except NotImplementedError as e:
+            raise SystemExit(f"train: {e}")
+        final_loss = trainer.train()
+        if trainer.primary:
+            print(f"Training complete. final loss={final_loss:.6f}")
+    finally:
+        if cfg.mesh_shape:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -220,7 +220,13 @@ def save_dit_params(path: Union[str, Path], model: LTXModel, metadata: Optional[
     """Save the model in the native layout (:func:`native_tensors`); the file
     is byte for byte what the JAX ``save_dit_params`` writes for the same
     parameters."""
-    save_safetensors(path, native_tensors(model), metadata={"format": NATIVE_FORMAT, **(metadata or {})})
+    save_dit_state(path, model.state_dict(), metadata)
+
+
+def save_dit_state(path: Union[str, Path], state: Dict[str, torch.Tensor], metadata: Optional[dict] = None) -> None:
+    """:func:`save_dit_params` of a DiT's whole state dict."""
+    save_safetensors(path, _flatten(state_dict_to_jax_layout(state)),
+                     metadata={"format": NATIVE_FORMAT, **(metadata or {})})
 
 
 def load_native_params(

@@ -339,8 +339,14 @@ def export_lora_state(model: nn.Module, config: LTXModelConfig) -> Dict[str, tor
     """The factors in the reference checkpoint format,
     ``diffusion_model.<sanitized path>.lora_{A,B}.weight`` (block ``i`` as
     ``transformer_blocks.i``), fp32 on the CPU."""
+    return lora_file_tensors(model.named_parameters())
+
+
+def lora_file_tensors(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """:func:`export_lora_state` of the model's (name, tensor) pairs; those
+    that are not factors are skipped."""
     out: Dict[str, torch.Tensor] = {}
-    for name, p in model.named_parameters():
+    for name, p in named:
         module, _, which = name.rpartition(".")
         if which not in LORA_PARAMS:
             continue

@@ -56,6 +56,14 @@ queries over all the audio, and video-to-audio attention all-gathers the
 modulated video context over the ring first. The fused-RoPE route (K5) is
 off whenever ``sp`` is given, as in JAX. The last block's video tokens and
 the batch are all-gathered, so every rank returns the whole velocities.
+
+The rank-local forward is differentiable (the sharded trainer): its
+gathers carry gradients back to the shards (parallel/sharding.py:gather,
+collectives.gather_sum for the ring's and the batch's gathers), the
+tensor-parallel linears and norms are Megatron's (ops/linear.py,
+ops/norms.py), the ring has its backward, and with gradient checkpointing
+each block's gather runs inside its checkpoint, so a block's whole tensors
+live only while it runs, forward and again in the backward.
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ from mlx_video_tpu_torch.models.ltx import rope as rope_lib
 from mlx_video_tpu_torch.ops.attention import fused_split_rope_eligible, sdpa_flat, sdpa_flat_fused_rope
 from mlx_video_tpu_torch.ops.linear import Linear, init_linear_, linear
 from mlx_video_tpu_torch.ops.norms import layer_norm, rms_norm
-from mlx_video_tpu_torch.parallel.collectives import SoloGroup, mesh_groups
+from mlx_video_tpu_torch.parallel.collectives import SoloGroup, gather_sum, mesh_groups
 from mlx_video_tpu_torch.parallel.ring_attention import ring_attention
 
 
@@ -456,7 +464,7 @@ def block_apply(
         ) * gate_a2v
         v_ctx, v_kpe = vx_norm3 * (1 + scale_v_v2a) + shift_v_v2a, video.cross_pe
         if sp is not None and sp.size > 1:  # this rank holds a block of the video: v2a's keys need all of it
-            v_ctx, v_kpe = sp.all_gather(v_ctx, dim=1), video.cross_k_pe
+            v_ctx, v_kpe = gather_sum(v_ctx, sp, dim=1), video.cross_k_pe
         ax = ax + attention_apply(
             block.video_to_audio_attn, ax_norm3 * (1 + scale_a_v2a) + shift_a_v2a, audio_cfg.heads, rope_type,
             norm_eps, context=v_ctx, pe=audio.cross_pe, k_pe=v_kpe,
@@ -694,19 +702,26 @@ def run_blocks(model: LTXModel, video: Optional[_ModalityArgs], audio: Optional[
                ring=None, cache=None, collected=None):
     """The streams ``video.x`` and ``audio.x`` (either may be None) through
     ``model.blocks``, each block on its ``fsdp``-gathered tensors, dropped
-    after it runs; returns the (video, audio) streams. PAB's per-block cache
+    after it runs (gathered again in the backward under gradient
+    checkpointing); returns the (video, audio) streams. PAB's per-block cache
     and collection as in :func:`ltx_apply`."""
     from mlx_video_tpu_torch.parallel.sharding import gather
 
     specs = getattr(model, "shard_specs", None)
+    remat = config.gradient_checkpointing and torch.is_grad_enabled()
+
+    def step(block, i, v_args, a_args):
+        if specs is not None:
+            block = gather(block, specs, model.mesh, axes=("fsdp",), prefix=f"blocks.{i}.")
+        return block_apply(block, v_args, a_args, video_cfg, audio_cfg, config.rope_type, config.norm_eps,
+                           None if cache is None else cache[i], collected is not None, sp=ring)
+
     vx = None if video is None else video.x
     ax = None if audio is None else audio.x
     for i, block in enumerate(model.blocks):
-        if specs is not None:
-            block = gather(block, specs, model.mesh, axes=("fsdp",), prefix=f"blocks.{i}.")
-        out = block_apply(block, None if video is None else video._replace(x=vx),
-                          None if audio is None else audio._replace(x=ax), video_cfg, audio_cfg, config.rope_type,
-                          config.norm_eps, None if cache is None else cache[i], collected is not None, sp=ring)
+        args = (block, i, None if video is None else video._replace(x=vx),
+                None if audio is None else audio._replace(x=ax))
+        out = checkpoint(step, *args, use_reentrant=False) if remat else step(*args)
         vx, ax = out[0], out[1]
         if collected is not None:
             collected.append(out[2])
@@ -764,14 +779,14 @@ def sharded_apply(model: LTXModel, config: LTXModelConfig, video: Optional[Modal
     collected = [] if collect else None
     vx, ax = run_blocks(model, v_local, a_local, video_cfg, audio_cfg, config, ring, cache, collected)
     if ring is not None and ring.size > 1:
-        vx = ring.all_gather(vx, dim=1)
+        vx = gather_sum(vx, ring, dim=1)
     v_out = None if video_args is None else _process_output(heads.video, vx, video_args.embedded_timestep,
                                                              config.norm_eps)
     a_out = None if audio_args is None else _process_output(heads.audio, ax, audio_args.embedded_timestep,
                                                              config.norm_eps)
     if by_data:
-        v_out = None if v_out is None else data.all_gather(v_out, dim=0)
-        a_out = None if a_out is None else data.all_gather(a_out, dim=0)
+        v_out = None if v_out is None else gather_sum(v_out, data, dim=0)
+        a_out = None if a_out is None else gather_sum(a_out, data, dim=0)
     if collect:
         return v_out, a_out, {"self": collected}
     return v_out, a_out

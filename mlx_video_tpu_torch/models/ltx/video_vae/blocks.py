@@ -35,9 +35,24 @@ class AffineNorm(nn.Module):
         self.bias.zero_()
 
 
-def group_norm(norm: AffineNorm, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
-    """GroupNorm over (B, C, ...) with statistics and affine in fp32."""
-    out = F.group_norm(x.float(), num_groups, norm.weight.float(), norm.bias.float(), eps)
+def group_norm(norm: AffineNorm, x: torch.Tensor, num_groups: int = 32, eps: float = 1e-6,
+               rows=None) -> torch.Tensor:
+    """GroupNorm over (B, C, ...) with statistics and affine in fp32. Under
+    a row split (``rows``: x holds this rank's rows of H) the group's fp32
+    sum, then its sum of squares about the mean, are summed over ``rows``,
+    so every rank normalises by the whole tensor's statistics."""
+    if rows is None or rows.size == 1:
+        out = F.group_norm(x.float(), num_groups, norm.weight.float(), norm.bias.float(), eps)
+        return out.to(x.dtype)
+    b, c = x.shape[:2]
+    xf = x.float().reshape(b, num_groups, -1)
+    count = xf.shape[-1] * rows.size
+    mean = rows.all_reduce(xf.sum(-1, keepdim=True)) / count
+    centered = xf - mean
+    var = rows.all_reduce((centered * centered).sum(-1, keepdim=True)) / count
+    out = (centered * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    out = out * norm.weight.float().reshape(shape) + norm.bias.float().reshape(shape)
     return out.to(x.dtype)
 
 
@@ -133,11 +148,14 @@ def depth_to_space_upsample(
     out_channels_reduction_factor: int = 1,
     causal: bool = True,
     padding_mode: str = "zeros",
+    rows=None,
 ) -> torch.Tensor:
     """Conv to C*prod(stride) channels, 3D pixel shuffle, optional tiled
-    residual; a temporal upsample drops the first frame."""
+    residual; a temporal upsample drops the first frame. The shuffle is
+    local along H (row i becomes rows sh*i .. sh*i + sh - 1), so under a row
+    split (``rows``) only the conv exchanges halos."""
     st, sh, sw = stride
-    h = _depth_to_space(causal_conv3d(ups.conv, x, 3, 1, causal, padding_mode), stride)
+    h = _depth_to_space(causal_conv3d(ups.conv, x, 3, 1, causal, padding_mode, rows), stride)
     if st > 1:
         h = h[:, :, 1:]
     if residual:

@@ -10,6 +10,11 @@ video_decoder_apply. Architecture (128 latent channels -> RGB):
   unpatchify(4) -> (B, 3, F, H, W)
 
 Decode noise is given as a tensor or drawn from a ``torch.Generator``.
+
+Row split (``rows``, video_vae/conv.py): the decoder runs on this rank's
+rows of H. Pixel norm, the timestep modulation, the depth-to-space shuffles
+and unpatchify are local along H; each conv exchanges halo rows, so the
+output is this rank's rows of the whole decode.
 """
 
 from __future__ import annotations
@@ -141,7 +146,7 @@ def init_video_decoder(
 
 
 def _res_block(block: DecoderResBlock, x: torch.Tensor, causal: bool, padding_mode: str,
-               timestep_embed: Optional[torch.Tensor]) -> torch.Tensor:
+               timestep_embed: Optional[torch.Tensor], rows=None) -> torch.Tensor:
     """pixel_norm(1e-8) -> timestep modulation -> SiLU -> conv, twice, + x."""
     if timestep_embed is not None:
         b, c = x.shape[0], x.shape[1]
@@ -150,11 +155,11 @@ def _res_block(block: DecoderResBlock, x: torch.Tensor, causal: bool, padding_mo
     h = pixel_norm(x, eps=1e-8)
     if timestep_embed is not None:
         h = h * (1 + scale1) + shift1
-    h = causal_conv3d(block.conv1, F.silu(h), 3, 1, causal, padding_mode)
+    h = causal_conv3d(block.conv1, F.silu(h), 3, 1, causal, padding_mode, rows)
     h = pixel_norm(h, eps=1e-8)
     if timestep_embed is not None:
         h = h * (1 + scale2) + shift2
-    h = causal_conv3d(block.conv2, F.silu(h), 3, 1, causal, padding_mode)
+    h = causal_conv3d(block.conv2, F.silu(h), 3, 1, causal, padding_mode, rows)
     return h + x
 
 
@@ -188,12 +193,16 @@ def video_decoder_apply(
     timestep: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    rows=None,
 ) -> torch.Tensor:
     """Decode (B, latent_C, F', H', W') latents to (B, 3, F, H, W) RGB.
 
     With timestep conditioning, decode noise is mixed in when ``noise`` (same
     shape as ``sample``) is given or ``generator`` draws it; with neither the
     decode is noise-free. ``timestep`` (B,) defaults to decode_timestep.
+    ``rows``: ``sample`` is this rank's rows of the latents (the module
+    docstring's row split; give the noise already mixed in, or this rank's
+    rows of it).
     """
     b = sample.shape[0]
     dtype = sample.dtype
@@ -207,7 +216,7 @@ def video_decoder_apply(
         scaled_timestep = timestep.float() * 1000.0
 
     pm = config.padding_mode
-    x = causal_conv3d(decoder.conv_in, x, 3, 1, causal, pm)
+    x = causal_conv3d(decoder.conv_in, x, 3, 1, causal, pm, rows)
     chans = config.channel_schedule
     for g in range(len(chans)):
         group = decoder.up_blocks[str(2 * g)]
@@ -215,11 +224,11 @@ def video_decoder_apply(
         if scaled_timestep is not None:
             ts_embed = time_embedder_apply(group.time_embedder, scaled_timestep, dtype)
         for block in group.res_blocks:
-            x = _res_block(block, x, causal, pm, ts_embed)
+            x = _res_block(block, x, causal, pm, ts_embed, rows)
         if g < config.num_upsamples:
             x = depth_to_space_upsample(
                 decoder.up_blocks[str(2 * g + 1)], x, (2, 2, 2),
-                residual=True, out_channels_reduction_factor=2, causal=causal, padding_mode=pm,
+                residual=True, out_channels_reduction_factor=2, causal=causal, padding_mode=pm, rows=rows,
             )
 
     x = pixel_norm(x, eps=1e-8)
@@ -227,5 +236,5 @@ def video_decoder_apply(
         embedded = time_embedder_apply(decoder.last_time_embedder, scaled_timestep, dtype)
         ada = decoder.last_scale_shift_table[None] + embedded.reshape(b, 2, chans[-1])
         x = x * (1 + ada[:, 1, :, None, None, None]) + ada[:, 0, :, None, None, None]
-    x = causal_conv3d(decoder.conv_out, F.silu(x), 3, 1, causal, pm)
+    x = causal_conv3d(decoder.conv_out, F.silu(x), 3, 1, causal, pm, rows)
     return ops.unpatchify(x, patch_size_hw=config.patch_size, patch_size_t=1)

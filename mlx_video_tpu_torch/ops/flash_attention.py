@@ -224,6 +224,11 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dQ, dK, dV of attention from the forward's output ``o`` and logsumexp
     ``lse`` (B, H, S) fp32 and the output gradient ``do``, all (B, S, H, D).
+    ``o`` and ``lse`` may be those of a longer attention of which ``k`` and
+    ``v`` are one key block of q's length (the ring backward,
+    parallel/ring_attention.py): p = exp(scale q k^T - lse) and D =
+    rowsum(dO o) are then the whole attention's, and the gradients this
+    block's share (dK, dV whole for the block; dQ a term of the sum).
 
     CPU tensors take :func:`flash_attention_bwd_reference`; CUDA tensors
     launch K3 (bf16; a ``do`` the kernel cannot read in place is copied

@@ -37,16 +37,20 @@ kernel:
 Both are differentiable in x by the straight-through estimator; LoRA adds
 its delta on top, as on every other branch.
 
-Tensor parallelism (parallel/sharding.py): a column-parallel layer holds
-its rank's rows of the weight and needs nothing more. A row-parallel one
-(``tp_group`` set: it holds its rank's slice of the in dimension and takes
-that slice of x) computes its partial product without the bias, sums it
-over the group in fp32 (the int8 branches: the int32 products, after codes
-made from the group's absmax) and adds the whole bias once, after the sum.
-K2 runs on the rank's words. Its LoRA factors are A's columns of its in
-slice and B whole: this rank's (x A^T) B^T is added into the partial before
-the sum, exact as the product is linear in x (the int8 branches sum it on
-its own and add it after, as on one device).
+Tensor parallelism (parallel/sharding.py), Megatron's: a column-parallel
+layer (``tp_copy`` set) holds its rank's rows of the weight and takes x
+through collectives.copy_to (the identity; in the backward its gradient of
+x is summed over the group). A row-parallel one (``tp_group`` set: it
+holds its rank's slice of the in dimension and takes that slice of x)
+computes its partial product without the bias, sums it over the group in
+fp32 through collectives.reduce_from (the int8 branches: the int32
+products, after codes made from the group's absmax) and adds the whole bias
+once, after the sum. K2 runs on the rank's words, forward and (dx =
+dy dequant(W)) backward. LoRA factors follow their linear's cut: a
+column-parallel layer keeps A whole and B's rows, so its x A^T enters B
+through copy_to; a row-parallel one keeps A's columns and B whole, so its
+partial x A^T is summed (reduce_from) before B. Every rank of the group
+then holds whole gradients of what it holds whole.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from torch import nn
 from mlx_video_tpu_torch.ops.int8 import int8_act_matmul, int8_linear
 from mlx_video_tpu_torch.ops.quant import SUPPORTED_BITS, dequantize_affine
 from mlx_video_tpu_torch.ops.quant_matmul import KERNEL_BITS, quant_matmul
+from mlx_video_tpu_torch.parallel.collectives import copy_to, reduce_from
 
 
 class Linear(nn.Module):
@@ -168,50 +173,57 @@ def linear(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor) -> to
     group = getattr(layer, "tp_group", None)
     if group is not None:
         return _row_parallel(layer, x, group)
+    col = getattr(layer, "tp_copy", None)
+    xin = x if col is None else copy_to(x, col)
     if isinstance(layer, Int8Linear):
-        y = int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias)
+        y = int8_linear(xin, layer.int8_weight, layer.int8_scale, layer.bias)
     elif isinstance(layer, QuantLinear) and getattr(layer, "int8_scale", None) is not None:
-        y = w4a8_linear(layer, x)
+        y = w4a8_linear(layer, xin)
     elif not isinstance(layer, QuantLinear):
-        y = F.linear(x, layer.weight, layer.bias)
+        y = F.linear(xin, layer.weight, layer.bias)
     else:
-        if layer.bits in KERNEL_BITS:
-            y = _QuantMatmul.apply(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
-        else:
-            w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
-            y = torch.matmul(x, w.T)
+        y = _quant_product(layer, xin)
         if layer.bias is not None:
             y = y + layer.bias.to(x.dtype)
-    delta = _lora_delta(layer, x)
+    delta = _lora_delta(layer, x, col=col)
     return y if delta is None else y + delta.to(y.dtype)
 
 
-def _lora_delta(layer, x: torch.Tensor) -> Optional[torch.Tensor]:
-    """The layer's fp32 LoRA update ``lora_scale * (x A^T) B^T``, or None."""
+def _quant_product(layer: QuantLinear, x: torch.Tensor) -> torch.Tensor:
+    """x dequant(W)^T without the bias: K2 for its widths, else plain."""
+    if layer.bits in KERNEL_BITS:
+        return _QuantMatmul.apply(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
+    w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
+    return torch.matmul(x, w.T)
+
+
+def _lora_delta(layer, x: torch.Tensor, col=None, row=None) -> Optional[torch.Tensor]:
+    """The layer's fp32 LoRA update ``lora_scale * (x A^T) B^T``, or None;
+    x A^T enters B through copy_to over ``col`` (column-parallel) or summed
+    over ``row`` (row-parallel: A holds this rank's columns)."""
     if getattr(layer, "lora_A", None) is None:
         return None
-    return ((x.float() @ layer.lora_A.float().T) @ layer.lora_B.float().T) * layer.lora_scale
+    u = x.float() @ layer.lora_A.float().T
+    if row is not None:
+        u = reduce_from(u, row)
+    elif col is not None:
+        u = copy_to(u, col)
+    return (u @ layer.lora_B.float().T) * layer.lora_scale
 
 
 def _row_parallel(layer: Union[Linear, QuantLinear, Int8Linear], x: torch.Tensor, group) -> torch.Tensor:
     """A row-parallel layer's whole output from this rank's slice of x."""
-    delta = _lora_delta(layer, x)
+    delta = _lora_delta(layer, x, row=group)
     if isinstance(layer, Int8Linear) or getattr(layer, "int8_scale", None) is not None:
         y = (int8_linear(x, layer.int8_weight, layer.int8_scale, layer.bias, group) if isinstance(layer, Int8Linear)
              else w4a8_linear(layer, x, group))
-        return y if delta is None else y + group.all_reduce(delta).to(y.dtype)
-    if isinstance(layer, QuantLinear):
-        if layer.bits in KERNEL_BITS:
-            part = quant_matmul(x, layer.quant_weight, layer.scales, layer.biases, layer.bits, layer.group_size)
-        else:
-            w = dequantize_affine(layer.quant_weight, layer.scales, layer.biases, bits=layer.bits, dtype=x.dtype)
-            part = torch.matmul(x, w.T)
-    else:
-        part = F.linear(x, layer.weight)
-    part = part.float() if delta is None else part.float() + delta
-    y = group.all_reduce(part)
+        return y if delta is None else y + delta.to(y.dtype)
+    part = _quant_product(layer, x) if isinstance(layer, QuantLinear) else F.linear(x, layer.weight)
+    y = reduce_from(part.float(), group)
     if layer.bias is not None:
         y = y + layer.bias.float()
+    if delta is not None:
+        y = y + delta
     return y.to(x.dtype)
 
 

@@ -9,17 +9,20 @@ from typing import Optional
 
 import torch
 
+from mlx_video_tpu_torch.parallel.collectives import copy_to, reduce_from
+
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float = 1e-6, group=None) -> torch.Tensor:
     """RMS norm over the last dim; fp32 accumulation, output in input dtype.
     With ``group`` (parallel/collectives.py) the last dim is this rank's
     slice of a dimension split over the group (the q/k norms under tensor
-    parallelism): the sum of squares is summed over the group."""
+    parallelism): the sum of squares is summed over the group, and its
+    gradient too (every rank's slice depends on the whole sum)."""
     xf = x.float()
     if group is None:
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
-        ms = group.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) / (xf.shape[-1] * group.size)
+        ms = copy_to(reduce_from(torch.sum(xf * xf, dim=-1, keepdim=True), group), group) / (xf.shape[-1] * group.size)
     out = xf * torch.rsqrt(ms + eps)
     if weight is not None:
         out = out * weight.float()

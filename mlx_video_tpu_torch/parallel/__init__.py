@@ -4,4 +4,4 @@ mlx_video_tpu/parallel/ (``distributed``, ``mesh``, ``sharding``,
 code runs on (``collectives``)."""
 
 # The ROADMAP item that what is not sharded yet waits for, by title.
-TRAINER_ITEM = "ROADMAP §1 queue, 'The sharded trainer'"
+TRAINER_ITEM = "ROADMAP §1 queue, 'GPipe stages for the sharded trainer'"

@@ -1,10 +1,15 @@
 """The collective layer under the rank-local code: all-reduce (sum, max),
-all-gather, ring shift and broadcast on one mesh axis's group.
+all-gather, reduce-scatter, ring shift, broadcast and the halo exchange of a
+row split on one mesh axis's group (or on several axes flattened,
+:meth:`MeshGroups.flat`).
 
-The sharded forward (models/ltx/model.py), the ring (ring_attention.py) and
-GPipe (pipeline.py) call these and nothing else of ``torch.distributed``.
-A rank sees its mesh as a :class:`MeshGroups`: each axis's size, this rank's
-index along it and the axis's :class:`Group`. Three forms of a group:
+The sharded forward and backward (models/ltx/model.py, ops/linear.py,
+ops/norms.py), the ring (ring_attention.py), GPipe (pipeline.py), the
+trainer's gradient sums (trainer/train_step.py) and the row-split upsample
+and decode (models/ltx/video_vae/, models/ltx/upsampler.py) call these and
+nothing else of ``torch.distributed``. A rank sees its mesh as a
+:class:`MeshGroups`: each axis's size, this rank's index along it and the
+axis's :class:`Group`. Three forms of a group:
 
 - :class:`DistGroup`, the production form: ``torch.distributed`` on a
   ``DeviceMesh`` dimension's process group (NCCL on the card, gloo on the
@@ -21,7 +26,22 @@ index along it and the axis's :class:`Group`. Three forms of a group:
   them. A card with one GPU runs several ranks' work this way.
 
 Every result is a new tensor; the inputs are not modified. Sums run in rank
-order within a group.
+order within a group (NCCL's own order on the card).
+
+The collectives that carry a gradient (``torch.autograd.Function``s on any
+group form), Megatron's pair for tensor parallelism and FSDP's gather:
+
+- :func:`reduce_from`: the row-parallel sum, all-reduce forward, identity
+  backward (what follows it runs alike on every rank of the group, so each
+  rank's gradient of the sum is already whole);
+- :func:`copy_to`: its column-parallel partner, identity forward, all-reduce
+  backward (each rank's branch sees only its share of the gradient);
+- :func:`gather_sum`: all-gather forward, reduce-scatter backward (FSDP's
+  weight gather and the sequence split: every rank's use of the whole
+  tensor adds to its owner's gradient);
+- :func:`gather_split`: all-gather forward, this rank's slice of the
+  gradient backward (a tensor-parallel weight gathered whole for work every
+  rank of the group repeats alike).
 """
 
 from __future__ import annotations
@@ -50,7 +70,7 @@ def cancel(meshes: Sequence["MeshGroups"]) -> None:
     :func:`renew`."""
     _cancelled.set()
     for mesh in meshes:
-        for g in mesh.groups.values():
+        for g in list(mesh.groups.values()) + list(mesh._flat.values()):
             if isinstance(g, DistGroup):
                 g.pg.abort()
 
@@ -75,6 +95,7 @@ def renew(meshes: Sequence["MeshGroups"]) -> None:
                     if g.ranks != ranks:
                         raise RuntimeError(f"axis {axis}: group ranks {g.ranks} are not the mesh's {ranks}")
                     g.pg = pg
+        mesh._flat.clear()  # flattened groups are made again, by every rank alike, at their next use
     _cancelled.clear()
 
 
@@ -94,6 +115,19 @@ class SoloGroup:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         return x
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return x
+
+    def halo_exchange(self, x: torch.Tensor, rows_up: int, rows_down: int, dim: int):
+        return None, None
+
+
+def _halo_check(x: torch.Tensor, rows_up: int, rows_down: int, dim: int) -> None:
+    """A rank gives its neighbours rows of its own slice only."""
+    if max(rows_up, rows_down) > x.shape[dim]:
+        raise ValueError(f"a halo of {max(rows_up, rows_down)} rows needs slices of at least that many rows, "
+                         f"this rank holds {x.shape[dim]}")
 
 
 class DistGroup:
@@ -166,6 +200,44 @@ class DistGroup:
         self._run(lambda: dist.broadcast(y, src=self.ranks[src], group=self.pg, async_op=True))
         return y
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's part (of ``size`` equal ones along ``dim``) of the sum
+        of every rank's ``x``: NCCL's reduce-scatter; on gloo, which has
+        none, the all-reduce and this rank's part of it."""
+        if dist.get_backend(self.pg) != "nccl":
+            return self.all_reduce(x).chunk(self.size, dim=dim)[self.rank].contiguous()
+        parts = x.movedim(dim, 0).contiguous()
+        out = torch.empty((parts.shape[0] // self.size,) + tuple(parts.shape[1:]), dtype=x.dtype, device=x.device)
+        self._run(lambda: dist.reduce_scatter_tensor(out, parts, group=self.pg, async_op=True))
+        return out.movedim(0, dim)
+
+    def halo_exchange(self, x: torch.Tensor, rows_up: int, rows_down: int, dim: int):
+        """The last ``rows_up`` rows (along ``dim``) of the previous rank's
+        ``x`` and the first ``rows_down`` of the next one's, by p2p; None
+        beyond the first and the last rank (no cycle)."""
+        _halo_check(x, rows_up, rows_down, dim)
+        up = down = None
+        ops = []
+        n = x.shape[dim]
+        if self.rank > 0:
+            prev = self.ranks[self.rank - 1]
+            if rows_down:  # the previous rank's down halo: my first rows
+                ops.append(dist.P2POp(dist.isend, x.narrow(dim, 0, rows_down).contiguous(), prev, group=self.pg))
+            if rows_up:
+                up = torch.empty_like(x.narrow(dim, 0, rows_up), memory_format=torch.contiguous_format)
+                ops.append(dist.P2POp(dist.irecv, up, prev, group=self.pg))
+        if self.rank < self.size - 1:
+            nxt = self.ranks[self.rank + 1]
+            if rows_up:  # the next rank's up halo: my last rows
+                ops.append(dist.P2POp(dist.isend, x.narrow(dim, n - rows_up, rows_up).contiguous(), nxt,
+                                      group=self.pg))
+            if rows_down:
+                down = torch.empty_like(x.narrow(dim, 0, rows_down), memory_format=torch.contiguous_format)
+                ops.append(dist.P2POp(dist.irecv, down, nxt, group=self.pg))
+        if ops:
+            self._run(lambda: dist.batch_isend_irecv(ops))
+        return up, down
+
 
 class _VirtualWorld:
     """The threads of one in-process run: the turn lock and every group's
@@ -175,6 +247,7 @@ class _VirtualWorld:
         self.lock = threading.Lock()
         self.timeout = timeout
         self.barriers: List[threading.Barrier] = []
+        self.flat: Dict[tuple, "_VirtualComm"] = {}  # flattened axes' comms, made by the first rank to ask
 
     def abort(self) -> None:
         for b in self.barriers:
@@ -225,6 +298,24 @@ class VirtualGroup:
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         return self._exchange(x)[src].clone()
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        vals = [v.chunk(self.size, dim=dim)[self.rank] for v in self._exchange(x)]
+        out = vals[0].clone(memory_format=torch.contiguous_format)
+        for v in vals[1:]:
+            out = out + v
+        return out
+
+    def halo_exchange(self, x: torch.Tensor, rows_up: int, rows_down: int, dim: int):
+        _halo_check(x, rows_up, rows_down, dim)
+        vals = self._exchange(x)
+        up = down = None
+        if self.rank > 0 and rows_up:
+            prev = vals[self.rank - 1]
+            up = prev.narrow(dim, prev.shape[dim] - rows_up, rows_up).clone()
+        if self.rank < self.size - 1 and rows_down:
+            down = vals[self.rank + 1].narrow(dim, 0, rows_down).clone()
+        return up, down
+
 
 class MeshGroups:
     """A rank's view of a mesh: axis sizes, its index along each axis and the
@@ -237,6 +328,7 @@ class MeshGroups:
         self.coord = dict(zip(self.axes, (int(c) for c in coord)))
         self.groups = dict(groups)
         self.device_type = device_type
+        self._flat: Dict[Tuple[str, ...], object] = {}
 
     @classmethod
     def solo(cls, axes: Sequence[str], device_type: str) -> "MeshGroups":
@@ -251,6 +343,46 @@ class MeshGroups:
     def group(self, axis: str):
         g = self.groups.get(axis)
         return SoloGroup() if g is None or self.size(axis) == 1 else g
+
+    def flat(self, axes: Sequence[str]):
+        """The group over ``axes`` flattened row-major (the first the
+        slowest), as JAX cuts a dimension over a tuple of mesh axes: this
+        rank's index is the row-major index of its coordinates on them.
+        Axes of size 1 drop out; one axis left is its own group. A
+        :class:`DistGroup` over several is made at the first call, by every
+        rank of the world at the same point (all lines' groups, in order)."""
+        axes = tuple(a for a in axes if self.size(a) > 1)
+        if not axes:
+            return SoloGroup()
+        if len(axes) == 1:
+            return self.group(axes[0])
+        if axes not in self._flat:
+            self._flat[axes] = self._make_flat(axes)
+        return self._flat[axes]
+
+    def _make_flat(self, axes: Tuple[str, ...]):
+        shape = [self.size(a) for a in self.axes]
+        at = [self.axes.index(a) for a in axes]
+        rest = [d for d in range(len(self.axes)) if d not in at]
+        grid = np.arange(int(np.prod(shape))).reshape(shape).transpose(rest + at).reshape(-1, int(np.prod(
+            [shape[d] for d in at])))
+        me = int(np.ravel_multi_index([self.index(a) for a in self.axes], shape))
+        line = int(np.nonzero((grid == me).any(axis=1))[0][0])
+        index = int(np.nonzero(grid[line] == me)[0][0])
+        world = getattr(self, "_virtual_world", None)
+        if world is not None:
+            key = (axes, line)
+            if key not in world.flat:
+                world.flat[key] = _VirtualComm(world, grid.shape[1])
+            return VirtualGroup(world.flat[key], index)
+        mine = None
+        for ranks in grid.tolist():  # the world's ranks lie row-major over the mesh, as create_mesh lays them
+            pg = dist.new_group(ranks)
+            if me in ranks:
+                mine = DistGroup(pg)
+        if mine.rank != index:
+            raise RuntimeError(f"flattened {axes}: group rank {mine.rank} is not the mesh's {index}")
+        return mine
 
     def __repr__(self) -> str:
         return f"MeshGroups({self.shape}, at {self.coord})"
@@ -307,13 +439,16 @@ def virtual_meshes(shape: Sequence[int], axes: Sequence[str], device_type: str =
 def run_virtual(meshes: Sequence[MeshGroups], fn: Callable[[MeshGroups], object], timeout: float = 600.0) -> list:
     """``fn(mesh)`` for every virtual rank, each in its own thread, taking
     turns at the collectives; returns the results in rank order. The first
-    exception of any rank is raised (the others are released)."""
+    exception of any rank is raised (the others are released). A rank's
+    backward runs in its own thread (autograd's device threads are off
+    there): the collectives of one rank's backward would otherwise hold the
+    device thread the other ranks' backwards wait for."""
     world: _VirtualWorld = meshes[0]._virtual_world
     results: List[object] = [None] * len(meshes)
     errors: List[Tuple[int, BaseException]] = []
 
     def body(r: int) -> None:
-        with world.lock:
+        with world.lock, torch.autograd.set_multithreading_enabled(False):
             try:
                 results[r] = fn(meshes[r])
             except BaseException as e:  # noqa: BLE001 (re-raised by the caller)
@@ -332,3 +467,70 @@ def run_virtual(meshes: Sequence[MeshGroups], fn: Callable[[MeshGroups], object]
         errors.sort(key=lambda e: isinstance(e[1], threading.BrokenBarrierError))
         raise errors[0][1]
     return results
+
+
+# ---------------------------------------------------------------------------
+# Collectives that carry a gradient
+# ---------------------------------------------------------------------------
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.group.all_reduce(dy), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim: int, reduce: bool):
+        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
+        return group.all_gather(x, dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = ctx.group
+        dx = g.reduce_scatter(dy, dim=ctx.dim) if ctx.reduce else dy.chunk(g.size, dim=ctx.dim)[g.rank]
+        return dx.contiguous(), None, None, None
+
+
+def _differentiable(x: torch.Tensor, group) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad and group.size > 1
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The row-parallel sum over ``group``: all-reduce forward, identity
+    backward."""
+    return _ReduceFrom.apply(x, group) if _differentiable(x, group) else group.all_reduce(x)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """The column-parallel entry: ``x`` itself forward, its gradient
+    all-reduced over ``group`` backward."""
+    return _CopyTo.apply(x, group) if _differentiable(x, group) else x
+
+
+def gather_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim`` forward, reduce-scatter of the gradient
+    backward."""
+    return _Gather.apply(x, group, dim, True) if _differentiable(x, group) else group.all_gather(x, dim=dim)
+
+
+def gather_split(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim`` forward, this rank's slice of the gradient
+    backward."""
+    return _Gather.apply(x, group, dim, False) if _differentiable(x, group) else group.all_gather(x, dim=dim)

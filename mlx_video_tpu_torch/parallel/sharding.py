@@ -40,18 +40,31 @@ held cut and gathered whole at use.
 
 Quantize first, then shard (the JAX CLI's order): W8A8 per-row scales and
 q4 group scales then come from whole rows.
+
+Training (trainer/): a block's column-parallel linears get the ``tensor``
+group too (``tp_copy``: ops/linear.py enters them through
+collectives.copy_to), and :func:`gather` is differentiable: an ``fsdp`` cut
+gathers with collectives.gather_sum (the gradient reduce-scattered back to
+its shard), a ``tensor`` cut with gather_split (the whole tensor's work is
+repeated alike on every rank of the group).
+
+The conv stacks (the upsampler, the VAE decoder) stay whole on every rank
+(JAX's ``replicate_params``); their activations are cut by rows of H over
+``fsdp`` x ``tensor`` (:func:`spatial_spec`, :func:`shard_spatial`), the
+rank-local rule of JAX's ``spatial_sharding``, and the convs exchange halo
+rows (models/ltx/video_vae/conv.py).
 """
 
 from __future__ import annotations
 
 import copy
 import re
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from mlx_video_tpu_torch.parallel.collectives import MeshGroups, mesh_groups
+from mlx_video_tpu_torch.parallel.collectives import MeshGroups, gather_split, gather_sum, mesh_groups
 
 Spec = Tuple[Optional[str], ...]
 
@@ -269,7 +282,8 @@ def _clone_tree(module: nn.Module, fn, prefix: str = "", recurse: bool = True) -
             new._parameters[k] = None
             continue
         t = fn(prefix + k, p, module)
-        new._parameters[k] = t if t is p else nn.Parameter(t, requires_grad=False)
+        # a gathered tensor that carries a gradient stays in the graph
+        new._parameters[k] = t if (t is p or t.requires_grad) else nn.Parameter(t, requires_grad=False)
     new._buffers = {k: (None if b is None else fn(prefix + k, b, module)) for k, b in module._buffers.items()}
     new._modules = {k: (m if (m is None or not recurse) else _clone_tree(m, fn, f"{prefix}{k}.", recurse))
                     for k, m in module._modules.items()}
@@ -278,7 +292,9 @@ def _clone_tree(module: nn.Module, fn, prefix: str = "", recurse: bool = True) -
 
 def _mark_tensor_parallel(module: nn.Module, specs: Dict[str, Spec], tp) -> None:
     """Give the row-parallel linears (in-dimension on ``tensor``) and the
-    q/k RMSNorm weights of ``module`` (a sharded block) the ``tensor`` group."""
+    q/k RMSNorm weights of ``module`` (a sharded block) the ``tensor`` group
+    as ``tp_group``, and its column-parallel linears (out-dimension on
+    ``tensor``) as ``tp_copy``."""
     for name, sub in module.named_modules():
         w = next((n for n in ("weight", "quant_weight", "int8_weight") if n in sub._parameters or n in sub._buffers),
                  None)
@@ -287,6 +303,8 @@ def _mark_tensor_parallel(module: nn.Module, specs: Dict[str, Spec], tp) -> None
         spec = specs[f"{name}.{w}" if name else w]
         if (len(spec) == 2 and spec[1] == "tensor") or (len(spec) == 1 and spec[0] == "tensor"):
             sub.tp_group = tp
+        elif len(spec) == 2 and spec[0] == "tensor":
+            sub.tp_copy = tp
 
 
 def _sub_specs(specs: Dict[str, Spec], prefix: str) -> Dict[str, Spec]:
@@ -332,17 +350,28 @@ def gather(module: nn.Module, specs: Dict[str, Spec], mesh: MeshGroups, axes=("d
            prefix: str = "", recurse: bool = True) -> nn.Module:
     """A copy of ``module`` (a submodule of a sharded model at ``prefix``)
     whose tensors cut over ``axes`` are all-gathered whole along them; the
-    others, and ``module`` itself when nothing is cut, are shared."""
+    others, and ``module`` itself when nothing is cut, are shared. Under autograd a gathered tensor
+    is the shard's function: ``tensor`` cuts gather with gather_split, the
+    others with gather_sum."""
     if not any(mesh.size(a) > 1 for a in axes):
         return module
 
     def full(name, t, _):
         for d, entry in enumerate(spec_of(specs, prefix + name)):
             for a in reversed([a for a in _axes_of(entry) if a in axes and mesh.size(a) > 1]):
-                t = mesh.group(a).all_gather(t, dim=d)
+                t = (gather_split if a == "tensor" else gather_sum)(t, mesh.group(a), dim=d)
         return t
 
     return _clone_tree(module, full, recurse=recurse)
+
+
+def unshard(t: torch.Tensor, spec: Spec, mesh: MeshGroups) -> torch.Tensor:
+    """The whole tensor from every rank's :func:`local_slice` of it under
+    ``spec`` (all-gathers, every rank taking part; no gradient)."""
+    for d, entry in enumerate(spec):
+        for a in reversed([a for a in _axes_of(entry) if mesh.size(a) > 1]):
+            t = mesh.group(a).all_gather(t, dim=d)
+    return t
 
 
 def local_factors(model: nn.Module, name: str, a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -354,3 +383,48 @@ def local_factors(model: nn.Module, name: str, a: torch.Tensor, b: torch.Tensor)
         return a, b
     a_spec, b_spec = spec_of(specs, f"{name}.lora_A"), spec_of(specs, f"{name}.lora_B")
     return local_slice(a, a_spec, model.mesh, f"{name}.lora_A"), local_slice(b, b_spec, model.mesh, f"{name}.lora_B")
+
+
+def spatial_spec(mesh, shape: Sequence[int], h_axis: int = 3) -> Spec:
+    """JAX's ``spatial_sharding`` spec of a video tensor of ``shape``: the
+    batch on ``data`` when it divides (and ``data`` > 1); H on ``fsdp``,
+    then on ``fsdp`` x ``tensor``, each axis taken while the product of
+    those taken divides H (greedily; none: H stays whole)."""
+    mg = mesh_groups(mesh)
+    spec = [None] * len(shape)
+    if mg.size("data") > 1 and shape[0] % mg.size("data") == 0:
+        spec[0] = "data"
+    h_axes = []
+    for a in ("fsdp", "tensor"):
+        parts = 1
+        for x in h_axes + [a]:
+            parts *= mg.size(x)
+        if shape[h_axis] % parts == 0:
+            h_axes.append(a)
+    if h_axes:
+        spec[h_axis] = tuple(h_axes) if len(h_axes) > 1 else h_axes[0]
+    return tuple(spec)
+
+
+def spatial_group(mesh, spec: Spec, h_axis: int = 3):
+    """The group over the axes that cut H under ``spec`` (flattened
+    row-major, collectives.MeshGroups.flat): the row split's halo group."""
+    return mesh_groups(mesh).flat(_axes_of(spec[h_axis]))
+
+
+def shard_spatial(x: torch.Tensor, mesh, h_axis: int = 3) -> torch.Tensor:
+    """This rank's rows (and batch) of a (B, C, F, H, W) video tensor under
+    :func:`spatial_spec`; ``x`` itself without a mesh."""
+    if mesh is None or x is None:
+        return x
+    return local_slice(x, spatial_spec(mesh, x.shape, h_axis), mesh_groups(mesh), "video")
+
+
+def gather_spatial(x: torch.Tensor, mesh, spec: Spec, h_axis: int = 3) -> torch.Tensor:
+    """The whole tensor from every rank's :func:`shard_spatial` part: the
+    rows over the H group, then the batch over ``data``."""
+    mg = mesh_groups(mesh)
+    x = spatial_group(mg, spec, h_axis).all_gather(x, dim=h_axis)
+    if spec[0] == "data":
+        x = mg.group("data").all_gather(x, dim=0)
+    return x

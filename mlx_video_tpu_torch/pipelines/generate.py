@@ -54,8 +54,14 @@ stages of a (data, pipe[, fsdp, tensor]) mesh built here
 (``pipeline_tensor`` TP ways inside each stage), the bundle's transformers
 replaced by this rank's stage. Every rank draws the same noise from the
 same seeds and gets the whole velocities of every step, so every rank holds
-the same latents; the upsample and the video and audio decodes run on them
-on every rank, and only the primary rank (rank 0) writes files.
+the same latents. Under ``mesh`` the upsample and the video decode are
+mesh-resident, as in JAX: the upsampler and the decoder stay whole on every
+rank (JAX replicates them, ``replicate_params``), each rank runs them on its
+rows of H (sharding.py:shard_spatial, JAX's ``spatial_sharding`` rule) with
+halo rows exchanged at every conv, and the rows are gathered after each
+stage (the upsampled latents before stage 2, each decoded tile's frames).
+The audio decode and the conditioning encoder run whole on every rank, as
+in JAX, and only the primary rank (rank 0) writes files.
 
 Not ported yet: the host-staging options.
 
@@ -333,15 +339,18 @@ def decode_latents(
     decode_timestep: Optional[float] = None,
     generator: Optional[torch.Generator] = None,
     on_frames_ready: Optional[Callable[[np.ndarray, int], None]] = None,
+    mesh=None,
 ) -> np.ndarray:
     """Tiled (or whole) VAE decode -> (B, 3, F, H, W) fp32 numpy in [-1, 1].
 
     ``generator`` draws the decode noise (none without it), once for the
-    whole latents, so the tiling leaves it unchanged. A tiled decode runs one
-    decoder call per tile and blends on the card for CUDA latents
-    (tiling.decode_with_tiling_device), on the host otherwise
+    whole latents, so the tiling and a mesh leave it unchanged. A tiled
+    decode runs one decoder call per tile and blends on the card for CUDA
+    latents (tiling.decode_with_tiling_device), on the host otherwise
     (tiling.decode_with_tiling). ``on_frames_ready(frames, start)`` receives
-    each finalised frame range (the whole video when untiled).
+    each finalised frame range (the whole video when untiled). ``mesh``:
+    each decoder call runs on this rank's rows of its input
+    (:func:`_on_rows`) and every rank gets the whole frames.
     """
     dec_cfg = models.vae_decoder_config
     device = latents.device
@@ -351,7 +360,8 @@ def decode_latents(
     latents = add_decode_noise(dec_cfg, latents, generator=generator)
 
     def decode(x: torch.Tensor) -> torch.Tensor:
-        return video_decoder_apply(models.vae_decoder, dec_cfg, x, timestep=timestep)
+        return _on_rows(lambda part, rows, ts: video_decoder_apply(models.vae_decoder, dec_cfg, part, timestep=ts,
+                                                                   rows=rows), x, mesh, timestep)
 
     if tiling_config is None:
         out = decode(latents).float().cpu().numpy()
@@ -433,12 +443,30 @@ def _dial_refusal(joint_audio: bool, cfg_cache_interval: int, attn_broadcast_int
         )
 
 
+def _on_rows(stage: Callable, x: torch.Tensor, mesh, batched: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``stage(part, rows, batched_part)`` on this rank's rows (and batch)
+    of the video tensor ``x`` under ``mesh`` (parallel/sharding.py:
+    spatial_spec; ``rows`` the group its H is cut over, ``batched_part`` this
+    rank's rows of ``batched``, a per-video tensor), the parts gathered
+    whole; ``stage(x, None, batched)`` without a mesh."""
+    if mesh is None:
+        return stage(x, None, batched)
+    from mlx_video_tpu_torch.parallel import sharding
+
+    spec = sharding.spatial_spec(mesh, x.shape)
+    part = sharding.shard_spatial(x, mesh)
+    if batched is not None and spec[0] is not None:
+        batched = sharding.local_slice(batched, spec[:1], sharding.mesh_groups(mesh), "batch")
+    return sharding.gather_spatial(stage(part, sharding.spatial_group(mesh, spec), batched), mesh, spec)
+
+
 def _parallel_setup(models: ModelBundle, mesh, sequence_parallel: bool, pipeline_parallel: int,
                     pipeline_microbatches: int, pipeline_data: int, pipeline_tensor: int,
                     attn_broadcast_interval: int):
     """The JAX function's checks of the parallel options; shards (or stages)
     the bundle's transformers, the audio one too, in place (loading.py);
-    returns denoise's (sp, pp)."""
+    returns denoise's (sp, pp). The conv stacks stay whole on every rank,
+    where JAX calls ``replicate_params`` on them."""
     from mlx_video_tpu_torch.loading import shard_models, stage_models
 
     sp = (mesh, "fsdp") if (sequence_parallel and mesh is not None) else None
@@ -705,7 +733,8 @@ def generate_video(
         profiling.log_memory("stage1 complete", profile or mem_log, device=device)
 
         with timer.phase("upsample"):
-            latents = upsample_latents(models.upsampler, latents, models.latents_mean, models.latents_std)
+            latents = _on_rows(lambda part, rows, _: upsample_latents(models.upsampler, part, models.latents_mean,
+                                                                      models.latents_std, rows), latents, mesh)
 
         with timer.phase("stage2_denoise"):
             sigma0 = s2_sigmas[0]
@@ -784,7 +813,8 @@ def generate_video(
             try:
                 decoded.append(decode_latents(models, latents[i : i + 1], tiling_config, decode_timestep=0.05,
                                               generator=generators[i],
-                                              on_frames_ready=on_ready if writer is not None or hand_on else None))
+                                              on_frames_ready=on_ready if writer is not None or hand_on else None,
+                                              mesh=mesh))
             finally:
                 if writer is not None:
                     writer.close()

@@ -9,6 +9,13 @@ model's own files (``model_repo``) and then this state over it. Tensors are
 stored under their names (``params.<name>``, ``opt.mu.<name>``,
 ``opt.nu.<name>``) with the step and the optimizer's update count in the
 metadata.
+
+A model sharded over a mesh (trainer/trainer.py with ``mesh_shape``) saves
+the same file: its shards and moments are gathered whole one tensor at a
+time into the writing rank's host memory, as JAX's ``process_allgather``
+gathers to the host (``shards`` = (specs, mesh); every rank takes part, one
+writes), and a resume under a
+mesh loads the whole tensors and keeps each rank's slices of them.
 """
 
 from __future__ import annotations
@@ -20,24 +27,56 @@ from typing import Dict, Optional
 import torch
 
 from mlx_video_tpu_torch.io.safetensors import SafetensorsReader, save_safetensors
+from mlx_video_tpu_torch.parallel.sharding import local_slice, spec_of, unshard
 from mlx_video_tpu_torch.trainer.train_step import AdamWState
 
 
+def gather_whole(tensors: Dict[str, torch.Tensor], shards=None, keep: bool = True) -> Dict[str, torch.Tensor]:
+    """``tensors`` whole. Without ``shards``, the tensors themselves
+    (detached). Under ``shards`` = (specs, mesh) each is all-gathered alone
+    (every rank takes part) and moved to the host at once by a rank that
+    ``keep``s it, so no rank holds more than one whole tensor on its device;
+    a rank that does not keep them gets an empty dict."""
+    if shards is None:
+        return {k: t.detach() for k, t in tensors.items()} if keep else {}
+    specs, mesh = shards
+    out = {}
+    with torch.no_grad():
+        for name, t in tensors.items():
+            whole = unshard(t.detach(), spec_of(specs, name), mesh)
+            if keep:
+                out[name] = whole.cpu()
+            del whole
+    return out
+
+
 def save_train_checkpoint(
-    path: Path, params: Dict[str, torch.Tensor], opt_state: AdamWState, step: int
-) -> None:
-    """Write the trainable tensors, the AdamW state and the step to ``path``."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tensors = {f"params.{k}": p.detach() for k, p in params.items()}
-    tensors.update({f"opt.mu.{k}": t for k, t in opt_state.mu.items()})
-    tensors.update({f"opt.nu.{k}": t for k, t in opt_state.nu.items()})
-    save_safetensors(path, tensors, metadata={"step": str(step), "opt_count": str(opt_state.count)})
+    path: Path, params: Dict[str, torch.Tensor], opt_state: AdamWState, step: int, shards=None, write: bool = True
+) -> Dict[str, torch.Tensor]:
+    """Write the trainable tensors, the AdamW state and the step to ``path``;
+    ``shards`` = (specs, mesh) gathers a sharded model's whole first
+    (:func:`gather_whole`), and only a rank with ``write`` writes. Returns
+    the whole trainables that were written (empty where ``write`` is off),
+    so that the adapter or transformer file is made from the same gather."""
+    whole = gather_whole(params, shards, write)
+    mu, nu = gather_whole(opt_state.mu, shards, write), gather_whole(opt_state.nu, shards, write)
+    if write:
+        tensors = {f"params.{k}": t for k, t in whole.items()}
+        tensors.update({f"opt.mu.{k}": t for k, t in mu.items()})
+        tensors.update({f"opt.nu.{k}": t for k, t in nu.items()})
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save_safetensors(path, tensors, metadata={"step": str(step), "opt_count": str(opt_state.count)})
+    return whole
 
 
-def load_train_checkpoint(path: Path, params: Dict[str, torch.Tensor], opt_state: AdamWState) -> int:
+def load_train_checkpoint(path: Path, params: Dict[str, torch.Tensor], opt_state: AdamWState, shards=None) -> int:
     """Copy a saved state into ``params`` and ``opt_state`` in place (names
-    and shapes must match); returns the step."""
+    and shapes must match; ``shards`` = (specs, mesh): this rank's slices of
+    the saved whole tensors); returns the step."""
+    def local(name, t):
+        return t if shards is None else local_slice(t, spec_of(shards[0], name), shards[1], name)
+
     with SafetensorsReader(path) as r:
         expected = {f"params.{k}" for k in params} | {f"opt.{m}.{k}" for m in ("mu", "nu") for k in params}
         if set(r.keys()) != expected:
@@ -47,9 +86,11 @@ def load_train_checkpoint(path: Path, params: Dict[str, torch.Tensor], opt_state
             for k, p in params.items():
                 for target, key in ((p, f"params.{k}"), (opt_state.mu[k], f"opt.mu.{k}"),
                                     (opt_state.nu[k], f"opt.nu.{k}")):
-                    if r.shape(key) != tuple(target.shape):
-                        raise ValueError(f"{path}: {key} {r.shape(key)} != {tuple(target.shape)}")
-                    target.copy_(r.get(key, target.device))
+                    saved = local(k, r.get(key, target.device))
+                    if saved.shape != target.shape:
+                        raise ValueError(f"{path}: {key} {r.shape(key)} (this rank's part {tuple(saved.shape)}) "
+                                         f"!= {tuple(target.shape)}")
+                    target.copy_(saved)
         opt_state.count = int(r.metadata.get("opt_count", "0"))
         return int(r.metadata.get("step", "0"))
 

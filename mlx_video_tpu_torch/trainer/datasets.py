@@ -311,14 +311,22 @@ def iter_batches(
     prefetch: int = 2,
     prefetch_threads: int = 4,
     skip: int = 0,
+    part: Tuple[int, int] = (0, 1),
 ) -> Iterator[Batch]:
     """One epoch of collated batches; ``skip`` drops the first batches by
     index alone (no file reads), for an exact resume. On a dataset with
     ``sample_paths`` (PrecomputedDataset) the files of the current batch and
     the next ``prefetch`` ones are read on ``prefetch_threads`` background
     threads (io/prefetch.py), so the reads overlap the training step; the
-    batches are the same bytes either way."""
-    batches = _batch_index_groups(dataset, batch_size, shuffle, seed)[skip:]
+    batches are the same bytes either way. ``part`` = (i, n): each batch's
+    i-th of n equal parts alone (a data rank's share of a sharded step;
+    ``batch_size`` must divide by n), read and prefetched by this process."""
+    i, n = part
+    if batch_size % n:
+        raise ValueError(f"batch_size={batch_size} does not divide into {n} parts")
+    per = batch_size // n
+    batches = [chunk[i * per:(i + 1) * per]
+               for chunk in _batch_index_groups(dataset, batch_size, shuffle, seed)[skip:]]
     if prefetch > 0 and hasattr(dataset, "sample_paths"):
         from mlx_video_tpu_torch.io.prefetch import FilePrefetcher
 

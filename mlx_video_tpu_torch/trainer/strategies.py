@@ -274,10 +274,11 @@ def strategy_loss_fn(
     config: LTXModelConfig,
     sb: StrategyBatch,
     draws: Draws,
+    sp=None,
 ) -> torch.Tensor:
     """Inputs from the draws -> model forward (video, and audio when the
     batch has it) -> masked MSE. The model input is cast to the model's
-    dtype (its output table's)."""
+    dtype (its output table's). ``sp``: ltx_apply's sequence parallelism."""
     inputs = make_inputs(sb, draws, dtype=model.video.scale_shift_table.dtype)
-    video_pred, audio_pred = ltx_apply(model, config, inputs.video, inputs.audio)
+    video_pred, audio_pred = ltx_apply(model, config, inputs.video, inputs.audio, sp=sp)
     return compute_loss(video_pred, inputs, audio_pred)
