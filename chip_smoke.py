@@ -454,6 +454,23 @@ Phases, in order; any failure exits non-zero before the last line:
    and 32 / 16; with the backward's ring shift dropped the gradients must
    miss; seconds and peak memory printed. Phase 5 times K3 also at the
    tensor = 2 stage's (1, 3456, 16, 128).
+20. The reference-parity surface (mlx_video_tpu_torch/ltx_core,
+   ltx_pipelines, ltx_trainer). (a) right after phase 12, on its resident
+   19B AudioVideo DiT and seeded 128-token video and audio embeddings: the
+   composed joint denoise of ltx_pipelines.utils.helpers
+   (denoise_audio_video, euler_denoising_loop, simple_denoising_func over
+   X0Model(LTXModel(config, dit)), the 8 distilled sigmas,
+   EulerDiffusionStep) at config 2's stage-1 shape, VideoPixelShape 1 x 33
+   x 256 x 256 at 24 fps (320 video tokens, 34 audio latent frames), from
+   the engine's own fp32 draw handed in as the initial latents
+   (noise_scale 0): exactly 8 x 96 = 768 K1, finite latents of the right
+   shapes, >= 35 dB per video latent frame and over the whole audio latent
+   against the engine's joint stage 1 (pipelines/denoise.py:denoise) on the
+   same DiT, noise and sigmas; seconds and peak memory of both printed.
+   (b) phase 10's first generate CLI run goes through the reference's
+   per-pipeline entry, ltx_pipelines.distilled.main() with sys.argv set
+   to its argv (run_cli appends --pipeline distilled), with that run's
+   checks (528 K1, 5280 K2, the mp4, the phase report).
    ``python3 chip_smoke.py --parallel-only`` runs 1, 2, the full-width
    models, 7a, 16, 18 (b), (c), 19 (b), then phase 12's resident audio
    models with their direct joint and separate runs, 17 (a), (b), and (d)
@@ -461,12 +478,13 @@ Phases, in order; any failure exits non-zero before the last line:
 Phases 7-18 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
-1-7a, 16 with 18 (a), 18 (b), (c), 19 (b), 11, 14 (b)-(d) and (f), 12, 17 (a), (b), 8, 9a, 9b with
-13 (a), 14 (a) and 17 (d), 13 (b), 15, 9, 10 with 13 (c), 14 (e) with 17 (c), 18 (a)'s and 19 (a)'s CLIs. Last: the
+1-7a, 16 with 18 (a), 18 (b), (c), 19 (b), 11, 14 (b)-(d) and (f), 12, 20 (a), 17 (a), (b), 8, 9a, 9b with
+13 (a), 14 (a) and 17 (d), 13 (b), 15, 9, 10 with 20 (b), 13 (c), 14 (e) with 17 (c), 18 (a)'s and 19 (a)'s CLIs.
+Last: the
 kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
-also their launches on every path of phases 7a-15, "path_launches") and
+also their launches on every path of phases 7a-20, "path_launches") and
 {"ok": true, "device": ...}.
 """
 
@@ -2448,6 +2466,85 @@ def full_width_audio(models, text, fa, ca, work: Path) -> dict:
     return out
 
 
+def composed_av_denoise(resident, fa) -> dict:
+    """Phase 20 (a): the reference's composed joint AV denoise
+    (ltx_pipelines.utils.helpers.denoise_audio_video with
+    euler_denoising_loop and simple_denoising_func over
+    X0Model(LTXModel(config, dit))) on phase 12's resident AudioVideo DiT at
+    config 2's stage-1 shape, against the engine's joint stage 1
+    (pipelines/denoise.py:denoise) on the same DiT, noise and sigmas."""
+    import numpy as np
+    import torch
+
+    from mlx_video_tpu_torch.ltx_core.components import EulerDiffusionStep, GaussianNoiser
+    from mlx_video_tpu_torch.ltx_core.model.transformer import LTXModel as ReferenceLTXModel, X0Model
+    from mlx_video_tpu_torch.ltx_core.types import AudioLatentShape, VideoLatentShape, VideoPixelShape
+    from mlx_video_tpu_torch.ltx_pipelines.utils.constants import DISTILLED_SIGMA_VALUES
+    from mlx_video_tpu_torch.ltx_pipelines.utils.helpers import (
+        denoise_audio_video,
+        euler_denoising_loop,
+        simple_denoising_func,
+    )
+    from mlx_video_tpu_torch.ltx_pipelines.utils.types import PipelineComponents
+    from mlx_video_tpu_torch.pipelines import denoise as dn
+    from mlx_video_tpu_torch.pipelines.positions import create_audio_position_grid, create_position_grid
+
+    dit, cfg, text = resident["joint"].transformer, resident["joint"].transformer_config, resident["text"]
+    device, bf16 = dit.video.scale_shift_table.device, torch.bfloat16
+    pixels = VideoPixelShape(batch=1, frames=33, height=256, width=256, fps=24.0)
+    v_shape, a_shape = VideoLatentShape.from_pixel_shape(pixels), AudioLatentShape.from_video_pixel_shape(pixels)
+    # the engine's own draw, as generate_video draws its stage-1 noise: fp32
+    # from a generator on the card, cast to the pipeline dtype
+    g = torch.Generator(device=device).manual_seed(48)
+    v0 = torch.randn(v_shape.to_shape(), generator=g, device=device).to(bf16)
+    a0 = torch.randn(a_shape.to_shape(), generator=g, device=device).to(bf16)
+    context, audio_context = text.video_embeddings.to(device, bf16), text.audio_embeddings.to(device, bf16)
+    sigmas = np.asarray(DISTILLED_SIGMA_VALUES, np.float32)
+    want = (len(sigmas) - 1) * 2 * 48
+    x0 = X0Model(ReferenceLTXModel(cfg, dit))
+    if x0.model.params is not dit:
+        fail("(a) LTXModel holds another copy of the DiT")
+
+    def timed(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launch_count = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30, fa.launch_count
+
+    (v_state, a_state), s_comp, mem_comp, k1 = timed(lambda: denoise_audio_video(
+        pixels, [], GaussianNoiser(seed=48), sigmas, EulerDiffusionStep(), euler_denoising_loop,
+        PipelineComponents(dtype=bf16, device=device), bf16, device=device, noise_scale=0.0,
+        initial_video_latent=v0, initial_audio_latent=a0,
+        denoise_fn=simple_denoising_func(context, audio_context, x0)))
+    (ref_v, ref_a), s_eng, mem_eng, k1_eng = timed(lambda: dn.denoise(
+        dit, cfg, v0, torch.from_numpy(create_position_grid(1, v_shape.frames, v_shape.height, v_shape.width)).to(
+            device), context, sigmas, audio_latents=a0,
+        audio_positions=torch.from_numpy(create_audio_position_grid(1, a_shape.frames)).to(device),
+        audio_context=audio_context))
+    got_v, got_a = v_state.latent.float().cpu().numpy(), a_state.latent.float().cpu().numpy()
+    ref_v, ref_a = ref_v.float().cpu().numpy(), ref_a.float().cpu().numpy()
+    v_db = min_frame_psnr(got_v, ref_v)
+    a_db = psnr(got_a, ref_a, float(np.abs(ref_a).max()))
+    print(f"  (a) composed denoise_audio_video, {len(sigmas) - 1} distilled steps at {tuple(v_shape)} video and "
+          f"{tuple(a_shape)} audio latents ({v_shape.frames * v_shape.height * v_shape.width} video tokens): "
+          f"{s_comp:.4f} s, peak device memory {mem_comp:.3f} GiB, K1 {k1}; the engine's joint stage 1 on the same "
+          f"DiT, noise and sigmas: {s_eng:.4f} s, peak {mem_eng:.3f} GiB, K1 {k1_eng}", flush=True)
+    print(f"  (a) min per-frame video latent PSNR {v_db:.2f} dB, audio latent PSNR {a_db:.2f} dB against the "
+          f"engine; max |d| video {np.abs(got_v - ref_v).max():.4e} of {np.abs(ref_v).max():.4f}", flush=True)
+    if k1 != want:
+        fail(f"(a) the composed denoise launched K1 {k1} times, want {want}")
+    if got_v.shape != v_shape.to_shape() or got_a.shape != a_shape.to_shape() or not (
+            np.isfinite(got_v).all() and np.isfinite(got_a).all()):
+        fail(f"(a) latents {got_v.shape} / {got_a.shape}, want finite {v_shape.to_shape()} / {a_shape.to_shape()}")
+    if not (v_db >= 35.0 and a_db >= 35.0):
+        fail(f"(a) the composed denoise is {v_db:.2f} / {a_db:.2f} dB from the engine's joint stage 1, want >= 35")
+    return {"k1": k1, "k1_engine": k1_eng, "seconds": s_comp, "engine_seconds": s_eng, "peak_gib": mem_comp}
+
+
 def full_width_w8a8(models, text, fa, qmm) -> dict:
     """Phase 9a's W8A8 run: a W8A8 copy of the bf16 DiT (Int8Linears; every
     other tensor shared with the bf16 model), the distilled run with the q,
@@ -2987,7 +3084,8 @@ def decoder_key(name: str) -> str:
 def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data: Path) -> dict:
     """Write the q4 model as an MLX pre-quantized snapshot (with the seeded
     encoder in its VAE file), load it back, run the generate CLI on it
-    (distilled, --w4a8, and phase 11's keyframe run: ``cond`` holds its
+    (distilled through ltx_pipelines.distilled.main(), phase 20 (b);
+    --w4a8; and phase 11's keyframe run: ``cond`` holds its
     images and adapter), then the training CLI over its 4-bit file, and
     again with --with-audio over ``av_data`` (phase 13 (c))."""
     import torch
@@ -2995,6 +3093,7 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
     from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.cli import generate as cli
     from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.ltx_pipelines import distilled as distilled_pipeline
     from mlx_video_tpu_torch.ops import int8 as i8
     from mlx_video_tpu_torch.ops.linear import QuantLinear
     from mlx_video_tpu_torch.ops.quant import quantize_dit_params
@@ -3079,12 +3178,23 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
             argv.append("--latents-only")
             print("  neither ffmpeg nor cv2 is here: the CLI runs with --latents-only (the mp4 write is "
                   "tested on the CPU)", flush=True)
+        # phase 20 (b): the reference's per-pipeline entry, main() -> run_cli,
+        # which appends --pipeline distilled and calls the generate CLI's main()
         torch.cuda.reset_peak_memory_stats()
         fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+        saved_argv, sys.argv = sys.argv, ["ltx_pipelines.distilled", *argv]
         t0 = time.perf_counter()
-        cli.main(argv)
+        try:
+            distilled_pipeline.main()
+        finally:
+            entry_argv, sys.argv = sys.argv, saved_argv
         wall = time.perf_counter() - t0
         k1, k2 = fa.launch_count, qmm.launch_count
+        print(f"  phase 20 (b): ltx_pipelines.distilled.main() ran the generate CLI with "
+              f"{' '.join(entry_argv[len(argv) + 1:])} appended", flush=True)
+        if entry_argv[len(argv) + 1:] != ["--pipeline", "distilled"]:
+            fail(f"phase 20 (b): run_cli appended {entry_argv[len(argv) + 1:]}, want --pipeline distilled")
+        pipeline_cli = {"k1_distilled_pipeline_cli": k1, "k2_distilled_pipeline_cli": k2}
         phases = json.loads(report.read_text())["phases"]
         for name, sec in phases.items():
             print(f"  CLI phase {name}: {sec:.4f} s", flush=True)
@@ -3143,7 +3253,7 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
         serve_lora = serve_lora_over_q4(snap, embeddings, cond["adapter"], fa, qmm, tmp)
         q4_file = snap / "ltx-2-19b-distilled-4bit-mlx.safetensors"
         train = train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm)
-        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **audio, **serve_lora, **train,
+        return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **pipeline_cli, **audio, **serve_lora, **train,
                 **train_cli_mesh_one(train, tmp / "train_mesh", fa, qmm),
                 **train_cli_pipeline_one(train, data_root, tmp / "train_pipe", fa, qmm),
                 **train_cli_over_q4(q4_file, av_data, tmp / "train_av", fa, qmm, audio=True)}
@@ -5226,6 +5336,12 @@ def main() -> int:
         with launch_shapes(fa, qmm) as shapes:
             audio = full_width_audio(models, text, fa, ca, work)
         check_compared(shapes, "phase 12 (a)-(c)")
+        print("phase 20 (a): the reference's composed joint AV denoise (ltx_pipelines.utils.helpers."
+              "denoise_audio_video over X0Model(LTXModel(config, dit))) on phase 12's resident AudioVideo DiT at "
+              "config 2's stage-1 shape, against the engine's joint stage 1:", flush=True)
+        with launch_shapes(fa, qmm) as shapes:
+            composed = composed_av_denoise(audio["resident"], fa)
+        check_compared(shapes, "phase 20 (a)")
         print("phase 17 (a), (b): the sharded AV DiTs on phase 12's resident models: (a) NCCL at world 1, joint "
               "with mesh (1, 1, 1) and SP, separate with mesh (1, 1, 1); (b) the first AV block "
               "over tensor = 2, 4 virtual ranks (dense, q4), the SP ring over 2, 4, and a runtime adapter over "
@@ -5294,7 +5410,9 @@ def main() -> int:
                           "training_pipeline_cli": cli_train["k1_train_pipe_cli"],
                           "pipeline_train_virtual": rest["pipe"]["k1"],
                           **{f"world1_audio_{run}": n for run, n in sharded_av["world1"].items()},
-                          "av_block_virtual": sharded_av["block"]["k1"]},
+                          "av_block_virtual": sharded_av["block"]["k1"],
+                          "composed_av_denoise": composed["k1"],
+                          "distilled_pipeline_cli": cli_train["k1_distilled_pipeline_cli"]},
         "ring_ms": {n: row["ring_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_device_ms": {n: row["device_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_whole_ms": par["ring"]["whole_ms"],
@@ -5316,7 +5434,8 @@ def main() -> int:
                           "convert_q4_cli": converted["k2_q4_cli"], "tp_block_virtual": par["tp"]["k2"],
                           "training_mesh_cli": cli_train["k2_train_mesh_cli"],
                           "training_pipeline_cli": cli_train["k2_train_pipe_cli"],
-                          "av_block_virtual": sharded_av["block"]["k2"]},
+                          "av_block_virtual": sharded_av["block"]["k2"],
+                          "distilled_pipeline_cli": cli_train["k2_distilled_pipeline_cli"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

@@ -9,8 +9,12 @@ dev pipeline's default negative prompt, the loader's ``bits_hint_for`` and
 ``read_quantization_metadata``, and the trainer's progress line, config
 display and video IO (trainer/aux.py); the precompute helpers and the
 log-mel processor are held in tests/test_torch_port_precompute.py; the
-sharding rules and ``factor_devices`` of parallel/. Every
-comparison here is exact: the copies are the same code.
+sharding rules and ``factor_devices`` of parallel/; and the framework-free
+modules of the reference packages that mlx_video_tpu_torch/ltx_core and
+ltx_pipelines keep their own copies of (the loader primitives and
+registries, the enums, the pipeline constants and parsers, the
+clean-response table). Every comparison here is exact: the copies are the
+same code.
 """
 
 import argparse
@@ -457,3 +461,66 @@ def test_parallel_copy(part):
     else:
         for n in range(1, 65):
             assert tmesh.factor_devices(n) == jmesh.factor_devices(n)
+
+
+def _parser_table(parser):
+    return {a.option_strings[0] if a.option_strings else a.dest: (
+        tuple(a.option_strings), a.dest, a.nargs, a.default, a.required, a.metavar, a.choices, type(a).__name__)
+        for a in parser._actions}
+
+
+@pytest.mark.parametrize("module", [
+    "ltx_core.loader.primitives", "ltx_core.loader.registry", "ltx_core.loader.sd_ops",
+    "ltx_core.loader.module_ops", "ltx_core.model.model_protocol", "ltx_core.model.video_vae.enums",
+    "ltx_core.model.audio_vae.causality_axis", "ltx_pipelines.utils.constants", "ltx_pipelines.utils.args",
+    "clean_response",
+])
+def test_reference_parity_copies(module, tmp_path):
+    """The port's copies of the framework-free modules of the reference
+    packages (mlx_video_tpu_torch/ltx_core, ltx_pipelines): the same
+    constants, dataclasses, enums, parsers and the clean-response table."""
+    import importlib
+
+    if module == "clean_response":
+        from ltx_pipelines.utils import helpers as jh
+        from mlx_video_tpu_torch.ltx_pipelines.utils import helpers as th
+
+        assert th._UNICODE_REPLACEMENTS == jh._UNICODE_REPLACEMENTS
+        return
+    ref, port = importlib.import_module(module), importlib.import_module(f"mlx_video_tpu_torch.{module}")
+    if module == "ltx_core.loader.primitives":
+        j, t = ref.LoraPathStrengthAndSDOps("~/a.safetensors", 0.5), port.LoraPathStrengthAndSDOps("~/a.safetensors", 0.5)
+        assert _plain(j) == _plain(t) and [f.name for f in dataclasses.fields(j)] == [f.name for f in dataclasses.fields(t)]
+    elif module == "ltx_core.loader.registry":
+        for mod in (ref, port):
+            r = mod.DummyRegistry()
+            r.register("a", 1)
+            assert (r.get("a"), r.get("b", 2), isinstance(r, mod.Registry)) == (1, 2, True)
+    elif module in ("ltx_core.loader.sd_ops", "ltx_core.loader.module_ops"):
+        assert [n for n in dir(ref) if n.isupper()] == [n for n in dir(port) if n.isupper()]
+        for n in dir(ref):
+            if n.isupper():
+                assert getattr(ref, n) == getattr(port, n)
+    elif module == "ltx_core.model.model_protocol":
+        assert ref.__all__ == port.__all__
+    elif module in ("ltx_core.model.video_vae.enums", "ltx_core.model.audio_vae.causality_axis"):
+        for name in ref.__all__:
+            assert [(e.name, e.value) for e in getattr(ref, name)] == [(e.name, e.value) for e in getattr(port, name)]
+    elif module == "ltx_pipelines.utils.constants":
+        names = [n for n in dir(ref) if n.isupper()]
+        assert names == [n for n in dir(port) if n.isupper()] and len(names) >= 15
+        for n in names:
+            assert tuple(getattr(ref, n)) == tuple(getattr(port, n)) if n == "VIDEO_SCALE_FACTORS" else \
+                getattr(ref, n) == getattr(port, n), n
+    else:
+        for factory in ("basic_arg_parser", "default_1_stage_arg_parser", "default_2_stage_arg_parser",
+                        "default_2_stage_distilled_arg_parser"):
+            assert _parser_table(getattr(port, factory)()) == _parser_table(getattr(ref, factory)())
+        for helper in ("add_common_args", "add_image_args", "add_video_conditioning_args", "add_lora_args"):
+            jp, tp = argparse.ArgumentParser(), argparse.ArgumentParser()
+            getattr(ref, helper)(jp)
+            getattr(port, helper)(tp)
+            assert _parser_table(tp) == _parser_table(jp), helper
+        values = [["a.png"], ["b.png", "3"], ["c.png", "4", "0.5"]]
+        assert port.parse_tuple_args(values) == ref.parse_tuple_args(values)
+        assert port.resolve_path("~/x/../y") == ref.resolve_path("~/x/../y")

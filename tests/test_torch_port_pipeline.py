@@ -192,6 +192,7 @@ def test_generate_video_latents_only(tiny):
 _NO_JAX = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = sys.modules["ml_dtypes"] = sys.modules["flax"] = sys.modules["mlx_video_tpu"] = None
+sys.modules["ltx_core"] = sys.modules["ltx_pipelines"] = sys.modules["ltx_trainer"] = None
 import numpy as np
 import torch
 import mlx_video_tpu_torch
@@ -211,7 +212,13 @@ assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "ml
         "mlx_video_tpu_torch.tools.compare_latents", "mlx_video_tpu_torch.postprocess",
         "mlx_video_tpu_torch.parallel.distributed", "mlx_video_tpu_torch.parallel.mesh",
         "mlx_video_tpu_torch.parallel.collectives", "mlx_video_tpu_torch.parallel.sharding",
-        "mlx_video_tpu_torch.parallel.ring_attention", "mlx_video_tpu_torch.parallel.pipeline"} <= set(sys.modules)
+        "mlx_video_tpu_torch.parallel.ring_attention", "mlx_video_tpu_torch.parallel.pipeline",
+        "mlx_video_tpu_torch.ltx_core.model.transformer", "mlx_video_tpu_torch.ltx_core.text_encoders.gemma.tokenizer",
+        "mlx_video_tpu_torch.ltx_pipelines.utils.helpers", "mlx_video_tpu_torch.ltx_pipelines.distilled",
+        "mlx_video_tpu_torch.ltx_trainer.scripts.decode_latents",
+        "mlx_video_tpu_torch.ltx_trainer.training_strategies.base_strategy"} <= set(sys.modules)
+assert sum(m.startswith(("mlx_video_tpu_torch.ltx_core", "mlx_video_tpu_torch.ltx_pipelines",
+                         "mlx_video_tpu_torch.ltx_trainer")) for m in sys.modules) == 130
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
 from mlx_video_tpu_torch.models.ltx.model import init_ltx_params
 from mlx_video_tpu_torch.models.ltx.upsampler import init_latent_upsampler
