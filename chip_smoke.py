@@ -2517,7 +2517,7 @@ def composed_av_denoise(resident, fa) -> dict:
 
     (v_state, a_state), s_comp, mem_comp, k1 = timed(lambda: denoise_audio_video(
         pixels, [], GaussianNoiser(seed=48), sigmas, EulerDiffusionStep(), euler_denoising_loop,
-        PipelineComponents(dtype=bf16, device=device), bf16, device=device, noise_scale=0.0,
+        PipelineComponents(dtype=bf16, device=device), bf16, noise_scale=0.0,
         initial_video_latent=v0, initial_audio_latent=a0,
         denoise_fn=simple_denoising_func(context, audio_context, x0)))
     (ref_v, ref_a), s_eng, mem_eng, k1_eng = timed(lambda: dn.denoise(
@@ -2537,6 +2537,8 @@ def composed_av_denoise(resident, fa) -> dict:
           f"engine; max |d| video {np.abs(got_v - ref_v).max():.4e} of {np.abs(ref_v).max():.4f}", flush=True)
     if k1 != want:
         fail(f"(a) the composed denoise launched K1 {k1} times, want {want}")
+    if k1_eng != want:
+        fail(f"(a) the engine's joint stage 1 launched K1 {k1_eng} times, want {want}")
     if got_v.shape != v_shape.to_shape() or got_a.shape != a_shape.to_shape() or not (
             np.isfinite(got_v).all() and np.isfinite(got_a).all()):
         fail(f"(a) latents {got_v.shape} / {got_a.shape}, want finite {v_shape.to_shape()} / {a_shape.to_shape()}")

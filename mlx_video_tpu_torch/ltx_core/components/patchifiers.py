@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from mlx_video_tpu_torch.ltx_core.types import AudioLatentShape, SpatioTemporalScaleFactors, VideoLatentShape
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 
 
 class VideoLatentPatchifier:
@@ -58,7 +59,7 @@ class VideoLatentPatchifier:
         ends = starts + np.asarray(p).reshape(3, 1, 1, 1)
         coords = np.stack((starts, ends), axis=-1).reshape(3, -1, 2)[None]
         coords = np.broadcast_to(coords, (output_shape.batch,) + coords.shape[1:])
-        return torch.from_numpy(coords.astype(np.float32)).to(device)
+        return torch.from_numpy(coords.astype(np.float32)).to(device_or_card(device))
 
 
 def get_pixel_coords(
@@ -125,4 +126,4 @@ class AudioPatchifier:
         ends = self._latent_time_sec(self.shift + 1, n + self.shift + 1)
         coords = np.stack([starts, ends], axis=-1)[None, None]
         coords = np.broadcast_to(coords, (output_shape.batch, 1, n, 2))
-        return torch.from_numpy(coords.astype(np.float32)).to(device)
+        return torch.from_numpy(coords.astype(np.float32)).to(device_or_card(device))

@@ -1,6 +1,6 @@
 """STG attention-perturbation configs (reference:
 ltx_core/guidance/perturbations.py). The masks are tensors on the caller's
-device and dtype."""
+device (the card when None) and dtype."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from enum import Enum
 from typing import List, Optional
 
 import torch
+
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 
 
 class PerturbationType(Enum):
@@ -50,7 +52,7 @@ class BatchedPerturbationConfig:
     def mask(self, perturbation_type: PerturbationType, block: int, dtype=torch.float32,
              device=None) -> torch.Tensor:
         values = [0.0 if p.is_perturbed(perturbation_type, block) else 1.0 for p in self.perturbations]
-        return torch.tensor(values, dtype=dtype, device=device)
+        return torch.tensor(values, dtype=dtype, device=device_or_card(device))
 
     def mask_like(self, perturbation_type: PerturbationType, block: int, values: torch.Tensor) -> torch.Tensor:
         mask = self.mask(perturbation_type, block, values.dtype, values.device)

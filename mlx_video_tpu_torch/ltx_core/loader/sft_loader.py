@@ -5,9 +5,12 @@ from __future__ import annotations
 
 from pathlib import Path
 
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
+
 
 class SafetensorsModelStateDictLoader:
-    """Loads raw tensors from a safetensors file as a flat state dict."""
+    """Loads raw tensors from a safetensors file as a flat state dict, on
+    ``device`` (the card when None)."""
 
     def __init__(self, path):
         self.path = Path(path)
@@ -15,6 +18,7 @@ class SafetensorsModelStateDictLoader:
     def load(self, device=None) -> dict:
         from mlx_video_tpu_torch.io.safetensors import SafetensorsReader
 
+        device = device_or_card(device)
         with SafetensorsReader(self.path) as r:
             return {name: r.get(name, device=device) for name in r.keys()}
 

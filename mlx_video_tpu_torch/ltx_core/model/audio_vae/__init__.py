@@ -2,11 +2,13 @@
 
 ``AudioEncoder``, ``AudioDecoder`` and ``Vocoder`` are the reference's class
 surface over the engine modules (mlx_video_tpu_torch/models/ltx/audio_vae/),
-binding one in place or drawing a fresh one from ``generator``.
+binding one in place or drawing a fresh one on ``device`` (the card when
+None) from ``generator``, which must lie there (seed 0 there when not given).
 """
 
 import torch
 
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import (
     AudioVAEConfig,
     audio_decoder_apply,
@@ -53,7 +55,8 @@ class _AudioModule:
     def __init__(self, config=None, params=None, *, generator=None, dtype=None, device=None):
         self.config = config or type(self)._config()
         if params is None:
-            generator = generator if generator is not None else torch.Generator().manual_seed(0)
+            device = device_or_card(device)
+            generator = generator if generator is not None else torch.Generator(device).manual_seed(0)
             params = type(self)._init(generator, self.config, device=device, dtype=dtype or torch.float32)
         self.params = params
 

@@ -14,6 +14,7 @@ plain forward, and one that perturbs a block (STG) is refused by name.
 """
 
 from mlx_video_tpu_torch.config import LTXModelConfig, LTXRopeType, TransformerConfig
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 from mlx_video_tpu_torch.models.ltx import rope
 from mlx_video_tpu_torch.models.ltx.model import (
     Modality,
@@ -73,7 +74,8 @@ class LTXModel:
     """Class-style adapter over the engine DiT (reference: an ``LTXModel``
     nn.Module). ``LTXModel(config, model)`` binds an engine
     ``models/ltx/model.py:LTXModel`` in place; ``LTXModel(config)`` draws a
-    fresh one from ``generator`` (seed 0 on the CPU when not given).
+    fresh one on ``device`` (the card when None) from ``generator``, which
+    must lie there (seed 0 there when not given).
     Calling returns the per-modality velocities."""
 
     def __init__(self, config: LTXModelConfig = None, params=None, *, generator=None, dtype=None, device=None):
@@ -81,7 +83,8 @@ class LTXModel:
 
         self.config = config or LTXModelConfig()
         if params is None:
-            generator = generator if generator is not None else torch.Generator().manual_seed(0)
+            device = device_or_card(device)
+            generator = generator if generator is not None else torch.Generator(device).manual_seed(0)
             params = init_ltx_params(self.config, generator, device=device, dtype=dtype or torch.bfloat16)
         self.params = params
 

@@ -2,11 +2,13 @@
 
 ``LatentUpsampler`` is the reference's class surface over the engine's
 2x latent upsampler module (mlx_video_tpu_torch/models/ltx/upsampler.py),
-binding one in place or drawing a fresh one from ``generator``.
+binding one in place or drawing a fresh one on ``device`` (the card when
+None) from ``generator``, which must lie there (seed 0 there when not given).
 """
 
 import torch
 
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 from mlx_video_tpu_torch.models.ltx.upsampler import (
     init_latent_upsampler,
     latent_upsampler_apply,
@@ -28,7 +30,8 @@ class LatentUpsampler:
 
     def __init__(self, params=None, *, generator=None, dtype=None, device=None, **init_kw):
         if params is None:
-            generator = generator if generator is not None else torch.Generator().manual_seed(0)
+            device = device_or_card(device)
+            generator = generator if generator is not None else torch.Generator(device).manual_seed(0)
             params = init_latent_upsampler(generator, device=device, dtype=dtype or torch.float32, **init_kw)
         self.params = params
 

@@ -3,11 +3,14 @@
 The engine's encoder and decoder are ``nn.Module``s run by plain functions
 (mlx_video_tpu_torch/models/ltx/video_vae/); ``VideoEncoder`` and
 ``VideoDecoder`` here are the reference's class surface over them, binding
-an engine module in place or drawing a fresh one from ``generator``.
+an engine module in place or drawing a fresh one on ``device`` (the card
+when None) from ``generator``, which must lie there (seed 0 there when not
+given).
 """
 
 import torch
 
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 from mlx_video_tpu_torch.models.ltx.video_vae import ops
 from mlx_video_tpu_torch.models.ltx.video_vae.blocks import (
     depth_to_space_upsample,
@@ -47,8 +50,8 @@ class VideoDecoderConfigurator:
         pass
 
 
-def _seeded(generator):
-    return generator if generator is not None else torch.Generator().manual_seed(0)
+def _seeded(generator, device):
+    return generator if generator is not None else torch.Generator(device).manual_seed(0)
 
 
 class VideoEncoder:
@@ -60,7 +63,8 @@ class VideoEncoder:
 
         self.config = config or VideoVAEConfig()
         if params is None:
-            params = init_video_encoder(_seeded(generator), self.config, device=device,
+            device = device_or_card(device)
+            params = init_video_encoder(_seeded(generator, device), self.config, device=device,
                                         dtype=dtype or torch.float32)
         self.params = params
 
@@ -74,7 +78,8 @@ class VideoDecoder:
     def __init__(self, config=None, params=None, *, generator=None, dtype=None, device=None):
         self.config = config or DecoderConfig()
         if params is None:
-            params = init_video_decoder(_seeded(generator), self.config, device=device,
+            device = device_or_card(device)
+            params = init_video_decoder(_seeded(generator, device), self.config, device=device,
                                         dtype=dtype or torch.float32)
         self.params = params
 

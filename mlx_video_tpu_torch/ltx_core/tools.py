@@ -3,7 +3,8 @@
 Counterpart of ltx_core/tools.py (reference ltx_core/tools.py:
 VideoLatentTools / AudioLatentTools over the Patchifier protocol). The
 initial state is drawn from an explicit ``torch.Generator`` (fp32, cast to
-``dtype``) on ``device``, or taken from ``initial_latent``, or zeros.
+``dtype``), or taken from ``initial_latent``, or zeros, and lies on
+``device`` (the card when None).
 """
 
 from __future__ import annotations
@@ -25,16 +26,18 @@ from mlx_video_tpu_torch.ltx_core.types import (
     SpatioTemporalScaleFactors,
     VideoLatentShape,
 )
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 
 DEFAULT_SCALE_FACTORS = SpatioTemporalScaleFactors.default()
 
 
 def _initial_latent(shape, generator: Optional[torch.Generator], dtype, initial_latent, device) -> torch.Tensor:
+    device = device_or_card(device)
     if initial_latent is not None:
-        return initial_latent.to(device=device if device is not None else initial_latent.device, dtype=dtype)
+        return initial_latent.to(device=device, dtype=dtype)
     if generator is not None:
         draw = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
-        return draw.to(device=device if device is not None else generator.device, dtype=dtype)
+        return draw.to(device=device, dtype=dtype)
     return torch.zeros(shape, dtype=dtype, device=device)
 
 

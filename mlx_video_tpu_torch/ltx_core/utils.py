@@ -10,6 +10,20 @@ import torch
 from mlx_video_tpu_torch.ops.norms import rms_norm  # noqa: F401  (re-export)
 
 
+def get_device() -> torch.device:
+    """The CUDA device the parity packages run on; raises without one. Every
+    ``device=None`` in ltx_core, ltx_pipelines and ltx_trainer means this
+    device: pass ``device="cpu"`` to run on the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("get_device: CUDA is not available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_or_card(device) -> torch.device:
+    """``device``, or the card (:func:`get_device`) when it is None."""
+    return get_device() if device is None else torch.device(device)
+
+
 def _sigma_f32(sigma, like: torch.Tensor) -> torch.Tensor:
     s = torch.as_tensor(sigma, dtype=torch.float32, device=like.device)
     while s.dim() < like.dim():

@@ -18,16 +18,8 @@ import torch
 
 from mlx_video_tpu_torch.ltx_core.components.protocols import DiffusionStepProtocol, Noiser
 from mlx_video_tpu_torch.ltx_core.types import LatentState
-from mlx_video_tpu_torch.ltx_core.utils import to_denoised, to_velocity
+from mlx_video_tpu_torch.ltx_core.utils import get_device, to_denoised, to_velocity  # noqa: F401 (get_device: parity export)
 from mlx_video_tpu_torch.models.ltx.model import Modality
-
-
-def get_device() -> torch.device:
-    """The CUDA device the pipelines run on; raises without one (pass
-    ``device="cpu"`` to the helpers to run on the CPU)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("get_device: CUDA is not available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def cleanup_memory() -> None:
@@ -282,7 +274,7 @@ def create_noised_state(
 ) -> LatentState:
     """Initial token-domain state + conditionings + additive noise
     (reference: helpers.py:207-222). The state starts at the tools' target
-    shape on ``device`` and is patchified here (the reference's
+    shape on ``device`` (the card when None) and is patchified here (the reference's
     create_initial_state patchifies internally)."""
     state = tools.create_initial_state(dtype=dtype, initial_latent=initial_latent, device=device)
     state = tools.patchify(state)
@@ -297,11 +289,11 @@ def noise_video_state(
     conditionings: list,
     components,
     dtype,
-    device=None,
     noise_scale: float = 1.0,
     initial_latent: Optional[torch.Tensor] = None,
 ):
-    """(reference: helpers.py:153-179). Returns (state, video_tools)."""
+    """(reference: helpers.py:153-179). Returns (state, video_tools). The
+    state lies on ``components.device`` (the card when None)."""
     from mlx_video_tpu_torch.ltx_core.tools import VideoLatentTools
     from mlx_video_tpu_torch.ltx_core.types import VideoLatentShape
 
@@ -320,7 +312,7 @@ def noise_video_state(
         conditionings=conditionings,
         noiser=noiser,
         dtype=dtype,
-        device=device,
+        device=components.device,
         noise_scale=noise_scale,
         initial_latent=initial_latent,
     )
@@ -333,11 +325,11 @@ def noise_audio_state(
     conditionings: list,
     components,
     dtype,
-    device=None,
     noise_scale: float = 1.0,
     initial_latent: Optional[torch.Tensor] = None,
 ):
-    """(reference: helpers.py:182-204). Returns (state, audio_tools)."""
+    """(reference: helpers.py:182-204). Returns (state, audio_tools). The
+    state lies on ``components.device`` (the card when None)."""
     from mlx_video_tpu_torch.ltx_core.tools import AudioLatentTools
     from mlx_video_tpu_torch.ltx_core.types import AudioLatentShape
 
@@ -348,7 +340,7 @@ def noise_audio_state(
         conditionings=conditionings,
         noiser=noiser,
         dtype=dtype,
-        device=device,
+        device=components.device,
         noise_scale=noise_scale,
         initial_latent=initial_latent,
     )
@@ -413,14 +405,14 @@ def denoise_audio_video(
     denoising_loop_fn,
     components,
     dtype,
-    device=None,
     noise_scale: float = 1.0,
     initial_video_latent: Optional[torch.Tensor] = None,
     initial_audio_latent: Optional[torch.Tensor] = None,
     denoise_fn=None,
 ) -> Tuple[LatentState, LatentState]:
     """Full composed AV denoise: noised states -> loop -> clear conditioning
-    tokens -> unpatchify (reference: helpers.py:301-348). The reference's
+    tokens -> unpatchify (reference: helpers.py:301-348), on
+    ``components.device`` (the card when None). The reference's
     ``denoising_loop_fn`` closes over its denoise step; this one also takes
     it explicitly as ``denoise_fn`` (the loop helpers in this module take
     ``(sigmas, video_state, audio_state, stepper, denoise_fn)``)."""
@@ -430,7 +422,6 @@ def denoise_audio_video(
         conditionings=conditionings,
         components=components,
         dtype=dtype,
-        device=device,
         noise_scale=noise_scale,
         initial_latent=initial_video_latent,
     )
@@ -440,7 +431,6 @@ def denoise_audio_video(
         conditionings=[],
         components=components,
         dtype=dtype,
-        device=device,
         noise_scale=noise_scale,
         initial_latent=initial_audio_latent,
     )

@@ -22,6 +22,7 @@ import numpy as np
 
 import torch
 
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 from mlx_video_tpu_torch.ltx_pipelines.utils.constants import DEFAULT_IMAGE_CRF
 from mlx_video_tpu_torch.io.media import (  # noqa: F401 (re-exported engine helpers)
     VideoWriter,
@@ -88,9 +89,10 @@ def resize_and_center_crop(tensor, height: int, width: int) -> np.ndarray:
 
 
 def normalize_latent(latent, dtype, device=None):
-    """[0, 255] -> [-1, 1] (reference: media_io.py:80-81), a tensor on ``device``."""
+    """[0, 255] -> [-1, 1] (reference: media_io.py:80-81), a tensor on ``device``
+    (the card when None)."""
     x = latent if isinstance(latent, torch.Tensor) else torch.from_numpy(np.asarray(latent, dtype=np.float32))
-    return (x.to(device=device, dtype=torch.float32) / 127.5 - 1.0).to(dtype)
+    return (x.to(device=device_or_card(device), dtype=torch.float32) / 127.5 - 1.0).to(dtype)
 
 
 def load_image_conditioning(image_path: str, height: int, width: int, dtype, device=None):
@@ -208,9 +210,10 @@ def _write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
 
 
 def decode_audio_from_file(path: str, device=None):
-    """Audio track as a float32 (samples, channels) tensor on ``device``, or
-    None (reference: media_io.py:228-246)."""
+    """Audio track as a float32 (samples, channels) tensor on ``device`` (the
+    card when None), or None (reference: media_io.py:228-246)."""
     p = str(path)
+    device = device_or_card(device)
     if p.lower().endswith(".wav"):
         with wave.open(p, "rb") as w:
             data = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)

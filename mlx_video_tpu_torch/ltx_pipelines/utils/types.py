@@ -13,9 +13,10 @@ from mlx_video_tpu_torch.ltx_pipelines.utils.constants import VIDEO_LATENT_CHANN
 
 
 class PipelineComponents:
-    """Container for shared pipeline components."""
+    """Container for shared pipeline components. ``device`` is where the
+    composed denoise helpers build their states (the card when None)."""
 
-    def __init__(self, dtype, device: str = "cuda"):
+    def __init__(self, dtype, device=None):
         self.dtype = dtype
         self.device = device
         self.video_scale_factors = VIDEO_SCALE_FACTORS

@@ -5,7 +5,8 @@ The engine path is ``sample_sigmas`` over an explicit generator
 (mlx_video_tpu_torch/trainer/strategies.py). These classes present the
 reference's stateful ``sample_for(latents, seq_len)`` API on it: a sampler
 seeds a ``torch.Generator`` from ``seed`` on the first call's latents'
-device and draws from it, so its stream advances per call and a new sampler
+device (the card for latents that are not a tensor) and draws from it, so
+its stream advances per call and a new sampler
 of the same seed repeats it.
 """
 
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from mlx_video_tpu_torch.ltx_core.utils import get_device
 from mlx_video_tpu_torch.trainer.strategies import sample_sigmas  # noqa: F401
 
 
@@ -36,7 +38,7 @@ class TimestepSampler:
 
     def _draw(self, latents, seq_len: Optional[int], mode: str, std: float = 1.0) -> torch.Tensor:
         b = latents.shape[0]
-        device = latents.device if isinstance(latents, torch.Tensor) else torch.device("cpu")
+        device = latents.device if isinstance(latents, torch.Tensor) else get_device()
         sigmas = sample_sigmas(self._generator(device), b, seq_len or latents.shape[1], mode, std)
         return sigmas.reshape(b, 1, 1).to(device)
 

@@ -7,7 +7,8 @@ The engine path is plain functions (prepare_* -> draw_inputs -> make_inputs
 ``TrainingStrategy`` presents the reference's class protocol on them. Its
 draws come from a ``torch.Generator`` seeded from the config's ``seed``
 (on the batch's device at the first call) that advances per call, or from
-the ``generator`` a caller passes.
+the ``generator`` a caller passes. The batch goes to ``device`` (the card
+when None).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from mlx_video_tpu_torch.trainer.strategies import (  # noqa: F401
     draw_inputs,
     make_inputs,
 )
+from mlx_video_tpu_torch.ltx_core.utils import device_or_card
 
 
 class TrainingStrategy:
@@ -50,12 +52,12 @@ class TrainingStrategy:
         return self._gen
 
     def prepare_training_inputs(
-        self, batch, timestep_sampler=None, generator: Optional[torch.Generator] = None, device="cpu",
+        self, batch, timestep_sampler=None, generator: Optional[torch.Generator] = None, device=None,
         dtype=torch.float32,
     ) -> ModelInputs:
         if type(self)._prepare is None:
             raise NotImplementedError
-        sb = type(self)._prepare(batch, device=device)
+        sb = type(self)._prepare(batch, device=device_or_card(device))
         if generator is None:
             # the strategy's own stream advances per call (a fixed draw here
             # would train every step on the same sigma and noise)

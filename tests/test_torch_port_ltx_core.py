@@ -191,7 +191,7 @@ def test_video_patchifier_matches_jax(patch, rng):
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(jp.patchify(jl)))
     np.testing.assert_array_equal(tp.unpatchify(tokens, shape).numpy(), tl.numpy())
     assert tp.get_token_count(shape) == jp.get_token_count(jtypes.VideoLatentShape(*shape)) == 32 // patch**2
-    np.testing.assert_array_equal(tp.get_patch_grid_bounds(shape).numpy(),
+    np.testing.assert_array_equal(tp.get_patch_grid_bounds(shape, device="cpu").numpy(),
                                   np.asarray(jp.get_patch_grid_bounds(jtypes.VideoLatentShape(*shape))))
 
 
@@ -200,7 +200,7 @@ def test_pixel_coords_match_jax_and_engine_positions(causal_fix):
     from mlx_video_tpu_torch.pipelines.positions import create_position_grid
 
     shape = ttypes.VideoLatentShape(1, 128, 3, 4, 5)
-    coords = tcomp.VideoLatentPatchifier(1).get_patch_grid_bounds(shape)
+    coords = tcomp.VideoLatentPatchifier(1).get_patch_grid_bounds(shape, device="cpu")
     got = tcomp.get_pixel_coords(coords, ttypes.SpatioTemporalScaleFactors.default(), causal_fix=causal_fix)
     jcoords = jcomp.VideoLatentPatchifier(1).get_patch_grid_bounds(jtypes.VideoLatentShape(*shape))
     ref = jcomp.get_pixel_coords(jcoords, jtypes.SpatioTemporalScaleFactors.default(), causal_fix=causal_fix)
@@ -235,7 +235,7 @@ def test_audio_patchifier_matches_jax(rng):
         tokens = tp.patchify(tl)
         np.testing.assert_array_equal(tokens.numpy(), np.asarray(jp.patchify(jl)))
         np.testing.assert_array_equal(tp.unpatchify(tokens, shape).numpy(), tl.numpy())
-        np.testing.assert_array_equal(tp.get_patch_grid_bounds(shape).numpy(),
+        np.testing.assert_array_equal(tp.get_patch_grid_bounds(shape, device="cpu").numpy(),
                                       np.asarray(jp.get_patch_grid_bounds(jtypes.AudioLatentShape(*shape))))
 
 
@@ -264,15 +264,25 @@ def test_video_tools_match_jax(rng):
 
 def test_tools_draws_and_devices():
     """A generator's draw is repeatable and fp32-then-cast, zeros without
-    one; every tensor of the state is on the latent's device."""
+    one; every tensor of the state is on the latent's device, and that is
+    the card unless ``device`` says otherwise."""
     shape = ttypes.VideoLatentShape(1, 8, 2, 4, 4)
     tt = ttools.VideoLatentTools(target_shape=shape)
-    a = tt.create_initial_state(generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16)
-    b = tt.create_initial_state(generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16)
+    a = tt.create_initial_state(generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16, device="cpu")
+    b = tt.create_initial_state(generator=torch.Generator().manual_seed(3), dtype=torch.bfloat16, device="cpu")
     want = torch.randn(shape.to_shape(), generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
     assert torch.equal(a.latent, b.latent) and torch.equal(a.latent, want) and a.latent.dtype == torch.bfloat16
     assert a.positions.dtype == torch.float32
-    assert float(tt.create_initial_state().latent.abs().max()) == 0.0
+    assert float(tt.create_initial_state(device="cpu").latent.abs().max()) == 0.0
+    assert all(getattr(a, n).device.type == "cpu" for n in ("latent", "clean_latent", "denoise_mask", "positions"))
+    for default in (lambda: tt.create_initial_state(), lambda: tt.create_initial_state(
+            initial_latent=torch.zeros(shape.to_shape())), lambda: tt.create_initial_state(
+            generator=torch.Generator().manual_seed(3))):
+        if torch.cuda.is_available():
+            assert default().latent.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                default()
 
 
 def test_audio_tools_match_jax(rng):
@@ -280,7 +290,7 @@ def test_audio_tools_match_jax(rng):
     init = rng.normal(size=shape.to_shape()).astype(np.float32)
     tt, jt = ttools.AudioLatentTools(target_shape=shape), jtools.AudioLatentTools(
         target_shape=jtypes.AudioLatentShape(*shape))
-    ts, js = tt.create_initial_state(initial_latent=torch.from_numpy(init)), jt.create_initial_state(
+    ts, js = tt.create_initial_state(initial_latent=torch.from_numpy(init), device="cpu"), jt.create_initial_state(
         initial_latent=jnp.asarray(init))
     for name in ("latent", "clean_latent", "denoise_mask", "positions"):
         _elem(getattr(ts, name), getattr(js, name))
@@ -306,7 +316,7 @@ def test_perturbation_masks_match_jax():
     for kind in tpert.PerturbationType:
         jkind = jpert.PerturbationType(kind.value)
         for block in range(4):
-            mask = tcfg.mask(kind, block)
+            mask = tcfg.mask(kind, block, device="cpu")
             np.testing.assert_array_equal(mask.numpy(), np.asarray(jcfg.mask(jkind, block)))
             like = tcfg.mask_like(kind, block, values)
             assert like.shape == (3, 1, 1) and like.dtype == torch.bfloat16
@@ -314,7 +324,8 @@ def test_perturbation_masks_match_jax():
                                           np.asarray(jcfg.mask_like(jkind, block, jnp.zeros((3, 4, 5))), np.float32))
             assert tcfg.any_in_batch(kind, block) == jcfg.any_in_batch(jkind, block)
             assert tcfg.all_in_batch(kind, block) == jcfg.all_in_batch(jkind, block)
-    np.testing.assert_array_equal(tcfg.mask(tpert.PerturbationType.SKIP_VIDEO_SELF_ATTN, 1).numpy(), [0.0, 1.0, 1.0])
+    np.testing.assert_array_equal(tcfg.mask(tpert.PerturbationType.SKIP_VIDEO_SELF_ATTN, 1, device="cpu").numpy(),
+                                  [0.0, 1.0, 1.0])
     assert len(tpert.BatchedPerturbationConfig.empty(2).perturbations) == 2
 
 
@@ -351,7 +362,7 @@ def test_conditioning_apply_to_matches_jax(kind, frame_idx, rng):
     cond = rng.normal(size=(1, 8, 1, 4, 4)).astype(np.float32)
     tt, jt = ttools.VideoLatentTools(target_shape=shape), jtools.VideoLatentTools(
         target_shape=jtypes.VideoLatentShape(*shape))
-    ts = tt.patchify(tt.create_initial_state(initial_latent=torch.from_numpy(init)))
+    ts = tt.patchify(tt.create_initial_state(initial_latent=torch.from_numpy(init), device="cpu"))
     js = jt.patchify(jt.create_initial_state(initial_latent=jnp.asarray(init)))
     if kind == "latent":
         ti = tcond.VideoConditionByLatentIndex(latent=torch.from_numpy(cond), frame_idx=frame_idx, strength=0.8)
@@ -379,6 +390,41 @@ def _tiny_dit(model_type, seed=0, **kw):
             if name.endswith(("bias", "scale_shift_table")) or "norm" in name:
                 p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(seed + 1)))
     return cfg, tcfg, model, _jax(jax_bridge.module_to_jax_tree(model))
+
+
+def _fresh(name, tmp_path):
+    """A callable that builds one of ltx_core's device-taking objects with no
+    device given, and the tensor whose device shows where it went."""
+    from mlx_video_tpu_torch.io.safetensors import save_safetensors
+    from mlx_video_tpu_torch.ltx_core.loader.sft_loader import SafetensorsModelStateDictLoader
+    from mlx_video_tpu_torch.ltx_core.model.transformer import LTXModel
+    from mlx_video_tpu_torch.ltx_core.model.upsampler import LatentUpsampler
+
+    if name == "LTXModel":
+        tcfg = tconfig.LTXModelConfig.from_dict(tiny_test_config(LTXModelType.VideoOnly).to_dict())
+        return lambda: next(LTXModel(tcfg).params.parameters())
+    if name == "LatentUpsampler":
+        return lambda: next(LatentUpsampler(in_channels=16, mid_channels=32, num_blocks=1).params.parameters())
+    if name == "sft_loader":
+        save_safetensors(tmp_path / "x.safetensors", {"a": torch.zeros(3)})
+        return lambda: SafetensorsModelStateDictLoader(tmp_path / "x.safetensors").load()["a"]
+    if name == "mask":
+        return lambda: tpert.BatchedPerturbationConfig([tpert.PerturbationConfig.empty()]).mask(
+            tpert.PerturbationType.SKIP_VIDEO_SELF_ATTN, 0)
+    return lambda: tcomp.AudioPatchifier(1).get_patch_grid_bounds(ttypes.AudioLatentShape(1, 8, 3, 16))
+
+
+@pytest.mark.parametrize("name", ["LTXModel", "LatentUpsampler", "sft_loader", "mask", "grid_bounds"])
+def test_no_device_means_the_card(name, tmp_path):
+    """Fresh adapter weights, loaded state dicts, masks and position grids
+    land on the card when no device is given, or raise naming device='cpu'
+    where there is none (JAX put them on its default accelerator)."""
+    build = _fresh(name, tmp_path)
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 def _video_modality(cfg, rng, b=1, f=2, h=4, w=4, sigma=0.5):
@@ -473,7 +519,8 @@ def test_vae_classes_match_jax(rng):
               ("compress_time_res", {"multiplier": 1}), ("compress_all", {"multiplier": 1}),
               ("compress_all_res", {"multiplier": 1}))
     enc_kw = dict(out_channels=16, latent_channels=16, encoder_blocks=blocks)
-    enc = VideoEncoder(tconfig.VideoVAEConfig(**enc_kw), generator=torch.Generator().manual_seed(1))
+    enc = VideoEncoder(tconfig.VideoVAEConfig(**enc_kw), generator=torch.Generator().manual_seed(1),
+                       device="cpu")
     jenc = JVideoEncoder(JaxVAEConfig(**enc_kw), _jax(jax_bridge.encoder_to_jax_tree(enc.params)))
     clip = rng.uniform(-1, 1, size=(1, 3, 9, 64, 64)).astype(np.float32)
     lat = enc(torch.from_numpy(clip))
@@ -482,7 +529,7 @@ def test_vae_classes_match_jax(rng):
 
     # 32x in space and 8x in time, the scales the tiling assumes
     dec_kw = dict(in_channels=16, base_channels=32, num_layers_per_block=1, num_upsamples=3, patch_size=4)
-    dec = VideoDecoder(DecoderConfig(**dec_kw), generator=torch.Generator().manual_seed(2))
+    dec = VideoDecoder(DecoderConfig(**dec_kw), generator=torch.Generator().manual_seed(2), device="cpu")
     jdec = JVideoDecoder(JaxDecoderConfig(**dec_kw), _jax(jax_bridge.module_to_jax_tree(dec.params)))
     jdecode = jax.jit(lambda x: jdec(x, timestep=jnp.array([0.05])))
     z = rng.normal(size=(1, 16, 2, 3, 3)).astype(np.float32)
@@ -506,18 +553,18 @@ def test_audio_classes_match_jax(rng):
 
     kw = dict(ch=16, ch_mult=(1, 2, 4), num_res_blocks=1, in_channels=2, out_ch=2, z_channels=4, mel_bins=16,
               resolution=64, decoder_attn_resolutions=(), mid_block_add_attention=True)
-    enc = AudioEncoder(taudio.AudioVAEConfig(**kw), generator=torch.Generator().manual_seed(0))
+    enc = AudioEncoder(taudio.AudioVAEConfig(**kw), generator=torch.Generator().manual_seed(0), device="cpu")
     jenc = JAudioEncoder(JaxAudioVAEConfig(**kw), _jax(jax_bridge.audio_encoder_to_jax_tree(enc.params)))
     mel = rng.normal(size=(1, 2, 12, 16)).astype(np.float32)
     lat = enc(torch.from_numpy(mel))
     _fwd(lat, jax.jit(jenc)(jnp.asarray(mel)))
-    dec = AudioDecoder(taudio.AudioVAEConfig(**kw), generator=torch.Generator().manual_seed(1))
+    dec = AudioDecoder(taudio.AudioVAEConfig(**kw), generator=torch.Generator().manual_seed(1), device="cpu")
     jdec = JAudioDecoder(JaxAudioVAEConfig(**kw), _jax(jax_bridge.audio_decoder_to_jax_tree(dec.params)))
     _fwd(dec(lat), jax.jit(jdec)(jnp.asarray(lat.numpy())))
 
     vkw = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4), resblock_kernel_sizes=(3,),
                resblock_dilation_sizes=((1, 3),), upsample_initial_channel=32, stereo=True, mel_in_channels=8)
-    voc = Vocoder(tvoc.VocoderConfig(**vkw), generator=torch.Generator().manual_seed(2))
+    voc = Vocoder(tvoc.VocoderConfig(**vkw), generator=torch.Generator().manual_seed(2), device="cpu")
     jvoc = JVocoder(JaxVocoderConfig(**vkw), _jax(jax_bridge.vocoder_to_jax_tree(voc.params)))
     spec = rng.normal(size=(1, 2, 10, 4)).astype(np.float32)
     wav = voc(torch.from_numpy(spec))
@@ -535,7 +582,8 @@ def test_upsampler_class_matches_jax(rng):
     from mlx_video_tpu_torch.ltx_core.model.upsampler.pixel_shuffle import pixel_shuffle_2d
     from mlx_video_tpu_torch.ltx_core.model.upsampler.spatial_rational_resampler import spatial_rational_resample
 
-    ups = LatentUpsampler(generator=torch.Generator().manual_seed(0), in_channels=16, mid_channels=32, num_blocks=1)
+    ups = LatentUpsampler(generator=torch.Generator().manual_seed(0), device="cpu", in_channels=16, mid_channels=32,
+                          num_blocks=1)
     tree = _jax(jax_bridge.module_to_jax_tree(ups.params))
     lat = rng.normal(size=(1, 16, 2, 4, 4)).astype(np.float32)
     out = ups(torch.from_numpy(lat))
@@ -654,7 +702,7 @@ def test_sft_loader_reads_the_file(tmp_path, rng):
 
     tensors = {"a.weight": rng.normal(size=(3, 4)).astype(np.float32), "b": np.arange(5, dtype=np.int32)}
     save_safetensors(tmp_path / "x.safetensors", tensors)
-    got = SafetensorsModelStateDictLoader(tmp_path / "x.safetensors").load()
+    got = SafetensorsModelStateDictLoader(tmp_path / "x.safetensors").load(device="cpu")
     ref = JLoader(tmp_path / "x.safetensors").load()
     assert set(got) == set(ref) == set(tensors)
     for k in tensors:
