@@ -471,6 +471,28 @@ Phases, in order; any failure exits non-zero before the last line:
    per-pipeline entry, ltx_pipelines.distilled.main() with sys.argv set
    to its argv (run_cli appends --pipeline distilled), with that run's
    checks (528 K1, 5280 K2, the mp4, the phase report).
+21. The single-device memory plan (pipelines/generate.py low_memory,
+   io/staging.py), in phase 10 over its 4-bit snapshot. (a) right after
+   20 (b), whose run is the control: the generate CLI with --low-memory,
+   with --low-memory --no-overlap-staging (latents and video bitwise the
+   control's), with --low-memory --aux-stage-int8 (>= 35 dB per RGB frame
+   against the control) and with --aux-park-device added (the video
+   bitwise the previous run's); each run's peak allocated and reserved
+   memory above what was resident before it, the bytes of its parked
+   modules against their bf16 bytes, exactly 528 K1 and 5280 K2. (b) two
+   subprocesses at once, each capped by set_per_process_memory_fraction at
+   the budget halfway between the control's peak and the no-overlap run's:
+   the plain CLI must fail out of memory, the --low-memory
+   --no-overlap-staging CLI must finish with (a)'s video. (c) in phase 12
+   (d), after its joint run: the same run with --low-memory
+   --no-overlap-staging, its video and audio latents and WAV bitwise the
+   joint run's, 1056 K1, 14784 K2, its peak beside the joint run's. (d) in
+   phase 14 (e), serve's main() with --aux-park: a base request, the same
+   again (bitwise the first), a LoRA request (its parks back on the
+   service's bundle), 528 K1 and 5280 K2 each; memory_allocated() between
+   requests against the unparked server's. To make room, phase 15 (b)
+   checks the converted DiT on the bundle its CLI run loaded (the separate
+   load of the same files, 18 s, is gone).
    ``python3 chip_smoke.py --parallel-only`` runs 1, 2, the full-width
    models, 7a, 16, 18 (b), (c), 19 (b), then phase 12's resident audio
    models with their direct joint and separate runs, 17 (a), (b), and (d)
@@ -479,12 +501,13 @@ Phases 7-18 print phase times and peak device memory. Every profile records
 the CUDA activity alone (host op events slow the host side and, past
 ~140,000 launches, take minutes to aggregate). The order on the card:
 1-7a, 16 with 18 (a), 18 (b), (c), 19 (b), 11, 14 (b)-(d) and (f), 12, 20 (a), 17 (a), (b), 8, 9a, 9b with
-13 (a), 14 (a) and 17 (d), 13 (b), 15, 9, 10 with 20 (b), 13 (c), 14 (e) with 17 (c), 18 (a)'s and 19 (a)'s CLIs.
+13 (a), 14 (a) and 17 (d), 13 (b), 15, 9, 10 with 20 (b), 21 (a), (b), 12 (d) with 21 (c), 14 (e) with 17 (c)
+and 21 (d), 13 (c), 18 (a)'s and 19 (a)'s CLIs.
 Last: the
 kernel summary line (K1-K6:
 launches on a path of this run, error against the plain version, times at
 the path's shapes, the bound, the library yardstick; K1, K2, K3, K4 and K5
-also their launches on every path of phases 7a-20, "path_launches") and
+also their launches on every path of phases 7a-21, "path_launches") and
 {"ok": true, "device": ...}.
 """
 
@@ -592,9 +615,29 @@ def host_ms(fn, calls: int = 50) -> float:
     return ms
 
 
+def device_times(prof) -> tuple:
+    """(ms, launches) by name of the device events of a finished
+    torch.profiler run, read from its Kineto events as they are. The sums of
+    ``key_averages()`` (``self_device_time_total``), without the Python
+    event tree it builds first, which took 30-45 s a profile at 1-2 x 10^5
+    launches; :func:`device_ms_by_kernel` checks the two agree."""
+    from torch.autograd import DeviceType
+
+    ms, counts = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async() or e.start_thread_id() != e.end_thread_id()
+                or getattr(e, "is_hidden_event", lambda: False)()):  # what the event tree leaves out or zeroes
+            continue
+        name = e.name()
+        ms[name] = ms.get(name, 0.0) + e.duration_ns() / 1e6
+        counts[name] = counts.get(name, 0) + 1
+    return ms, counts
+
+
 def device_ms_by_kernel(fn, reps: int = 20) -> dict:
     """Device time a call of ``fn`` by kernel (``name<D>``), from
-    torch.profiler over ``reps`` warm calls."""
+    torch.profiler over ``reps`` warm calls; fails unless
+    :func:`device_times` reads what ``key_averages()`` sums."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -605,11 +648,14 @@ def device_ms_by_kernel(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    ms, _ = device_times(prof)
+    averaged = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    if set(ms) != set(averaged) or any(abs(ms[k] - averaged[k]) > 1e-6 * max(1.0, averaged[k]) for k in ms):
+        fail(f"device_times {ms} differ from key_averages {averaged}")
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            m = re.search(r"(\w+<\d+>)\(", e.key)
-            out[m.group(1) if m else e.key[:60]] = e.self_device_time_total / 1e3 / reps
+    for key, t in ms.items():
+        m = re.search(r"(\w+<\d+>)\(", key)
+        out[m.group(1) if m else key[:60]] = t / reps
     return out
 
 
@@ -1743,7 +1789,6 @@ def profiled(what: str):
     little, so the idle share is an upper bound. Yields a dict that holds,
     after the block, ``wall`` and ``busy`` seconds and ``by_class`` ms."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1753,9 +1798,7 @@ def profiled(what: str):
         yield stats
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ms = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-    counts = {e.key: e.count for e in kernels}
+    ms, counts = device_times(prof)
     busy = sum(ms.values()) / 1e3
     classes = {"K5's rotation (rope_rotate_kernel)": "rope_rotate",
                "K4 (cross_resident_kernel, cross_stream_kernel)": ("cross_resident", "cross_stream"),
@@ -3181,17 +3224,14 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
             print("  neither ffmpeg nor cv2 is here: the CLI runs with --latents-only (the mp4 write is "
                   "tested on the CPU)", flush=True)
         # phase 20 (b): the reference's per-pipeline entry, main() -> run_cli,
-        # which appends --pipeline distilled and calls the generate CLI's main()
-        torch.cuda.reset_peak_memory_stats()
-        fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+        # which appends --pipeline distilled and calls the generate CLI's main();
+        # its run is phase 21 (a)'s control
         saved_argv, sys.argv = sys.argv, ["ltx_pipelines.distilled", *argv]
-        t0 = time.perf_counter()
         try:
-            distilled_pipeline.main()
+            control = cli_capture(distilled_pipeline.main, fa, qmm)
         finally:
             entry_argv, sys.argv = sys.argv, saved_argv
-        wall = time.perf_counter() - t0
-        k1, k2 = fa.launch_count, qmm.launch_count
+        wall, k1, k2 = control["wall"], control["k1"], control["k2"]
         print(f"  phase 20 (b): ltx_pipelines.distilled.main() ran the generate CLI with "
               f"{' '.join(entry_argv[len(argv) + 1:])} appended", flush=True)
         if entry_argv[len(argv) + 1:] != ["--pipeline", "distilled"]:
@@ -3200,14 +3240,16 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
         phases = json.loads(report.read_text())["phases"]
         for name, sec in phases.items():
             print(f"  CLI phase {name}: {sec:.4f} s", flush=True)
-        print(f"  CLI main wall {wall:.4f} s; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}", flush=True)
+        memory_line("CLI (the control of phase 21 (a))", control)
         if "--latents-only" not in argv:
             if not output.is_file() or output.stat().st_size == 0:
                 fail(f"the CLI wrote no video at {output}")
             print(f"  CLI wrote {output.name}: {output.stat().st_size} bytes", flush=True)
         check_launches(k1, k2, 10 * 48 * (8 + 3))
-        torch.cuda.empty_cache()
+        print("phase 21 (a), (b): the memory plan through the generate CLI over this snapshot; the capped pair:",
+              flush=True)
+        memory_plan = memory_plan_cli(argv, control, tmp, fa, qmm)
+        del control
 
         torch.cuda.reset_peak_memory_stats()
         fa.launch_count = qmm.launch_count = i8.int8_matmul_count = 0
@@ -3256,6 +3298,7 @@ def snapshot_and_cli(models, text, fa, qmm, data_root: Path, cond: dict, av_data
         q4_file = snap / "ltx-2-19b-distilled-4bit-mlx.safetensors"
         train = train_cli_over_q4(q4_file, data_root, tmp / "train", fa, qmm)
         return {"k2_keyframe_cli": k2, "k1_keyframe_cli": k1, **pipeline_cli, **audio, **serve_lora, **train,
+                **memory_plan,
                 **train_cli_mesh_one(train, tmp / "train_mesh", fa, qmm),
                 **train_cli_pipeline_one(train, data_root, tmp / "train_pipe", fa, qmm),
                 **train_cli_over_q4(q4_file, av_data, tmp / "train_av", fa, qmm, audio=True)}
@@ -3270,7 +3313,7 @@ def audio_cli(argv: list, snap: Path, tmp: Path, fa, qmm) -> dict:
     ltx-2-19b-distilled-mlx.safetensors is the same file (the VideoOnly DiT's
     10 a block over 11 steps, the AudioOnly DiT's 10 a block over 8 steps at
     B = 2)."""
-    import torch
+    import numpy as np
 
     from mlx_video_tpu_torch.cli import generate as cli
 
@@ -3279,32 +3322,197 @@ def audio_cli(argv: list, snap: Path, tmp: Path, fa, qmm) -> dict:
     (audio_repo / "ltx-2-19b-distilled-mlx.safetensors").symlink_to(snap / "ltx-2-19b-distilled-4bit-mlx.safetensors")
     base = argv[:argv.index("--output-path")]
     t = audio_frames_for(33)
-    out = {}
+    joint = ["--audio", "--audio-mode", "joint"]
+    out, runs = {}, {}
     with launch_shapes(fa, qmm) as shapes:
         for mode, flags, want in (
-                ("joint", ["--audio", "--audio-mode", "joint"], (2 * 48 * 11, 28 * 48 * 11)),
+                ("joint", joint, (2 * 48 * 11, 28 * 48 * 11)),
+                # phase 21 (c): the joint run under the memory plan, against the one before
+                ("memory_plan", [*joint, "--low-memory", "--no-overlap-staging"], (2 * 48 * 11, 28 * 48 * 11)),
                 ("separate", ["--audio", "--audio-model-repo", str(audio_repo)],
                  (48 * 11 + 48 * 8, 10 * 48 * 11 + 10 * 48 * 8))):
             video, report = tmp / f"audio_{mode}.mp4", tmp / f"audio_{mode}.json"
-            torch.cuda.reset_peak_memory_stats()
-            fa.launch_count = qmm.launch_count = 0
-            t0 = time.perf_counter()
-            cli.main([*base, *flags, "--output-path", str(video), "--profile-json-path", str(report),
-                      "--device", "cuda"])
-            wall = time.perf_counter() - t0
-            k1, k2 = fa.launch_count, qmm.launch_count
+            runs[mode] = run = cli_capture(lambda: cli.main([*base, *flags, "--output-path", str(video),
+                                                             "--profile-json-path", str(report), "--device", "cuda"]),
+                                           fa, qmm)
+            k1, k2 = run["k1"], run["k2"]
             for name, sec in json.loads(report.read_text())["phases"].items():
                 print(f"  CLI --audio ({mode}) phase {name}: {sec:.4f} s", flush=True)
-            print(f"  CLI --audio ({mode}) main wall {wall:.4f} s; peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}", flush=True)
+            memory_line(f"CLI --audio ({mode})", run)
             if (k1, k2) != want:
                 fail(f"CLI --audio ({mode}): launches K1 {k1}, K2 {k2}; want {want}")
             check_wav(video.with_suffix(".wav"), t, f"CLI --audio ({mode})")
             check_mp4_audio(video, f"CLI --audio ({mode})")
             out.update({f"k1_audio_{mode}_cli": k1, f"k2_audio_{mode}_cli": k2})
-            torch.cuda.empty_cache()
     check_compared(shapes, "phase 12 (d)")
+    a, b = runs["memory_plan"]["result"], runs["joint"]["result"]
+    same = {"video latents": np.array_equal(a.latents, b.latents),
+            "audio latents": np.array_equal(a.audio_latents, b.audio_latents),
+            "WAV": (tmp / "audio_memory_plan.wav").read_bytes() == (tmp / "audio_joint.wav").read_bytes()}
+    print(f"  phase 21 (c): the joint CLI with --low-memory --no-overlap-staging against the joint run: bitwise "
+          + ", ".join(f"{k} {v}" for k, v in same.items()) + f"; peak {runs['memory_plan']['peak'] / 2**30:.3f} "
+          f"GiB against {runs['joint']['peak'] / 2**30:.3f} GiB", flush=True)
+    if not all(same.values()):
+        fail(f"phase 21 (c): the memory plan's joint run differs from the joint run: {same}")
     return out
+
+
+# Phase 21: the single-device memory plan over phase 10's 4-bit snapshot.
+MEMORY_PLAN_RUNS = (
+    ("low_memory", ["--low-memory"]),
+    ("no_overlap", ["--low-memory", "--no-overlap-staging"]),
+    ("int8", ["--low-memory", "--aux-stage-int8"]),
+    ("int8_card", ["--low-memory", "--aux-stage-int8", "--aux-park-device"]),
+)
+
+
+def parked_bytes(bundle) -> tuple:
+    """(the bytes of the parks a run left on ``bundle`` or unparked its
+    modules from, the same modules' bytes in their own dtypes)."""
+    from mlx_video_tpu_torch.io import staging
+
+    parks = [staging.park_of(getattr(bundle, attr))
+             for attr in ("vae_decoder", "upsampler", "vae_encoder", "audio_decoder", "vocoder")]
+    parks = [p for p in parks if p is not None]
+    return sum(p.nbytes() for p in parks), sum(p.module_bytes() for p in parks)
+
+
+def cli_capture(run, fa, qmm) -> dict:
+    """``run()`` (a generate CLI entry) after a collection, the counts set to
+    0 just before: its GenerateResult, K1 and K2 launches, wall, the peak
+    allocated and reserved memory above what was resident before it, and
+    the parked bytes of its bundle (:func:`parked_bytes`)."""
+    import torch
+
+    from mlx_video_tpu_torch.pipelines import generate as gen
+
+    collected("cuda")
+    base_alloc, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    inner, kept = gen.generate_video, []
+    gen.generate_video = lambda *a, **kw: kept.append((a[0], inner(*a, **kw))) or kept[-1][1]
+    fa.launch_count = fa.bwd_launch_count = qmm.launch_count = 0
+    t0 = time.perf_counter()
+    try:
+        run()
+    finally:
+        gen.generate_video = inner
+    wall = time.perf_counter() - t0
+    out = dict(k1=fa.launch_count, k2=qmm.launch_count, wall=wall,
+               peak=torch.cuda.max_memory_allocated() - base_alloc,
+               reserved=torch.cuda.max_memory_reserved() - base_reserved)
+    (bundle, out["result"]), = kept
+    out["parked"], out["aux"] = parked_bytes(bundle)
+    del kept, bundle
+    collected("cuda")
+    return out
+
+
+def memory_line(what: str, run: dict) -> None:
+    print(f"  {what}: wall {run['wall']:.4f} s; peak {run['peak'] / 2**30:.3f} GiB allocated, "
+          f"{run['reserved'] / 2**30:.3f} GiB reserved above the resident; parked modules {run['parked'] / 2**20:.2f} "
+          f"MiB of {run['aux'] / 2**20:.2f} MiB unparked; launches K1 {run['k1']}, K2 {run['k2']}", flush=True)
+
+
+def memory_plan_cli(argv: list, control: dict, tmp: Path, fa, qmm) -> dict:
+    """Phase 21 (a), (b): the generate CLI of phase 10 (``argv``, whose run
+    ``control`` is) under the memory plan's flags, then the capped pair in
+    subprocesses (:func:`capped_pair`)."""
+    import numpy as np
+
+    from mlx_video_tpu_torch.cli import generate as cli
+
+    t_phase = time.perf_counter()
+    base, device = argv[:argv.index("--output-path")], argv[argv.index("--device") + 1]
+    ref = control["result"]
+    runs = {}
+    for name, flags in MEMORY_PLAN_RUNS:
+        out = [*base, "--output-path", str(tmp / f"memory_{name}.mp4"), "--device", device, *flags]
+        runs[name] = run = cli_capture(lambda: cli.main(out), fa, qmm)
+        memory_line(f"(a) CLI {' '.join(flags)}", run)
+        check_launches(run["k1"], run["k2"], 10 * 48 * (8 + 3))
+    bitwise = {name: np.array_equal(runs[name]["result"].latents, ref.latents)
+               and np.array_equal(runs[name]["result"].video, ref.video) for name in ("low_memory", "no_overlap")}
+    db = min(psnr(runs["int8"]["result"].video[:, :, i], ref.video[:, :, i], 2.0) for i in range(ref.video.shape[2]))
+    card_same = np.array_equal(runs["int8_card"]["result"].video, runs["int8"]["result"].video)
+    print(f"  (a) latents and video bitwise the control's: --low-memory {bitwise['low_memory']}, "
+          f"--no-overlap-staging {bitwise['no_overlap']}; --aux-stage-int8 against the control {db:.2f} dB per RGB "
+          f"frame (min); --aux-park-device bitwise the host park's video: {card_same}", flush=True)
+    if not all(bitwise.values()) or not db >= 35.0 or not card_same:
+        fail(f"phase 21 (a): bitwise {bitwise}, int8 {db:.2f} dB, card park bitwise {card_same}")
+    capped = capped_pair(base, control["peak"], runs["no_overlap"], tmp)
+    print(f"  phase 21 (a), (b): {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"k1_memory_plan_cli": runs["no_overlap"]["k1"], "k2_memory_plan_cli": runs["no_overlap"]["k2"],
+            "memory_plan_peaks": {name: run["peak"] for name, run in runs.items()}, **capped}
+
+
+CAPPED_CLI = r"""
+import json, sys
+import numpy as np
+import torch
+budget, argv, out = int(sys.argv[1]), json.loads(sys.argv[2]), sys.argv[3]
+torch.cuda.set_per_process_memory_fraction(budget / torch.cuda.get_device_properties(0).total_memory)
+from mlx_video_tpu_torch.cli import generate as cli
+from mlx_video_tpu_torch.ops import flash_attention as fa, quant_matmul as qmm
+from mlx_video_tpu_torch.pipelines import generate as gen
+inner, kept = gen.generate_video, []
+gen.generate_video = lambda *a, **kw: kept.append(inner(*a, **kw)) or kept[-1]
+try:
+    cli.main(argv)
+except torch.OutOfMemoryError as e:
+    print("OUT_OF_MEMORY", str(e).splitlines()[0], flush=True)
+    sys.exit(3)
+np.save(out, kept[0].video)
+print("CAPPED", json.dumps({"peak": torch.cuda.max_memory_allocated(), "reserved": torch.cuda.max_memory_reserved(),
+                            "k1": fa.launch_count, "k2": qmm.launch_count}), flush=True)
+"""
+
+
+def capped_pair(base: list, control_peak: int, no_overlap: dict, tmp: Path) -> dict:
+    """Phase 21 (b): the plain CLI and the --low-memory --no-overlap-staging
+    CLI at once, each in a process whose allocator is capped at the budget
+    halfway between the two peaks of (a): the plain one must fail out of
+    memory, the other finish with (a)'s video."""
+    import numpy as np
+
+    budget = (control_peak + no_overlap["peak"]) // 2
+    print(f"  (b) the budget: {budget / 2**30:.3f} GiB, halfway between the control's peak "
+          f"{control_peak / 2**30:.3f} GiB and the --no-overlap-staging run's {no_overlap['peak'] / 2**30:.3f} GiB "
+          "(set_per_process_memory_fraction in each process)", flush=True)
+    if not control_peak > no_overlap["peak"]:
+        fail("phase 21 (b): the memory plan's run does not peak below the plain run")
+    procs = {}
+    t0 = time.perf_counter()
+    for name, flags in (("plain", []), ("no_overlap", ["--low-memory", "--no-overlap-staging"])):
+        argv = [*base, "--output-path", str(tmp / f"capped_{name}.mp4"), "--device", "cuda", *flags]
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", CAPPED_CLI, str(budget), json.dumps(argv), str(tmp / f"capped_{name}.npy")],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=600)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    oom = procs["plain"].returncode == 3 and "OUT_OF_MEMORY" in outs["plain"]
+    done = procs["no_overlap"].returncode == 0 and (tmp / "capped_no_overlap.npy").is_file()
+    same = done and np.array_equal(np.load(tmp / "capped_no_overlap.npy"), no_overlap["result"].video)
+    stats = json.loads(outs["no_overlap"].split("CAPPED ", 1)[1].splitlines()[0]) if done else {}
+    line = next((ln for ln in outs["plain"].splitlines() if ln.startswith("OUT_OF_MEMORY")), "no OUT_OF_MEMORY line")
+    print(f"  (b) capped pair, both at once: {wall:.2f} s; the plain CLI exit {procs['plain'].returncode}: {line[:160]}",
+          flush=True)
+    print(f"  (b) the --low-memory --no-overlap-staging CLI exit {procs['no_overlap'].returncode}; peak "
+          f"{stats.get('peak', 0) / 2**30:.3f} GiB allocated, {stats.get('reserved', 0) / 2**30:.3f} GiB reserved; "
+          f"launches K1 {stats.get('k1')}, K2 {stats.get('k2')}; video bitwise (a)'s: {same}", flush=True)
+    if not (oom and same and stats.get("k1") == 528 and stats.get("k2") == 5280):
+        for name, text in outs.items():
+            print(f"  (b) {name} output, last lines:\n    " + "\n    ".join(text.splitlines()[-15:]), flush=True)
+        fail(f"phase 21 (b): plain out of memory {oom}, the plan's run finished with the same video {same}")
+    return {"capped_budget": budget, "capped_peak": stats["peak"]}
 
 
 def train_cli_over_q4(q4_file: Path, data_root: Path, out: Path, fa, qmm, audio: bool = False) -> dict:
@@ -3553,20 +3761,15 @@ def convert_run(argv: list, what: str) -> str:
     return out
 
 
-def check_converted_q4(models, snap: Path, device: str = "cuda") -> None:
-    """The converted DiT through load_model_bundle (the unified bundle)
-    against quantize_linear of the dense layers on the card, one at a time,
-    and the dense tensors."""
+def check_converted_q4(models, bundle) -> None:
+    """The converted DiT as load_model_bundle read it (the unified bundle,
+    the CLI's own load) against quantize_linear of the dense layers on the
+    card, one at a time, and the dense tensors."""
     import torch
 
-    from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.ops.linear import QuantLinear
     from mlx_video_tpu_torch.ops.quant import quantize_linear
 
-    t0 = time.perf_counter()
-    bundle = loading.load_model_bundle(snap, device=device)
-    torch.cuda.synchronize()
-    print(f"  load_model_bundle on the converted directory: {time.perf_counter() - t0:.2f} s", flush=True)
     dense = dict(models.transformer.named_modules())
     quantized = {name: m for name, m in bundle.transformer.named_modules() if isinstance(m, QuantLinear)}
     bad = []
@@ -3586,16 +3789,16 @@ def check_converted_q4(models, snap: Path, device: str = "cuda") -> None:
           f"the card, {len(rest)} other tensors equal to the dense model's", flush=True)
     if len(quantized) != 10 * 48 or bad or missing:
         fail(f"converted DiT: {len(quantized)} QuantLinears (want 480); differing {bad[:10]}; missing {missing[:10]}")
-    del bundle
-    torch.cuda.empty_cache()
 
 
 def generate_from_converted(snap: Path, embeddings: Path, tmp: Path, fa, qmm, what: str, extra=(),
-                            device: str = "cuda") -> dict:
+                            device: str = "cuda", check=None) -> dict:
     """The generate CLI's main() on a converted directory, counts set to 0
-    just before: K1, K2 and int8 products, the phase seconds, the mp4."""
+    just before: K1, K2 and int8 products, the phase seconds, the mp4;
+    ``check(bundle)``, when given, on the bundle the CLI loaded, after it."""
     import torch
 
+    from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch.cli import generate as cli
     from mlx_video_tpu_torch.ops import int8 as i8
 
@@ -3606,9 +3809,17 @@ def generate_from_converted(snap: Path, embeddings: Path, tmp: Path, fa, qmm, wh
             "--profile-json-path", str(report), *extra, "--device", device]
     torch.cuda.reset_peak_memory_stats()
     fa.launch_count = qmm.launch_count = i8.int8_matmul_count = 0
-    wall, out, err = run_captured(cli.main, argv)
+    load, loaded = loading.load_model_bundle, []
+    if check is not None:
+        loading.load_model_bundle = lambda *a, **kw: loaded.append(load(*a, **kw)) or loaded[-1]
+    try:
+        wall, out, err = run_captured(cli.main, argv)
+    finally:
+        loading.load_model_bundle = load
     k1, k2, int8 = fa.launch_count, qmm.launch_count, i8.int8_matmul_count
     phases = json.loads(report.read_text())["phases"]
+    if check is not None:
+        check(loaded.pop())
     left = torch.cuda.memory_allocated()
     collected(device)  # a traced run can leave its bundle in a reference cycle
     print(f"  CLI on the {what} files: main wall {wall:.4f} s; phases " + ", ".join(
@@ -3703,10 +3914,10 @@ def full_width_convert(models, text, fa, qmm, adapter: Path, pairs: int, device:
             fail(f"quantization.json {(q4_dir / 'quantization.json').read_text()!r}")
         if "Saved unified bundle" not in out or loading.unified_bundle_file(q4_dir) is None:
             fail("convert wrote no unified bundle")
-        check_converted_q4(models, q4_dir, device)
         trace_dir = tmp / "trace"
         q4 = generate_from_converted(q4_dir, embeddings, tmp, fa, qmm, "q4 unified",
-                                     ["--profile", "--mem-log", "--trace-dir", str(trace_dir)], device)
+                                     ["--profile", "--mem-log", "--trace-dir", str(trace_dir)], device,
+                                     check=lambda bundle: check_converted_q4(models, bundle))
         check_launches(q4["k1"], q4["k2"], 10 * 48 * (8 + 3))
         memory = [line for line in q4["stderr"].splitlines() if line.startswith("Memory (")]
         if "Phase timing:" not in q4["stdout"] or [m.split(")")[0] for m in memory] != [
@@ -3767,6 +3978,20 @@ def latents_tap():
         return res
 
     gen.generate_video = wrapped
+    try:
+        yield seen
+    finally:
+        gen.generate_video = inner
+
+
+@contextlib.contextmanager
+def results_tap():
+    """Keeps the GenerateResult of every generate_video call that goes
+    through the pipeline module's attribute (the server's calls)."""
+    from mlx_video_tpu_torch.pipelines import generate as gen
+
+    inner, seen = gen.generate_video, []
+    gen.generate_video = lambda *a, **kw: seen.append(inner(*a, **kw)) or seen[-1]
     try:
         yield seen
     finally:
@@ -4098,6 +4323,7 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
     from mlx_video_tpu_torch import loading
     from mlx_video_tpu_torch import lora as lora_mod
     from mlx_video_tpu_torch.cli import serve as srv
+    from mlx_video_tpu_torch.io import staging
     from mlx_video_tpu_torch.pipelines.generate import generate_video
 
     t_phase = time.perf_counter()
@@ -4120,14 +4346,17 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
                 try:
                     port = httpd.server_address[1]
                     got["service"] = service
-                    with latents_tap() as seen:
+                    with results_tap() as seen:
                         for name, req in requests:
                             torch.cuda.synchronize()
                             mem0 = torch.cuda.memory_allocated()
                             fa.launch_count = qmm.launch_count = 0
                             (code, resp), secs = synced_s(lambda: http_call(port, "POST", "/generate", req))
                             got[name] = dict(code=code, resp=resp, s=secs, k1=fa.launch_count, k2=qmm.launch_count,
-                                             added=torch.cuda.memory_allocated() - mem0, latents=seen[-1][1])
+                                             mem=mem0, added=torch.cuda.memory_allocated() - mem0,
+                                             latents=seen[-1].latents, video=seen[-1].video,
+                                             parked=[staging.is_parked(getattr(service.models, a))
+                                                     for a in ("vae_decoder", "upsampler")])
                 except BaseException as e:  # noqa: BLE001 — reported by the caller
                     got["error"] = e
                 finally:
@@ -4178,6 +4407,7 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
         del slot
         loaded.clear()
         torch.cuda.empty_cache()
+        got["unparked_again_mem"] = got["again"]["mem"]  # after a base and a LoRA request, against phase 21 (d)
         unsharded = {name: got.pop(name)["latents"] for name in ("base", "lora")}
         mesh_s = serve_main(["--mesh", "1,1,1"], [("base", base), ("lora", lora)])
         service = got.pop("service")
@@ -4194,13 +4424,38 @@ def serve_lora_over_q4(snap: Path, embeddings: Path, adapter: Path, fa, qmm, tmp
         if not (sharded and all(same.values())):
             fail(f"(e) --mesh 1,1,1: sharded {sharded}, bitwise {same}")
         del direct
+        loaded.clear()
+        loading.load_model_bundle = load  # nothing may hold the modules as loaded beside the service
+        collected("cuda")
+        # phase 21 (d): --aux-park; the LoRA request first, so that its parks must come back to the
+        # service's bundle, which until then held the modules as loaded
+        park_s = serve_main(["--aux-park"], [("park_lora", lora), ("park_base", base), ("park_again", base)])
+        service = got.pop("service")
+        card = {torch.device("cuda", torch.cuda.current_device())}
+        parks = [getattr(service.models, a) for a in ("vae_decoder", "upsampler")]
+        on_card = all(staging.is_parked(p) and p.devices() == card for p in parks)
+        park_bytes, aux_bytes = parked_bytes(service.models)
+        del service, parks
+        again = {k: np.array_equal(got["park_again"][k], got["park_base"][k]) for k in ("latents", "video")}
+        between, unparked = got["park_again"]["mem"], got["unparked_again_mem"]
+        print(f"  phase 21 (d): serve --aux-park (load, 3 requests, shutdown) {park_s:.2f} s; the service's decoder and "
+              f"upsampler parked on the card after each request: {[got[n]['parked'] for n in ('park_lora', 'park_base', 'park_again')]} "
+              f"(on the card at the end: {on_card}; {park_bytes / 2**20:.2f} MiB of {aux_bytes / 2**20:.2f} MiB); "
+              f"the second base request bitwise the first: {again}; memory_allocated() before the third request "
+              f"{between / 2**30:.3f} GiB against the unparked server's {unparked / 2**30:.3f} GiB "
+              f"({(unparked - between) / 2**20:.2f} MiB less)", flush=True)
+        if not (on_card and all(again.values()) and all(all(got[n]["parked"]) for n in ("park_lora", "park_base"))
+                and between < unparked):
+            fail(f"phase 21 (d): parked {on_card}, bitwise {again}, memory {between} against {unparked}")
+        park_counts = (got["park_base"]["k1"], got["park_base"]["k2"])
     finally:
         lora_mod.attach_runtime_lora, loading.load_model_bundle = attach, load
         got.clear()
         loaded.clear()
         torch.cuda.empty_cache()
     print(f"  phase 14 (e): {time.perf_counter() - t_phase:.2f} s", flush=True)
-    return {"k1_serve_lora": counts[0], "k2_serve_lora": counts[1], "lora_added": added, "lora_fp32": fp32_bytes}
+    return {"k1_serve_lora": counts[0], "k2_serve_lora": counts[1], "lora_added": added, "lora_fp32": fp32_bytes,
+            "k1_serve_aux_park": park_counts[0], "k2_serve_aux_park": park_counts[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -5414,7 +5669,10 @@ def main() -> int:
                           **{f"world1_audio_{run}": n for run, n in sharded_av["world1"].items()},
                           "av_block_virtual": sharded_av["block"]["k1"],
                           "composed_av_denoise": composed["k1"],
-                          "distilled_pipeline_cli": cli_train["k1_distilled_pipeline_cli"]},
+                          "distilled_pipeline_cli": cli_train["k1_distilled_pipeline_cli"],
+                          "memory_plan_cli": cli_train["k1_memory_plan_cli"],
+                          "audio_memory_plan_cli": cli_train["k1_audio_memory_plan_cli"],
+                          "serve_aux_park": cli_train["k1_serve_aux_park"]},
         "ring_ms": {n: row["ring_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_device_ms": {n: row["device_ms"] for n, row in par["ring"]["rows"].items()},
         "ring_whole_ms": par["ring"]["whole_ms"],
@@ -5437,7 +5695,10 @@ def main() -> int:
                           "training_mesh_cli": cli_train["k2_train_mesh_cli"],
                           "training_pipeline_cli": cli_train["k2_train_pipe_cli"],
                           "av_block_virtual": sharded_av["block"]["k2"],
-                          "distilled_pipeline_cli": cli_train["k2_distilled_pipeline_cli"]},
+                          "distilled_pipeline_cli": cli_train["k2_distilled_pipeline_cli"],
+                          "memory_plan_cli": cli_train["k2_memory_plan_cli"],
+                          "audio_memory_plan_cli": cli_train["k2_audio_memory_plan_cli"],
+                          "serve_aux_park": cli_train["k2_serve_aux_park"]},
         "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

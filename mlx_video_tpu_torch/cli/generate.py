@@ -62,8 +62,15 @@ writes files (the mp4 and the WAV). A mesh or stages of more than one rank
 without a launcher exit naming ``torchrun``; ``--mesh 1,1,1`` runs in one
 process.
 
-The options of :data:`_REFUSED` exit with a message that names them and
-what they wait for; none is ignored.
+The single-device memory plan (pipelines/generate.py) as in the JAX CLI:
+``--low-memory`` (the VAE decoder, upsampler and audio stacks parked off
+the card while the transformer denoises, the transformer freed before the
+decode), ``--aux-stage-int8`` (parked as per-group int8, io/staging.py),
+``--aux-park-device`` (the int8 park on the card) and
+``--no-overlap-staging`` (no copies on a side stream under the denoise);
+with ``--low-memory`` the loader leaves those modules on the host;
+``--optimize-layouts`` prints a note: XLA's layout pre-placement has
+nothing to do here. Every flag of the JAX CLI is taken; none is refused.
 """
 
 from __future__ import annotations
@@ -295,15 +302,6 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-# The JAX parser's options that the port refuses, with what they wait for;
-# each exits when it is given a value other than its default.
-_LEFT_OUT = "a 16 GB accelerator's memory plan or XLA's layouts, left out of the port (ROADMAP 'Leave out')"
-_REFUSED = {
-    "low_memory": _LEFT_OUT, "aux_stage_int8": _LEFT_OUT, "aux_park_device": _LEFT_OUT,
-    "no_overlap_staging": _LEFT_OUT, "optimize_layouts": _LEFT_OUT,
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = base_parser()
     p.description = ("LTX-2 video generation, distilled, keyframe, IC-LoRA and dev pipelines, with or without "
@@ -311,13 +309,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; exits when CUDA is absent)")
     return p
-
-
-def unported_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) -> list:
-    """Messages for the options in ``args`` that ask for what the port does
-    not have."""
-    return [f"{action.option_strings[0]} ({_REFUSED[action.dest]})" for action in parser._actions
-            if action.dest in _REFUSED and getattr(args, action.dest, action.default) != action.default]
 
 
 def note_ignored_flags(args: argparse.Namespace) -> None:
@@ -332,6 +323,9 @@ def note_ignored_flags(args: argparse.Namespace) -> None:
     ]:
         if val:
             print(f"note: {flag} has no effect on the GPU (ignored)")
+    if args.optimize_layouts:
+        print("note: --optimize-layouts has no effect on the GPU: the port's weights are already in the layouts "
+              "its kernels read (ignored)")
 
 
 def load_embeddings(path, device=None):
@@ -447,9 +441,6 @@ def _parallel_start(args, device: torch.device, prog: str = "generate") -> torch
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    unported = unported_flags(args, parser)
-    if unported:
-        raise SystemExit("generate: not ported to mlx_video_tpu_torch yet: " + "; ".join(unported))
     if args.mesh and args.pipeline_parallel:
         # fail before minutes of weight loading, not inside generate_video
         raise SystemExit("generate: --mesh and --pipeline-parallel are mutually exclusive")
@@ -498,6 +489,9 @@ def _run(args, device: torch.device) -> None:
         load_encoder=bool(args.image or args.video_conditioning), device=device,
         audio=args.audio, audio_mode=args.audio_mode,
         audio_model_path=get_model_path(args.audio_model_repo) if args.audio_model_repo else None,
+        # the memory plan's modules wait on the host, not beside the transformer (the JAX loader puts them on
+        # the device and the run parks them; on the card that load was the run's peak)
+        aux_device="cpu" if args.low_memory else None,
     )
     merge_s = None
     if args.lora or args.distilled_lora:
@@ -541,6 +535,7 @@ def _run(args, device: torch.device) -> None:
         result = generate_video(
             models,
             text,
+            prompt=args.prompt,
             height=args.height,
             width=args.width,
             num_frames=args.num_frames,
@@ -578,6 +573,10 @@ def _run(args, device: torch.device) -> None:
             sequence_parallel=args.sequence_parallel,
             pipeline_parallel=args.pipeline_parallel,
             pipeline_tensor=args.pipeline_tensor,
+            low_memory=args.low_memory,
+            aux_int8_staging=args.aux_stage_int8,
+            overlap_staging=False if args.no_overlap_staging else None,
+            aux_park_device=True if args.aux_park_device else None,
         )
 
     if not primary:

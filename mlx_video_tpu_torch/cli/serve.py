@@ -60,8 +60,18 @@ process, so:
 - when rank 0 stops serving it publishes a stop message, and the others
   leave their loop and the process group.
 
-Refused by name: ``--aux-park`` (a 16 GB accelerator's memory plan, left out
-of the port). Differences from the JAX server, on purpose: ``--warmup`` runs
+``--aux-park`` (one process, no mesh): the single-device memory plan for a
+resident server. Every request runs ``generate_video(low_memory=True,
+keep_transformer=True, aux_int8_staging=True, aux_park_device=True)``: the
+VAE decoder, upsampler and audio stacks stay parked on the card as
+per-group int8 (io/staging.py) between requests and come in for their
+phases, the transformer stays. After a request the service fences
+(utils/device.py) and puts the parked modules back on its own bundle (a
+request with adapters runs on a copy of it). Modules parked in the serving
+thread are parked under ``torch.inference_mode()``; their tensors are only
+ever read afterwards, which inference tensors allow.
+
+Differences from the JAX server, on purpose: ``--warmup`` runs
 one warm request (the port compiles no per-shape program, so the JAX
 server's second, streamed warm request has nothing to warm); the default
 output directory is under the temporary directory (``$TMPDIR``).
@@ -86,11 +96,6 @@ from typing import Optional
 import torch
 
 _PIPELINES = ("distilled", "dev")
-
-# The JAX server's options that the port refuses, with why.
-_REFUSED = {
-    "aux_park": "a 16 GB accelerator's memory plan, left out of the port (ROADMAP 'Leave out')",
-}
 
 
 class RequestError(ValueError):
@@ -118,7 +123,12 @@ class GenerationService:
         pipeline_parallel: int = 0,
         pipeline_tensor: int = 1,
         channel=None,
+        aux_park: bool = False,
     ) -> None:
+        if aux_park and mesh is not None:
+            raise ValueError("aux_park is the single-chip memory plan; with a mesh the aux stages are replicated "
+                             "instead")
+        self.aux_park = bool(aux_park)
         self.models = models
         # sharded serving: the options every generate_video takes, and rank
         # 0's channel to the other ranks (None in one process)
@@ -286,6 +296,26 @@ class GenerationService:
         if not key:
             return self.models
         return dataclasses.replace(self.models, transformer=self._transformer_for(key))
+
+    def _fence_between_requests(self) -> None:
+        """With aux_park: what a request leaves behind (its decode's
+        activations, the unparked modules) has settled before the next one."""
+        if self.aux_park:
+            from mlx_video_tpu_torch.utils.device import drain_device_queue
+
+            drain_device_queue(self.models.transformer.video.scale_shift_table.device)
+
+    def _sync_aux_back(self, bundle) -> None:
+        """With aux_park, generate_video parks the aux modules again on the
+        bundle it was given; a request with adapters runs on a copy, so the
+        parks go back to this service's bundle (else it would keep the
+        modules as they were beside their parks)."""
+        if not self.aux_park or bundle is self.models:
+            return
+        from mlx_video_tpu_torch.pipelines.generate import _AUX
+
+        for attr in _AUX:
+            setattr(self.models, attr, getattr(bundle, attr))
 
     def _batch_key(self, req: dict):
         """What shapes and schedules a run: requests that share it can share
@@ -477,8 +507,11 @@ class GenerationService:
             text = gen.TextConditioning(video_embeddings=cat("video_embeddings"),
                                         video_neg_embeddings=cat("video_neg_embeddings"))
         out = self.output_dir / f"gen_{int(time.time() * 1000)}_{self.requests_served}_batch.mp4"
-        result = gen.generate_video(self._models_for(reqs[0]), text, output_path=out,
+        bundle = self._models_for(reqs[0])
+        result = gen.generate_video(bundle, text, prompt=reqs[0].get("prompt", ""), output_path=out,
                                     seeds=[int(r.get("seed", 0)) for r in reqs], **kwargs, **self._parallel_kwargs())
+        self._sync_aux_back(bundle)
+        self._fence_between_requests()
         self.requests_served += len(reqs)
         self.batches_run += 1
         return result
@@ -509,6 +542,8 @@ class GenerationService:
             audio_mode=str(req.get("audio_mode", "auto")),
             tiling=str(req.get("tiling", "auto")),
             dtype=self.dtype,
+            **(dict(low_memory=True, keep_transformer=True, aux_int8_staging=True, aux_park_device=True)
+               if self.aux_park else {}),
         )
 
     def _generate_one(self, req: dict, sink=None) -> dict:
@@ -532,7 +567,11 @@ class GenerationService:
         text = self._text_for(req)  # a 12B forward with a text encoder: under the lock too
         # the served counter keeps names apart where the clock's ms collide
         out = self.output_dir / f"gen_{int(time.time() * 1000)}_{self.requests_served}_{kwargs['seed']}.mp4"
-        result = gen.generate_video(self._models_for(req), text, output_path=out, **kwargs, **self._parallel_kwargs())
+        bundle = self._models_for(req)
+        result = gen.generate_video(bundle, text, prompt=req.get("prompt", ""), output_path=out, **kwargs,
+                                    **self._parallel_kwargs())
+        self._sync_aux_back(bundle)
+        self._fence_between_requests()
         wall = time.time() - t0
         self.requests_served += 1
         resp = self._response(result.video_path or out, result, wall, batched=1,
@@ -731,13 +770,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refused_flags(args: argparse.Namespace, parser: argparse.ArgumentParser) -> list:
-    """'--flag (what it waits for)' for each refused option given a value
-    other than its default."""
-    return [f"{action.option_strings[0]} ({_REFUSED[action.dest]})" for action in parser._actions
-            if action.dest in _REFUSED and getattr(args, action.dest) != action.default]
-
-
 def load_service(args) -> GenerationService:
     """Models, text (an encoder or the embeddings) and the service, as the
     flags say. With ``--mesh`` or ``--pipeline-parallel`` this rank joins
@@ -784,6 +816,7 @@ def load_service(args) -> GenerationService:
         lora_dir=Path(args.lora_dir) if args.lora_dir else None, lora_cache=args.lora_cache,
         lora_slot_rank=args.lora_slot_rank, mesh=mesh, sequence_parallel=args.sequence_parallel,
         pipeline_parallel=args.pipeline_parallel, pipeline_tensor=args.pipeline_tensor, channel=channel,
+        aux_park=args.aux_park,
     )
 
 
@@ -796,9 +829,6 @@ def main(argv=None, ready=None) -> None:
     args = parser.parse_args(argv)
     if args.mesh and args.pipeline_parallel:  # known at parse time: fail before any weight loads
         raise SystemExit("serve: --mesh and --pipeline-parallel are mutually exclusive")
-    refused = refused_flags(args, parser)
-    if refused:
-        raise SystemExit("serve: not ported to mlx_video_tpu_torch: " + "; ".join(refused))
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: --device cuda but CUDA is not available (pass --device cpu to run on the CPU)")
     try:

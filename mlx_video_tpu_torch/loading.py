@@ -145,6 +145,7 @@ def load_model_bundle(
     stage2_path: Optional[Path] = None,
     load_encoder: bool = False,
     device="cuda",
+    aux_device=None,
 ) -> ModelBundle:
     """Load a video pipeline's components from a snapshot onto ``device``:
     the transformer of the pipeline's kind (``ltx-2-19b-dev*`` for the dev
@@ -159,7 +160,13 @@ def load_model_bundle(
     "joint", or "auto" with the dev pipeline) an AudioVideo transformer, for
     separate audio a VideoOnly one and an AudioOnly one from the file
     :func:`resolve_audio_transformer_file` finds (``audio_model_path``
-    first), none when there is none."""
+    first), none when there is none.
+
+    ``aux_device`` (default ``device``): where the VAE parts, the upsampler
+    and the audio decoder and vocoder go once loaded, the host for the
+    memory plan (pipelines/generate.py ``low_memory``). They load first, one
+    at a time on ``device``, before the transformers, so that none of them
+    sits on the card beside a transformer."""
     pipeline = PipelineType(pipeline)
     model_path = Path(model_path)
     device = torch.device(device)
@@ -168,33 +175,28 @@ def load_model_bundle(
     kind = "dev" if pipeline == PipelineType.DEV else "distilled"
 
     unified = unified_bundle_file(model_path)
-    if unified is not None:
-        transformer = load_native_params(unified, config, dtype=dtype, device=device, prefix="transformer.")
-    else:
-        tf_file = resolve_transformer_file(model_path, kind, bits_hint)
-        transformer = load_dit_params([tf_file], config, dtype=dtype, device=device)
-    stage2 = None
-    if stage2_path is not None:
-        stage2 = load_dit_params([resolve_transformer_file(Path(stage2_path), kind, bits_hint)], config,
-                                 dtype=dtype, device=device)
+    aux_device = device if aux_device is None else torch.device(aux_device)
 
     generator = torch.Generator(device=device).manual_seed(0)
     vae_file = resolve_vae_file(model_path, bits_hint)
     dec_cfg = DecoderConfig()
     decoder = init_video_decoder(generator, dec_cfg, device=device, dtype=dtype)
     vae_weights.load_video_decoder_weights(vae_file, decoder)
+    decoder.to(aux_device)
 
     encoder = enc_cfg = None
     if load_encoder:
         enc_cfg = VideoVAEConfig()
         encoder = init_video_encoder(generator, enc_cfg, device=device, dtype=dtype)
         vae_weights.load_video_encoder_weights(vae_file, encoder)
+        encoder.to(aux_device)
 
     upsampler = None
     ups_file = model_path / UPSAMPLER_FILE
     if ups_file.exists():
         upsampler = init_latent_upsampler(generator, device=device, dtype=dtype)
         vae_weights.load_upsampler_weights(ups_file, upsampler)
+        upsampler.to(aux_device)
 
     audio_parts = {}
     if audio:
@@ -206,12 +208,22 @@ def load_model_bundle(
             cfg = AudioVAEConfig()
             decoder_a = init_audio_decoder(generator, cfg, device=device, dtype=dtype)
             vae_weights.load_audio_vae_weights(component("audio_vae"), decoder_a)
-            audio_parts.update(audio_decoder=decoder_a, audio_decoder_config=cfg)
+            audio_parts.update(audio_decoder=decoder_a.to(aux_device), audio_decoder_config=cfg)
         if component("vocoder").exists():
             cfg = VocoderConfig()
             vocoder = init_vocoder(generator, cfg, device=device, dtype=dtype)
             vae_weights.load_vocoder_weights(component("vocoder"), vocoder)
-            audio_parts.update(vocoder=vocoder, vocoder_config=cfg)
+            audio_parts.update(vocoder=vocoder.to(aux_device), vocoder_config=cfg)
+
+    if unified is not None:
+        transformer = load_native_params(unified, config, dtype=dtype, device=device, prefix="transformer.")
+    else:
+        tf_file = resolve_transformer_file(model_path, kind, bits_hint)
+        transformer = load_dit_params([tf_file], config, dtype=dtype, device=device)
+    stage2 = None
+    if stage2_path is not None:
+        stage2 = load_dit_params([resolve_transformer_file(Path(stage2_path), kind, bits_hint)], config,
+                                 dtype=dtype, device=device)
     if separate_audio:
         audio_file = resolve_audio_transformer_file(model_path, audio_model_path)
         if audio_file is not None:

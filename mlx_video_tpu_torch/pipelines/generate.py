@@ -63,7 +63,23 @@ stage (the upsampled latents before stage 2, each decoded tile's frames).
 The audio decode and the conditioning encoder run whole on every rank, as
 in JAX, and only the primary rank (rank 0) writes files.
 
-Not ported yet: the host-staging options.
+The single-device memory plan (``low_memory``, the JAX function's
+choreography of host staging): the VAE decoder, the upsampler and the
+audio decoder and vocoder are parked off the card at the start (on the
+host in pinned memory; with ``aux_int8_staging`` as per-group int8,
+io/staging.py, and with ``aux_park_device`` too as int8 on the card); the
+VAE encoder comes in for the conditioning encode and goes out after it;
+the upsampler's copies are issued before stage 1 and those of the decoder
+and the audio stacks at the upsample, on a side stream while the card
+denoises (``overlap_staging``; without it each comes in, after a fence,
+when its phase starts); after the last denoise every transformer is
+dropped from the bundle (``keep_transformer`` keeps them) and the cache
+allocator's free blocks go back to the card (``torch.cuda.empty_cache``)
+before the decoder and the audio stacks come in for the decode; with
+``keep_transformer`` everything is parked again at the end, so the next
+run starts parked. A run without ``low_memory`` on a bundle that such a run
+left parked first brings its modules back. The fence between the moves is
+``utils/device.py:drain_device_queue``.
 
 Randomness: video i draws all its noise from its own ``torch.Generator``
 (the one given, or one seeded with ``seed + i`` or ``seeds[i]`` on the
@@ -98,6 +114,7 @@ Differences from the JAX function, on purpose:
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from dataclasses import dataclass, field
@@ -109,7 +126,7 @@ import numpy as np
 import torch
 
 from mlx_video_tpu_torch.config import LTXModelConfig, VideoVAEConfig
-from mlx_video_tpu_torch.io import media
+from mlx_video_tpu_torch.io import media, staging
 from mlx_video_tpu_torch.models.ltx.audio_vae.audio_vae import AudioDecoder, AudioVAEConfig
 from mlx_video_tpu_torch.models.ltx.audio_vae.processing import save_wav
 from mlx_video_tpu_torch.models.ltx.audio_vae.vocoder import Vocoder, VocoderConfig, decode_audio
@@ -152,6 +169,7 @@ from mlx_video_tpu_torch.pipelines.schedulers import (
     subsample_sigmas,
 )
 from mlx_video_tpu_torch.utils import profiling
+from mlx_video_tpu_torch.utils.device import drain_device_queue
 
 SPATIAL_SCALE = 32
 TEMPORAL_SCALE = 8
@@ -172,7 +190,9 @@ class ModelBundle:
     the upsampler, conditionings the VAE encoder; ``stage2_transformer``,
     when given, refines stage 2 in place of ``transformer``. Audio needs the
     audio decoder and vocoder, joint audio an AudioVideo ``transformer`` and
-    separate audio an AudioOnly ``audio_transformer``."""
+    separate audio an AudioOnly ``audio_transformer``. Under ``low_memory``
+    a module may be an io/staging.py ``ParkedModule`` between its phases,
+    and the transformers are ``None`` after such a run."""
 
     transformer: LTXModel
     transformer_config: LTXModelConfig
@@ -191,11 +211,16 @@ class ModelBundle:
 
     @property
     def latents_mean(self) -> torch.Tensor:
-        return self.vae_decoder.latents_mean
+        return _decoder_tensor(self.vae_decoder, "latents_mean")
 
     @property
     def latents_std(self) -> torch.Tensor:
-        return self.vae_decoder.latents_std
+        return _decoder_tensor(self.vae_decoder, "latents_std")
+
+
+def _decoder_tensor(decoder, name: str) -> torch.Tensor:
+    """The decoder's latent statistic, from its park while it is parked."""
+    return decoder.tensor(name) if isinstance(decoder, staging.ParkedModule) else getattr(decoder, name)
 
 
 @dataclass
@@ -488,6 +513,50 @@ def _parallel_setup(models: ModelBundle, mesh, sequence_parallel: bool, pipeline
     return None, (pp_mesh, "pipe", pipeline_microbatches, "data" if pipeline_data > 1 else None)
 
 
+_AUX = ("vae_decoder", "vae_encoder", "upsampler", "audio_decoder", "vocoder")
+
+
+class _Staging:
+    """The moves of the memory plan (the JAX function's ``_stage``,
+    ``_prefetch`` and ``_stage_in``); each is the module itself without
+    ``low_memory``. Parks go to ``park_device``: the card with
+    ``aux_park_device`` and the int8 codec, else the host."""
+
+    def __init__(self, models: ModelBundle, device: torch.device, low_memory: bool, int8: bool,
+                 park_device: torch.device, overlap: bool):
+        self.models, self.device, self.low_memory, self.int8 = models, device, low_memory, int8
+        self.park_device, self.overlap = park_device, overlap
+        self.handles: dict = {}
+
+    def out(self, module):
+        """Park ``module`` (a fence first), its codes computed on the card."""
+        if not self.low_memory or module is None:
+            return module
+        drain_device_queue(self.device)
+        return staging.park(module, self.park_device, quantize=self.int8, work=self.device)
+
+    def into(self, module):
+        """``module`` on the card (a fence first), dequantized if it has codes."""
+        if not self.low_memory or module is None:
+            return module
+        drain_device_queue(self.device)
+        return staging.unpark_int8(module, self.device)
+
+    def prefetch(self, attr: str) -> None:
+        """Issue the copies of the bundle's parked ``attr`` while the card is
+        busy (no fence); :meth:`stage_in` takes them."""
+        if not self.overlap or attr in self.handles or getattr(self.models, attr) is None:
+            return
+        self.handles[attr] = staging.unpark_begin(getattr(self.models, attr), self.device)
+
+    def stage_in(self, attr: str):
+        """The bundle's ``attr`` on the card: the prefetch's, or :meth:`into`."""
+        handle = self.handles.pop(attr, None)
+        if handle is not None:
+            return staging.unpark_finish(handle)
+        return self.into(getattr(self.models, attr))
+
+
 def _per_video(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
     """Text embeddings of batch 1 broadcast to ``n`` videos (or already n)."""
     if x is None or x.shape[0] == n:
@@ -502,6 +571,7 @@ def _per_video(x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
 def generate_video(
     models: ModelBundle,
     text: TextConditioning,
+    prompt: str = "",
     height: int = 512,
     width: int = 512,
     num_frames: int = 33,
@@ -521,6 +591,7 @@ def generate_video(
     cfg_cache_interval: int = 1,
     attn_broadcast_interval: int = 1,
     teacache_threshold: float = 0.0,
+    optimize_layouts: bool = False,
     progress_callback: Optional[Callable[[int, int], None]] = None,
     images: Sequence[Tuple[str, int, float]] = (),
     video_conditionings: Sequence[Tuple[str, int, float]] = (),
@@ -544,6 +615,11 @@ def generate_video(
     pipeline_microbatches: int = 1,
     pipeline_data: int = 1,
     pipeline_tensor: int = 1,
+    low_memory: bool = False,
+    aux_int8_staging: bool = False,
+    overlap_staging: Optional[bool] = None,
+    aux_park_device: Optional[bool] = None,
+    keep_transformer: bool = False,
 ) -> GenerateResult:
     """Generate videos with the distilled two-stage pipeline (``distilled``,
     ``keyframe``, ``ic_lora``) or the dev pipeline.
@@ -591,6 +667,18 @@ def generate_video(
     ``mesh``, ``sequence_parallel``, ``pipeline_parallel`` (with
     ``pipeline_microbatches``, ``pipeline_data`` and ``pipeline_tensor``):
     sharded generation, in the module docstring.
+
+    ``low_memory``: the single-device memory plan of the module docstring;
+    the bundle's transformers are ``None`` afterwards (reload them before
+    reuse) unless ``keep_transformer``. ``aux_int8_staging``: park as
+    per-group int8 (needs ``low_memory``). ``aux_park_device``: with the
+    codec, park on the card (default: ``MLX_VIDEO_AUX_PARK=device``).
+    ``overlap_staging``: copy the parked modules in on a side stream while
+    the card denoises (default on; ``MLX_VIDEO_OVERLAP_STAGING=0`` turns it
+    off; never under ``pipeline_parallel``). ``prompt`` is taken, as the
+    JAX function takes it, and not read; ``optimize_layouts`` (XLA's layout
+    pre-placement) has nothing to do here: the weights are in the layouts
+    the kernels read.
     """
     pipeline = PipelineType(pipeline)
     if seeds is not None:
@@ -624,12 +712,37 @@ def generate_video(
         if num_videos > 1:
             raise ValueError("num_videos > 1 does not compose with audio yet")
     _dial_refusal(joint_audio, cfg_cache_interval, attn_broadcast_interval, teacache_threshold)
+    if low_memory and mesh is not None:
+        raise ValueError(
+            "low_memory and mesh are mutually exclusive: with >= 2 devices the upsampler/decoder stay mesh-resident "
+            "(replicated params, H-sharded activations) and host staging is not needed"
+        )
+    if aux_int8_staging and not low_memory:
+        raise ValueError(
+            "aux_int8_staging is a low_memory transfer codec (int8 on the host<->HBM wire); it has no effect without "
+            "low_memory — pass low_memory=True or drop the flag"
+        )
+    if models.transformer is None:
+        raise ValueError("the bundle has no transformer: a low_memory run frees it; load the bundle again")
     sp, pp = _parallel_setup(models, mesh, sequence_parallel, pipeline_parallel, pipeline_microbatches,
                              pipeline_data, pipeline_tensor, attn_broadcast_interval)
     parallel = dict(sequence_parallel=sp, pipeline_parallel=pp)
     if not is_primary_host():
         output_path = output_audio_path = None  # the primary rank writes the files
     device = models.transformer.video.scale_shift_table.device
+    if aux_park_device is None:
+        aux_park_device = os.environ.get("MLX_VIDEO_AUX_PARK", "host") == "device"
+    if overlap_staging is None:
+        overlap_staging = os.environ.get("MLX_VIDEO_OVERLAP_STAGING", "1") != "0"
+    plan = _Staging(models, device, low_memory, aux_int8_staging,
+                    device if aux_park_device and aux_int8_staging else torch.device("cpu"),
+                    low_memory and overlap_staging and pp is None)
+    if low_memory:
+        for attr in ("vae_decoder", "upsampler", "audio_decoder", "vocoder"):
+            setattr(models, attr, plan.out(getattr(models, attr)))
+    else:  # a bundle that a low_memory run left parked (or a loader left on the host) comes back whole
+        for attr in _AUX:
+            setattr(models, attr, staging.unpark_int8(getattr(models, attr), device))
     vid_seeds = [int(s) for s in seeds] if seeds is not None else [seed + i for i in range(num_videos)]
     generators = [generator] if generator is not None else [
         torch.Generator(device=device).manual_seed(s) for s in vid_seeds]
@@ -687,8 +800,10 @@ def generate_video(
     if dev:
         conds = []
         if images:
+            models.vae_encoder = plan.into(models.vae_encoder)
             with timer.phase("cond_encode"):
                 conds = _encode_conditionings(models, images, height, width, num_frames, dtype)
+            models.vae_encoder = plan.out(models.vae_encoder)
         sigmas = ltx2_scheduler(steps=num_inference_steps, num_tokens=latent_frames * latent_h * latent_w)
         shape = (num_videos, latent_channels, latent_frames, latent_h, latent_w)
         state = _conditioned_state(zeros(shape), conds, noise, float(sigmas[0])) if conds else None
@@ -714,12 +829,15 @@ def generate_video(
 
         s1_conds = s2_conds = []
         if images or video_conditionings:
+            models.vae_encoder = plan.into(models.vae_encoder)
             with timer.phase("cond_encode"):
                 s1_conds = _encode_conditionings(models, images, height // 2, width // 2, num_frames, dtype,
                                                  videos=video_conditionings, mode=conditioning_mode)
                 s2_conds = _encode_conditionings(models, images, height, width, num_frames, dtype,
                                                  mode=conditioning_mode)
+            models.vae_encoder = plan.out(models.vae_encoder)  # done for good: off the card before the denoise
 
+        plan.prefetch("upsampler")  # its copies ride under stage 1
         with timer.phase("stage1_denoise"):
             shape1 = (num_videos, latent_channels, latent_frames, latent_h // 2, latent_w // 2)
             state1 = _conditioned_state(zeros(shape1), s1_conds, noise, s1_sigmas[0]) if s1_conds else None
@@ -732,9 +850,17 @@ def generate_video(
             )
         profiling.log_memory("stage1 complete", profile or mem_log, device=device)
 
+        if not decode_latents_only:  # their copies ride under the upsample and stage 2
+            plan.prefetch("vae_decoder")
+            if models.audio_decoder is not None:
+                plan.prefetch("audio_decoder")
+                plan.prefetch("vocoder")
         with timer.phase("upsample"):
-            latents = _on_rows(lambda part, rows, _: upsample_latents(models.upsampler, part, models.latents_mean,
-                                                                      models.latents_std, rows), latents, mesh)
+            upsampler = plan.stage_in("upsampler")  # the bundle keeps the park
+            mean, std = models.latents_mean.to(device), models.latents_std.to(device)
+            latents = _on_rows(lambda part, rows, _: upsample_latents(upsampler, part, mean, std, rows), latents,
+                               mesh)
+            del upsampler
 
         with timer.phase("stage2_denoise"):
             sigma0 = s2_sigmas[0]
@@ -770,8 +896,25 @@ def generate_video(
 
     if not (cfg_cache_interval > 1 or attn_broadcast_interval > 1 or teacache_threshold > 0.0):
         full_steps = {}
+    if not decode_latents_only:
+        plan.prefetch("vae_decoder")
+        if audio and models.audio_decoder is not None:
+            plan.prefetch("audio_decoder")
+            plan.prefetch("vocoder")
     latents_np = latents.float().cpu().numpy()
     audio_np = audio_latents.float().cpu().numpy() if audio else None
+    if low_memory:
+        if not keep_transformer:  # every reference goes, and the allocator gives the blocks back
+            models.transformer = models.stage2_transformer = models.audio_transformer = None
+            stage2 = None  # noqa: F841
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if not decode_latents_only:
+            models.vae_decoder = plan.stage_in("vae_decoder")
+            if models.audio_decoder is not None:
+                models.audio_decoder = plan.stage_in("audio_decoder")
+                models.vocoder = plan.stage_in("vocoder")
     if decode_latents_only:
         if profile:
             timer.report()
@@ -828,6 +971,9 @@ def generate_video(
     elif audio and output_path is not None:
         video_paths[0].rename(output_path)  # audio asked for, none decoded: the video still lands there
         result.video_path = output_path
+    if low_memory and keep_transformer:  # the next run starts parked
+        for attr in ("vae_decoder", "upsampler", "audio_decoder", "vocoder"):
+            setattr(models, attr, plan.out(getattr(models, attr)))
     if profile:
         timer.report()
     return result

@@ -143,7 +143,7 @@ def _flags(parser: argparse.ArgumentParser) -> dict:
 def test_parsers_copy(cli):
     """Each CLI's flags as the JAX parser's, plus --device. The server's
     output directory defaults to None (the temporary directory's), where the
-    JAX one names /tmp; its refused flag stays, to be refused by name."""
+    JAX one names /tmp; no flag is refused (--aux-park is taken)."""
     tmod, jmod = {"generate": (tgen_cli, jgen_cli), "train": (ttrain_cli, jtrain_cli),
                   "serve": (tserve_cli, jserve_cli), "enhance": (tenhance_cli, jenhance_cli)}[cli]
     if cli == "generate":
@@ -153,7 +153,7 @@ def test_parsers_copy(cli):
     if cli == "serve":
         assert ref["output_dir"][1] == "/tmp/mlx_video_tpu_serve"
         ref["output_dir"] = ref["output_dir"][:1] + (None,) + ref["output_dir"][2:]
-        assert set(tserve_cli._REFUSED) == {"aux_park"} and set(tserve_cli._REFUSED) <= set(ref)
+        assert not hasattr(tserve_cli, "_REFUSED") and "aux_park" in ref
     assert _flags(tmod.base_parser()) == ref
     ported = _flags(tmod.build_parser())
     assert ported.pop("device") == (("--device",), "cuda", None, None, "_StoreAction")
@@ -461,6 +461,31 @@ def test_parallel_copy(part):
     else:
         for n in range(1, 65):
             assert tmesh.factor_devices(n) == jmesh.factor_devices(n)
+
+
+@pytest.mark.parametrize("shape, dtype", [((600, 200), "float32"), ((1000, 7), "float32"), ((2, 3, 64, 5), "bfloat16"),
+                                          ((128, 16), "zeros")])
+def test_staging_codec_copy(shape, dtype):
+    """io/staging.py's constants and its quantizer on an array in JAX's
+    layout: the codes and scales of mlx_video_tpu/io/staging.py:_quantize_np
+    (rows not a multiple of the group, a bf16 input, all-zero groups)."""
+    import torch
+
+    from mlx_video_tpu.io import staging as jstaging
+    from mlx_video_tpu_torch.io import staging as tstaging
+
+    assert (tstaging._GROUP_SIZE, tstaging._MIN_QUANT_SIZE) == (jstaging._GROUP_SIZE, jstaging._MIN_QUANT_SIZE)
+    w = np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32) * 0.3
+    if dtype == "zeros":
+        w[:64] = 0.0
+    t = torch.from_numpy(w)
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+        w = t.float().numpy()  # the values JAX's bf16 array holds, widened exactly
+    q, scale = tstaging._quantize(t)
+    ref = jstaging._quantize_np(w)
+    np.testing.assert_array_equal(q.numpy(), ref["q"])
+    np.testing.assert_array_equal(scale.numpy(), ref["scale"])
 
 
 def _parser_table(parser):

@@ -44,7 +44,8 @@ from mlx_video_tpu_torch.utils import profiling as tprof
 from test_torch_port_cli import _run_main, _tiny_bundle, emb_file  # noqa: F401  (emb_file is a fixture)
 from test_torch_port_train import TCFG, _tiny_model, _train_cfg, _write_dataset
 
-REFUSED = {"low_memory", "aux_stage_int8", "aux_park_device", "no_overlap_staging", "optimize_layouts"}
+# the five options the port refused before its memory plan: all taken now
+MEMORY_PLAN = {"low_memory", "aux_stage_int8", "aux_park_device", "no_overlap_staging", "optimize_layouts"}
 # each noted flag group and the name its note gives it
 NOTED = {"--enable-fp8": ["--enable-fp8"],
          "--stg-scale/--stg-blocks/--stg-mode": ["--stg-scale", "1.5", "--stg-blocks", "3", "--stg-mode", "x"],
@@ -260,25 +261,35 @@ def test_device_trace_without_a_directory_records_nothing(tmp_path):
 
 
 def test_refused_set_is_exactly_the_nine_options():
+    """The CLI refuses nothing: the memory plan's options are JAX options
+    that the port's parser takes, and no refusal table is left."""
     from mlx_video_tpu.cli.generate import build_parser as jax_parser
 
-    assert set(cli._REFUSED) == REFUSED
+    assert not hasattr(cli, "_REFUSED") and not hasattr(cli, "unported_flags")
     jax_dests = {a.dest for a in jax_parser()._actions if a.option_strings and a.dest != "help"}
-    assert REFUSED <= jax_dests
+    assert MEMORY_PLAN <= jax_dests and MEMORY_PLAN <= {a.dest for a in cli.build_parser()._actions}
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "1,1,8"], ["--sequence-parallel", "--mesh", "1,2,1"],
                                    ["--pipeline-parallel", "2"], ["--pipeline-tensor", "2", "--pipeline-parallel", "2"],
                                    ["--low-memory"], ["--aux-stage-int8"],
                                    ["--aux-park-device"], ["--no-overlap-staging"], ["--optimize-layouts"]])
-def test_refused_options_exit_naming_what_they_wait_for(emb_file, flags):
-    """The five left-out options exit naming what they wait for; the four
-    parallel ones are ported and, asking for more than one rank with no
-    launcher, exit naming torchrun before any weight is loaded."""
-    with pytest.raises(SystemExit) as info:
-        cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", *flags])
-    msg = str(info.value)
-    assert flags[0] in msg and ("Leave out" in msg or "torchrun" in msg)
+def test_refused_options_exit_naming_what_they_wait_for(monkeypatch, tmp_path, emb_file, flags):
+    """The four parallel options, asking for more than one rank with no
+    launcher, exit naming torchrun before any weight is loaded. The five
+    memory-plan options run: --aux-stage-int8 alone raises the JAX
+    function's error (the codec needs --low-memory), the others write the
+    video."""
+    if flags[0] in ("--mesh", "--sequence-parallel", "--pipeline-parallel", "--pipeline-tensor"):
+        with pytest.raises(SystemExit) as info:
+            cli.main(["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu", *flags])
+        assert flags[0] in str(info.value) and "torchrun" in str(info.value)
+        return
+    if flags == ["--aux-stage-int8"]:
+        with pytest.raises(ValueError, match="aux_int8_staging is a low_memory transfer codec"):
+            _run_main(monkeypatch, tmp_path, emb_file, _tiny_bundle(), flags)
+        return
+    assert _run_main(monkeypatch, tmp_path, emb_file, _tiny_bundle(), flags).stat().st_size > 0
 
 
 @pytest.mark.parametrize("flags", [*NOTED.values(), *SILENT], ids=lambda f: f[0])

@@ -216,7 +216,8 @@ assert {"mlx_video_tpu_torch.ops.int8", "mlx_video_tpu_torch.models.gemma3", "ml
         "mlx_video_tpu_torch.ltx_core.model.transformer", "mlx_video_tpu_torch.ltx_core.text_encoders.gemma.tokenizer",
         "mlx_video_tpu_torch.ltx_pipelines.utils.helpers", "mlx_video_tpu_torch.ltx_pipelines.distilled",
         "mlx_video_tpu_torch.ltx_trainer.scripts.decode_latents",
-        "mlx_video_tpu_torch.ltx_trainer.training_strategies.base_strategy"} <= set(sys.modules)
+        "mlx_video_tpu_torch.ltx_trainer.training_strategies.base_strategy", "mlx_video_tpu_torch.io.staging",
+        "mlx_video_tpu_torch.utils.device"} <= set(sys.modules)
 assert sum(m.startswith(("mlx_video_tpu_torch.ltx_core", "mlx_video_tpu_torch.ltx_pipelines",
                          "mlx_video_tpu_torch.ltx_trainer")) for m in sys.modules) == 130
 from mlx_video_tpu_torch.config import LTXModelType, LTXRopeType, tiny_test_config
@@ -233,6 +234,14 @@ models = ModelBundle(init_ltx_params(cfg, g, device="cpu", dtype=torch.float32),
 res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64,
                      width=64, num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32)
 assert res.video.shape == (1, 3, 9, 64, 64)
+# the memory plan: the aux modules parked as int8 (the threshold lowered for the narrow ones), the DiT kept
+from mlx_video_tpu_torch.io import staging
+staging._MIN_QUANT_SIZE = 256
+res = generate_video(models, TextConditioning(torch.zeros(1, 4, cfg.caption_channels)), height=64, width=64,
+                     num_frames=9, stage1_steps=1, stage2_steps=1, dtype=torch.float32, low_memory=True,
+                     aux_int8_staging=True, keep_transformer=True)
+assert res.video.shape == (1, 3, 9, 64, 64) and staging.is_parked(models.upsampler)
+staging._MIN_QUANT_SIZE = 65536
 # the dev pipeline: one image through the VAE encoder, batched CFG, K4 and K5 routes on
 import tempfile
 from PIL import Image

@@ -635,19 +635,29 @@ def test_main_loads_warms_up_and_serves(parts, tmp_path, monkeypatch):  # noqa: 
 
 @pytest.mark.parametrize("flag", [["--mesh", "1,1,8"], ["--pipeline-parallel", "2"], ["--pipeline-tensor", "2"],
                                   ["--sequence-parallel"], ["--aux-park"]])
-def test_main_refuses_the_unported_flags_by_name(flag):
-    """--aux-park exits naming why; the four parallel options are ported: a
-    mesh or stages of more than one rank with no launcher exit naming
-    torchrun before any weight loads, and no parallel option is refused."""
-    parser = tserve.build_parser()
-    if flag[0] != "--aux-park":
-        assert tserve.refused_flags(parser.parse_args(["--model-repo", "x", *flag]), parser) == []
-        if flag[0] in ("--sequence-parallel", "--pipeline-tensor"):  # they take effect with --mesh / stages
-            return
+def test_main_refuses_the_unported_flags_by_name(flag, monkeypatch):
+    """No flag is refused: a mesh or stages of more than one rank with no
+    launcher exit naming torchrun before any weight loads, and --aux-park
+    reaches the service (its load patched out here)."""
+    assert not hasattr(tserve, "_REFUSED") and not hasattr(tserve, "refused_flags")
+    if flag[0] in ("--sequence-parallel", "--pipeline-tensor"):  # they take effect with --mesh / stages
+        return
+    if flag[0] == "--aux-park":
+        seen = []
+        monkeypatch.setattr(tserve, "load_service", lambda args: seen.append(args.aux_park) or _NoService())
+        monkeypatch.setattr(tserve, "_serve", lambda *a: None)
+        tserve.main(["--model-repo", "x", *flag, "--device", "cpu"])
+        assert seen == [True]
+        return
     with pytest.raises(SystemExit) as info:
         tserve.main(["--model-repo", "x", *flag, "--device", "cpu"])
     msg = str(info.value)
-    assert flag[0] in msg and ("torchrun" in msg or "16 GB" in msg)
+    assert flag[0] in msg and "torchrun" in msg
+
+
+class _NoService:
+    def close(self):
+        pass
 
 
 def test_main_needs_cuda_unless_told_cpu(monkeypatch):

@@ -420,7 +420,7 @@ def test_cli_takes_the_parallel_flags_and_refuses_audio_with_them(emb_file):
     (the AV DiT's sharded forward is ported, so nothing refuses --audio with
     them); --mesh with --pipeline-parallel exits as in JAX."""
     base = ["--prompt", "p", "--embeddings", str(emb_file), "--device", "cpu"]
-    assert not {"mesh", "sequence_parallel", "pipeline_parallel", "pipeline_tensor", "audio"} & set(tcli._REFUSED)
+    assert not hasattr(tcli, "_REFUSED")
     for flags, msg in ((["--mesh", "1,2,2"], "needs 4 processes: launch it with torchrun --nproc-per-node 4"),
                        (["--pipeline-parallel", "2", "--pipeline-tensor", "2"], "torchrun --nproc-per-node 4"),
                        (["--mesh", "1,1,2", "--audio"], "needs 2 processes: launch it with torchrun"),
