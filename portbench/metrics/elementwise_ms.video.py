@@ -1,0 +1,10 @@
+"""Device milliseconds a video of the kernels outside every named class
+(portbench/trace.py: elementwise, norms, softmax, casts, copies): the fp32
+islands of ops/norms.py, models/ltx/rope.py and the adaLN and GELU of
+models/ltx/model.py."""
+
+from portbench.readers import class_ms
+
+
+def read(ctx):
+    return class_ms(ctx, "video", "other")

@@ -1,0 +1,8 @@
+"""Per cent of the traced calls' wall in which no operation ran on the
+card (1 - busy / wall)."""
+
+from portbench.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx, "video")
